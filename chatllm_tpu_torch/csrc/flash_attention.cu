@@ -1,7 +1,7 @@
 // K3: flash attention (online softmax) for prefill over the KV cache.
 //
 //   q [B, T, Hq, D], cache k/v [B, S, Hkv, D]  ->  o [B, T, Hq, D]
-//   (all bf16, or all f32 for an f32 cache)
+//   (all bf16; all f32 for an f32 cache; or f32 q and o over a bf16 cache)
 //
 // Replaces chatllm_tpu/ops/pallas/flash.py::flash_attention (body
 // `_flash_kernel`), with the same mask contract: key position p is visible
@@ -31,7 +31,11 @@
 // kernel runs its dots in the inputs' dtype, so there every product is an
 // f32 FMA on the CUDA cores (67 TFLOP/s bounds it).  Same tiling of the
 // mask; one block per (32-query tile, head, batch), 4 warps of 8 query rows,
-// lane j scoring key j of each 32-key tile.
+// lane j scoring key j of each 32-key tile.  An f32 query over a bf16 cache
+// (--compute_dtype f32 --cache_dtype bf16) takes the same kernel with bf16
+// K/V loads: the Pallas kernel's mixed dot q.k runs in f32 (bf16 keys are
+// exact in f32), it rounds the probabilities to the cache's dtype before
+// P.V (flash.py:75) and writes q's dtype, f32.
 #include "common.cuh"
 
 namespace {
@@ -250,14 +254,28 @@ constexpr int FBQ = 32;           // f32 kernel: query rows per block
 constexpr int FBK = 32;           // keys per tile, one per lane
 constexpr int FROWS = FBQ / 4;    // query rows per warp
 
-// f32 q/k/v/o.  Lane j scores key k0 + j against the warp's 8 rows (q read
-// as broadcasts, K rows padded by 4 floats so the 16-byte reads of 8
-// consecutive lanes hit distinct banks), then owns output columns
-// lane + 32i and gathers each key's probability with a shuffle.
-template <int D>
+__device__ __forceinline__ void to_f32(const uint4& u, float* out, float) {
+    const float* e = reinterpret_cast<const float*>(&u);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c] = e[c];
+}
+
+__device__ __forceinline__ void to_f32(const uint4& u, float* out, __nv_bfloat16) {
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) out[c] = __bfloat162float(e[c]);
+}
+
+// f32 q and o; K/V of type KV (f32, or bf16 staged as f32).  Lane j scores
+// key k0 + j against the warp's 8 rows (q read as broadcasts, K rows padded
+// by 4 floats so the 16-byte reads of 8 consecutive lanes hit distinct
+// banks), then owns output columns lane + 32i and gathers each key's
+// probability with a shuffle.  Over a bf16 cache that probability is
+// rounded to bf16 first; the denominator sums it unrounded.
+template <int D, typename KV>
 __global__ void __launch_bounds__(THREADS)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                 const KV* __restrict__ v, float* __restrict__ o,
                  Strides qs, Strides ks, Strides vs, Strides os,
                  int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
                  int causal, int window, float softcap) {
@@ -275,8 +293,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row0 = warp * FROWS;
 
     const float* qb = q + b * qs.b + h * qs.h;
-    const float* kb = k + b * ks.b + hk * ks.h;
-    const float* vb = v + b * vs.b + hk * vs.h;
+    const KV* kb = k + b * ks.b + hk * ks.h;
+    const KV* vb = v + b * vs.b + hk * vs.h;
+    constexpr int VEC = 16 / sizeof(KV);     // K/V elements per 16-byte load
+    constexpr bool ROUND_P = sizeof(KV) == 2;
 
     for (int idx = tid; idx < FBQ * (D / 4); idx += THREADS) {
         const int r = idx / (D / 4), c4 = (idx % (D / 4)) * 4;
@@ -307,15 +327,23 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k0 = kt * FBK;
         __syncthreads();   // q staged / previous tile's readers are done
-        for (int idx = tid; idx < FBK * (D / 4); idx += THREADS) {
-            const int r = idx / (D / 4), c4 = (idx % (D / 4)) * 4;
-            float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+        for (int idx = tid; idx < FBK * (D / VEC); idx += THREADS) {
+            const int r = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
+            float kf[VEC], vf[VEC];
             if (k0 + r < S) {
-                kv = *reinterpret_cast<const float4*>(kb + (k0 + r) * ks.t + c4);
-                vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * vs.t + c4);
+                to_f32(*reinterpret_cast<const uint4*>(kb + (k0 + r) * ks.t + c), kf, KV{});
+                to_f32(*reinterpret_cast<const uint4*>(vb + (k0 + r) * vs.t + c), vf, KV{});
+            } else {
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
             }
-            *reinterpret_cast<float4*>(&sk[r][c4]) = kv;
-            *reinterpret_cast<float4*>(&sv[r][c4]) = vv;
+#pragma unroll
+            for (int e = 0; e < VEC; e += 4) {
+                *reinterpret_cast<float4*>(&sk[r][c + e]) =
+                    make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
+                *reinterpret_cast<float4*>(&sv[r][c + e]) =
+                    make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
+            }
         }
         __syncthreads();
 
@@ -359,6 +387,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             m_run[r] = m_new;
             s[r] = expf(sv_ - m_new);
             l_run[r] = l_run[r] * corr + warp_sum(s[r]);
+            if (ROUND_P) s[r] = __bfloat162float(__float2bfloat16_rn(s[r]));
 #pragma unroll
             for (int i = 0; i < NC; ++i) oacc[r][i] *= corr;
         }
@@ -389,7 +418,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <typename E, typename KernelFn>
+template <typename QO, typename KV, typename KernelFn>
 int launch_kernel(KernelFn kernel, size_t smem, int bq, const void* q, const void* k,
                   const void* v, void* o, const long* st, int B, int T, int S, int Hq,
                   int Hkv, int n_past, int n_tokens, float scale, int causal, int window,
@@ -399,23 +428,28 @@ int launch_kernel(KernelFn kernel, size_t smem, int bq, const void* q, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((T + bq - 1) / bq, Hq, B);
     kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-        static_cast<E*>(o), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+        static_cast<const QO*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+        static_cast<QO*>(o), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
         Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
         T, S, Hq, Hkv, n_past, n_tokens, scale, causal, window, softcap);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(int f32, const void* q, const void* k, const void* v, void* o, const long* st,
+int launch(int mode, const void* q, const void* k, const void* v, void* o, const long* st,
            int B, int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
-    if (f32)
-        return launch_kernel<float>(
-            flash_f32_kernel<D>, sizeof(float) * (FBQ * D + FBK * (D + 4) + FBK * D), FBQ,
-            q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens, scale, causal, window,
-            softcap, stream);
-    return launch_kernel<__nv_bfloat16>(
+    const size_t f32_smem = sizeof(float) * (FBQ * D + FBK * (D + 4) + FBK * D);
+    if (mode == 1)
+        return launch_kernel<float, float>(
+            flash_f32_kernel<D, float>, f32_smem, FBQ, q, k, v, o, st, B, T, S, Hq, Hkv,
+            n_past, n_tokens, scale, causal, window, softcap, stream);
+    if (mode == 2)
+        return launch_kernel<float, __nv_bfloat16>(
+            flash_f32_kernel<D, __nv_bfloat16>, f32_smem, FBQ, q, k, v, o, st, B, T, S,
+            Hq, Hkv, n_past, n_tokens, scale, causal, window, softcap, stream);
+    if (mode != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_kernel<__nv_bfloat16, __nv_bfloat16>(
         flash_kernel<D>,
         sizeof(__nv_bfloat16) * ((BQ + BK) * (D + PAD) + D * (BK + PAD)), BQ,
         q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens, scale, causal, window,
@@ -424,21 +458,22 @@ int launch(int f32, const void* q, const void* k, const void* v, void* o, const 
 
 }  // namespace
 
-// q/k/v/o: all bf16 (f32 == 0) or all f32 (f32 == 1), unit stride along D;
+// mode 0: q/k/v/o all bf16; 1: all f32; 2: q/o f32 over bf16 k/v.  Unit
+// stride along D;
 // strides: 12 element strides (b, t, h) for q, k, v, o in that order, each
 // a multiple of 16 bytes.  D must be 64 or 128; Hq % Hkv == 0;
 // n_past + n_tokens <= S.
 CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                      const long* strides, int B, int T, int S, int Hq,
                                      int Hkv, int D, int n_past, int n_tokens, float scale,
-                                     int causal, int window, float softcap, int f32,
+                                     int causal, int window, float softcap, int mode,
                                      void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (D == 128)
-        return launch<128>(f32, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
+        return launch<128>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
                            scale, causal, window, softcap, st);
     if (D == 64)
-        return launch<64>(f32, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
+        return launch<64>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
                           scale, causal, window, softcap, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,5 +26,5 @@ def resolve_device(device=None) -> torch.device:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """'bfloat16' | 'float32' (RuntimeConfig spellings) -> torch.dtype."""
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    """'bfloat16' | 'float32' | 'int8' (RuntimeConfig spellings) -> torch.dtype."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}[name]

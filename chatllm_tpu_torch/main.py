@@ -26,6 +26,7 @@ class Args:
 
 
 _DTYPES = {"f16": "bfloat16", "bf16": "bfloat16", "f32": "float32"}
+_CACHE_DTYPES = {**_DTYPES, "q8_0": "int8"}     # q8_0: int8 K/V + f32 scales
 
 
 def parse_args(argv: list[str]) -> Args:
@@ -61,7 +62,7 @@ def parse_args(argv: list[str]) -> Args:
             a.compute_dtype = _DTYPES.get(v, v)
         elif arg == "--cache_dtype":
             v = nxt()
-            a.cache_dtype = _DTYPES.get(v, v)
+            a.cache_dtype = _CACHE_DTYPES.get(v, v)
         elif arg == "--device":
             a.device = nxt()
         else:
@@ -75,7 +76,7 @@ def usage() -> str:
         "usage: chatllm_tpu_torch [-m MODEL] [-i] [-p PROMPT] [options]\n"
         "Options: -m/--model, -p/--prompt, -i/--interactive, -t/--temp,\n"
         "--max_new_tokens, -l/--max_length, --compute_dtype bf16|f32,\n"
-        "--cache_dtype bf16|f32, --device cuda|cpu\n"
+        "--cache_dtype bf16|f32|q8_0, --device cuda|cpu\n"
     )
 
 

@@ -5,11 +5,13 @@ q/k/v projections, RoPE, GQA attention, SwiGLU MLP) and the model forward.
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
 "final_norm" {"w"}, "layers" (a tuple of per-layer dicts) and "lm_head";
 linears are DenseLinear/QuantLinear from ops/qtensor.py.  The KV cache is
-written in place.
+written in place.  `n_past` is an int (one stream) or an int64 [B] tensor
+of per-slot offsets (the continuous-batching decode, runtime/batching.py).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,11 +60,21 @@ class TransformerConfig:
         return LayerSpec()
 
 
+QUANTIZED_CACHE_DTYPES = ("int8", "q8_0", "q8")
+
+
 @dataclass
 class KVCache:
-    """Per-layer K/V tensors, [n_layers][B, S, H_kv, D], written in place."""
+    """Per-layer K/V tensors, [n_layers][B, S, H_kv, D], written in place.
+
+    Quantized mode (`--cache_dtype q8_0`): k/v are int8 with per-(token,
+    head) f32 scales in k_scale/v_scale [n_layers][B, S, H_kv]; attention
+    folds the scales into the scores and probabilities, so the dequantized
+    cache is never materialized."""
     k: list = field(default_factory=list)
     v: list = field(default_factory=list)
+    k_scale: Optional[list] = None
+    v_scale: Optional[list] = None
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
@@ -70,12 +82,20 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
     from ..device import torch_dtype
 
     max_len = max_len or cfg.max_length
-    dtype = torch_dtype(cfg.cache_dtype)
+    quantized = cfg.cache_dtype in QUANTIZED_CACHE_DTYPES
+    dtype = torch.int8 if quantized else torch_dtype(cfg.cache_dtype)
     d = cfg.resolved_head_dim()
     shape = (batch, max_len, cfg.num_key_value_heads, d)
-    return KVCache(
-        k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_hidden_layers)],
-        v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_hidden_layers)])
+    n = cfg.num_hidden_layers
+
+    def zeros(shp, dt):
+        return [torch.zeros(shp, dtype=dt, device=device) for _ in range(n)]
+
+    if not quantized:
+        return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
+    return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype),
+                   k_scale=zeros(shape[:3], torch.float32),
+                   v_scale=zeros(shape[:3], torch.float32))
 
 
 _ACTS = {"silu": F.silu}          # the Llama family's; others come with theirs
@@ -95,7 +115,7 @@ def gated_mlp(cfg: TransformerConfig, p, x):
 
 
 def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
-                    k_cache, v_cache, n_past: int):
+                    k_cache, v_cache, n_past, k_scale=None, v_scale=None):
     B, T, _ = x.shape
     d = cfg.resolved_head_dim()
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -106,19 +126,21 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
         rc = cfg.rope
         q = apply_rope(q, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
         k = apply_rope(k, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
-    update_kv_cache(k_cache, v_cache, k, v, n_past)
+    update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
     scale = cfg.attention_scale if cfg.attention_scale > 0 else d ** -0.5
     out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale,
-                               causal=cfg.causal, sliding_window=spec.sliding_window)
+                               causal=cfg.causal, sliding_window=spec.sliding_window,
+                               k_scale=k_scale, v_scale=v_scale)
     out = out.reshape(B, T, hq * d)
     return matmul(out, p["o"]).to(x.dtype)
 
 
 def decoder_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
-                  k_cache, v_cache, n_past: int):
+                  k_cache, v_cache, n_past, k_scale=None, v_scale=None):
     """Pre-norm decoder layer (reference LMBlock1)."""
     h = _norm(cfg, x, p["attn_norm"])
-    x = x + attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past)
+    x = x + attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
+                            k_scale, v_scale)
     h = _norm(cfg, x, p["ffn_norm"])
     return x + gated_mlp(cfg, p["mlp"], h)
 
@@ -135,7 +157,7 @@ def lm_logits(cfg: TransformerConfig, params, x):
 
 
 def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor,
-                        cache: KVCache, n_past: int, *, last_index: int | None = None):
+                        cache: KVCache, n_past, *, last_index: int | None = None):
     """ids: [B, T] int64 -> (logits [B, T|1, V] f32, cache updated in place).
 
     `last_index` slices the hidden state at one position before the lm_head
@@ -143,11 +165,18 @@ def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor,
     right-padded chunk), so the vocab projection runs on one row."""
     B, T = ids.shape
     x = embed_tokens(cfg, params, ids)
-    positions = (n_past + torch.arange(T, device=ids.device))[None, :].expand(B, T)
+    steps = torch.arange(T, device=ids.device)
+    if isinstance(n_past, torch.Tensor):        # per-slot offsets [B]
+        positions = n_past[:, None] + steps[None, :]
+    else:
+        positions = (n_past + steps)[None, :].expand(B, T)
     cos, sin = precompute_rope_cache(positions, cfg.rope)
+    quant = cache.k_scale is not None
     for i in range(cfg.num_hidden_layers):
         x = decoder_layer(cfg, cfg.layer_spec(i), params["layers"][i], x, cos, sin,
-                          cache.k[i], cache.v[i], n_past)
+                          cache.k[i], cache.v[i], n_past,
+                          cache.k_scale[i] if quant else None,
+                          cache.v_scale[i] if quant else None)
     x = _norm(cfg, x, params["final_norm"])
     if last_index is not None:
         x = x[:, last_index:last_index + 1, :]

@@ -118,7 +118,12 @@ QMM = CudaKernel("qmm.cu", "qmm_launch",
 FLASH = CudaKernel("flash_attention.cu", "flash_attention_launch",
                    [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, F, I, P])
 
-KERNELS = {"qgemv": QGEMV, "qmm": QMM, "flash_attention": FLASH}
+FLASH_DECODE = CudaKernel("flash_decode.cu", "flash_decode_launch",
+                          [P, P, P, P, P, P, P, I, P, P, P, P,
+                           I, I, I, I, I, I, I, F, I, F, I, I, I, P])
+
+KERNELS = {"qgemv": QGEMV, "qmm": QMM, "flash_attention": FLASH,
+           "flash_decode": FLASH_DECODE}
 
 
 def build_all() -> dict:

@@ -14,13 +14,19 @@ from .build import FLASH, ptr, stream_ptr
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)     # head dims the CUDA kernel is instantiated for
+# (q dtype, cache dtype) -> the kernel variant (csrc/flash_attention.cu)
+MODES = {(torch.bfloat16, torch.bfloat16): 0, (torch.float32, torch.float32): 1,
+         (torch.float32, torch.bfloat16): 2}
 
 
 def flash_attention_plain(q, k, v, n_past: int, n_tokens: int, *, scale: float,
                           causal: bool = True, sliding_window: int = 0,
                           logit_softcap: float = 0.0) -> torch.Tensor:
     """Same function in plain PyTorch: dense f32 scores, the same mask
-    contract (-1e30 for masked keys), softmax, f32 product."""
+    contract (-1e30 for masked keys), softmax, f32 product.  Over a bf16
+    cache the unnormalized probabilities are rounded to bf16 before the
+    P.V product and the denominator sums them unrounded, as in the kernel
+    (and the Pallas kernel, flash.py:75)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -36,7 +42,12 @@ def flash_attention_plain(q, k, v, n_past: int, n_tokens: int, *, scale: float,
     if sliding_window > 0:
         valid = valid & (k_pos > q_pos - sliding_window)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    if v.dtype == torch.bfloat16:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        p = p.to(torch.bfloat16).float() / torch.clamp(l, min=1e-30)
+    else:
+        p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", p, v.float())
     return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
 
@@ -46,7 +57,8 @@ def flash_attention(q, k, v, n_past: int, n_tokens: int, *, scale: float,
                     logit_softcap: float = 0.0) -> torch.Tensor:
     """q: [B, T, Hq, D]; k/v: [B, S, Hkv, D] (cache layout, already holding
     this step's keys) -> [B, T, Hq, D] in q's dtype.  The CUDA kernel takes
-    q, k and v all bf16 (tensor-core dots) or all f32 (f32 dots), with unit
+    q, k and v all bf16 (tensor-core dots), all f32 (f32 dots), or an f32 q
+    over a bf16 cache (f32 dots, probabilities rounded to bf16), with unit
     stride along D, 16-byte aligned rows and D in HEAD_DIMS."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, n_past, n_tokens, scale=scale,
@@ -62,13 +74,14 @@ def flash_attention(q, k, v, n_past: int, n_tokens: int, *, scale: float,
     if not (0 <= n_past and 0 < n_tokens and n_past + n_tokens <= S):
         raise ValueError(f"flash_attention: n_past {n_past} + n_tokens {n_tokens} "
                          f"outside the cache of {S}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash_attention: q {q.dtype}, need bfloat16 or float32")
-    vec = 16 // q.element_size()           # elements per 16-byte vector
+    mode = MODES.get((q.dtype, k.dtype))
+    if mode is None or v.dtype != k.dtype:
+        raise TypeError(f"flash_attention: q {q.dtype}, k {k.dtype}, v {v.dtype}; "
+                        f"need one of {sorted(MODES, key=str)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != q.device:
-            raise TypeError(f"flash_attention: {name} {t.dtype} on {t.device}, "
-                            f"need {q.dtype} on {q.device}")
+        vec = 16 // t.element_size()           # elements per 16-byte vector
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, need {q.device}")
         if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} strides {t.stride()} not "
@@ -78,6 +91,6 @@ def flash_attention(q, k, v, n_past: int, n_tokens: int, *, scale: float,
                                      + v.stride()[:3] + o.stride()[:3]))
     FLASH.launch(ptr(q), ptr(k), ptr(v), ptr(o), ctypes.cast(strides, ctypes.c_void_p),
                  B, T, S, Hq, Hkv, D, int(n_past), int(n_tokens), float(scale),
-                 int(causal), int(sliding_window), float(logit_softcap),
-                 int(q.dtype == torch.float32), stream_ptr(q.device))
+                 int(causal), int(sliding_window), float(logit_softcap), mode,
+                 stream_ptr(q.device))
     return o

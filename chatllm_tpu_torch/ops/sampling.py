@@ -56,6 +56,24 @@ def penalty_accept(state: PenaltyState, token_id: torch.Tensor) -> PenaltyState:
     return state
 
 
+def penalty_accept_batched(state: PenaltyState, token_ids: torch.Tensor) -> PenaltyState:
+    """Accept over a [B]-leading state (one ring per serving slot,
+    runtime/batching.py): token_count [B, V], history [B, window] and
+    write_pos an int64 [B] tensor.  Same semantics per row as
+    `penalty_accept`; updates in place and returns the state."""
+    window = state.history.shape[-1]
+    b = torch.arange(token_ids.shape[0], device=token_ids.device)
+    old = state.history[b, state.write_pos]
+    state.token_count.index_put_((b, old.clamp(min=0)), -(old >= 0).to(torch.int32),
+                                 accumulate=True)
+    tok = token_ids.to(torch.int64)
+    state.token_count.index_put_((b, tok), torch.ones_like(tok, dtype=torch.int32),
+                                 accumulate=True)
+    state.history[b, state.write_pos] = tok
+    state.write_pos = (state.write_pos + 1) % window
+    return state
+
+
 def apply_penalties(logits: torch.Tensor, state: PenaltyState,
                     cfg: SamplerConfig) -> torch.Tensor:
     """Reference LogitsPenalty::process (src/models.cpp:640-671)."""

@@ -1,0 +1,303 @@
+"""Continuous batching: N concurrent generation streams over one shared
+batched KV cache (counterpart of the JAX package's `runtime/batching.py`).
+
+  - every slot has its own causal frontier: a per-slot `n_past` int64 [B]
+    tensor on the device drives per-row RoPE positions, per-row cache
+    writes (rows past capacity are dropped) and per-row attention masks
+    (ops/attention.py: K4 over a q8 cache, `_batched_npast_attention`
+    otherwise);
+  - prefill runs slot by slot between decode blocks: the new prompt goes
+    through a B=1 forward against a [slot:slot+1] view of each layer's
+    cache, so it is written in place and running streams are never
+    re-padded or interrupted;
+  - decode runs `decode_block` batched steps with the tokens kept on the
+    device and reads the block's tokens back once (the JAX package scans
+    the block on the device); slots that finish mid-block waste at most
+    block-1 speculative rows, which are overwritten when the slot is reused;
+  - sampling: greedy is one batched argmax; sampled decoding draws each
+    slot's token from that slot's `torch.Generator` (seeded by its
+    request) with that slot's penalty ring.
+
+The SWA ring cache and the device mesh of the JAX engine are not ported.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..nn.transformer import KVCache, TransformerConfig, init_cache, transformer_forward
+from ..ops.sampling import (PenaltyState, SamplerConfig, penalty_accept,
+                            penalty_accept_batched, sample_token)
+from .generate import _fit_bucket
+
+PREFILL_CHUNK = 1024
+
+
+@dataclass
+class _Slot:
+    req_id: int
+    out: "queue.Queue[int | None]"
+    n_past: int = 0
+    produced: int = 0
+    max_new: int = 0
+    is_terminator: Callable[[int], bool] = lambda t: False
+    done: bool = False
+
+
+class StreamHandle:
+    """Consumer side of one request: iterate to receive token ids."""
+
+    def __init__(self, req_id: int):
+        self.req_id = req_id
+        self._q: "queue.Queue[int | None]" = queue.Queue()
+        self.cancelled = False
+
+    def __iter__(self):
+        while True:
+            t = self._q.get()
+            if t is None:
+                return
+            yield t
+
+    def cancel(self):
+        self.cancelled = True
+
+
+class BatchedEngine:
+    """Slot scheduler + batched decode for one model on one device.
+
+    Scope: causal full-attention text models (the port's decoder), one
+    SamplerConfig per engine (per-request max_new and seed are honoured)."""
+
+    def __init__(self, cfg: TransformerConfig, params, *, max_slots: int = 4,
+                 max_length: int | None = None, decode_block: int = 8,
+                 scfg: SamplerConfig | None = None, device=None):
+        from ..device import resolve_device
+
+        self._validate_config(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.device = resolve_device(device)
+        self.max_slots = max_slots
+        self.max_length = max_length or cfg.max_length
+        self.decode_block = decode_block
+        self.scfg = scfg or SamplerConfig()
+        self.sampled = self.scfg.do_sample and self.scfg.sampling != "greedy"
+        B, dev = max_slots, self.device
+        self.cache = init_cache(cfg, B, self.max_length, device=dev)
+        self.n_past = np.zeros(B, np.int64)
+        self.toks = np.zeros(B, np.int64)
+        self.slots: list[Optional[_Slot]] = [None] * B
+        self._handles: list[Optional[StreamHandle]] = [None] * B
+        self.penalty = PenaltyState(
+            token_count=torch.zeros(B, cfg.vocab_size, dtype=torch.int32, device=dev),
+            history=torch.full((B, self.scfg.penalty_window), -1, dtype=torch.int64,
+                               device=dev),
+            write_pos=torch.zeros(B, dtype=torch.int64, device=dev))
+        self.gens = [torch.Generator(device=dev) for _ in range(B)]
+
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._pending: list[tuple[StreamHandle, list[int], int, Callable, int]] = []
+        self._next_id = 0
+        self._stop = False
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    @staticmethod
+    def _validate_config(cfg: TransformerConfig):
+        """Reject configs the batched decode cannot serve up front, so the
+        server falls back to one slot instead of failing in the worker."""
+        if not cfg.causal:
+            raise ValueError("BatchedEngine decodes causal models only; serve this "
+                             "model single-slot")
+
+    # -- public ------------------------------------------------------------
+    def submit(self, ids: list[int], *, max_new: int = -1,
+               is_terminator: Callable[[int], bool] = lambda t: False,
+               seed: int = 0) -> StreamHandle:
+        with self._cv:
+            h = StreamHandle(self._next_id)
+            self._next_id += 1
+            ids = list(ids)[-(self.max_length - 1):]   # keep the newest that fit
+            room = self.max_length - len(ids) - 1
+            mn = min(max_new if max_new > 0 else room, room)
+            self._pending.append((h, ids, mn, is_terminator, seed))
+            self._cv.notify()
+            return h
+
+    def active_slots(self) -> list[dict]:
+        with self._lock:
+            return [{"id": i, "state": 0 if s is None else 1,
+                     "n_past": int(self.n_past[i]) if s else 0}
+                    for i, s in enumerate(self.slots)]
+
+    def shutdown(self):
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._worker.join(timeout=5)
+
+    # -- scheduler loop ------------------------------------------------------
+    def _free_slot(self) -> int:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return -1
+
+    def _slot_penalty(self, slot: int) -> PenaltyState:
+        """Views of one slot's penalty rows (written in place)."""
+        p = self.penalty
+        return PenaltyState(p.token_count[slot], p.history[slot], int(p.write_pos[slot]))
+
+    @torch.inference_mode()
+    def _admit(self, h: StreamHandle, ids, max_new, is_term, seed, slot: int):
+        cfg, dev = self.cfg, self.device
+        ids = np.asarray(ids, np.int64)[None, :]
+        T = ids.shape[1]
+        # a request's draws depend on its seed only, not on its slot
+        self.gens[slot].manual_seed(seed)
+        self.penalty.token_count[slot] = 0
+        self.penalty.history[slot] = -1
+        self.penalty.write_pos[slot] = 0
+        # chunked prefill into the slot's cache row, a view written in place
+        row = KVCache(k=[t[slot:slot + 1] for t in self.cache.k],
+                      v=[t[slot:slot + 1] for t in self.cache.v])
+        if self.cache.k_scale is not None:
+            row.k_scale = [t[slot:slot + 1] for t in self.cache.k_scale]
+            row.v_scale = [t[slot:slot + 1] for t in self.cache.v_scale]
+        n_past, logits = 0, None
+        while n_past < T:
+            n = min(PREFILL_CHUNK, T - n_past)
+            tpad = _fit_bucket(n, self.max_length - n_past, hi=PREFILL_CHUNK)
+            n = min(n, tpad)
+            buf = np.zeros((1, tpad), np.int64)
+            buf[:, :n] = ids[:, n_past:n_past + n]
+            logits, _ = transformer_forward(cfg, self.params, torch.from_numpy(buf).to(dev),
+                                            row, n_past, last_index=n - 1)
+            n_past += n
+        # the first token comes from the slot's generator and penalty ring
+        pen = self._slot_penalty(slot) if self.sampled else None
+        tok0, _ = sample_token(logits[0, 0], self.scfg, self.gens[slot], pen)
+        if pen is not None:
+            penalty_accept(pen, tok0)
+            self.penalty.write_pos[slot] = pen.write_pos
+        tok0 = int(tok0)
+        s = _Slot(req_id=h.req_id, out=h._q, n_past=n_past, max_new=max_new,
+                  is_terminator=is_term)
+        if is_term(tok0) or max_new <= 0:
+            h._q.put(None)
+            return
+        s.produced = 1
+        h._q.put(tok0)
+        self._handles[slot] = h
+        self.slots[slot] = s
+        self.n_past[slot] = n_past
+        self.toks[slot] = tok0
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._stop and not self._pending and not any(self.slots):
+                    self._cv.wait()
+                if self._stop:
+                    for s in self.slots:
+                        if s is not None:
+                            s.out.put(None)
+                    return
+                # admit pending requests into free slots
+                while self._pending:
+                    slot = self._free_slot()
+                    if slot < 0:
+                        break
+                    h, ids, mn, it, seed = self._pending.pop(0)
+                    if h.cancelled:
+                        h._q.put(None)
+                        continue
+                    try:
+                        self._admit(h, ids, mn, it, seed, slot)
+                    except Exception:
+                        h._q.put(None)
+                        raise
+                active_any = any(s is not None for s in self.slots)
+            if not active_any:
+                continue
+            try:
+                self._decode_block_once()
+            except Exception:
+                # drain every in-flight consumer before the worker dies, so
+                # no StreamHandle blocks forever on its queue
+                with self._cv:
+                    for b, s in enumerate(self.slots):
+                        if s is not None:
+                            s.out.put(None)
+                            self.slots[b] = None
+                            self._handles[b] = None
+                    for h, *_ in self._pending:
+                        h._q.put(None)
+                    self._pending.clear()
+                raise
+
+    @torch.inference_mode()
+    def _decode_steps(self, toks, n_past, active) -> np.ndarray:
+        """`decode_block` batched steps on the device; returns the sampled
+        ids [block, B], read back to the host once."""
+        hist = []
+        for _ in range(self.decode_block):
+            logits, _ = transformer_forward(self.cfg, self.params, toks[:, None],
+                                            self.cache, n_past)
+            lf = logits[:, -1, :]
+            if self.sampled:
+                nxt = torch.stack([
+                    sample_token(lf[b], self.scfg, self.gens[b],
+                                 PenaltyState(self.penalty.token_count[b],
+                                              self.penalty.history[b], 0))[0]
+                    for b in range(self.max_slots)])
+            else:
+                nxt = torch.argmax(lf.float(), dim=-1)
+            nxt = torch.where(active, nxt, toks)
+            if self.sampled:
+                penalty_accept_batched(self.penalty, nxt)
+            n_past = n_past + active.to(n_past.dtype)
+            toks = nxt
+            hist.append(nxt)
+        return torch.stack(hist).cpu().numpy()
+
+    def _decode_block_once(self):
+        dev = self.device
+        with self._lock:
+            active = torch.tensor([s is not None for s in self.slots], device=dev)
+            n_past = torch.from_numpy(self.n_past.copy()).to(dev)
+            toks = torch.from_numpy(self.toks.copy()).to(dev)
+        hist = self._decode_steps(toks, n_past, active)
+        with self._cv:
+            for b, s in enumerate(self.slots):
+                if s is None:
+                    continue
+                h = self._handles[b]
+                for j in range(self.decode_block):
+                    t = int(hist[j, b])
+                    s.n_past += 1
+                    if s.is_terminator(t) or h.cancelled:
+                        s.done = True
+                        break
+                    s.produced += 1
+                    s.out.put(t)
+                    if s.produced >= s.max_new or s.n_past + 1 >= self.max_length:
+                        s.done = True
+                        break
+                if s.done:
+                    s.out.put(None)
+                    self.slots[b] = None
+                    self._handles[b] = None
+                    self.n_past[b] = 0
+                    self.toks[b] = 0
+                else:
+                    self.n_past[b] = s.n_past
+                    self.toks[b] = int(hist[-1, b])   # next step's input
+            self._cv.notify()

@@ -1,6 +1,7 @@
 """Pipeline: model + tokenizer orchestration for multi-round chat
 (counterpart of the JAX package's `runtime/pipeline.py` with the Restart
-context-extending method; Shift and sessions come later).
+context-extending method and text completion; Shift and sessions come
+later).
 """
 from __future__ import annotations
 
@@ -62,6 +63,17 @@ class Pipeline:
         if streamer is not None:
             streamer.end()
         return text
+
+    def text_completion(self, prompt: str, streamer: Optional[BaseStreamer] = None,
+                        gen_config: Optional[GenerationConfig] = None) -> str:
+        """Continue `prompt` as raw text (no chat template)."""
+        if streamer is not None:
+            streamer.tokenizer = self.tokenizer
+        out = self._gen(self.tokenizer.encode(prompt), streamer,
+                        gen_config or self.gen_config)
+        if streamer is not None:
+            streamer.end()
+        return self.tokenizer.decode(out)
 
     def _needed_budget(self, ids) -> bool:
         return self.n_past + len(ids) + 4 < self.model.engine.max_length

@@ -77,6 +77,27 @@ def test_entry_points_default_to_the_card(tmp_path):
     assert load_model(str(path), device="cpu").device.type == "cpu"
 
 
+def test_server_entry_point_needs_a_card_unless_told(tmp_path):
+    """`python -m chatllm_tpu_torch.serve.server` resolves the card; it
+    raises without CUDA unless `--device cpu` is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid here")
+    import chip_smoke
+    from chatllm_tpu_torch.serve import server
+
+    path = chip_smoke.write_llama3_ggmm(tmp_path / "m.bin", layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.main(["-m", str(path), "--port", "0"])
+    served = []
+    orig = server.serve
+    try:
+        server.serve = lambda model, **kw: served.append((model.device.type, kw["device"]))
+        assert server.main(["-m", str(path), "--slots", "2", "--device", "cpu"]) == 0
+    finally:
+        server.serve = orig
+    assert served == [("cpu", "cpu")]
+
+
 def test_chip_smoke_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

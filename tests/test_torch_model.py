@@ -154,3 +154,38 @@ def test_cli_transcript_matches(models, name):
     assert tlines == jlines
     assert tlines[0] == "You  > Tell me a story." and tlines[1].startswith("A.I. > ")
     assert raw.count("eval time:") == 2
+
+
+def test_q8_cache_greedy_tokens_match(tmp_path, monkeypatch):
+    """--cache_dtype q8_0 at a 4096-token context: the prefill takes the
+    online-softmax chunks and every decode step K4 on both sides (the JAX
+    package under its TPU routing, its flash_decode in interpret mode; the
+    port's plain version of K4), and the greedy tokens agree."""
+    import chatllm_tpu.ops.attention as jatt
+    from chatllm_tpu_torch.ops import qmm as tqmm
+
+    monkeypatch.setattr(jatt, "_flash_decode_enabled", lambda: True)
+    path = chip_smoke.write_llama3_ggmm(tmp_path / "q8.bin", dtype=GGMLType.F32,
+                                        writer_cls=GGMMWriter, max_len=4096, seed=11)
+    rt = dict(compute_dtype="float32", cache_dtype="int8")
+    j = jm.load_model(str(path), jm.RuntimeConfig(**rt))
+    p = tm.load_model(str(path), tm.RuntimeConfig(**rt), device="cpu")
+    ids = j.tokenizer.encode(PROMPTS[1])
+    tqmm.reset_kernel_dispatch_stats()
+    pout, _, pn = p.engine.generate(ids, TGen(do_sample=False, max_new_tokens=12))
+    assert tqmm.kernel_dispatch_stats()["flash_decode:q8kv"] == 2 * 11   # layers x steps
+    jout, _, jn = j.engine.generate(ids, JGen(do_sample=False, max_new_tokens=12))
+    assert len(pout) == 12 and pout == jout and pn == jn
+
+
+def test_cli_q8_cache_flag(models):
+    """`--cache_dtype q8_0` maps to the int8 cache, as in the JAX CLI, and
+    greedy transcripts repeat."""
+    path = models[("f32", False)][0]
+    argv = ["-m", path, "-p", "hi", "-t", "0", "--max_new_tokens", "6",
+            "--cache_dtype", "q8_0", "--device", "cpu"]
+    assert tmain.parse_args(argv).cache_dtype == "int8"
+    assert jmain.parse_args(argv[:-2]).cache_dtype == "int8"
+    first, _ = _run(tmain, argv)
+    again, _ = _run(tmain, argv)
+    assert first == again and first[1].startswith("A.I. > ")
