@@ -1,8 +1,9 @@
 // E2: two design probes over one int8 weight [K, N] that is far larger
 // than the L2 cache, so every call streams it from device memory.
 //
-//   gemv_stream: out[r, n] = max over rows k with k % 8 == r of w[k, n]
-//                (int32 [8, N]): the cheapest use of every byte, a pure
+//   gemv_stream: out[r, n] = max(0, max over rows k with k % 8 == r of
+//                w[k, n]) (int32 [8, N]; the Pallas kernel's accumulator
+//                starts at 0): the cheapest use of every byte, a pure
 //                stream with no unpacking and no arithmetic to speak of.
 //   gemv_vpu:    y[n] = sum_g s[g, n] * sum_{k in group g} w[k, n] * x[k]
 //                (groups of 32 rows; f32 x, s and accumulation): a GEMV on
@@ -49,7 +50,7 @@ gemv_stream_kernel(const int8_t* __restrict__ w, int* __restrict__ out, int K, i
     const int n_j = K / 8;
     const int j0 = static_cast<int>(static_cast<long>(blockIdx.y) * n_j / n_splits);
     const int j1 = static_cast<int>(static_cast<long>(blockIdx.y + 1) * n_j / n_splits);
-    uint4 m = make_uint4(0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);   // -128 each
+    uint4 m = make_uint4(0u, 0u, 0u, 0u);          // the accumulator starts at 0
     const int8_t* base = w + static_cast<long>(r) * N + n;
     int j = n < N ? j0 : j1;       // lanes past N load nothing
     for (; j + UNROLL <= j1; j += UNROLL) {
@@ -160,14 +161,14 @@ gemv_vpu_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 }  // namespace
 
 // w: int8 [K, N]; out: int32 [8, N].  Requires K % 8 == 0, N % 16 == 0,
-// 16-byte aligned w.  With n_splits > 1 the output is first filled with a
-// value below every int8 and the blocks combine with atomicMax.
+// 16-byte aligned w.  With n_splits > 1 the output is first cleared and
+// the blocks combine with atomicMax.
 CL_EXPORT int gemv_stream_launch(const void* w, void* out, int K, int N, int n_splits,
                                  void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (K % 8 || N % COLS || n_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (n_splits > 1) {
-        cudaError_t err = cudaMemsetAsync(out, 0x80, sizeof(int) * 8 * static_cast<size_t>(N), st);
+        cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * 8 * static_cast<size_t>(N), st);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     dim3 grid((N + TILE_N - 1) / TILE_N, n_splits);

@@ -41,9 +41,10 @@ def _splits(units: int, n: int, sms: int) -> int:
 
 
 def stream_once_plain(w: torch.Tensor) -> torch.Tensor:
-    """int8 [K, N] -> int32 [8, N]: the max over the rows k with k % 8 == r."""
+    """int8 [K, N] -> int32 [8, N]: the max over the rows k with k % 8 == r,
+    and 0 where that is below 0 (the Pallas kernel's accumulator starts at 0)."""
     k, n = w.shape
-    return w.reshape(k // 8, 8, n).to(torch.int32).amax(dim=0)
+    return w.reshape(k // 8, 8, n).to(torch.int32).amax(dim=0).clamp_min(0)
 
 
 def stream_once(w: torch.Tensor) -> torch.Tensor:

@@ -128,9 +128,18 @@ GEMV_STREAM = CudaKernel("gemv_probe.cu", "gemv_stream_launch", [P, P, I, I, I, 
                          name="gemv_stream")
 GEMV_VPU = CudaKernel("gemv_probe.cu", "gemv_vpu_launch", [P, P, P, P, P, I, I, I, P],
                       name="gemv_vpu")
+STREAM_READ = CudaKernel("gemv_model.cu", "stream_read_launch", [P, P, P, P, P, I, I, I, I, P],
+                         name="stream_read")
+QGEMV_BF16 = CudaKernel("gemv_model.cu", "qgemv_bf16_launch", [P, P, P, P, P, I, I, I, P],
+                        name="qgemv_bf16")
+UNPACK_GEMV = CudaKernel("gemv_unpack.cu", "unpack_gemv_launch",
+                         [P, P, P, P, P, P, P, P, I, I, I, I, P], name="unpack_gemv")
+QMM_DMA = CudaKernel("qmm_dma.cu", "qmm_dma_launch", [P, P, P, P, I, I, I, I, P],
+                     name="qmm_dma")
 
 KERNELS = {k.name: k for k in (QGEMV, QMM, FLASH, FLASH_DECODE, QMM_DECODE, BW_PROBE,
-                               GEMV_STREAM, GEMV_VPU)}
+                               GEMV_STREAM, GEMV_VPU, STREAM_READ, QGEMV_BF16, UNPACK_GEMV,
+                               QMM_DMA)}
 
 
 def build_all() -> dict:

@@ -5,7 +5,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build   nvcc-build every kernel library from csrc/, print the card.
   2. kernels hold K1 qgemv, K2 qmm, K3 flash_attention, K4 flash_decode, K5
-             qmm_decode, K6 the read probe and E2's stream_once / vpu_once
+             qmm_decode, K6 the read probe, E2's stream_once / vpu_once (also
+             at E1's 4096 x 14336), E3's stream_read / qgemv_bf16, E4's
+             unpack_gemv (modes v0-v3) and E5's qmm_dma
              against their plain PyTorch versions at the Llama-3-8B shapes,
              and K1-K5 at the Qwen2.5-0.5B shapes too (q8_0 with a bias, head
              dim 64, 14 query heads over 2 kv heads)
@@ -14,7 +16,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              2e-2, and per element 2^-7 (bf16 cache, or an f32 query over
              one) or 1e-4 (f32 cache) of |o| + 4 sqrt(sum_j p_j^2 v_j^2),
              see FLASH_SCALED_TOL; K4: the same measure, 2^-7 with bf16
-             dots and 1e-4 with f32 ones, see DECODE_SCALED_TOL), and time
+             dots and 1e-4 with f32 ones, see DECODE_SCALED_TOL; stream_read,
+             qgemv_bf16 and qmm_dma: exact; unpack_gemv: 1e-5
+             of the output scale, and 1e-4 against K1), and time
              the kernel, the plain version and one library call (a
              yardstick the port never calls).
   3. llama3_8b  full-width Llama-3-8B (32 layers, vocab 128256, random q4_k
@@ -51,6 +55,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              head), greedy: each pair's transcripts are byte-identical.
   9. e2      `chatllm_tpu_torch.experiments.gemv_probe2.main`, all six
              variants.
+ 10. e1      `chatllm_tpu_torch.experiments.gemv_probe.main`, all seven
+             variants (16 layers of 4096 x 14336 x 8 steps; E2's kernels),
+             each timed eagerly and by a CUDA-graph replay.
+ 11. e3      `chatllm_tpu_torch.experiments.gemv_model_bench.main`, the
+             sweep of vpu (K1), stream (stream_read), vpu_bf16 (qgemv_bf16)
+             and mxu (K2) over 3.93 GB of Llama-3-8B-shaped q4 weights, each
+             timed eagerly and by a CUDA-graph replay (ms/token of both).
+ 12. e4      `chatllm_tpu_torch.experiments.gemv_unpack.main`: each unpack
+             mode checked against K1, then timed over 2048 chained calls.
+ 13. e5      `chatllm_tpu_torch.experiments.qmm_m32.main`: the copy-only
+             pass and K2 at M = 32 (q4k, q8, q4), 2048 chained calls each.
+             Phases 9-13 count every kernel's launches exactly.
 Then it prints the kernels line, the card line and, last, the result line.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -355,6 +371,9 @@ def kernels_phase(dev, timer) -> dict:
     res["flash_decode"] = decode_cases(dev, timer, gen)
     res["bw_probe"] = probe_case(dev, timer, gen)
     res.update(gemv_probe_cases(dev, timer, gen))
+    res.update(gemv_model_cases(dev, timer, gen))
+    res["unpack_gemv"] = unpack_cases(dev, timer, gen)
+    res["qmm_dma"] = dma_case(dev, timer, gen)
     return res
 
 
@@ -384,49 +403,177 @@ def probe_case(dev, timer, gen) -> dict:
 
 
 def gemv_probe_cases(dev, timer, gen) -> dict:
-    """E2's two kernels at 4096 x 16384 against their plain versions:
+    """E2's two kernels against their plain versions at E2's 4096 x 16384
+    and at E1's 4096 x 14336 (E1's `stream_max` and `vpu_gemv` run on them):
     stream_once exact, vpu_once 1e-5 of the output scale (f32 sums in
     another order)."""
+    from chatllm_tpu_torch.experiments import gemv_probe as e1
     from chatllm_tpu_torch.experiments import gemv_probe2 as e2
 
-    K, N = e2.K, e2.N
-    wq, ws = e2.weights(K, N, dev)
-    x = torch.randn(K, 1, generator=gen, device=dev)
-    w_bf16 = (wq.float().reshape(K // e2.GROUP, e2.GROUP, N) * ws[:, None, :]).reshape(
-        K, N).to(torch.bfloat16)
-    xb = x.reshape(1, K).to(torch.bfloat16)
-    out = {}
-    m, mref = e2.stream_once(wq), e2.stream_once_plain(wq)
-    y, yref = e2.vpu_once(x, wq, ws), e2.vpu_once_plain(x, wq, ws)
-    torch.cuda.synchronize()
-    s_err = (m - mref).abs().max().item()
-    v_err, v_rel = rel_err(y, yref)
-    log(f"  gemv_stream K={K} N={N}  max_abs_err={s_err}")
-    log(f"  gemv_vpu    K={K} N={N}  max_abs_err={v_err:.3e} rel={v_rel:.2e}")
-    if not torch.equal(m, mref):
-        raise AssertionError(f"gemv_stream differs from its plain version by {s_err}")
-    if not (torch.isfinite(y).all() and v_rel <= 1e-5):
-        raise AssertionError(f"gemv_vpu: rel err {v_rel} > 1e-5")
-    b_ms, b_by = bound(nbytes(wq, m), float(K * N), F32_FLOPS)
-    r = {"K": K, "N": N,
-         "ms": timer(lambda: e2.stream_once(wq)),
-         "plain_ms": timer(lambda: e2.stream_once_plain(wq), iters=5),
-         "library_ms": timer(lambda: torch.amax(wq.view(K // 8, 8, N), dim=0)),
-         "bound_ms": b_ms, "bound_by": b_by}
-    log(f"    timing stream {r}")
-    out["gemv_stream"] = {"cases": [{"K": K, "N": N, "max_abs_err": float(s_err)}],
-                          "shapes": {"4096x16384": r}}
-    b_ms, b_by = bound(nbytes(wq, ws, x, y), 2.0 * K * N, F32_FLOPS)
-    r = {"K": K, "N": N,
-         "ms": timer(lambda: e2.vpu_once(x, wq, ws)),
-         "plain_ms": timer(lambda: e2.vpu_once_plain(x, wq, ws), iters=5),
-         # a yardstick over other inputs: the weight dequantized to bf16 beforehand
-         "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
-         "bound_ms": b_ms, "bound_by": b_by}
-    log(f"    timing vpu {r}")
-    out["gemv_vpu"] = {"cases": [{"K": K, "N": N, "max_abs_err": v_err, "rel": v_rel}],
-                       "shapes": {"4096x16384": r}}
+    out = {name: {"cases": [], "shapes": {}} for name in ("gemv_stream", "gemv_vpu")}
+    for K, N in ((e2.K, e2.N), (e1.K, e1.N)):
+        key = f"{K}x{N}"
+        wq, ws = e2.weights(K, N, dev)
+        x = torch.randn(K, 1, generator=gen, device=dev)
+        w_bf16 = (wq.float().reshape(K // e2.GROUP, e2.GROUP, N) * ws[:, None, :]).reshape(
+            K, N).to(torch.bfloat16)
+        xb = x.reshape(1, K).to(torch.bfloat16)
+        m, mref = e2.stream_once(wq), e2.stream_once_plain(wq)
+        y, yref = e2.vpu_once(x, wq, ws), e2.vpu_once_plain(x, wq, ws)
+        torch.cuda.synchronize()
+        s_err = (m - mref).abs().max().item()
+        v_err, v_rel = rel_err(y, yref)
+        log(f"  gemv_stream K={K} N={N}  max_abs_err={s_err}")
+        log(f"  gemv_vpu    K={K} N={N}  max_abs_err={v_err:.3e} rel={v_rel:.2e}")
+        if not torch.equal(m, mref):
+            raise AssertionError(f"gemv_stream differs from its plain version by {s_err}")
+        if not (torch.isfinite(y).all() and v_rel <= 1e-5):
+            raise AssertionError(f"gemv_vpu: rel err {v_rel} > 1e-5")
+        b_ms, b_by = bound(nbytes(wq, m), float(K * N), F32_FLOPS)
+        r = {"K": K, "N": N,
+             "ms": timer(lambda: e2.stream_once(wq)),
+             "plain_ms": timer(lambda: e2.stream_once_plain(wq), iters=5),
+             "library_ms": timer(lambda: torch.amax(wq.view(K // 8, 8, N), dim=0)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"    timing stream {r}")
+        out["gemv_stream"]["cases"].append({"K": K, "N": N, "max_abs_err": float(s_err)})
+        out["gemv_stream"]["shapes"][key] = r
+        b_ms, b_by = bound(nbytes(wq, ws, x, y), 2.0 * K * N, F32_FLOPS)
+        r = {"K": K, "N": N,
+             "ms": timer(lambda: e2.vpu_once(x, wq, ws)),
+             "plain_ms": timer(lambda: e2.vpu_once_plain(x, wq, ws), iters=5),
+             # a yardstick over other inputs: the weight dequantized to bf16 beforehand
+             "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"    timing vpu {r}")
+        out["gemv_vpu"]["cases"].append({"K": K, "N": N, "max_abs_err": v_err, "rel": v_rel})
+        out["gemv_vpu"]["shapes"][key] = r
+        del wq, ws, w_bf16
     return out
+
+
+def gemv_model_cases(dev, timer, gen) -> dict:
+    """E3's two kernels at the five Llama-3-8B projection shapes (q4 packed,
+    f16 scales, tile_k 2048), both exact: stream_read's value and digest,
+    and qgemv_bf16, which rounds to bf16 in its plain version's order (an
+    H100 gives equal bits at every shape)."""
+    from chatllm_tpu_torch.experiments import gemv_model_bench as e3
+    from chatllm_tpu_torch.ops.qmm import dequant_arrays
+
+    out = {name: {"cases": [], "shapes": {}} for name in ("stream_read", "qgemv_bf16")}
+    for sname, (K, N) in SHAPES_8B.items():
+        q = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+        s = (torch.rand(K // 32, N, generator=gen, device=dev) * 0.01 + 1e-3).half()
+        x = torch.randn(1, K, generator=gen, device=dev)
+        (y, dg), (yr, dgr) = e3.stream_read(x, q, s), e3.stream_read_plain(x, q, s)
+        b, br = e3.qgemv_bf16(x, q, s), e3.qgemv_bf16_plain(x, q, s)
+        torch.cuda.synchronize()
+        s_err = (y - yr).abs().max().item()
+        b_err, b_rel = rel_err(b, br)
+        log(f"  stream_read K={K:5d} N={N:6d}  max_abs_err={s_err} digest_equal="
+            f"{torch.equal(dg, dgr)}")
+        log(f"  qgemv_bf16  K={K:5d} N={N:6d}  max_abs_err={b_err:.3e} rel={b_rel:.2e}")
+        if not (torch.equal(y, yr) and torch.equal(dg, dgr)):
+            raise AssertionError(f"stream_read {K}x{N} differs from its plain version")
+        if not (torch.isfinite(b).all() and torch.equal(b, br)):
+            raise AssertionError(f"qgemv_bf16 {K}x{N} differs from its plain version: rel "
+                                 f"err {b_rel}")
+        out["stream_read"]["cases"].append({"K": K, "N": N, "max_abs_err": s_err})
+        out["qgemv_bf16"]["cases"].append({"K": K, "N": N, "max_abs_err": b_err, "rel": b_rel})
+        b_ms, b_by = bound(nbytes(q, s, x, y, dg), K * N / 8.0, F32_FLOPS)
+        r = {"K": K, "N": N,
+             "ms": timer(lambda: e3.stream_read(x, q, s)),
+             "plain_ms": timer(lambda: e3.stream_read_plain(x, q, s), iters=5),
+             "library_ms": timer(lambda: torch.sum(q, dtype=torch.int64)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"    timing stream_read {r}")
+        out["stream_read"]["shapes"][sname] = r
+        w_bf16 = dequant_arrays(q, s, None, group=32, packed=True, zero_point=0,
+                                dtype=torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        b_ms, b_by = bound(nbytes(q, s, x, b), 2.0 * K * N, F32_FLOPS)
+        r = {"K": K, "N": N,
+             "ms": timer(lambda: e3.qgemv_bf16(x, q, s)),
+             "plain_ms": timer(lambda: e3.qgemv_bf16_plain(x, q, s), iters=5),
+             # a yardstick over other inputs: the weight dequantized to bf16 beforehand
+             "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"    timing qgemv_bf16 {r}")
+        out["qgemv_bf16"]["shapes"][sname] = r
+        del q, s, w_bf16
+    return out
+
+
+def unpack_cases(dev, timer, gen) -> dict:
+    """E4's kernel in its four modes at 4096 x 14336 on a random q4_k
+    weight: 1e-5 of the output scale against its plain version, 1e-4 against
+    K1 (the sum of its 8 rows), and each mode's own check (2048 x 256)."""
+    from chatllm_tpu_torch.experiments import gemv_unpack as e4
+    from chatllm_tpu_torch.models.synthetic import synth_linear
+    from chatllm_tpu_torch.ops.cuda.gemv_kernel import qgemv
+    from chatllm_tpu_torch.ops.qmm import dequant_weight
+
+    K, N = e4.K, e4.N
+    lin = synth_linear(K, N, "q4k", gen=gen, zeros=False, device=dev)
+    arrays = (lin.q, lin.s, lin.b, lin.d, lin.dm)
+    x = torch.randn(K, generator=gen, device=dev)
+    k1 = qgemv(x[None], lin.q, lin.s, lin.b, None, group=32, packed=True, zero_point=0,
+               d=lin.d, dm=lin.dm, sb=8)
+    w_bf16 = dequant_weight(lin, torch.bfloat16)
+    xb = x[None].to(torch.bfloat16)
+    res = {"cases": [], "shapes": {}}
+    for mode in e4.MODES:
+        out, ref = e4.unpack_gemv(x, *arrays, mode=mode), e4.unpack_gemv_plain(x, *arrays,
+                                                                               mode=mode)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        _, rel_k1 = rel_err(out.sum(dim=0, keepdim=True), k1)
+        chk = e4.check(mode, device=dev)
+        log(f"  unpack_gemv {mode} K={K} N={N}  max_abs_err={err:.3e} rel={rel:.2e} "
+            f"vs K1 rel={rel_k1:.2e}; check {chk:.2e}")
+        if not (torch.isfinite(out).all() and rel <= 1e-5 and rel_k1 <= 1e-4
+                and chk < e4.CHECK_TOL):
+            raise AssertionError(f"unpack_gemv {mode}: rel {rel} (limit 1e-5), against K1 "
+                                 f"{rel_k1} (limit 1e-4), check {chk} (limit 1e-4)")
+        res["cases"].append({"mode": mode, "K": K, "N": N, "max_abs_err": err, "rel": rel,
+                             "rel_vs_k1": rel_k1, "check": chk})
+        b_ms, b_by = bound(nbytes(*arrays, x, out), 8.0 * K * N, F32_FLOPS)
+        r = {"K": K, "N": N,
+             "ms": timer(lambda: e4.unpack_gemv(x, *arrays, mode=mode)),
+             "plain_ms": timer(lambda: e4.unpack_gemv_plain(x, *arrays, mode=mode), iters=5),
+             # a yardstick over other inputs: the weight dequantized to bf16 beforehand
+             "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"    timing {mode} {r}")
+        res["shapes"][mode] = r
+    return res
+
+
+def dma_case(dev, timer, gen) -> dict:
+    """E5's copy-only pass over a random uint8 [2048, 14336] (K2's q4
+    weight at 4096 x 14336) in 1024 x 512 tiles, exact against its plain
+    version."""
+    from chatllm_tpu_torch.experiments import qmm_m32 as e5
+
+    q = torch.randint(0, 256, (e5.K // 2, e5.N), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint8)
+    c = torch.tensor([0.25], device=dev)
+    got, want = e5.dma_sums(q, c), e5.dma_sums_plain(q, c)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(f"  qmm_dma K={e5.K} N={e5.N} tiles {e5.DMA_TILE_K}x{e5.DMA_TILE_N}: "
+        f"max_abs_err={err}, last tile {got[-1, -1].item():.9g}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"qmm_dma differs from its plain version by {err}")
+    b_ms, b_by = bound(nbytes(q, c, got), float(q.numel()), F32_FLOPS)
+    r = {"bytes": q.numel(),
+         "ms": timer(lambda: e5.dma_sums(q, c)),
+         "plain_ms": timer(lambda: e5.dma_sums_plain(q, c), iters=5),
+         "library_ms": timer(lambda: torch.sum(q, dtype=torch.int64)),
+         "bound_ms": b_ms, "bound_by": b_by}
+    log(f"    timing {r}")
+    return {"cases": [{"bytes": q.numel(), "max_abs_err": err}], "shapes": {"4096x14336": r}}
 
 
 # K3's limit on |o - plain| / (|plain| + 4 sqrt(sum_j p_j^2 v_j^2)) per
@@ -1158,6 +1305,87 @@ def e2_phase() -> dict:
     return res
 
 
+def e1_phase() -> dict:
+    """The E1 probe's own entry point, all seven variants (16 layers x 8
+    steps, each run three times through the wrappers: warm-up, eager and
+    the CUDA-graph capture, whose replays go through no wrapper), launches
+    counted."""
+    from chatllm_tpu_torch.experiments import gemv_probe
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = gemv_probe.main([])
+    res["launches"] = launch_counts()
+    want = 3 * gemv_probe.L * gemv_probe.STEPS
+    got = res["launches"]
+    if any(got[k] != want for k in ("gemv_stream", "gemv_vpu", "qmm")):
+        raise AssertionError(f"e1 launches {got}, expected {want} of stream, vpu and qmm")
+    for name in gemv_probe.VARIANTS:
+        r = res[name]
+        log(f"  e1 {name:11s} eager {r['eager_ms_per_step']:.3f} ms/step, graph "
+            f"{r['graph_ms_per_step']:.3f} ms/step")
+    return res
+
+
+def e3_phase() -> dict:
+    """The E3 bench's own entry point over its 3.93 GB of Llama-3-8B-shaped
+    q4 weights, all four variants in one sweep: each 32-token loop run
+    eagerly twice (warm-up, timed) and captured once into a CUDA graph,
+    whose replays go through no wrapper."""
+    from chatllm_tpu_torch.experiments import gemv_model_bench as e3
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = e3.main(["sweep", *e3.VARIANTS])
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = got = launch_counts()
+    want = 3 * e3.TOKENS * e3.L * len(e3.SHAPES)
+    kernels = {"vpu": "qgemv", "stream": "stream_read", "vpu_bf16": "qgemv_bf16", "mxu": "qmm"}
+    if any(got[k] != want for k in kernels.values()):
+        raise AssertionError(f"e3 launches {got}, expected {want} of {list(kernels.values())}")
+    for name in e3.VARIANTS:
+        r = res[name]
+        log(f"  e3 {name:8s} eager {r['eager_ms_per_token']:.3f} ms/token, graph "
+            f"{r['graph_ms_per_token']:.3f} ms/token (host dispatch "
+            f"{r['eager_ms_per_token'] - r['graph_ms_per_token']:.3f} ms/token)")
+    return res
+
+
+def e4_phase() -> dict:
+    """The E4 probe's own entry point: each mode checked against K1, then
+    REPS chained calls captured once into a CUDA graph and replayed."""
+    from chatllm_tpu_torch.experiments import gemv_unpack as e4
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = e4.main([])
+    res["launches"] = got = launch_counts()
+    want = len(e4.MODES) * (e4.REPS + 2)          # check, warm-up, capture
+    if got["unpack_gemv"] != want or got["qgemv"] != len(e4.MODES):
+        raise AssertionError(f"e4 launches {got}, expected {want} of unpack_gemv and "
+                             f"{len(e4.MODES)} of qgemv")
+    if any("ms" not in res[m] for m in e4.MODES):
+        raise AssertionError(f"e4: a mode missed its check against K1: {res}")
+    return res
+
+
+def e5_phase() -> dict:
+    """The E5 probe's own entry point: the copy-only pass and K2 at M = 32
+    for q4k, q8 and q4, each REPS chained calls replayed from a CUDA graph."""
+    from chatllm_tpu_torch.experiments import qmm_m32 as e5
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = e5.main()
+    res["launches"] = got = launch_counts()
+    want = e5.REPS + 1                            # warm-up, capture
+    if got["qmm_dma"] != want or got["qmm"] != len(e5.FORMATS) * want:
+        raise AssertionError(f"e5 launches {got}, expected {want} of qmm_dma and "
+                             f"{len(e5.FORMATS) * want} of qmm")
+    return res
+
+
 # ---------------------------------------------------------------- report
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
@@ -1171,8 +1399,17 @@ KERNEL_META = {
                    "chatllm_tpu/ops/pallas/qmm_decode.py:150"),
     "bw_probe": ("chatllm_tpu_torch/csrc/bw_probe.cu",
                  "chatllm_tpu/ops/pallas/bw_probe.py:29"),
-    "gemv_stream": ("chatllm_tpu_torch/csrc/gemv_probe.cu", "experiments/gemv_probe2.py:69"),
-    "gemv_vpu": ("chatllm_tpu_torch/csrc/gemv_probe.cu", "experiments/gemv_probe2.py:117"),
+    "gemv_stream": ("chatllm_tpu_torch/csrc/gemv_probe.cu",
+                    "experiments/gemv_probe2.py:69, experiments/gemv_probe.py:211"),
+    "gemv_vpu": ("chatllm_tpu_torch/csrc/gemv_probe.cu",
+                 "experiments/gemv_probe2.py:117, experiments/gemv_probe.py:147"),
+    "stream_read": ("chatllm_tpu_torch/csrc/gemv_model.cu",
+                    "experiments/gemv_model_bench.py:46"),
+    "qgemv_bf16": ("chatllm_tpu_torch/csrc/gemv_model.cu",
+                   "experiments/gemv_model_bench.py:223"),
+    "unpack_gemv": ("chatllm_tpu_torch/csrc/gemv_unpack.cu",
+                    "experiments/gemv_unpack.py:99, experiments/gemv_unpack.py:146"),
+    "qmm_dma": ("chatllm_tpu_torch/csrc/qmm_dma.cu", "experiments/qmm_m32.py:83"),
 }
 
 
@@ -1189,16 +1426,23 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     = one decode step after the 1000-token prompt over a q8 cache (32
     layers), qmm_decode = one batched decode step of 8 rows (32 x 7 + the
     lm_head), bw_probe = one pass over 256 MiB, gemv_stream / gemv_vpu = one
-    call at 4096 x 16384.  `launches` counts each kernel on its own path:
-    K1-K3 on the bf16-cache chat path, K4 on the q8-cache one, K5 on the
-    bench's batched section under CHATLLM_TPU_QMM_V2=1, K6 in the bench,
-    E2's two in the probe's own main."""
+    call at 4096 x 16384 (E2's shape), stream_read / qgemv_bf16 = one decode
+    token of E3 (32 x 7 projections), unpack_gemv = one call of each of its
+    four modes at 4096 x 14336, qmm_dma = one pass over 4096 x 14336.
+    `launches` counts each kernel on its own path: K1-K3 on the bf16-cache
+    chat path, K4 on the q8-cache one, K5 on the bench's batched section
+    under CHATLLM_TPU_QMM_V2=1, K6 in the bench, E2's two in E2's and E1's
+    mains together, the others in their probe's main."""
     mult = {"qgemv": _per_token(N_LAYERS, True), "qmm": _per_token(N_LAYERS, False),
             "flash_attention": {"prefill_1000": N_LAYERS},
             "flash_decode": {"decode_1000": N_LAYERS},
             "qmm_decode": _per_token(N_LAYERS, True),
             "bw_probe": {"pass_256mb": 1},
-            "gemv_stream": {"4096x16384": 1}, "gemv_vpu": {"4096x16384": 1}}
+            "gemv_stream": {"4096x16384": 1}, "gemv_vpu": {"4096x16384": 1},
+            "stream_read": _per_token(N_LAYERS, False),
+            "qgemv_bf16": _per_token(N_LAYERS, False),
+            "unpack_gemv": {"v0": 1, "v1": 1, "v2": 1, "v3": 1},
+            "qmm_dma": {"4096x14336": 1}}
     entries = []
     for name, (src, rep) in KERNEL_META.items():
         entries.append(_line_entry(name, src, rep, kres[name]["shapes"], mult[name],
@@ -1311,6 +1555,19 @@ def main() -> int:
 
     log("== e2")
     report["e2"] = e2_phase()
+
+    log("== e1")
+    report["e1"] = e1_phase()
+    torch.cuda.empty_cache()
+
+    log("== e3")
+    report["e3"] = e3_phase()
+
+    log("== e4")
+    report["e4"] = e4_phase()
+
+    log("== e5")
+    report["e5"] = e5_phase()
     report["seconds"] = time.perf_counter() - t_start
     log(f"== all phases passed in {report['seconds']:.0f} s")
 
@@ -1320,8 +1577,14 @@ def main() -> int:
                     flash_decode=report["llama3_8b"]["q8_prompt_1000"]["launches"]["flash_decode"],
                     qmm_decode=report["bench"]["v2"]["launches"]["qmm_decode"],
                     bw_probe=report["bench"]["launches"]["bw_probe"],
-                    gemv_stream=report["e2"]["launches"]["gemv_stream"],
-                    gemv_vpu=report["e2"]["launches"]["gemv_vpu"])
+                    gemv_stream=report["e2"]["launches"]["gemv_stream"]
+                    + report["e1"]["launches"]["gemv_stream"],
+                    gemv_vpu=report["e2"]["launches"]["gemv_vpu"]
+                    + report["e1"]["launches"]["gemv_vpu"],
+                    stream_read=report["e3"]["launches"]["stream_read"],
+                    qgemv_bf16=report["e3"]["launches"]["qgemv_bf16"],
+                    unpack_gemv=report["e4"]["launches"]["unpack_gemv"],
+                    qmm_dma=report["e5"]["launches"]["qmm_dma"])
     print(json.dumps(kernels_line(report["kernels"], launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

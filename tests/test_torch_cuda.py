@@ -267,3 +267,111 @@ def test_dot_f32_keeps_f32_on_the_card(dev):
     assert y.dtype == torch.float32 and y.shape == (2, 5, 1024)
     assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
     assert (y - y.to(torch.bfloat16).float()).abs().max().item() > 0
+
+
+@pytest.mark.parametrize("K,N,tile_k", [(256, 64, 128), (512, 160, 256), (4096, 1024, 2048),
+                                        (14336, 4096, 2048), (8192, 256, 4096)])
+def test_gemv_model_kernels(dev, K, N, tile_k):
+    """E3, both exact against their plain versions: stream_read's value and
+    digest, and qgemv_bf16, which rounds to bf16 in its plain version's
+    order."""
+    from chatllm_tpu_torch.experiments import gemv_model_bench as e3
+    from chatllm_tpu_torch.ops.cuda.build import KERNELS
+
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    q = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint8)
+    s = (torch.rand(K // 32, N, generator=gen, device=dev) * 0.01 + 1e-3).half()
+    x = torch.randn(1, K, generator=gen, device=dev)
+    before = KERNELS["stream_read"].launches, KERNELS["qgemv_bf16"].launches
+    (y, dg), (yr, dgr) = e3.stream_read(x, q, s, tile_k=tile_k), e3.stream_read_plain(
+        x, q, s, tile_k=tile_k)
+    b, br = e3.qgemv_bf16(x, q, s, tile_k=tile_k), e3.qgemv_bf16_plain(x, q, s, tile_k=tile_k)
+    torch.cuda.synchronize()
+    assert (KERNELS["stream_read"].launches, KERNELS["qgemv_bf16"].launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(y, yr) and torch.equal(dg, dgr)
+    assert b.shape == (1, N) and torch.isfinite(b).all() and torch.equal(b, br)
+
+
+@pytest.mark.parametrize("mode", ["v0", "v1", "v2", "v3"])
+@pytest.mark.parametrize("K,N", [(2048, 256), (4096, 14336), (512, 48)])
+def test_unpack_gemv_kernel(dev, mode, K, N):
+    """E4: 1e-5 of the output scale against its plain version (f32 sums in
+    another order), and its check against K1 within 1e-4."""
+    from chatllm_tpu_torch.experiments import gemv_unpack as e4
+    from chatllm_tpu_torch.models.synthetic import synth_linear
+    from chatllm_tpu_torch.ops.cuda.build import KERNELS
+
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    lin = synth_linear(K, N, "q4k", gen=gen, zeros=False, device=dev)
+    x = torch.randn(K, generator=gen, device=dev)
+    arrays = (lin.q, lin.s, lin.b, lin.d, lin.dm)
+    before = KERNELS["unpack_gemv"].launches
+    out, ref = e4.unpack_gemv(x, *arrays, mode=mode), e4.unpack_gemv_plain(x, *arrays, mode=mode)
+    torch.cuda.synchronize()
+    assert KERNELS["unpack_gemv"].launches == before + 1 and out.shape == (8, N)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if (K, N) == (2048, 256):
+        assert e4.check(mode, device=dev) < e4.CHECK_TOL
+
+
+@pytest.mark.parametrize("R,N,tile_k,tile_n", [(2048, 14336, 1024, 512), (256, 256, 64, 128),
+                                               (64, 48, 8, 16)])
+def test_qmm_dma_kernel(dev, R, N, tile_k, tile_n):
+    """E5: the tile sums are exact (integer adds, one conversion to f32)."""
+    from chatllm_tpu_torch.experiments import qmm_m32 as e5
+    from chatllm_tpu_torch.ops.cuda.build import KERNELS
+
+    gen = torch.Generator(device=dev).manual_seed(R)
+    q = torch.randint(0, 256, (R, N), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+    c = torch.tensor([2.5], device=dev)
+    before = KERNELS["qmm_dma"].launches
+    got = e5.dma_sums(q, c, tile_k=tile_k, tile_n=tile_n)
+    assert KERNELS["qmm_dma"].launches == before + 1
+    assert torch.equal(got, e5.dma_sums_plain(q, c, tile_k=tile_k, tile_n=tile_n))
+    assert torch.equal(e5.dma_sums(q, c, tile_k=tile_k, tile_n=tile_n), got)
+
+
+def test_stream_max_starts_at_zero(dev):
+    """E1/E2: a residue class whose values are all negative gives 0, as the
+    Pallas kernel's zeroed accumulator does."""
+    from chatllm_tpu_torch.experiments.gemv_probe import stream_max, stream_max_plain
+
+    w = -torch.randint(1, 127, (4096, 14336), device=dev, dtype=torch.int32).to(torch.int8)
+    w[:, 16:] = w[:, 16:].abs()
+    got = stream_max(w)
+    assert torch.equal(got, stream_max_plain(w)) and (got[:, :16] == 0).all()
+
+
+def test_probe_mains_at_a_small_size(dev):
+    """E1 and E3 (eager and CUDA-graph timing), E4 and E5 through their
+    mains on the card at small sizes, with exact launch counts."""
+    from chatllm_tpu_torch.experiments import gemv_model_bench as e3
+    from chatllm_tpu_torch.experiments import gemv_probe as e1
+    from chatllm_tpu_torch.experiments import gemv_unpack as e4
+    from chatllm_tpu_torch.experiments import qmm_m32 as e5
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = e1.main(["stream", "vpu", "pallas_qmm"], device=dev, l=2, k=512, n=1024, steps=2)
+    got = launch_counts()
+    per_run = 3 * 2 * 2                     # (warm, eager, capture) x steps x layers
+    assert (got["gemv_stream"], got["gemv_vpu"], got["qmm"]) == (per_run,) * 3
+    assert all(r["graph_ms_per_step"] > 0 for r in res.values())
+    shapes = [("q", 512, 512), ("k", 512, 128), ("v", 512, 128), ("o", 512, 512),
+              ("gate", 512, 1024), ("up", 512, 1024), ("down", 1024, 512)]
+    reset_launch_counts()
+    res = e3.main(["sweep", "vpu", "stream:1024:256", "vpu_bf16:1024:256", "mxu"], device=dev,
+                  l=2, shapes=shapes, tokens=2)
+    per_run = 3 * 2 * 2 * 7                 # (warm, eager, capture) x tokens x layers x 7
+    got = launch_counts()
+    assert (got["qgemv"], got["stream_read"], got["qgemv_bf16"], got["qmm"]) == (per_run,) * 4
+    assert all(r["graph_ms_per_token"] > 0 for r in res.values())
+    reset_launch_counts()
+    e4.main(["3"], device=dev, k=512, n=256)
+    assert launch_counts()["unpack_gemv"] == 4 * (1 + 1 + 3)     # check, warm-up, capture
+    reset_launch_counts()
+    e5.main(device=dev, m=32, reps=3, k=2048, n=1024)
+    got = launch_counts()
+    assert (got["qmm_dma"], got["qmm"]) == (1 + 3, 3 * (1 + 3))

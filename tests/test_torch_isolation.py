@@ -17,7 +17,9 @@ import chatllm_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "chatllm_tpu", "experiments")
 NEW_MODULES = ("bench", "experiments", "experiments.gemv_probe2", "models.qwen",
-               "ops.cuda.bw_probe", "ops.cuda.qmm_decode")
+               "ops.cuda.bw_probe", "ops.cuda.qmm_decode", "experiments.gemv_probe",
+               "experiments.gemv_model_bench", "experiments.gemv_unpack",
+               "experiments.qmm_m32", "experiments.timing")
 
 
 def _port_modules():
