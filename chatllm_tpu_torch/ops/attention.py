@@ -16,12 +16,22 @@ Routing follows the JAX package's conditions:
     1024-key chunks, no [T, S] score tensor);
   - otherwise the dense path below, which is the reference semantics.
 
-The JAX package takes the kernels only on a TPU; the port always takes
-them, and each kernel wrapper runs its plain PyTorch version for CPU
-tensors (that is what the CPU tests compare) and launches its CUDA kernel
-for tensors on the card.
+The JAX package's switches are read at call time, as it reads them:
+CHATLLM_TPU_FLASH=0/1 gates K3, CHATLLM_TPU_FLASH_DECODE=0/1 gates K4
+(unset: as CHATLLM_TPU_FLASH), and CHATLLM_TPU_FLASH_DECODE=1 is its forced
+mode, which sends every decode step of T <= 8 over a cache of >= 512 slots
+to K4, whatever the cache dtype and B * G * T.  K4's dot dtype
+(CHATLLM_TPU_FLASH_QK) and CHATLLM_TPU_FLASH_GROUP are read by
+`ops/cuda/flash_decode.py`.  Unset, a switch means what it means on the
+JAX package's TPU: the kernels are on.  The JAX package takes the kernels
+on the CPU only when a switch says so; the port always takes them, and
+each kernel wrapper runs its plain PyTorch version for CPU tensors (that is
+what the CPU tests compare) and launches its CUDA kernel for tensors on the
+card.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -35,7 +45,25 @@ FLASH_MIN_Q = 128               # min query tokens for the flash path
 FLASH_MIN_KV = 1024             # min cache length for the flash path
 DECODE_MAX_Q = 8                # max query tokens for the flash-decode path
 DECODE_MIN_KV = 4096            # min cache length for the flash-decode path
+DECODE_FORCED_MIN_KV = 512      # ... under CHATLLM_TPU_FLASH_DECODE=1
 DECODE_MAX_ROWS = 16            # max B * G * T for the flash-decode path
+
+
+def _switch(name: str):
+    """An environment switch "0"/"1" as a bool; None when unset or other."""
+    env = os.environ.get(name, "").strip()
+    return env == "1" if env in ("0", "1") else None
+
+
+def flash_enabled() -> bool:
+    """K3 (CHATLLM_TPU_FLASH; on unless it is 0)."""
+    return _switch("CHATLLM_TPU_FLASH") is not False
+
+
+def flash_decode_enabled() -> bool:
+    """K4 (CHATLLM_TPU_FLASH_DECODE, else as CHATLLM_TPU_FLASH)."""
+    env = _switch("CHATLLM_TPU_FLASH_DECODE")
+    return flash_enabled() if env is None else env
 
 
 def quantize_kv(x: torch.Tensor):
@@ -150,7 +178,7 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
     # bf16 one is promoted over an f32 cache, exactly), as the Pallas
     # kernel's mixed-dtype dots do; the output is q's dtype.
     if (T >= FLASH_MIN_Q and S >= FLASH_MIN_KV and k_scale is None and Dv == D
-            and not isinstance(n_past, torch.Tensor)
+            and not isinstance(n_past, torch.Tensor) and flash_enabled()
             and _pick_block(T, 512) >= 128 and _pick_block(S, 512) >= 256):
         _count("flash_attention")
         qf = q.to(torch.promote_types(q.dtype, k_cache.dtype))
@@ -159,15 +187,19 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
                               logit_softcap=logit_softcap)
         return out.to(q.dtype)
 
-    # K4 under the JAX package's conditions (attention.py:336-364, its TPU
-    # routing): decode steps over a long q8 cache with few rows.
-    if (T <= DECODE_MAX_Q and S >= DECODE_MIN_KV and causal
-            and B * G * T <= DECODE_MAX_ROWS and k_scale is not None
-            and _pick_block(S, 512, lo=128) >= 128):
-        _count("flash_decode:q8kv")
+    # K4 under the JAX package's conditions (attention.py:334-364, its TPU
+    # routing): decode steps over a long q8 cache with few rows, or under
+    # the forced mode any decode step over a cache of >= 512 slots.  The
+    # key block is the JAX route's (the int8 dots quantize p over it).
+    forced = _switch("CHATLLM_TPU_FLASH_DECODE") is True
+    block_k = _pick_block(S, 512, lo=128)
+    if (T <= DECODE_MAX_Q and S >= (DECODE_FORCED_MIN_KV if forced else DECODE_MIN_KV)
+            and causal and (forced or (B * G * T <= DECODE_MAX_ROWS and k_scale is not None))
+            and flash_decode_enabled() and block_k >= 128):
+        _count("flash_decode" + (":q8kv" if k_scale is not None else ""))
         return flash_decode(q, k_cache, v_cache, n_past, n_tokens, scale=scale,
                             sliding_window=sliding_window, logit_softcap=logit_softcap,
-                            k_scale=k_scale, v_scale=v_scale)
+                            k_scale=k_scale, v_scale=v_scale, block_k=block_k)
 
     qg = q.reshape(B, T, Hkv, G, D)
     # bf16 dots only when the cache carries no extra precision to lose: int8

@@ -120,7 +120,10 @@ FLASH = CudaKernel("flash_attention.cu", "flash_attention_launch",
 
 FLASH_DECODE = CudaKernel("flash_decode.cu", "flash_decode_launch",
                           [P, P, P, P, P, P, P, I, P, P, P, P,
-                           I, I, I, I, I, I, I, F, I, F, I, I, I, P])
+                           I, I, I, I, I, I, I, F, I, F, I, I, I, I, P])
+FLASH_DECODE_INT8 = CudaKernel("flash_decode.cu", "flash_decode_int8_launch",
+                               [P, P, P, P, P, P, P, I, P, P, P, P,
+                                I, I, I, I, I, I, I, F, I, F, I, I, P], name="flash_decode_int8")
 QMM_DECODE = CudaKernel("qmm_decode.cu", "qmm_decode_launch",
                         [P, P, I, I, I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
 BW_PROBE = CudaKernel("bw_probe.cu", "bw_probe_launch", [P, L, P, P, P, I, I, P])
@@ -136,10 +139,14 @@ UNPACK_GEMV = CudaKernel("gemv_unpack.cu", "unpack_gemv_launch",
                          [P, P, P, P, P, P, P, P, I, I, I, I, P], name="unpack_gemv")
 QMM_DMA = CudaKernel("qmm_dma.cu", "qmm_dma_launch", [P, P, P, P, I, I, I, I, P],
                      name="qmm_dma")
+QMM_UNPACK = CudaKernel("qmm_unpack.cu", "qmm_unpack_launch",
+                        [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P], name="qmm_unpack")
+QMM_UNPACK_DIAG = CudaKernel("qmm_unpack.cu", "qmm_unpack_diag_launch",
+                             [P, P, P, P, P, P, P, P, I, I, I, I, I, P], name="qmm_unpack_diag")
 
-KERNELS = {k.name: k for k in (QGEMV, QMM, FLASH, FLASH_DECODE, QMM_DECODE, BW_PROBE,
-                               GEMV_STREAM, GEMV_VPU, STREAM_READ, QGEMV_BF16, UNPACK_GEMV,
-                               QMM_DMA)}
+KERNELS = {k.name: k for k in (QGEMV, QMM, FLASH, FLASH_DECODE, FLASH_DECODE_INT8, QMM_DECODE,
+                               BW_PROBE, GEMV_STREAM, GEMV_VPU, STREAM_READ, QGEMV_BF16,
+                               UNPACK_GEMV, QMM_DMA, QMM_UNPACK, QMM_UNPACK_DIAG)}
 
 
 def build_all() -> dict:

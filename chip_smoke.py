@@ -4,10 +4,13 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build   nvcc-build every kernel library from csrc/, print the card.
-  2. kernels hold K1 qgemv, K2 qmm, K3 flash_attention, K4 flash_decode, K5
-             qmm_decode, K6 the read probe, E2's stream_once / vpu_once (also
-             at E1's 4096 x 14336), E3's stream_read / qgemv_bf16, E4's
-             unpack_gemv (modes v0-v3) and E5's qmm_dma
+  2. kernels hold K1 qgemv, K2 qmm, K3 flash_attention, K4 flash_decode
+             (also its int8 dots, its 64-row shapes, and E7's head-major
+             cache at B 32), K5 qmm_decode, K6 the read probe, E2's
+             stream_once / vpu_once (also at E1's 4096 x 14336), E3's
+             stream_read / qgemv_bf16, E4's unpack_gemv (modes v0-v3), E5's
+             qmm_dma and E6's qmm_unpack (three variants) and
+             qmm_unpack_diag (five modes)
              against their plain PyTorch versions at the Llama-3-8B shapes,
              and K1-K5 at the Qwen2.5-0.5B shapes too (q8_0 with a bias, head
              dim 64, 14 query heads over 2 kv heads)
@@ -16,9 +19,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              2e-2, and per element 2^-7 (bf16 cache, or an f32 query over
              one) or 1e-4 (f32 cache) of |o| + 4 sqrt(sum_j p_j^2 v_j^2),
              see FLASH_SCALED_TOL; K4: the same measure, 2^-7 with bf16
-             dots and 1e-4 with f32 ones, see DECODE_SCALED_TOL; stream_read,
-             qgemv_bf16 and qmm_dma: exact; unpack_gemv: 1e-5
-             of the output scale, and 1e-4 against K1), and time
+             dots and 1e-4 with f32 ones, see DECODE_SCALED_TOL; its int8
+             dots: two quantization steps, see DECODE_INT8_STEPS;
+             stream_read, qgemv_bf16 and qmm_dma: exact; unpack_gemv: 1e-5
+             of the output scale, and 1e-4 against K1; qmm_unpack and
+             qmm_unpack_diag: 1e-5 of the output scale), and time
              the kernel, the plain version and one library call (a
              yardstick the port never calls).
   3. llama3_8b  full-width Llama-3-8B (32 layers, vocab 128256, random q4_k
@@ -43,6 +48,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              weights (1e-3 of the logit scale, same argmax): a 40-token
              prefill, and one batched decode step of 4 slots at per-row
              n_past over a q8 cache.
+     int8_engine  the same model over a q8 cache under
+             CHATLLM_TPU_FLASH_QK=int8: the first decode step after the
+             1000-token prompt against the bf16-dot run (INT8_LOGIT_TOL, same
+             argmax), then 16 greedy tokens, K4's int8 dots launched 32
+             times per decode step.
+     switches  CHATLLM_TPU_FLASH_DECODE=1 (forced) and =0 on a bf16 cache at
+             B = 8 through BatchedEngine (K4 32 times per batched step, or
+             never), CHATLLM_TPU_FLASH=0 on the 1000-token prefill (no K3).
   7. qwen2   full-width Qwen2.5-0.5B (24 layers, vocab 151936, random q8_0
              weights with non-zero q/k/v biases, tied lm_head, max_length
              8192) through InferenceEngine over bf16 and q8 caches with exact
@@ -66,7 +79,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              mode checked against K1, then timed over 2048 chained calls.
  13. e5      `chatllm_tpu_torch.experiments.qmm_m32.main`: the copy-only
              pass and K2 at M = 32 (q4k, q8, q4), 2048 chained calls each.
-             Phases 9-13 count every kernel's launches exactly.
+ 14. e6      `chatllm_tpu_torch.experiments.qmm_unpack_variants.main`: the
+             five diagnostic bodies and the three variants at M 32, K 4096,
+             N 14336, each checked against K2, 2048 chained calls each.
+ 15. e7      `chatllm_tpu_torch.experiments.bhsd_decode.main`: the 8
+             variant/cache combinations of a Llama-3-8B decode step at B 32
+             over 1024 slots, 48 steps eagerly and as a CUDA-graph replay.
+             Phases 9-15 count every kernel's launches exactly.
 Then it prints the kernels line, the card line and, last, the result line.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -374,6 +393,9 @@ def kernels_phase(dev, timer) -> dict:
     res.update(gemv_model_cases(dev, timer, gen))
     res["unpack_gemv"] = unpack_cases(dev, timer, gen)
     res["qmm_dma"] = dma_case(dev, timer, gen)
+    res["flash_decode_int8"] = decode_int8_cases(dev, timer, gen)
+    res["flash_decode_e7"] = e7_cases(dev, timer, gen)
+    res.update(e6_cases(dev, timer, gen))
     return res
 
 
@@ -663,6 +685,62 @@ def flash_decode_errors(o, q, k, v, n_past, n_tokens: int, *, sinks=None, v_scal
     return diff.max().item(), (diff / denom).max().item()
 
 
+# The first decode step's logits with K4's int8 dots against the bf16-dot
+# run's: 0.03 of the logit scale, the JAX package's own bound on the
+# int8-dot attention output (0.03 of its row max,
+# tests/test_flash_decode.py::test_flash_decode_batched_int8_dots) carried
+# to the logits row, and the same argmax (PERF.md section 6).
+INT8_LOGIT_TOL = 0.03
+
+# K4's int8 dots against their plain version: both quantize q and p * v_scale
+# to int8 and sum integer products exactly, so they differ only where float
+# rounding (exp, the division by psc) moves a quantized q or p by one step.
+# One step of pq in key j's block moves an output by psc * |v8_j| / l <=
+# max_i(P_i * v_scale_i) * max_j |v8_j| / 127, P the row's probabilities
+# (`int8_step`).  The limit is DECODE_INT8_STEPS such steps per element,
+# beside the output's rounding to q's dtype: both round to bf16, and a
+# rounding on either side of a boundary differs by one bf16 ulp, at most
+# 2^-7 of the larger value.
+DECODE_INT8_STEPS = 2.0
+
+
+def int8_step(q, k, v, n_past, n_tokens: int, *, k_scale, v_scale, sinks=None,
+              **kw) -> torch.Tensor:
+    """One quantization step of pq as an output difference, per row: [B, T, Hq, 1]."""
+    from chatllm_tpu_torch.ops.cuda.flash_decode import decode_scores
+
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    s = decode_scores(q, k, n_past, n_tokens, scale=kw["scale"],
+                      sliding_window=kw.get("sliding_window", 0),
+                      logit_softcap=kw.get("logit_softcap", 0.0), k_scale=k_scale,
+                      qk_dtype="int8")
+    m = s.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sk = sinks.float().reshape(Hkv, Hq // Hkv)[None, :, :, None, None]
+        m = torch.maximum(m, sk)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        den = den + torch.exp(sk - m)
+    pv = (p / den * v_scale.float().transpose(1, 2)[:, :, None, None, :]).amax(dim=-1)
+    vmax = v.float().abs().amax(dim=(1, 3))[:, :, None, None]                # [B, Hkv, 1, 1]
+    return (pv * vmax / 127.0).permute(0, 3, 1, 2).reshape(B, T, Hq, 1)
+
+
+def flash_decode_int8_errors(o, q, k, v, n_past, n_tokens: int, **kw) -> tuple[float, float]:
+    """(max abs error, max error in steps as in DECODE_INT8_STEPS) of a K4
+    int8-dot output against its plain version on the same inputs."""
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode_plain
+
+    ref = flash_decode_plain(q, k, v, n_past, n_tokens, qk_dtype="int8", **kw).float()
+    step = int8_step(q, k, v, n_past, n_tokens, **kw)
+    diff = (o.float() - ref).abs()
+    if o.dtype == torch.bfloat16:
+        diff = (diff - 2.0 ** -7 * torch.maximum(o.float().abs(), ref.abs())).clamp_(min=0.0)
+    return (o.float() - ref).abs().max().item(), (diff / (step + 1e-30)).max().item()
+
+
 def flash_cases(dev, timer, gen) -> dict:
     from chatllm_tpu_torch.ops.cuda.flash import flash_attention, flash_attention_plain
 
@@ -752,6 +830,25 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 1, 14, 2, 64, [1000], "int8", "bfloat16", {}, "decode_1000_qwen"),
     (2, 1, 14, 2, 64, [10, 8000], "int8", "bfloat16", {}, None),
     (1, 2, 14, 2, 64, [4000], "int8", "float32", {}, None),
+    # CHATLLM_TPU_FLASH_DECODE=1 sends T <= 8 over any cache: up to 64 rows
+    (1, 8, 14, 2, 64, [1000], "bfloat16", "float32", {}, None),   # Qwen, G*T = 56
+    (2, 8, 32, 8, 128, [500, 3000], "bfloat16", "bfloat16", {}, None),
+    (1, 8, 32, 4, 128, [7000], "int8", "bfloat16", {}, None),     # G*T = 64
+]
+
+# K4's int8 dots at Llama-3-8B's q8 shapes, S 8192, block_k 512 (the route's)
+# (B, T, Hq, Hkv, D, n_past, extra, timed as)
+DECODE_INT8_CASES = [
+    (1, 1, 32, 8, 128, [1000], {}, "decode_1000"),
+    (1, 1, 32, 8, 128, [8000], {}, None),
+    (4, 1, 32, 8, 128, [10, 1000, 4095, 8000], {}, None),
+    (2, 2, 32, 8, 128, [3000, 6000], {}, None),
+    (1, 1, 32, 8, 128, [5000], {"sliding_window": 256, "logit_softcap": 30.0}, None),
+    (1, 1, 32, 8, 128, [3000], {"sinks": True}, None),
+    (1, 1, 32, 8, 128, [1000], {"q": torch.float32}, None),
+    (1, 1, 32, 8, 128, [2500], {"block_k": 256}, None),
+    (2, 8, 32, 4, 128, [100, 7000], {}, None),                     # G*T = 64
+    (1, 1, 8, 1, 128, [2000], {}, None),                           # one kv head
 ]
 
 
@@ -761,9 +858,8 @@ def decode_cases(dev, timer, gen) -> dict:
     from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
 
     out = {"cases": [], "shapes": {}}
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed in DECODE_CASES:
-        S, G = DECODE_S, Hq // Hkv
+        S = DECODE_S
         # bf16 dots take the model's bf16 query; f32 dots an f32 one
         q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(getattr(torch, dots))
         k = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
@@ -796,24 +892,190 @@ def decode_cases(dev, timer, gen) -> dict:
             b_ms, b_by = bound(nbytes(q, o) + sum(live) * per_key,
                                4.0 * D * Hq * T * sum(live),
                                BF16_TC_FLOPS if dots == "bfloat16" else F32_FLOPS)
-            # yardstick: SDPA over the cache dequantized to bf16 beforehand
-            kd, vd = ((t.float() * sc[..., None]).to(torch.bfloat16)
-                      for t, sc in ((k, kw["k_scale"]), (v, kw["v_scale"])))
-            kt = kd.transpose(1, 2).repeat_interleave(G, dim=1)
-            vt = vd.transpose(1, 2).repeat_interleave(G, dim=1)
-            qt = q.transpose(1, 2)
-            qp = npv[:, None, None, None] + torch.arange(T, device=dev)[None, None, :, None]
-            mask = torch.arange(S, device=dev)[None, None, None, :] <= qp
             out["shapes"][timed] = {
                 "B": B, "T": T, "S": S, "n_past": n_past, "live_keys": live,
                 "ms": timer(lambda: flash_decode(q, k, v, npv, T, **kw)),
                 "plain_ms": timer(lambda: flash_decode_plain(q, k, v, npv, T, **kw), iters=5),
-                "library_ms": timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                                 scale=kw["scale"])),
+                "library_ms": timer(_sdpa_over_dequantized(q, k, v, npv, T, kw["scale"],
+                                                           kw["k_scale"], kw["v_scale"])),
                 "bound_ms": b_ms, "bound_by": b_by}
             log(f"    timing {out['shapes'][timed]}")
-            del kd, vd, kt, vt, mask
         del q, k, v, o
+    return out
+
+
+def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_scale=None,
+                           head_major: bool = False):
+    """The library yardstick of K4: SDPA over the cache dequantized to bf16
+    beforehand, causal mask by position (returns a zero-argument call)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, _, Hq, _ = q.shape
+    if k_scale is not None:
+        k, v = ((t.float() * sc[..., None]).to(torch.bfloat16)
+                for t, sc in ((k, k_scale), (v, v_scale)))
+    # [B, Hkv, S, D]
+    kt, vt = (t if head_major else t.transpose(1, 2) for t in (k, v))
+    G = Hq // kt.shape[1]
+    kt, vt = kt.repeat_interleave(G, dim=1), vt.repeat_interleave(G, dim=1)
+    qt = q.transpose(1, 2).to(kt.dtype)
+    S = kt.shape[2]
+    qp = npv[:, None, None, None] + torch.arange(T, device=q.device)[None, None, :, None]
+    mask = torch.arange(S, device=q.device)[None, None, None, :] <= qp
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale)
+
+
+def decode_int8_cases(dev, timer, gen) -> dict:
+    """K4's int8 dots against their plain version (DECODE_INT8_STEPS) at
+    Llama-3-8B's q8 shapes over an 8192-slot cache."""
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+
+    out = {"cases": [], "shapes": {}}
+    for B, T, Hq, Hkv, D, n_past, extra, timed in DECODE_INT8_CASES:
+        S = DECODE_S
+        q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(extra.get("q", torch.bfloat16))
+        (k, ks), (v, vs) = (quantize_kv(torch.randn(B, S, Hkv, D, generator=gen, device=dev))
+                            for _ in range(2))
+        kw = dict(scale=D ** -0.5, k_scale=ks, v_scale=vs, block_k=extra.get("block_k", 512),
+                  sliding_window=extra.get("sliding_window", 0),
+                  logit_softcap=extra.get("logit_softcap", 0.0))
+        if extra.get("sinks"):
+            kw["sinks"] = torch.randn(Hq, generator=gen, device=dev)
+        npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
+        o = flash_decode(q, k, v, npv, T, qk_dtype="int8", **kw)
+        err, steps = flash_decode_int8_errors(o, q, k, v, npv, T, **kw)
+        name = f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} n_past={n_past} q {q.dtype} {extra}"
+        log(f"  flash_decode int8 {name}  max_abs_err={err:.3e} steps={steps:.3f}")
+        if not (o.dtype == q.dtype and torch.isfinite(o).all() and steps <= DECODE_INT8_STEPS):
+            raise AssertionError(f"flash_decode int8 {name}: {steps} steps (limit "
+                                 f"{DECODE_INT8_STEPS}), err {err}")
+        out["cases"].append({"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D, "n_past": n_past,
+                             "extra": str(extra), "max_abs_err": err, "steps": steps})
+        if timed:
+            live = [min(n + T, S) for n in n_past]
+            b_ms, b_by = bound(nbytes(q, o) + sum(live) * Hkv * (2 * D + 8),
+                               4.0 * D * Hq * T * sum(live), BF16_TC_FLOPS)
+            out["shapes"][timed] = {
+                "B": B, "T": T, "S": S, "n_past": n_past, "live_keys": live,
+                "ms": timer(lambda: flash_decode(q, k, v, npv, T, qk_dtype="int8", **kw)),
+                "plain_ms": timer(lambda: flash_decode_plain(q, k, v, npv, T, qk_dtype="int8",
+                                                             **kw), iters=5),
+                "library_ms": timer(_sdpa_over_dequantized(q, k, v, npv, T, kw["scale"], ks, vs)),
+                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"    timing {out['shapes'][timed]}")
+        del q, k, v, o
+    return out
+
+
+# E7's attention on K4: B 32, Llama-3-8B's heads, a head-major [B, Hkv, S, D]
+# cache of 1024 slots read as a permuted view, f32 dots, an f32 query
+E7_CASES = [(47, "int8", "e7_step_q8"), (47, "bfloat16", "e7_step_bf16"), (0, "int8", None),
+            (700, "int8", None), (511, "bfloat16", None)]
+
+
+def e7_cases(dev, timer, gen) -> dict:
+    """K4 under experiments/bhsd_decode.py's call site, against its plain
+    version on the same views (DECODE_SCALED_TOL, f32)."""
+    from chatllm_tpu_torch.experiments import bhsd_decode as e7
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode_plain
+
+    B, T, Hq, Hkv, D, S = e7.B, 1, 32, 8, 128, e7.CTX
+    out = {"cases": [], "shapes": {}}
+    for n_past, cache, timed in E7_CASES:
+        q = torch.randn(B, T, Hq, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, Hkv, S, D, generator=gen, device=dev) for _ in range(2))
+        kw = {}
+        if cache == "int8":
+            (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        o = e7.pallas_decode_bhsd(q, k, v, n_past, scale=D ** -0.5, **kw)
+        views = dict(k_scale=kw["k_scale"].permute(0, 2, 1),
+                     v_scale=kw["v_scale"].permute(0, 2, 1)) if kw else {}
+        kv, vv = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        npv = torch.full((B,), n_past, dtype=torch.int64, device=dev)
+        err, scaled = flash_decode_errors(o, q, kv, vv, npv, T, scale=D ** -0.5,
+                                          qk_dtype="float32", **views)
+        log(f"  flash_decode (E7, head-major) B={B} n_past={n_past} {cache}  "
+            f"max_abs_err={err:.3e} scaled={scaled:.2e}")
+        lim = DECODE_SCALED_TOL["float32"]
+        if not (torch.isfinite(o).all() and err <= DECODE_ATOL and scaled <= lim):
+            raise AssertionError(f"flash_decode E7 n_past={n_past} {cache}: err {err}, "
+                                 f"scaled {scaled} (limit {lim})")
+        out["cases"].append({"B": B, "n_past": n_past, "cache": cache, "max_abs_err": err,
+                             "scaled_err": scaled})
+        if timed:
+            live = n_past + T
+            per_key = Hkv * (2 * D * k.element_size() + (8 if cache == "int8" else 0))
+            b_ms, b_by = bound(nbytes(q, o) + B * live * per_key, 4.0 * D * Hq * T * live * B,
+                               F32_FLOPS)
+            out["shapes"][timed] = {
+                "B": B, "S": S, "n_past": n_past, "cache": cache,
+                "ms": timer(lambda: e7.pallas_decode_bhsd(q, k, v, n_past, scale=D ** -0.5,
+                                                          **kw)),
+                "plain_ms": timer(lambda: flash_decode_plain(q, kv, vv, n_past, T,
+                                                             scale=D ** -0.5,
+                                                             qk_dtype="float32", **views),
+                                  iters=5),
+                "library_ms": timer(_sdpa_over_dequantized(
+                    q, k, v, npv, T, D ** -0.5, kw.get("k_scale"), kw.get("v_scale"),
+                    head_major=True)),
+                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"    timing {out['shapes'][timed]}")
+        del q, k, v, o
+    return out
+
+
+E6_TOL = 1e-5       # of the output scale: the same bf16 roundings, f32 sums in another order
+
+
+def e6_cases(dev, timer, gen) -> dict:
+    """E6's two kernels at M 32, K 4096, N 14336 on a random q4_k weight:
+    each template-(a) variant and each diagnostic mode against its plain
+    version (E6_TOL), timed (the weight fits the 50 MB L2: the timer
+    flushes it before every launch)."""
+    from chatllm_tpu_torch.experiments import qmm_unpack_variants as e6
+    from chatllm_tpu_torch.models.synthetic import synth_linear
+    from chatllm_tpu_torch.ops.qmm import dequant_weight
+
+    lin = synth_linear(e6.K, e6.N, "q4k", gen=gen, zeros=False, device=dev)
+    arrays = (lin.q, lin.s, lin.b, lin.d, lin.dm)
+    x = torch.randn(e6.M, e6.K, generator=gen, device=dev)
+    xs = e6.group_sums(x)
+    xb, w_bf16 = x.to(torch.bfloat16), dequant_weight(lin, torch.bfloat16)
+    out = {name: {"cases": [], "shapes": {}} for name in ("qmm_unpack", "qmm_unpack_diag")}
+    runs = [("qmm_unpack", name, dict(unpack=u, biasdot=b)) for name, u, b in e6.VARIANTS]
+    runs += [("qmm_unpack_diag", f"diag_{m}", dict(mode=m)) for m in e6.DIAG_MODES]
+    for kernel, name, kw in runs:
+        if kernel == "qmm_unpack":
+            def fn(kw=kw):
+                return e6.qmm_unpack(x, xs, *arrays, **kw)
+
+            def plain(kw=kw):
+                return e6.qmm_unpack_plain(x, xs, *arrays, **kw)
+        else:
+            def fn(kw=kw):
+                return e6.qmm_unpack_diag(x, *arrays, **kw)
+
+            def plain(kw=kw):
+                return e6.qmm_unpack_diag_plain(x, *arrays, **kw)
+        y, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(y, ref)
+        log(f"  {kernel} {name:16s} M={e6.M} K={e6.K} N={e6.N}  max_abs_err={err:.3e} "
+            f"rel={rel:.2e}")
+        if not (torch.isfinite(y).all() and rel <= E6_TOL):
+            raise AssertionError(f"{kernel} {name}: rel err {rel} > {E6_TOL}")
+        out[kernel]["cases"].append({"variant": name, "max_abs_err": err, "rel": rel})
+        b_ms, b_by = bound(nbytes(*arrays, x, y) + (nbytes(xs) if kw.get("biasdot") else 0),
+                           2.0 * e6.M * e6.K * e6.N, BF16_TC_FLOPS)
+        r = {"M": e6.M, "K": e6.K, "N": e6.N, "ms": timer(fn), "plain_ms": timer(plain, iters=5),
+             # a yardstick over other inputs: the weight dequantized to bf16 beforehand
+             "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"    timing {name} {r}")
+        out[kernel]["shapes"][name] = r
     return out
 
 
@@ -1386,6 +1648,190 @@ def e5_phase() -> dict:
     return res
 
 
+def e6_phase(dev) -> dict:
+    """The E6 probe's own entry point at the original's sizes: the five
+    diagnostic bodies and the three variants, each checked against K2 and
+    timed over REPS chained calls replayed from a CUDA graph.  K2 adds the
+    affine term in f32 from group sums of x, as biasdot does, so the biasdot
+    variants are held to the original's 1e-3; v0 rounds it into every bf16
+    weight and misses 1e-3 by design, so its error is held to the plain
+    versions' on the CPU (the same check, 1.84e-3) within 1e-4."""
+    from chatllm_tpu_torch.experiments import qmm_unpack_variants as e6
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = e6.main([])
+    res["launches"] = got = launch_counts()
+    want = {"qmm_unpack": len(e6.VARIANTS) * (e6.REPS + 2),       # check, warm-up, capture
+            "qmm_unpack_diag": len(e6.DIAG_MODES) * (e6.REPS + 1), "qmm": len(e6.VARIANTS)}
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"e6 launches {got}, expected {want}")
+    for name, unpack, biasdot in e6.VARIANTS:
+        err, cpu = res[name]["err"], e6.check_correct(unpack, biasdot, device="cpu")
+        res[name]["err_cpu"] = cpu
+        log(f"  e6 {name:15s} check against K2 {err:.3e} (plain versions on the CPU "
+            f"{cpu:.3e}); {res[name]['ms']:.4f} ms, {res[name]['gb_s']:.1f} GB/s")
+        if (biasdot and err > e6.CHECK_TOL) or abs(err - cpu) > 1e-4:
+            raise AssertionError(f"e6 {name}: check against K2 {err}, on the CPU {cpu}")
+    return res
+
+
+def e7_phase() -> dict:
+    """The E7 probe's own entry point at B 32, ctx 1024, 48 steps: all 8
+    combinations, each 48-step loop run eagerly 4 times (warm-up, 3 timed)
+    and captured once into a CUDA graph, whose replays go through no
+    wrapper."""
+    from chatllm_tpu_torch.experiments import bhsd_decode as e7
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = e7.main([])
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = got = launch_counts()
+    passes = 5 * e7.STEPS                        # warm-up, 3 eager, capture
+    per_step = N_LAYERS * 7 + 1                  # K2 projections + the lm_head
+    n_k4 = sum(v == "pallas_bhsd" for _, v in e7.COMBOS)
+    want = {"qmm": len(e7.COMBOS) * passes * per_step, "flash_decode": n_k4 * passes * N_LAYERS,
+            "flash_decode_int8": 0, "qgemv": 0}
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"e7 launches {got}, expected {want}")
+    for key, r in res.items():
+        if key != "launches":
+            log(f"  e7 {key:22s} eager {r['tok_s']:8.1f} tok/s, graph {r['graph_tok_s']:8.1f} "
+                f"tok/s")
+    return res
+
+
+def int8_engine_phase(dev, cfg, params) -> dict:
+    """Llama-3-8B at full width over a q8 cache under CHATLLM_TPU_FLASH_QK=int8:
+    the first decode step after the 1000-token prompt against the bf16-dot
+    run's (INT8_LOGIT_TOL of the logit scale, the same argmax), then 16
+    greedy tokens with K4's int8 dots on every layer of every decode step."""
+    import os
+
+    from chatllm_tpu_torch.nn.transformer import transformer_forward
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    eng = InferenceEngine(replace(cfg, cache_dtype="int8"), params, device=dev)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 1000).tolist()
+    first, res = {}, {}
+    try:
+        for mode in ("bf16", "int8"):
+            os.environ["CHATLLM_TPU_FLASH_QK"] = mode
+            cache = eng.new_cache(1)
+            reset_launch_counts()
+            with torch.inference_mode():
+                logits, cache, n = eng.prefill(ids, cache, 0)
+                tok = logits[0].argmax().reshape(1, 1)
+                step, _ = transformer_forward(eng.cfg, params, tok, cache, n)
+            first[mode] = step[0, -1].float()
+            res[f"first_step_launches_{mode}"] = launch_counts()
+            del cache
+        cmp = _compare_logits("first decode step, int8 dots vs bf16 dots", first["int8"],
+                              first["bf16"].cpu(), INT8_LOGIT_TOL)
+        res["first_step"] = cmp
+        want = {"flash_decode_int8": N_LAYERS, "flash_decode": 0}
+        got = res["first_step_launches_int8"]
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"int8 first step launches {got}, expected {want}")
+        reset_launch_counts()
+        gcfg = GenerationConfig(do_sample=False, max_new_tokens=16)
+        out, _, _ = eng.generate(ids, gcfg)
+        torch.cuda.synchronize()
+        res["launches"] = got = launch_counts()
+        res["tokens_int8"] = out
+    finally:
+        os.environ.pop("CHATLLM_TPU_FLASH_QK", None)
+    steps = len(out) - 1
+    log(f"  int8 dots: 16 greedy tokens {out}, launches {got}")
+    if len(out) != 16 or got["flash_decode_int8"] != N_LAYERS * steps or got["flash_decode"]:
+        raise AssertionError(f"int8 run: {len(out)} tokens, K4 int8 launched "
+                             f"{got['flash_decode_int8']} times (expected {N_LAYERS * steps}), "
+                             f"bf16-dot K4 {got['flash_decode']}")
+    res["flash_decode_int8_per_step"] = got["flash_decode_int8"] / steps
+    return res
+
+
+def switch_phase(dev, cfg, params) -> dict:
+    """The attention switches on the card: CHATLLM_TPU_FLASH_DECODE=1 (the
+    forced mode) on a bf16 cache at B = 8 through BatchedEngine takes K4 on
+    every layer of every batched decode step, =0 none; CHATLLM_TPU_FLASH=0
+    takes no K3 on the 1000-token prefill."""
+    import os
+
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.sampling import SamplerConfig
+    from chatllm_tpu_torch.runtime import batching
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine
+
+    calls = []
+    forward = batching.transformer_forward
+
+    def counted(cfg_, params_, x, *a, **kw):
+        calls.append(x.shape[0])
+        return forward(cfg_, params_, x, *a, **kw)
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, 20 + 7 * i).tolist() for i in range(8)]
+    res = {}
+    batching.transformer_forward = counted
+    try:
+        for value in ("1", "0"):
+            os.environ["CHATLLM_TPU_FLASH_DECODE"] = value
+            calls.clear()
+            reset_launch_counts()
+            eng = batching.BatchedEngine(cfg, params, max_slots=8, max_length=2048,
+                                         decode_block=4, scfg=SamplerConfig(do_sample=False),
+                                         device=dev)
+            try:
+                toks = [list(h) for h in [eng.submit(p, max_new=16) for p in prompts]]
+            finally:
+                eng.shutdown()
+            torch.cuda.synchronize()
+            got = launch_counts()
+            steps = sum(b == 8 for b in calls)
+            res[f"flash_decode_{value}"] = {"launches": got, "batched_steps": steps,
+                                           "tokens": toks}
+            log(f"  CHATLLM_TPU_FLASH_DECODE={value}, bf16 cache, B=8: {steps} batched steps, "
+                f"K4 launches {got['flash_decode']}")
+            want = N_LAYERS * steps if value == "1" else 0
+            if got["flash_decode"] != want or steps == 0 or any(len(t) != 16 for t in toks):
+                raise AssertionError(f"CHATLLM_TPU_FLASH_DECODE={value}: K4 {got['flash_decode']} "
+                                     f"(expected {want}), {steps} steps, {toks}")
+    finally:
+        batching.transformer_forward = forward
+        os.environ.pop("CHATLLM_TPU_FLASH_DECODE", None)
+    a, b = res["flash_decode_1"]["tokens"], res["flash_decode_0"]["tokens"]
+    res["tokens_equal_share"] = float(np.mean([x == y for s, t in zip(a, b) for x, y in zip(s, t)]))
+    log(f"  forced K4 against the dense path: {res['tokens_equal_share']:.3f} of the tokens equal")
+
+    eng = InferenceEngine(cfg, params, device=dev)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 1000).tolist()
+    logits = {}
+    for value in ("0", None):
+        if value is not None:
+            os.environ["CHATLLM_TPU_FLASH"] = value
+        try:
+            reset_launch_counts()
+            logits[value] = eng.prefill(ids, eng.new_cache(1, 8192), 0)[0]
+            torch.cuda.synchronize()
+            got = launch_counts()
+        finally:
+            os.environ.pop("CHATLLM_TPU_FLASH", None)
+        want = 0 if value == "0" else N_LAYERS
+        log(f"  CHATLLM_TPU_FLASH={value}: 1000-token prefill, K3 launches "
+            f"{got['flash_attention']}")
+        if got["flash_attention"] != want:
+            raise AssertionError(f"CHATLLM_TPU_FLASH={value}: K3 launched "
+                                 f"{got['flash_attention']} times, expected {want}")
+    err, rel = rel_err(logits["0"], logits[None])
+    res["flash_off_vs_on"] = {"max_abs_err": err, "rel": rel}
+    log(f"  prefill logits without K3 against K3's: {rel:.2e} of the logit scale")
+    return res
+
+
 # ---------------------------------------------------------------- report
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
@@ -1410,6 +1856,13 @@ KERNEL_META = {
     "unpack_gemv": ("chatllm_tpu_torch/csrc/gemv_unpack.cu",
                     "experiments/gemv_unpack.py:99, experiments/gemv_unpack.py:146"),
     "qmm_dma": ("chatllm_tpu_torch/csrc/qmm_dma.cu", "experiments/qmm_m32.py:83"),
+    "flash_decode_int8": ("chatllm_tpu_torch/csrc/flash_decode.cu",
+                          "chatllm_tpu/ops/pallas/flash_decode.py:409"),
+    "flash_decode_e7": ("chatllm_tpu_torch/csrc/flash_decode.cu", "experiments/bhsd_decode.py:51"),
+    "qmm_unpack": ("chatllm_tpu_torch/csrc/qmm_unpack.cu",
+                   "experiments/qmm_unpack_variants.py:230, experiments/qmm_unpack_variants.py:283"),
+    "qmm_unpack_diag": ("chatllm_tpu_torch/csrc/qmm_unpack.cu",
+                        "experiments/qmm_unpack_variants.py:230"),
 }
 
 
@@ -1428,11 +1881,17 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     lm_head), bw_probe = one pass over 256 MiB, gemv_stream / gemv_vpu = one
     call at 4096 x 16384 (E2's shape), stream_read / qgemv_bf16 = one decode
     token of E3 (32 x 7 projections), unpack_gemv = one call of each of its
-    four modes at 4096 x 14336, qmm_dma = one pass over 4096 x 14336.
-    `launches` counts each kernel on its own path: K1-K3 on the bf16-cache
-    chat path, K4 on the q8-cache one, K5 on the bench's batched section
-    under CHATLLM_TPU_QMM_V2=1, K6 in the bench, E2's two in E2's and E1's
-    mains together, the others in their probe's main."""
+    four modes at 4096 x 14336, qmm_dma = one pass over 4096 x 14336,
+    flash_decode_int8 = one decode step after the 1000-token prompt (32
+    layers), flash_decode_e7 = one E7 decode step over the q8 cache at
+    n_past 47 (32 layers), qmm_unpack = one call of each of E6's three
+    variants and qmm_unpack_diag of each of its five modes at M 32, K 4096,
+    N 14336.  `launches` counts each kernel on its own path: K1-K3 on the
+    bf16-cache chat path, K4 on the q8-cache one (its int8 dots on the
+    int8 engine run, and under E7's call site in E7's main), K5 on the
+    bench's batched section under CHATLLM_TPU_QMM_V2=1, K6 in the bench,
+    E2's two in E2's and E1's mains together, the others in their probe's
+    main."""
     mult = {"qgemv": _per_token(N_LAYERS, True), "qmm": _per_token(N_LAYERS, False),
             "flash_attention": {"prefill_1000": N_LAYERS},
             "flash_decode": {"decode_1000": N_LAYERS},
@@ -1442,7 +1901,12 @@ def kernels_line(kres: dict, launches: dict) -> dict:
             "stream_read": _per_token(N_LAYERS, False),
             "qgemv_bf16": _per_token(N_LAYERS, False),
             "unpack_gemv": {"v0": 1, "v1": 1, "v2": 1, "v3": 1},
-            "qmm_dma": {"4096x14336": 1}}
+            "qmm_dma": {"4096x14336": 1},
+            "flash_decode_int8": {"decode_1000": N_LAYERS},
+            "flash_decode_e7": {"e7_step_q8": N_LAYERS},
+            "qmm_unpack": {name: 1 for name in ("v0_current", "v4_biasdot", "v5_f32+biasdot")},
+            "qmm_unpack_diag": {f"diag_{m}": 1 for m in ("noscale", "nounpack", "storeonly",
+                                                         "splitstore", "splitstore_bias")}}
     entries = []
     for name, (src, rep) in KERNEL_META.items():
         entries.append(_line_entry(name, src, rep, kres[name]["shapes"], mult[name],
@@ -1542,6 +2006,14 @@ def main() -> int:
 
     log("== two_layer")
     report["two_layer"] = two_layer_phase(dev, cfg, params)
+    torch.cuda.empty_cache()
+
+    log("== int8_engine")
+    report["int8_engine"] = int8_engine_phase(dev, cfg, params)
+    torch.cuda.empty_cache()
+
+    log("== switches")
+    report["switches"] = switch_phase(dev, cfg, params)
     del params
     gc.collect()              # the server's objects held the params in cycles
     torch.cuda.empty_cache()
@@ -1568,6 +2040,14 @@ def main() -> int:
 
     log("== e5")
     report["e5"] = e5_phase()
+    torch.cuda.empty_cache()
+
+    log("== e6")
+    report["e6"] = e6_phase(dev)
+    torch.cuda.empty_cache()
+
+    log("== e7")
+    report["e7"] = e7_phase()
     report["seconds"] = time.perf_counter() - t_start
     log(f"== all phases passed in {report['seconds']:.0f} s")
 
@@ -1584,7 +2064,11 @@ def main() -> int:
                     stream_read=report["e3"]["launches"]["stream_read"],
                     qgemv_bf16=report["e3"]["launches"]["qgemv_bf16"],
                     unpack_gemv=report["e4"]["launches"]["unpack_gemv"],
-                    qmm_dma=report["e5"]["launches"]["qmm_dma"])
+                    qmm_dma=report["e5"]["launches"]["qmm_dma"],
+                    flash_decode_int8=report["int8_engine"]["launches"]["flash_decode_int8"],
+                    flash_decode_e7=report["e7"]["launches"]["flash_decode"],
+                    qmm_unpack=report["e6"]["launches"]["qmm_unpack"],
+                    qmm_unpack_diag=report["e6"]["launches"]["qmm_unpack_diag"])
     print(json.dumps(kernels_line(report["kernels"], launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

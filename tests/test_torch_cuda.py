@@ -375,3 +375,99 @@ def test_probe_mains_at_a_small_size(dev):
     e5.main(device=dev, m=32, reps=3, k=2048, n=1024)
     got = launch_counts()
     assert (got["qmm_dma"], got["qmm"]) == (1 + 3, 3 * (1 + 3))
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,n_past,block_k,extra", [
+    (1, 1, 32, 8, [1000], 512, {}), (3, 2, 16, 4, [5, 600, 2047], 256, {}),
+    (2, 8, 32, 4, [100, 1500], 512, {}), (1, 1, 8, 1, [900], 512, {"sinks": True}),
+    (1, 1, 32, 8, [1800], 512, {"sliding_window": 300, "logit_softcap": 30.0})])
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_flash_decode_int8_kernel(dev, B, T, Hq, Hkv, n_past, block_k, extra, q_dtype):
+    """K4's int8 dots against their plain version: chip_smoke's
+    DECODE_INT8_STEPS, its own launch count."""
+    import chip_smoke
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.build import KERNELS
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(B * 10 + T)
+    S, D = 2048, 128
+    q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(getattr(torch, q_dtype))
+    (k, ks), (v, vs) = (quantize_kv(torch.randn(B, S, Hkv, D, generator=gen, device=dev))
+                        for _ in range(2))
+    kw = dict(scale=D ** -0.5, k_scale=ks, v_scale=vs, block_k=block_k,
+              sliding_window=extra.get("sliding_window", 0),
+              logit_softcap=extra.get("logit_softcap", 0.0))
+    if extra.get("sinks"):
+        kw["sinks"] = torch.randn(Hq, generator=gen, device=dev)
+    npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
+    before = (KERNELS["flash_decode_int8"].launches, KERNELS["flash_decode"].launches)
+    o = flash_decode(q, k, v, npv, T, qk_dtype="int8", **kw)
+    assert (KERNELS["flash_decode_int8"].launches, KERNELS["flash_decode"].launches) == \
+        (before[0] + 1, before[1])
+    _, steps = chip_smoke.flash_decode_int8_errors(o, q, k, v, npv, T, **kw)
+    assert o.dtype == q.dtype and steps <= chip_smoke.DECODE_INT8_STEPS
+
+
+@pytest.mark.parametrize("cache", ["int8", "bfloat16"])
+@pytest.mark.parametrize("n_past", [0, 47, 700])
+def test_flash_decode_on_a_head_major_cache(dev, cache, n_past):
+    """E7's call: K4 on a [B, Hkv, S, D] cache and [B, Hkv, S] scales, read
+    through their strides, against its plain version (f32 dots)."""
+    import chip_smoke
+    from chatllm_tpu_torch.experiments import bhsd_decode as e7
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(n_past)
+    B, Hq, Hkv, S, D = 4, 32, 8, 1024, 128
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev)
+    k, v = (torch.randn(B, Hkv, S, D, generator=gen, device=dev) for _ in range(2))
+    kw = {}
+    if cache == "int8":
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    o = e7.pallas_decode_bhsd(q, k, v, n_past, scale=D ** -0.5, **kw)
+    views = {n: t.permute(0, 2, 1) for n, t in kw.items()}
+    err, scaled = chip_smoke.flash_decode_errors(o, q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                                                 n_past, 1, scale=D ** -0.5, qk_dtype="float32",
+                                                 **views)
+    assert err <= chip_smoke.DECODE_ATOL and scaled <= chip_smoke.DECODE_SCALED_TOL["float32"]
+
+
+@pytest.mark.parametrize("M,K,N,tile_k", [(32, 512, 256, 512), (32, 4096, 1024, 2048),
+                                          (5, 1024, 128, 256), (64, 2048, 192, 1024)])
+def test_qmm_unpack_kernels(dev, M, K, N, tile_k):
+    """E6's two templates against their plain versions (chip_smoke.E6_TOL)."""
+    import chip_smoke
+    from chatllm_tpu_torch.experiments import qmm_unpack_variants as e6
+    from chatllm_tpu_torch.models.synthetic import synth_linear
+
+    gen = torch.Generator(device=dev).manual_seed(M + K)
+    lin = synth_linear(K, N, "q4k", gen=gen, zeros=False, device=dev)
+    arrays = (lin.q, lin.s, lin.b, lin.d, lin.dm)
+    x = torch.randn(M, K, generator=gen, device=dev)
+    xs = e6.group_sums(x)
+    for unpack in e6.UNPACK_MODES:
+        for biasdot in (False, True):
+            kw = dict(unpack=unpack, biasdot=biasdot, tile_k=tile_k)
+            _, rel = chip_smoke.rel_err(e6.qmm_unpack(x, xs, *arrays, **kw),
+                                        e6.qmm_unpack_plain(x, xs, *arrays, **kw))
+            assert rel <= chip_smoke.E6_TOL, (unpack, biasdot, rel)
+    for mode in e6.DIAG_MODES:
+        _, rel = chip_smoke.rel_err(e6.qmm_unpack_diag(x, *arrays, mode=mode, tile_k=tile_k),
+                                    e6.qmm_unpack_diag_plain(x, *arrays, mode=mode, tile_k=tile_k))
+        assert rel <= chip_smoke.E6_TOL, (mode, rel)
+
+
+def test_e6_and_e7_mains_at_a_small_size(dev):
+    from chatllm_tpu_torch.experiments import bhsd_decode as e7
+    from chatllm_tpu_torch.experiments import qmm_unpack_variants as e6
+    from chatllm_tpu_torch.models.synthetic import tiny_config
+
+    res = e6.main([], m=4, reps=4, k=2048, n=512)
+    assert res["v4_biasdot"]["err"] <= e6.CHECK_TOL and res["v0_current"]["ms"] > 0
+    cfg = tiny_config(vocab=256, hidden=512, layers=2, heads=4, kv_heads=2, inter=512,
+                      max_length=512)
+    res = e7.main([], b=4, ctx=512, steps=3, cfg=cfg)
+    assert len(res) == 8 and all(r["graph_tok_s"] > 0 for r in res.values())

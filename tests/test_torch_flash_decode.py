@@ -122,7 +122,8 @@ def test_default_dot_dtype_follows_the_pallas_kernels():
 
 
 def test_rejects_unknown_dot_dtype():
+    # int8 is a dot dtype (tests/test_torch_flash_decode_int8.py); float16 is not
     q, k, v = _mk(B=1)
     with pytest.raises(ValueError, match="qk_dtype"):
         flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 5, 1,
-                     scale=0.1, qk_dtype="int8")
+                     scale=0.1, qk_dtype="float16")

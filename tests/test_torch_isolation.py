@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "chatllm_tpu", "experiments")
 NEW_MODULES = ("bench", "experiments", "experiments.gemv_probe2", "models.qwen",
                "ops.cuda.bw_probe", "ops.cuda.qmm_decode", "experiments.gemv_probe",
                "experiments.gemv_model_bench", "experiments.gemv_unpack",
-               "experiments.qmm_m32", "experiments.timing")
+               "experiments.qmm_m32", "experiments.timing",
+               "experiments.qmm_unpack_variants", "experiments.bhsd_decode")
 
 
 def _port_modules():
@@ -84,6 +85,18 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(cfg, build_synthetic_params(cfg))
     assert load_model(str(path), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("probe", ["qmm_unpack_variants", "bhsd_decode"])
+def test_probe_entry_points_default_to_the_card(probe):
+    """E6's and E7's mains resolve the card before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid here")
+    import importlib
+
+    mod = importlib.import_module(f"chatllm_tpu_torch.experiments.{probe}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
 
 
 def test_server_entry_point_needs_a_card_unless_told(tmp_path):
