@@ -70,9 +70,11 @@ def quantize_kv(x: torch.Tensor):
     """Per-(token, head) symmetric int8 quantization of K/V vectors (the q8
     cache mode).  x: [B, T, H, D] -> (int8 [B, T, H, D], scale f32 [B, T, H]);
     bit for bit the JAX package's: round half to even, clip to +-127, and a
-    zero scale gives zero values."""
+    zero scale gives zero values.  The max is divided by a 0-d tensor: on the
+    card PyTorch turns a division by a Python scalar into a multiplication by
+    its reciprocal, which rounds differently in the last bit."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
+    scale = xf.abs().amax(dim=-1) / xf.new_full((), 127.0)
     inv = torch.where(scale > 0, 1.0 / torch.where(scale == 0, 1.0, scale), 0.0)
     q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127).to(torch.int8)
     return q, scale

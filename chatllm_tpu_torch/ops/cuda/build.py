@@ -112,9 +112,9 @@ class CudaKernel:
 
 
 QGEMV = CudaKernel("qgemv.cu", "qgemv_launch",
-                   [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
+                   [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
 QMM = CudaKernel("qmm.cu", "qmm_launch",
-                 [P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
+                 [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P])
 FLASH = CudaKernel("flash_attention.cu", "flash_attention_launch",
                    [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, F, I, P])
 

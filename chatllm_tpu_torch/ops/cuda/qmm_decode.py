@@ -12,12 +12,24 @@ added in f32 (so its results differ from K2's in the last bf16 digits).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..qmm import effective_scales, stored_values
 from .build import QMM_DECODE, num_sms, ptr, stream_ptr
 from .checks import check_weight, scale_kind
-from .qmm_kernel import MAX_ROWS, qmm_splits
+from .qmm_kernel import MAX_ROWS
+
+TN = 64               # columns per block (csrc/qmm_decode.cu)
+TK = 64               # K tile
+
+
+def qmm_decode_splits(K: int, N: int, sms: int) -> int:
+    """Split-K factor: enough blocks for two waves over the SMs, at least
+    two K tiles per split."""
+    n_tiles = math.ceil(N / TN)
+    return max(1, min(math.ceil(2 * sms / n_tiles), math.ceil(K / TK) // 2))
 
 
 def split_lo_hi(x: torch.Tensor, group: int):
@@ -88,7 +100,7 @@ def qmm_decode(x, q, s, b=None, bias=None, *, group: int = 32, packed: bool = Fa
     # x_lo, x_hi [M, runs, run]: views of x when packed, x itself otherwise
     x_lo, x_hi = split_lo_hi(xc, group) if packed else (xc.view(M, 1, K),) * 2
     y = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    n_splits = qmm_splits(K, N, num_sms(x.device))
+    n_splits = qmm_decode_splits(K, N, num_sms(x.device))
     part = (torch.empty(n_splits * M * N, dtype=torch.float32, device=x.device)
             if n_splits > 1 else None)
     # the kernel takes the superblock min term only; a classic b is added below

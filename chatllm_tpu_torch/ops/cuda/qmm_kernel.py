@@ -14,9 +14,10 @@ from ..qmm import effective_scales, stored_values
 from .build import QMM, num_sms, ptr, stream_ptr
 from .checks import check_weight, elem_kind, scale_kind
 
-TN = 64               # columns per block (csrc/qmm.cu)
-TK = 64               # K tile
+TK = 128              # K rows per pipeline stage
 MAX_ROWS = 64
+MAX_SPLITS = 8        # blocks per thread-block cluster (the portable limit)
+WIDE_N = 4096         # N from which more than 16 rows take 256-column tiles
 
 
 def qmm_plain(x, q, s, b=None, bias=None, *, group: int = 32,
@@ -42,11 +43,20 @@ def qmm_plain(x, q, s, b=None, bias=None, *, group: int = 32,
     return y
 
 
-def qmm_splits(K: int, N: int, sms: int) -> int:
-    """Split-K factor: enough blocks for two waves over the SMs, at least
-    two K tiles per split."""
-    n_tiles = math.ceil(N / TN)
-    return max(1, min(math.ceil(2 * sms / n_tiles), math.ceil(K / TK) // 2))
+def qmm_tile_n(rows: int, N: int) -> int:
+    """Columns per block of csrc/qmm.cu: 256 above 16 rows when N is wide
+    (half the copies of x and of the scale rows per weight byte), else 128
+    (more blocks for a narrow N)."""
+    return 256 if rows > 16 and N >= WIDE_N else 128
+
+
+def qmm_splits(K: int, N: int, rows: int, sms: int) -> int:
+    """Split-K factor of csrc/qmm.cu: the blocks of a column tile that share
+    its K tiles, one cluster along K.  A power of two up to 8, enough blocks
+    for two per SM (the kernel's occupancy), never more splits than K tiles."""
+    n_tiles = math.ceil(N / qmm_tile_n(rows, N))
+    want = min(MAX_SPLITS, math.ceil(K / TK), math.ceil(2 * sms / n_tiles))
+    return 1 << (max(1, want).bit_length() - 1)
 
 
 def qmm(x, q, s, b=None, bias=None, *, group: int = 32, packed: bool = False,
@@ -74,10 +84,8 @@ def qmm(x, q, s, b=None, bias=None, *, group: int = 32, packed: bool = False,
     if xc.data_ptr() % 16:                 # the kernel reads x in 16-byte vectors
         xc = xc.clone()
     y = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    n_splits = qmm_splits(K, N, num_sms(x.device))
-    part = (torch.empty(n_splits * M * N, dtype=torch.float32, device=x.device)
-            if n_splits > 1 else None)
+    n_splits = qmm_splits(K, N, M, num_sms(x.device))
     QMM.launch(ptr(xc), elem_kind(xc), ptr(q), ptr(s), ptr(b), ptr(d), ptr(dm),
-               ptr(bias), ptr(part), ptr(y), M, K, N, group, sb, int(packed),
-               zero_point, scale_kind(s, sb), n_splits, stream_ptr(x.device))
+               ptr(bias), ptr(y), M, K, N, group, sb, int(packed),
+               zero_point, scale_kind(s, sb), qmm_tile_n(M, N), n_splits, stream_ptr(x.device))
     return y

@@ -13,6 +13,16 @@ Counterpart of the JAX package's `ops/qmm.py`, with the same routing:
                                   torch.matmul (the JAX package leaves this
                                   to XLA outside any kernel).
 
+The JAX package's switches, read at call time under its names:
+  CHATLLM_TPU_QMM=0|1|auto     0 sends every quantized matmul to the
+                               dequant path; 1 and auto (the default) take
+                               the kernels, as auto takes Pallas on a TPU
+  CHATLLM_TPU_QMM_MAX_ROWS=n   the kernels take up to n rows (default 64);
+                               above 64, K2 runs on row blocks of 64 (the
+                               Pallas kernel takes any row count; its rows
+                               are independent)
+  CHATLLM_TPU_GEMV=0           one row goes to K2 (or K5) instead of K1
+  CHATLLM_TPU_QMM_V2=1         2..64 rows (and one row under GEMV=0) go to K5
 The thresholds are the JAX package's, so both packages take the same paths;
 re-tuning them on H100 measurements is separate work.  On CPU tensors each
 kernel wrapper runs its plain PyTorch version (that is what the tests
@@ -30,7 +40,19 @@ from .qtensor import DenseLinear, QuantLinear
 # eager PyTorch counts per call).  Read with `kernel_dispatch_stats()`.
 KERNEL_DISPATCH: dict[str, int] = {}
 
-MAX_KERNEL_ROWS = 64      # JAX `_pallas_max_rows()` default
+MAX_KERNEL_ROWS = 64      # rows K2 and K5 take in one launch
+
+
+def kernels_enabled() -> bool:
+    """CHATLLM_TPU_QMM (JAX `use_pallas_qmm`): "0" turns the kernels off;
+    "1" and auto turn them on (auto means the accelerator's kernels, here
+    the card's, and their plain versions on CPU tensors)."""
+    return os.environ.get("CHATLLM_TPU_QMM", "auto") != "0"
+
+
+def kernel_max_rows() -> int:
+    """CHATLLM_TPU_QMM_MAX_ROWS (JAX `_pallas_max_rows`), default 64."""
+    return int(os.environ.get("CHATLLM_TPU_QMM_MAX_ROWS", "64"))
 
 
 def _count(route: str):
@@ -112,16 +134,16 @@ def matmul(x: torch.Tensor, lin, *, compute_dtype=torch.bfloat16) -> torch.Tenso
     elif isinstance(lin, QuantLinear):
         rows = x.numel() // x.shape[-1]
         lead = x.shape[:-1]
-        if rows <= MAX_KERNEL_ROWS and lin.q.shape[1] % 128 == 0:
+        if kernels_enabled() and rows <= kernel_max_rows() and lin.q.shape[1] % 128 == 0:
             x2 = x.reshape(rows, x.shape[-1])
             kw = dict(group=lin.group_size, packed=lin.packed,
                       zero_point=lin.zero_point, d=lin.d, dm=lin.dm, sb=lin.sb)
-            if rows == 1:
+            if rows == 1 and os.environ.get("CHATLLM_TPU_GEMV", "1") != "0":
                 from .cuda.gemv_kernel import qgemv
 
                 _count("qgemv")
                 y = qgemv(x2, lin.q, lin.s, lin.b, lin.bias, **kw)
-            elif os.environ.get("CHATLLM_TPU_QMM_V2", "0") == "1":
+            elif rows <= MAX_KERNEL_ROWS and os.environ.get("CHATLLM_TPU_QMM_V2", "0") == "1":
                 # opt-in, read at call time under the JAX package's name
                 from .cuda.qmm_decode import qmm_decode
 
@@ -132,8 +154,10 @@ def matmul(x: torch.Tensor, lin, *, compute_dtype=torch.bfloat16) -> torch.Tenso
                 from .cuda.qmm_kernel import qmm
 
                 _count("qmm")
-                y = qmm(x2, lin.q, lin.s, lin.b, lin.bias,
-                        compute_dtype=compute_dtype, **kw)
+                parts = [qmm(x2[i:i + MAX_KERNEL_ROWS], lin.q, lin.s, lin.b, lin.bias,
+                             compute_dtype=compute_dtype, **kw)
+                         for i in range(0, rows, MAX_KERNEL_ROWS)]
+                y = parts[0] if len(parts) == 1 else torch.cat(parts)
             return y.reshape(*lead, y.shape[-1])
         _count("dequant_matmul")
         w = dequant_weight(lin, compute_dtype)

@@ -18,6 +18,7 @@ hold torch tensors on the model's device.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, fields, replace
 from typing import Optional
 
@@ -366,6 +367,13 @@ def repack_q6_k_super(data, shape):
     return q, sc, d
 
 
+def _superblock_enabled() -> bool:
+    """CHATLLM_TPU_SB (read at load time, as the JAX package reads it): "0"
+    repacks the k-quants into the classic layout instead of the superblock
+    one."""
+    return os.environ.get("CHATLLM_TPU_SB", "1") != "0"
+
+
 def linear_from_ggml(raw, t: GGMLType, shape, *, bias: np.ndarray | None = None,
                      dequant_to: torch.dtype | None = None, device="cpu"):
     """Build a linear layer from a ggml tensor (`shape` in numpy order
@@ -387,7 +395,7 @@ def linear_from_ggml(raw, t: GGMLType, shape, *, bias: np.ndarray | None = None,
     def dev(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
-    if (len(shape) == 2 and shape[-1] % QK_K == 0
+    if (len(shape) == 2 and shape[-1] % QK_K == 0 and _superblock_enabled()
             and t in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K,
                       GGMLType.Q2_K)):
         if t == GGMLType.Q4_K:

@@ -13,7 +13,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              qmm_unpack_diag (five modes)
              against their plain PyTorch versions at the Llama-3-8B shapes,
              and K1-K5 at the Qwen2.5-0.5B shapes too (q8_0 with a bias, head
-             dim 64, 14 query heads over 2 kv heads)
+             dim 64, 14 query heads over 2 kv heads); K1 and K2 also on every
+             layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1, f32
+             scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows on
+             both sides of every tile edge, N that are not multiples of K2's
+             128 or 256 columns and a K that ends a tile part way, each
+             launch twice and bit-identical, and K2 bit-equal to its plain
+             version on one-hot rows (COVER_*); `quantize_kv` on the card
+             bit-equal to the CPU
              (K1: rel 1e-4 of the output scale; K2, K5: 2e-2 of it; K6 and
              stream_once: exact; vpu_once: 1e-5 of the output scale; K3: atol
              2e-2, and per element 2^-7 (bf16 cache, or an f32 query over
@@ -277,19 +284,47 @@ def bound(nb: int, flops: float, peak: float):
 
 # ------------------------------------------------------------ kernels phase
 def quant_weight(fmt: str, K: int, N: int, gen, dev):
+    """A random quantized weight in one of the layouts K1 and K2 take:
+    q4_k (superblock, packed, with m), q5_k (superblock, int8 0..31, with
+    m), q6_k (superblock G 16, int8 -32..31, signed sc, no m), q2_k
+    (superblock G 16, packed 0..3, with m), q8_0 (classic f16), q4_0
+    (packed, zero point 8), q4_1 (packed, f16 b) and q8_f32b (classic f32
+    scales with b)."""
     from chatllm_tpu_torch.models.synthetic import synth_linear
     from chatllm_tpu_torch.ops.qtensor import QuantLinear
 
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    def halfs(shape, scale):
+        return (torch.rand(shape, generator=gen, device=dev) * scale + 1e-4).half()
+
     if fmt == "q4_k":
         return synth_linear(K, N, "q4k", gen=gen, zeros=False, device=dev)
+    if fmt in ("q5_k", "q6_k", "q2_k"):
+        G = 32 if fmt == "q5_k" else 16
+        sb, ng = 256 // G, K // G
+        d = halfs((ng // sb, N), 0.002)
+        if fmt == "q5_k":
+            return QuantLinear(q=ints(0, 32, (K, N), torch.int8), s=ints(0, 64, (ng, N), torch.int8),
+                               b=ints(0, 64, (ng, N), torch.int8), group_size=G, d=d,
+                               dm=halfs((ng // sb, N), 0.001), sb=sb)
+        if fmt == "q6_k":
+            return QuantLinear(q=ints(-32, 32, (K, N), torch.int8),
+                               s=ints(-128, 128, (ng, N), torch.int8), group_size=G, d=d, sb=sb)
+        q = ints(0, 4, (K // 2, N), torch.uint8) | (ints(0, 4, (K // 2, N), torch.uint8) << 4)
+        return QuantLinear(q=q, s=ints(0, 16, (ng, N), torch.int8),
+                           b=ints(0, 16, (ng, N), torch.int8), group_size=G, packed=True, d=d,
+                           dm=halfs((ng // sb, N), 0.001), sb=sb)
     G = 32
-    s = (torch.rand(K // G, N, generator=gen, device=dev) * 0.01 + 1e-4).half()
+    s = halfs((K // G, N), 0.01)
     if fmt == "q8_0":
-        q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
-                          dtype=torch.int32).to(torch.int8)
-        return QuantLinear(q=q, s=s)
-    q = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
-                      dtype=torch.int32).to(torch.uint8)
+        return QuantLinear(q=ints(-127, 128, (K, N), torch.int8), s=s)
+    if fmt == "q8_f32b":
+        b = -(torch.rand(K // G, N, generator=gen, device=dev) * 0.08)
+        return QuantLinear(q=ints(-127, 128, (K, N), torch.int8), s=s.float(), b=b)
+    q = ints(0, 256, (K // 2, N), torch.uint8)
     if fmt == "q4_0":
         return QuantLinear(q=q, s=s, packed=True, zero_point=8)
     b = -(torch.rand(K // G, N, generator=gen, device=dev) * 0.08).half()
@@ -307,7 +342,7 @@ def rel_err(y, ref) -> tuple[float, float]:
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
 
 
-def _check_matmul(res, name, kern, plain, x, lin, tol, tag) -> torch.Tensor:
+def _check_matmul(res, name, kern, plain, x, lin, tol, tag, quiet=False) -> torch.Tensor:
     """Hold one quantized-matmul kernel against its plain version."""
     arrays, kw = lin_args(lin)
     y = kern(x, *arrays, **kw)
@@ -315,8 +350,9 @@ def _check_matmul(res, name, kern, plain, x, lin, tol, tag) -> torch.Tensor:
     torch.cuda.synchronize()
     err, rel = rel_err(y, ref)
     K, N = lin.shape_in_out
-    log(f"  {name:10s} {tag:5s} K={K:5d} N={N:6d} B={x.shape[0]:2d}  max_abs_err={err:.3e} "
-        f"rel={rel:.2e}")
+    if not quiet:
+        log(f"  {name:10s} {tag:5s} K={K:5d} N={N:6d} B={x.shape[0]:2d}  max_abs_err={err:.3e} "
+            f"rel={rel:.2e}")
     if not (torch.isfinite(y).all() and rel <= tol):
         raise AssertionError(f"{name} {tag} {K}x{N} B={x.shape[0]}: rel err {rel} > {tol}")
     res[name]["cases"].append({"fmt": tag, "K": K, "N": N, "B": x.shape[0],
@@ -336,6 +372,95 @@ def _time_matmul(timer, kern, plain, x, lin, y, w_bf16, peak) -> dict:
          "bound_ms": b_ms, "bound_by": b_by}
     log(f"    timing {r}")
     return r
+
+
+# Everything K1 and K2 take, at row counts either side of every tile edge of
+# K2 (8-row mma tiles, instantiations for 8/16/32/64 rows) and at N that are
+# not multiples of K2's column tiles (400: 128 columns; 4112: 256 columns
+# above 16 rows); K 544 ends K2's last 128-deep tile part way (classic
+# layouts only: a superblock needs K % 256 == 0).
+COVER_FMTS = ("q4_k", "q5_k", "q6_k", "q2_k", "q8_0", "q4_0", "q4_1", "q8_f32b", "q8+b")
+COVER_ROWS = (1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 37, 63, 64)
+COVER_SHAPES = ((512, 400), (544, 128), (512, 4112))
+
+
+def coverage_cases(dev, gen, res) -> int:
+    """K1 (one row, 1e-4 of the output scale) and K2 (every row count, 2e-2)
+    against their plain versions on every layout, bf16 and f32 x; each
+    kernel launched twice on the same inputs must give the same bits.
+    Returns the number of kernel calls checked."""
+    from chatllm_tpu_torch.ops.cuda.gemv_kernel import qgemv, qgemv_plain
+    from chatllm_tpu_torch.ops.cuda.qmm_kernel import qmm, qmm_plain
+
+    n = 0
+    for fmt in COVER_FMTS:
+        for K, N in COVER_SHAPES:
+            if fmt in ("q4_k", "q5_k", "q6_k", "q2_k") and K % 256:
+                continue
+            lin = quant_weight("q8_0" if fmt == "q8+b" else fmt, K, N, gen, dev)
+            if fmt == "q8+b":
+                lin = replace(lin, bias=torch.randn(N, generator=gen, device=dev))
+            for xdt in (torch.bfloat16, torch.float32):
+                tag = f"{fmt}/{'bf16' if xdt == torch.bfloat16 else 'f32'}"
+                for rows in COVER_ROWS:
+                    x = torch.randn(rows, K, generator=gen, device=dev).to(xdt)
+                    pairs = [("qmm", qmm, qmm_plain, 2e-2)]
+                    if rows == 1:
+                        pairs.append(("qgemv", qgemv, qgemv_plain, 1e-4))
+                    for name, kern, plain, tol in pairs:
+                        y = _check_matmul(res, name, kern, plain, x, lin, tol, tag, quiet=True)
+                        arrays, kw = lin_args(lin)
+                        again = kern(x, *arrays, **kw)
+                        if not torch.equal(y, again):
+                            raise AssertionError(f"{name} {tag} {K}x{N} B={rows}: two launches "
+                                                 "differ")
+                        n += 2
+                # one-hot rows: each output is one dequantized weight plus its
+                # affine term, so K2 must equal its plain version bit for bit
+                # (its bf16 unpack, subtract and multiply round q * bf16(s_eff)
+                # once, as the Pallas kernel's f32 product rounded to bf16)
+                for rows in (8, 64):
+                    x = torch.zeros(rows, K, device=dev)
+                    x[torch.arange(rows, device=dev), torch.arange(rows, device=dev) * (K // rows)
+                      + torch.arange(rows, device=dev) % 7] = 1.0
+                    x = x.to(xdt)
+                    arrays, kw = lin_args(lin)
+                    y, ref = qmm(x, *arrays, **kw), qmm_plain(x, *arrays, **kw)
+                    if not torch.equal(y, ref):
+                        raise AssertionError(f"qmm {tag} {K}x{N} one-hot B={rows}: the dequantized "
+                                             f"weights differ from the plain version's by "
+                                             f"{(y - ref).abs().max().item()}")
+                    n += 1
+    log(f"  coverage: {n} K1/K2 launches on {len(COVER_FMTS)} layouts x bf16/f32 x rows "
+        f"{COVER_ROWS} x (K, N) {COVER_SHAPES}: all within tolerance, every pair bit-identical, "
+        f"K2 bit-equal to its plain version on one-hot rows")
+    return n
+
+
+def quantize_kv_case(dev, gen) -> dict:
+    """`ops/attention.py::quantize_kv` on the card against the CPU on the same
+    K/V rows (one 1000-token prompt of Llama-3-8B's 8 kv heads, f32 and
+    bf16): int8 values and f32 scales must be bit-equal.  Also counts the
+    scales that a division by the Python scalar 127.0 (a multiplication by
+    its reciprocal on the card) would have moved."""
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn(1, 1000, 8, 128, generator=gen, device=dev) * 3).to(dt)
+        q, sc = quantize_kv(x)
+        qc, scc = quantize_kv(x.cpu())
+        torch.cuda.synchronize()
+        scalar = (x.float().abs().amax(dim=-1) / 127.0).cpu()
+        moved = int((scalar != scc).sum())
+        name = str(dt).split(".")[-1]
+        log(f"  quantize_kv {name}: card == CPU values {torch.equal(q.cpu(), qc)}, scales "
+            f"{torch.equal(sc.cpu(), scc)}; a division by the scalar 127.0 would move {moved} of "
+            f"{scc.numel()} scales")
+        if not (torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc)):
+            raise AssertionError(f"quantize_kv {name}: the card differs from the CPU")
+        out[name] = {"scales": scc.numel(), "moved_by_scalar_division": moved}
+    return out
 
 
 K5_ROWS = 8          # K5 is timed at the rows of the bench's batched section
@@ -386,6 +511,8 @@ def kernels_phase(dev, timer) -> dict:
         lin = replace(quant_weight("q8_0", K, N, gen, dev),
                       bias=torch.randn(N, generator=gen, device=dev))
         run(lin, "q8+b", sname, True, "qwen_shapes")
+    coverage_cases(dev, gen, res)
+    res["quantize_kv"] = quantize_kv_case(dev, gen)
     res["flash_attention"] = flash_cases(dev, timer, gen)
     res["flash_decode"] = decode_cases(dev, timer, gen)
     res["bw_probe"] = probe_case(dev, timer, gen)

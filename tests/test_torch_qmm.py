@@ -148,3 +148,55 @@ def test_matmul_routing_counts():
                                        atol=1e-5 * ref.abs().max().item())
     assert tqmm.kernel_dispatch_stats() == {"qgemv": 1, "qmm": 2, "dequant_matmul": 2,
                                             "dense": 1}
+
+
+# The main path's projection shapes (K, N) and group sizes: Llama-3-8B q4_k
+# (G 32) with its lm_head, Qwen2.5-0.5B q8_0 (G 32), and the G 16 k-quants.
+GEOMETRY_SHAPES = [(4096, 4096, 32), (4096, 1024, 32), (4096, 14336, 32), (14336, 4096, 32),
+                   (4096, 128256, 32), (896, 896, 32), (896, 128, 32), (896, 4864, 32),
+                   (4864, 896, 32), (4096, 4096, 16), (512, 400, 16), (544, 128, 32)]
+MAX_GRID_Y = 65535
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("K,N,G", GEOMETRY_SHAPES)
+def test_qmm_geometry(K, N, G, rows):
+    """K2's split-K factor at 132 SMs: a power of two within the cluster
+    limit of 8, every split owns at least one 128-deep K tile, and the grid
+    fits gridDim."""
+    from chatllm_tpu_torch.ops.cuda import qmm_kernel as k2
+
+    splits = k2.qmm_splits(K, N, rows, 132)
+    n_kt = -(-K // k2.TK)
+    assert 1 <= splits <= k2.MAX_SPLITS and splits & (splits - 1) == 0
+    assert all((s + 1) * n_kt // splits > s * n_kt // splits for s in range(splits))
+    assert k2.qmm_tile_n(rows, N) in (128, 256)
+    assert -(-N // k2.qmm_tile_n(rows, N)) < 2 ** 31 and splits <= MAX_GRID_Y
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("K,N,G", GEOMETRY_SHAPES)
+def test_gemv_geometry(K, N, G, packed):
+    """K1's (column lanes, splits) at 132 SMs: lanes the kernel takes, a
+    power-of-two split count within the cluster limit, every split owns at
+    least one unit (8 byte rows of a group), and the grid fits gridDim."""
+    from chatllm_tpu_torch.ops.cuda import gemv_kernel as k1
+
+    cl, splits = k1.gemv_geometry(K, N, G, packed, 132)
+    units = K // G * (G // 2 if packed else G) // k1.UNIT_ROWS
+    assert cl in k1.CL_LANES and k1.THREADS % cl == 0
+    assert 1 <= splits <= k1.MAX_SPLITS and splits & (splits - 1) == 0
+    assert all((s + 1) * units // splits > s * units // splits for s in range(splits))
+    assert -(-N // (k1.CPT * cl)) < 2 ** 31 and splits <= MAX_GRID_Y
+
+
+@pytest.mark.parametrize("K,N,G", GEOMETRY_SHAPES)
+def test_qmm_decode_geometry(K, N, G):
+    """K5's split-K factor (its own 64-column tiles): every split owns at
+    least one 64-deep K tile and the grid fits gridDim."""
+    from chatllm_tpu_torch.ops.cuda import qmm_decode as k5
+
+    splits = k5.qmm_decode_splits(K, N, 132)
+    n_kt = -(-K // k5.TK)
+    assert 1 <= splits <= MAX_GRID_Y
+    assert all((s + 1) * n_kt // splits > s * n_kt // splits for s in range(splits))

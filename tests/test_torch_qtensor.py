@@ -23,19 +23,19 @@ _F16_FIELDS = {GGMLType.Q5_0: (22, [0]), GGMLType.Q5_1: (24, [0, 2]),
                GGMLType.Q2_K: (84, [80, 82])}
 
 
-def _raw(t: GGMLType) -> np.ndarray:
+def _raw(t: GGMLType, shape=SHAPE) -> np.ndarray:
     """Encoded weights: quantized with the codec where the package has an
     encoder, else random blocks with finite f16 scales."""
     rng = np.random.default_rng(int(t))
     if t in _F16_FIELDS:
         bb, offs = _F16_FIELDS[t]
-        raw = rng.integers(0, 256, nbytes_for(t, SHAPE[0] * SHAPE[1]),
+        raw = rng.integers(0, 256, nbytes_for(t, shape[0] * shape[1]),
                            dtype=np.uint8).reshape(-1, bb)
         for o in offs:
             raw[:, o:o + 2] = (rng.random((raw.shape[0], 1)) * 0.01 + 1e-4) \
                 .astype(np.float16).view(np.uint8)
         return raw.reshape(-1)
-    x = rng.standard_normal(SHAPE).astype(np.float32) * 0.3
+    x = rng.standard_normal(shape).astype(np.float32) * 0.3
     return np.frombuffer(quantize(x, t), dtype=np.uint8)
 
 
