@@ -4,10 +4,12 @@
 //   scales [B, S, Hkv] (the q8 cache) or bf16 / f32  ->  o [B, T, Hq, D]
 //   in q's dtype
 //
-// Replaces chatllm_tpu/ops/pallas/flash_decode.py::flash_decode (bodies
-// `_batched_kernel` and `_decode_kernel`) with the Pallas kernels'
-// numerics.  The G*T query rows of kv head h are folded together: row
-// r = g*T + t is query head h*G + g at position n_past[b] + t.  A key at
+// Replaces chatllm_tpu/ops/pallas/flash_decode.py::flash_decode: with bf16
+// or f32 dots its batched kernel `_batched_kernel` and its per-head kernel
+// `_decode_kernel` (flash_decode_launch, `decode_kernel` below), with int8
+// dots `_batched_kernel` (flash_decode_int8_launch), with the Pallas
+// kernels' numerics.  The G*T query rows of kv head h are folded together:
+// row r = g*T + t is query head h*G + g at position n_past[b] + t.  A key at
 // position p is valid iff p < n_past[b] + n_tokens, p <= q_pos and, with a
 // window W, p > q_pos - W; masked scores are -1e30.  The k scale multiplies
 // the score after q.k (times the attention scale), the v scale multiplies
@@ -32,41 +34,76 @@
 // block's own keys (exp(-m) cancels between p and psc), and the fixed-order
 // combine weighs the blocks as the Pallas kernel's running rescale does.
 //
-// Up to 64 query rows G*T per kv head (MAXR 32 or 64 by instantiation:
-// Qwen2.5-0.5B's 7 heads per kv head at T = 8 are 56).  The cache is read
-// through element strides, the scales through their own (b, s, h) strides,
-// so a [B, Hkv, S, D] cache and [B, Hkv, S] scales pass as permuted views.
+// Up to 64 query rows G*T per kv head (Qwen2.5-0.5B's 7 heads per kv head
+// at T = 8 are 56).  The cache is read through element strides, the scales
+// through their own (b, s, h) strides, so a [B, Hkv, S, D] cache and
+// [B, Hkv, S] scales pass as permuted views.
 //
 // Bound on the H100: bytes.  A decode step reads every live key's K and V
 // once per kv head (2 * D bytes for int8, plus 8 bytes of scales) and does
 // 4 * D flops per (query row, key): at G*T = 4 rows (Llama-3, one token)
-// that is 7.8 flops per byte, where the tensor cores could do ~295.  This
-// first kernel runs the dots as f32 FMAs on the CUDA cores, which sustain
-// ~20 flops per byte of HBM (67 TFLOP/s over 3.35 TB/s): enough at 4 rows,
-// not at 16.  The cache is read in its native [B, S, Hkv, D] layout through
-// strides, with no transposed copy.
+// that is 7.8 flops per byte.  At n_past 1000 a Llama-3-8B call reads ~2 MB,
+// 0.64 us at 3.35 TB/s, below the card's per-launch floor: what a call
+// costs is its chain of dependent latencies, not its bytes.
 //
-// Design (flash-decoding, split-K): the first kernel runs one block of 128
-// threads per (256-key split (block_k keys with int8 dots), kv head, batch
-// row); splits outside the
-// row's live keys return at once.  A block stages 32-key K/V tiles with
-// 16-byte loads and converts them to f32 in shared memory; warp w keeps
-// the running max and denominator of rows w, w+4, ... with lane j scoring
-// key j; thread c accumulates output column c of its rows.  Its (max,
-// denominator, accumulator) partials go to scratch, and the second kernel
-// merges a row's live splits in split order, with no atomics, so greedy
-// decoding repeats bit for bit.
+// Float dots (`decode_kernel`), the Hopper design.  The first design (one
+// block of 128 threads per 256-key split, a grid sized by S; 32-key tiles
+// loaded, widened to f32 in shared memory and consumed by the same threads;
+// a second kernel merging the splits through f32 scratch) took ~53 us per
+// Llama-3-8B call at n_past 1000.  Each part below answers one of its
+// causes:
+//  1. The work is sized by the live keys, on the device: one thread-block
+//     cluster of C blocks of 256 threads per (batch row, kv head), C chosen
+//     by the wrapper from the SM count and B * Hkv (ops/cuda/
+//     flash_decode.py::decode_geometry; up to 16, above 8 with the
+//     non-portable cluster attribute).  Each block reads its row's n_past,
+//     takes the live keys [lo, hi) as 64-key tiles aligned at multiples of
+//     64, and its share of them (`block_share`): a function of n_past and C
+//     only, so a per-row n_past needs no read-back (the launch is
+//     capturable in a CUDA graph) and results repeat bit for bit.
+//  2. A ring of raw K/V tiles in shared memory in the cache's own dtype (an
+//     int8 tile is 16 KB at D 128), filled by cp.async, up to 4 stages: the
+//     next tiles' loads are in flight while a tile is worked on.
+//  3. Each tile's k and v scales ride in its stage (4-byte cp.async), off
+//     the score loop's dependent path.
+//  4. K and V are widened to f32 in registers at use, each value once per
+//     block where the rows are few.  Up to 8 rows (the main path's 4 and 7):
+//     warp w dots quarter w % 4 of key half w / 4 (lane j: key 32 (w / 4) +
+//     j, 16 bytes at a time; rows padded by 16 bytes, so the lanes' reads
+//     fall on distinct banks) against every row, and the quarters are summed
+//     in shared memory; in P V thread i takes 4 columns of every row over
+//     one of 256 / (D/4) slices of the tile's keys, the slices summed in
+//     order at the end.  More rows: warp w takes rows w, w+8, ... over whole
+//     key rows, thread i 4 columns of rows i / (D/4), + 256 / (D/4), ...
+//     int8 values are widened by a byte permute and one subtract, not by the
+//     quarter-rate integer conversion.  Warp w keeps the softmax state of
+//     rows w, w+8, ...: the running max in every lane, the denominator as
+//     per-lane shares summed once at the end.
+//  5. The blocks of a cluster combine in the kernel: each leaves its rows'
+//     (max, denominator, accumulator) in its own shared memory and the
+//     cluster merges them through distributed shared memory in rank order
+//     (`cluster_merge`), then applies the sinks, the 1e-30 clamp and the
+//     cast: one launch per call, no scratch in device memory, no atomics.
+//  6. The dots stay on the CUDA cores' FMAs.
 #include <math_constants.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int TK = 32;            // keys per tile, one per lane
+constexpr int TK = 32;            // keys per tile of the int8 kernel, one per lane
+constexpr int FTHREADS = 256;     // the float-dot kernel: threads per block,
+constexpr int FWARPS = FTHREADS / 32;
+constexpr int FTK = 64;           //   keys per tile, two per lane
 constexpr int MAX_ROWS = 64;      // query rows G*T per kv head (flash_decode.py MAX_ROWS)
 constexpr int MAX_SPLIT = 512;    // keys per split of the int8 kernel at most
+constexpr int MAX_CLUSTER = 16;   // blocks per (batch row, kv head) (flash_decode.py MAX_CLUSTER)
 constexpr float NEG_INF = -1e30f;
 
 struct Strides { long b, t, h; };
@@ -81,10 +118,12 @@ struct Params {
     const long long* np_vec;    // [B] per-row n_past, or null: np_scalar
     long long np_scalar;
     void* o;
-    float* part_ml;             // [B, Hkv, n_splits, R, 2]: running max, denominator
-    float* part_acc;            // [B, Hkv, n_splits, R, D]
+    float* part_ml;             // int8 dots: [B, Hkv, n_splits, R, 2]: running max, denominator
+    float* part_acc;            //   [B, Hkv, n_splits, R, D]; null for float dots
     Strides qs, kst, vst, os;   // element strides of q, k, v, o
     Strides kss, vss;           // element strides (b, s, h) of ks, vs
+    // split: keys per split (int8 dots) or per tile (FTK); n_splits: splits
+    // per row (int8 dots) or blocks per cluster (float dots)
     int T, S, Hq, Hkv, n_tokens, window, q_kind, bf16_dots, split, n_splits;
     float scale, softcap;
 };
@@ -93,10 +132,22 @@ __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ void cvt(const uint4& u, float* out, int8_t) {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&u);
+// Four int8 values of a 32-bit word as f32, exactly, without the
+// quarter-rate integer conversion: each byte, biased by 128, becomes the
+// low mantissa byte of 2^23 (byte_perm), and one subtract of 2^23 + 128
+// leaves the value.
+__device__ __forceinline__ void i8x4_f32(uint32_t w, float* out) {
+    const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) out[c] = static_cast<float>(e[c]);
+    for (int c = 0; c < 4; ++c)
+        out[c] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + c)) - 8388736.f;
+}
+
+__device__ __forceinline__ void cvt(const uint4& u, float* out, int8_t) {
+    i8x4_f32(u.x, out);
+    i8x4_f32(u.y, out + 4);
+    i8x4_f32(u.z, out + 8);
+    i8x4_f32(u.w, out + 12);
 }
 
 __device__ __forceinline__ void cvt(const uint4& u, float* out, __nv_bfloat16) {
@@ -111,11 +162,43 @@ __device__ __forceinline__ void cvt(const uint4& u, float* out, float) {
     for (int c = 0; c < 4; ++c) out[c] = e[c];
 }
 
+// Four consecutive cache values in shared memory as f32.
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+    float f[4];
+    i8x4_f32(*reinterpret_cast<const uint32_t*>(p), f);
+    return make_float4(f[0], f[1], f[2], f[3]);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
     return v;
 }
+
+__device__ __forceinline__ void cp16(void* smem, const void* gmem, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp4(void* smem, const void* gmem, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(s), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // Row b's n_past and the keys [lo, hi) some of its query rows may see:
 // below the newest written key and, with a window, inside the oldest row's.
@@ -148,150 +231,408 @@ __device__ __forceinline__ float finish_score(const Params& p, float s, long lon
     return ok ? s : NEG_INF;
 }
 
-template <int D, typename KV, int MAXR>
-__global__ void __launch_bounds__(THREADS)
-decode_split_kernel(Params p) {
-    constexpr int VEC = 16 / sizeof(KV);     // cache elements per 16-byte load
-    constexpr int NV = D / VEC;              // loads per key row
-    constexpr int RSTEP = THREADS / D;       // rows between a thread's accumulators
-    constexpr int NACC = MAXR / RSTEP;
-    constexpr int NOWN = MAXR / NWARPS;      // rows whose softmax state a warp keeps
-    extern __shared__ __align__(16) float smem[];
-
-    const int G = p.Hq / p.Hkv, R = G * p.T;
-    float* sk = smem;                        // [TK][D + 4]: +4 keeps 16-byte rows
-    float* sv = sk + TK * (D + 4);           //   of 8 lanes on distinct banks
-    float* sq = sv + TK * D;                 // [R][D]
-    float* sp = sq + R * D;                  // [R][TK]: p * v_scale of the tile
-    float* scorr = sp + R * TK;              // [R]: the tile's rescale factor
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    long long np;
-    int lo, hi;
-    live_keys(p, b, np, lo, hi);
-    const int k_begin = max(split * p.split, lo), k_end = min(split * p.split + p.split, hi);
-    if (k_begin >= k_end) return;            // the combine kernel skips this split
-
-    for (int idx = tid; idx < R * D; idx += THREADS) {
-        const int r = idx / D, c = idx - r * D, g = r / p.T, t = r - g * p.T;
-        const float x = load_q(p, b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h + c);
-        sq[idx] = p.bf16_dots ? round_bf16(x) : x;
+// sinks, the 1e-30 clamp and the cast: o[b, t, h*G + g, c] from a row's
+// merged max m, denominator l and accumulator a (m = -inf: no live key)
+__device__ __forceinline__ void write_out(const Params& p, int b, int h, int r, int c, float m,
+                                          float l, float a) {
+    const int G = p.Hq / p.Hkv, g = r / p.T, t = r - g * p.T;
+    float sc;
+    if (p.sinks) {
+        const float sink = p.sinks[h * G + g];
+        const float m_f = fmaxf(m, sink);
+        l = l * expf(m - m_f) + expf(sink - m_f);
+        sc = expf(m - m_f) / fmaxf(l, 1e-30f);
+    } else {
+        sc = 1.f / fmaxf(l, 1e-30f);
     }
+    const long off = b * p.os.b + t * p.os.t + static_cast<long>(h * G + g) * p.os.h + c;
+    if (p.q_kind == KIND_F32)
+        static_cast<float*>(p.o)[off] = a * sc;
+    else
+        static_cast<__nv_bfloat16*>(p.o)[off] = __float2bfloat16_rn(a * sc);
+}
+
+// Block `rank` of C takes the live tiles [ta, tb) of FTK keys: the tiles
+// aligned at multiples of FTK that meet [lo, hi), in C contiguous runs in
+// rank order (ops/cuda/flash_decode.py::decode_share).
+__device__ __forceinline__ void block_share(int lo, int hi, int rank, int C, int& ta, int& tb) {
+    const int t0 = lo / FTK, nt = hi > lo ? (hi + FTK - 1) / FTK - t0 : 0;
+    ta = t0 + static_cast<int>(static_cast<long>(rank) * nt / C);
+    tb = t0 + static_cast<int>(static_cast<long>(rank + 1) * nt / C);
+}
+
+// The blocks of the cluster (gridDim.x of them, one (batch row, kv head))
+// have each left their rows' accumulators cacc [R, D] and (max, denominator)
+// cml [R, 2] (max -inf: no live key) in their shared memory.  Block `rank`
+// merges every C-th group of FTHREADS outputs in rank order and writes them.
+__device__ __forceinline__ void cluster_merge(const Params& p, cg::cluster_group& cluster,
+                                              float* cacc, float* cml, int R, int D, int b,
+                                              int h) {
+    cluster.sync();
+    const int C = gridDim.x, rank = blockIdx.x;
+    for (int idx = rank * FTHREADS + threadIdx.x; idx < R * D; idx += C * FTHREADS) {
+        const int r = idx / D;
+        float ms[MAX_CLUSTER];
+        float m = -CUDART_INF_F;
+#pragma unroll
+        for (int s = 0; s < MAX_CLUSTER; ++s) {
+            ms[s] = -CUDART_INF_F;
+            if (s < C) ms[s] = cluster.map_shared_rank(cml, s)[2 * r];
+            m = fmaxf(m, ms[s]);
+        }
+        float l = 0.f, a = 0.f;
+#pragma unroll
+        for (int s = 0; s < MAX_CLUSTER; ++s) {
+            if (ms[s] == -CUDART_INF_F) continue;    // no live key in block s's share
+            const float w = expf(ms[s] - m);
+            l = fmaf(cluster.map_shared_rank(cml, s)[2 * r + 1], w, l);
+            a = fmaf(cluster.map_shared_rank(cacc, s)[idx], w, a);
+        }
+        write_out(p, b, h, r, idx - r * D, m, l, a);
+    }
+    cluster.sync();        // keep this block's partials alive until every peer has read them
+}
+
+// q [R, D] of kv head h into f32 registers, FTHREADS apart (rounded to bf16
+// with bf16 dots at the store)
+template <int QPT, int D>
+__device__ __forceinline__ void load_q_rows(const Params& p, int b, int h, int R, float* qv) {
+    const int G = p.Hq / p.Hkv;
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+        const int idx = threadIdx.x + i * FTHREADS;
+        if (idx >= R * D) break;
+        const int r = idx / D, c = idx - r * D, g = r / p.T, t = r - g * p.T;
+        qv[i] = load_q(p, b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h + c);
+    }
+}
+template <int QPT, int D>
+__device__ __forceinline__ void store_q_rows(const Params& p, int R, const float* qv, float* sq) {
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+        const int idx = threadIdx.x + i * FTHREADS;
+        if (idx >= R * D) break;
+        sq[idx] = p.bf16_dots ? round_bf16(qv[i]) : qv[i];
+    }
+}
+
+// The float-dot kernel's shared memory: a ring of STAGES stages, each a
+// 64-key K tile (rows padded by 16 bytes), a V tile and the tile's k and v
+// scales, all in the cache's dtype; after the last tile the ring's space
+// takes the block's partials [R, D] + [R, 2] (and, with few rows, the key
+// slices' [ZS, R, D]).  Then, in f32: q [R, D], with few rows the warps'
+// partial dots [FWARPS, R, 32], p * v_scale [R, FTK] and the tile's rescale
+// factors [R].
+template <int D, typename KV, int MAXR>
+struct FGeom {
+    static constexpr bool FEW = MAXR <= 8;
+    static constexpr int ROWB = D * static_cast<int>(sizeof(KV));   // bytes of a K or V row
+    static constexpr int KROW = ROWB + 16;
+    static constexpr int NCH = ROWB / 16;                            // 16-byte chunks per row
+    static constexpr int VEC = 16 / static_cast<int>(sizeof(KV));    // values per chunk
+    static constexpr int VOFF = FTK * KROW;
+    static constexpr int SOFF = VOFF + FTK * ROWB;
+    static constexpr int STAGE = SOFF + 2 * FTK * 4;
+    static constexpr int FIT = 96 * 1024 / STAGE;
+    static constexpr int STAGES = FIT > 4 ? 4 : (FIT < 2 ? 2 : FIT);
+    static constexpr int CW = D / 4;               // threads across a row in P V, 4 columns each
+    static constexpr int ZS = FTHREADS / CW;       // slices of the keys (FEW) or rows in P V
+
+    __host__ __device__ static int ring_bytes(int R) {
+        const int part = (R * D + 2 * R + (FEW ? ZS * R * D : 0)) * 4;
+        const int ring = STAGES * STAGE > part ? STAGES * STAGE : part;
+        return (ring + 15) / 16 * 16;
+    }
+    __host__ __device__ static int smem_bytes(int R) {
+        return ring_bytes(R) + 4 * (R * D + (FEW ? FWARPS * R * 32 : 0) + R * FTK + R);
+    }
+};
+
+template <int D, typename KV, int MAXR>
+__global__ void __launch_bounds__(FTHREADS)
+decode_kernel(Params p) {
+    using Gm = FGeom<D, KV, MAXR>;
+    constexpr bool FEW = Gm::FEW;
+    constexpr int NOWN = (MAXR + FWARPS - 1) / FWARPS;   // rows whose softmax a warp keeps
+    constexpr int CW = Gm::CW, ZS = Gm::ZS;
+    constexpr int NACC = FEW ? MAXR : MAXR / ZS;
+    constexpr int QCH = Gm::NCH / 4;             // FEW: chunks of a key row's quarter
+    constexpr int KZ = FTK / ZS;                 // FEW: keys per slice in P V
+    constexpr int QPT = MAXR * D / FTHREADS;
+    extern __shared__ __align__(16) uint8_t smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+
+    const int R = (p.Hq / p.Hkv) * p.T;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int h = blockIdx.y, b = blockIdx.z;
+    float qv[QPT];
+    load_q_rows<QPT, D>(p, b, h, R, qv);             // in flight beside n_past's load
+    long long np;
+    int lo, hi, ta, tb;
+    live_keys(p, b, np, lo, hi);
+    block_share(lo, hi, blockIdx.x, gridDim.x, ta, tb);
 
     const KV* kb = static_cast<const KV*>(p.k) + b * p.kst.b + h * p.kst.h;
     const KV* vb = static_cast<const KV*>(p.v) + b * p.vst.b + h * p.vst.h;
-    const bool round_kv = p.bf16_dots && sizeof(KV) == 4;
+    const float* ksb = p.ks ? p.ks + b * p.kss.b + h * p.kss.h : nullptr;
+    const float* vsb = p.ks ? p.vs + b * p.vss.b + h * p.vss.h : nullptr;
 
-    float m_run[NOWN], l_run[NOWN], acc[NACC];
+    // tile t into its stage; keys outside [lo, hi) are zero-filled
+    auto issue = [&](int t) {
+        uint8_t* st = smem + ((t - ta) % Gm::STAGES) * Gm::STAGE;
+        for (int idx = tid; idx < FTK * Gm::NCH; idx += FTHREADS) {
+            const int j = idx / Gm::NCH, c = idx - j * Gm::NCH, kp = t * FTK + j;
+            const bool ok = kp >= lo && kp < hi;
+            cp16(st + j * Gm::KROW + c * 16, ok ? kb + kp * p.kst.t + c * Gm::VEC : kb, ok);
+            cp16(st + Gm::VOFF + j * Gm::ROWB + c * 16, ok ? vb + kp * p.vst.t + c * Gm::VEC : vb,
+                 ok);
+        }
+        if (ksb && tid < 2 * FTK) {
+            const int kp = t * FTK + (tid & (FTK - 1));
+            const bool ok = kp >= lo && kp < hi;
+            const float* src = tid < FTK ? (ok ? ksb + kp * p.kss.t : ksb)
+                                         : (ok ? vsb + kp * p.vss.t : vsb);
+            cp4(st + Gm::SOFF + tid * 4, src, ok);
+        }
+    };
+#pragma unroll
+    for (int s = 0; s < Gm::STAGES - 1; ++s) {
+        if (ta + s < tb) issue(ta + s);
+        cp_commit();
+    }
+    float* sq = reinterpret_cast<float*>(smem + Gm::ring_bytes(R));
+    float* spart = sq + R * D;               // FEW: [FWARPS][R][32] partial dots
+    float* sp = spart + (FEW ? FWARPS * R * 32 : 0);   // [R][FTK]: p * v_scale of the tile
+    float* scorr = sp + R * FTK;             // [R]: the tile's rescale factor
+    store_q_rows<QPT, D>(p, R, qv, sq);
+
+    // the keys [rlo, rhi) that row w + FWARPS i may see (the mask of
+    // finish_score, for keys in [lo, hi))
+    int rlo[NOWN], rhi[NOWN];
+#pragma unroll
+    for (int i = 0; i < NOWN; ++i) {
+        const long long qpos = np + (warp + FWARPS * i) % p.T;
+        rhi[i] = static_cast<int>(min(qpos + 1, static_cast<long long>(p.S)));
+        rlo[i] = p.window > 0 ? static_cast<int>(max(qpos - p.window + 1, 0LL)) : 0;
+    }
+    const bool round_kv = p.bf16_dots && sizeof(KV) == 4;
+    // m_run: the row's running max in every lane; l_run: the lane's share of
+    // its denominator (summed over the warp at the end)
+    float m_run[NOWN], l_run[NOWN], acc[NACC][4];
 #pragma unroll
     for (int i = 0; i < NOWN; ++i) {
         m_run[i] = NEG_INF;
         l_run[i] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-    const int c_own = tid % D, r_own = tid / D;
+    for (int i = 0; i < NACC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    const int c4 = (tid % CW) * 4, z = tid / CW;
 
-    for (int k0 = k_begin; k0 < k_end; k0 += TK) {
-        const int nk = min(TK, k_end - k0);
-        __syncthreads();   // q staged / the previous tile's readers are done
-        for (int idx = tid; idx < TK * NV; idx += THREADS) {
-            const int j = idx / NV, c = (idx - j * NV) * VEC;
-            float kf[VEC], vf[VEC];
-            if (j < nk) {
-                const long kp = k0 + j;
-                cvt(*reinterpret_cast<const uint4*>(kb + kp * p.kst.t + c), kf, KV{});
-                cvt(*reinterpret_cast<const uint4*>(vb + kp * p.vst.t + c), vf, KV{});
+    for (int t = ta; t < tb; ++t) {
+        cp_wait<Gm::STAGES - 2>();
+        __syncthreads();   // tile t has landed; every thread is done with tile t - 1
+        if (t + Gm::STAGES - 1 < tb) issue(t + Gm::STAGES - 1);
+        cp_commit();
+        const uint8_t* st = smem + ((t - ta) % Gm::STAGES) * Gm::STAGE;
+        const KV* sv = reinterpret_cast<const KV*>(st + Gm::VOFF);
+        const float* ssc = reinterpret_cast<const float*>(st + Gm::SOFF);
+        // lane j holds keys t * FTK + j and t * FTK + 32 + j
+        const int kp0 = t * FTK + lane, kp1 = kp0 + 32;
+        const bool in0 = kp0 >= lo && kp0 < hi, in1 = kp1 >= lo && kp1 < hi;
+
+        // Raw dots s[i][k] of row w + FWARPS i with key k * 32 + lane.  Few
+        // rows: warp w dots a quarter (w % 4) of key half w / 4 against every
+        // row and leaves it in spart; many rows: whole key rows.
+        float s[NOWN][2];
+        if constexpr (FEW) {
+            const int kh = warp >> 2, qd = warp & 3;
+            float sw[MAXR];
+#pragma unroll
+            for (int r = 0; r < MAXR; ++r) sw[r] = 0.f;
+            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * (Gm::ROWB / 4);
+#pragma unroll
+            for (int c = 0; c < QCH; ++c) {
+                float kf[Gm::VEC];
+                cvt(*reinterpret_cast<const uint4*>(kr + c * 16), kf, KV{});
                 if (round_kv) {
 #pragma unroll
-                    for (int e = 0; e < VEC; ++e) {
-                        kf[e] = round_bf16(kf[e]);
-                        vf[e] = round_bf16(vf[e]);
+                    for (int e = 0; e < Gm::VEC; ++e) kf[e] = round_bf16(kf[e]);
+                }
+#pragma unroll
+                for (int r = 0; r < MAXR; ++r) {
+                    if (r >= R) break;
+                    const float* qr = sq + r * D + qd * (D / 4) + c * Gm::VEC;
+#pragma unroll
+                    for (int e = 0; e < Gm::VEC; e += 4) {
+                        const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
+                        sw[r] = fmaf(q4.x, kf[e], sw[r]);
+                        sw[r] = fmaf(q4.y, kf[e + 1], sw[r]);
+                        sw[r] = fmaf(q4.z, kf[e + 2], sw[r]);
+                        sw[r] = fmaf(q4.w, kf[e + 3], sw[r]);
                     }
                 }
-            } else {
-#pragma unroll
-                for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
             }
 #pragma unroll
-            for (int e = 0; e < VEC; e += 4) {
-                *reinterpret_cast<float4*>(sk + j * (D + 4) + c + e) =
-                    make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
-                *reinterpret_cast<float4*>(sv + j * D + c + e) =
-                    make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
+            for (int r = 0; r < MAXR; ++r) {
+                if (r >= R) break;
+                spart[(warp * R + r) * 32 + lane] = sw[r];
+            }
+            __syncthreads();
+            if (warp < R) {
+#pragma unroll
+                for (int k = 0; k < 2; ++k) {
+                    const float* pr = spart + (4 * k * R + warp) * 32 + lane;
+                    s[0][k] = (pr[0] + pr[R * 32]) + (pr[2 * R * 32] + pr[3 * R * 32]);
+                }
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < NOWN; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                const uint8_t* kr = st + (k * 32 + lane) * Gm::KROW;
+#pragma unroll
+                for (int c = 0; c < Gm::NCH; ++c) {
+                    float kf[Gm::VEC];
+                    cvt(*reinterpret_cast<const uint4*>(kr + c * 16), kf, KV{});
+                    if (round_kv) {
+#pragma unroll
+                        for (int e = 0; e < Gm::VEC; ++e) kf[e] = round_bf16(kf[e]);
+                    }
+#pragma unroll
+                    for (int i = 0; i < NOWN; ++i) {
+                        const int r = warp + FWARPS * i;
+                        if (r >= R) break;
+                        const float* qr = sq + r * D + c * Gm::VEC;
+#pragma unroll
+                        for (int e = 0; e < Gm::VEC; e += 4) {
+                            const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
+                            s[i][k] = fmaf(q4.x, kf[e], s[i][k]);
+                            s[i][k] = fmaf(q4.y, kf[e + 1], s[i][k]);
+                            s[i][k] = fmaf(q4.z, kf[e + 2], s[i][k]);
+                            s[i][k] = fmaf(q4.w, kf[e + 3], s[i][k]);
+                        }
+                    }
+                }
             }
         }
-        __syncthreads();
 
-        // scores and the online softmax: lane j holds key k0 + j
-        const int kp = k0 + lane;
-        const bool in_tile = lane < nk;
-        float ksc = 1.f, vsc = 1.f;
-        if (in_tile && p.ks) {
-            ksc = scale_at(p.ks, p.kss, b, kp, h);
-            vsc = scale_at(p.vs, p.vss, b, kp, h);
-        }
-        const float* kr = sk + lane * (D + 4);
+        // the online softmax of rows w, w+8, ... over the tile's 64 keys
+        const float ksc0 = ksb ? ssc[lane] : 1.f, ksc1 = ksb ? ssc[32 + lane] : 1.f;
+        const float vsc0 = ksb ? ssc[FTK + lane] : 1.f, vsc1 = ksb ? ssc[FTK + 32 + lane] : 1.f;
 #pragma unroll
         for (int i = 0; i < NOWN; ++i) {
-            const int r = warp + NWARPS * i;
+            const int r = warp + FWARPS * i;
             if (r >= R) break;
-            const float* qr = sq + r * D;
-            float s = 0.f;
-#pragma unroll 8
-            for (int c = 0; c < D; c += 4) {
-                const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
-                const float4 q4 = *reinterpret_cast<const float4*>(qr + c);
-                s = fmaf(q4.x, k4.x, s);
-                s = fmaf(q4.y, k4.y, s);
-                s = fmaf(q4.z, k4.z, s);
-                s = fmaf(q4.w, k4.w, s);
+            float x0 = s[i][0] * p.scale, x1 = s[i][1] * p.scale;
+            if (ksb) {
+                x0 *= ksc0;
+                x1 *= ksc1;
             }
-            s *= p.scale;
-            if (p.ks) s *= ksc;
-            s = finish_score(p, s, np, r, kp, in_tile);
-            // keys past the tile's end take no part; masked ones do, as in
-            // the Pallas kernel (weight 0 once a valid key sets the max)
-            const float m_new = fmaxf(m_run[i], warp_max(in_tile ? s : -CUDART_INF_F));
+            if (p.softcap > 0.f) {
+                x0 = tanhf(x0 / p.softcap) * p.softcap;
+                x1 = tanhf(x1 / p.softcap) * p.softcap;
+            }
+            // keys outside [lo, hi) take no part; masked ones do, with -1e30,
+            // as in the Pallas kernel (weight 0 once a valid key sets the max)
+            x0 = kp0 >= rlo[i] && kp0 < rhi[i] ? x0 : NEG_INF;
+            x1 = kp1 >= rlo[i] && kp1 < rhi[i] ? x1 : NEG_INF;
+            const float m_new = fmaxf(m_run[i], warp_max(fmaxf(in0 ? x0 : -CUDART_INF_F,
+                                                               in1 ? x1 : -CUDART_INF_F)));
             const float corr = expf(m_run[i] - m_new);
-            const float pj = in_tile ? expf(s - m_new) : 0.f;
-            l_run[i] = l_run[i] * corr + warp_sum(pj);
+            const float p0 = in0 ? expf(x0 - m_new) : 0.f, p1 = in1 ? expf(x1 - m_new) : 0.f;
+            l_run[i] = l_run[i] * corr + (p0 + p1);
             m_run[i] = m_new;
-            const float pv = pj * vsc;
-            sp[r * TK + lane] = p.bf16_dots ? round_bf16(pv) : pv;
+            const float pv0 = p0 * vsc0, pv1 = p1 * vsc1;
+            sp[r * FTK + lane] = p.bf16_dots ? round_bf16(pv0) : pv0;
+            sp[r * FTK + 32 + lane] = p.bf16_dots ? round_bf16(pv1) : pv1;
             if (lane == 0) scorr[r] = corr;
         }
         __syncthreads();
 
-        // O += P V: column c_own of rows r_own, r_own + RSTEP, ...
+        // O += P V over columns c4 .. c4 + 3: few rows, every row over the
+        // keys of slice z; many rows, rows z, z + ZS, ... over every key.
+        // (p and the zero-filled V rows of keys outside [lo, hi) are 0.)
 #pragma unroll
         for (int i = 0; i < NACC; ++i) {
-            const int r = r_own + RSTEP * i;
+            const int r = FEW ? i : z + ZS * i;
             if (r >= R) break;
-            const float* pr = sp + r * TK;
-            float a = acc[i] * scorr[r];
-            for (int j = 0; j < nk; ++j) a = fmaf(pr[j], sv[j * D + c_own], a);
-            acc[i] = a;
+            const float corr = scorr[r];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
+        }
+#pragma unroll 2
+        for (int jb = 0; jb < (FEW ? KZ : FTK); jb += 4) {
+            const int j = FEW ? z * KZ + jb : jb;
+            float4 v[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+                v[jj] = load4(sv + (j + jj) * D + c4);
+                if (round_kv)
+                    v[jj] = make_float4(round_bf16(v[jj].x), round_bf16(v[jj].y),
+                                        round_bf16(v[jj].z), round_bf16(v[jj].w));
+            }
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) {
+                const int r = FEW ? i : z + ZS * i;
+                if (r >= R) break;
+                const float4 p4 = *reinterpret_cast<const float4*>(sp + r * FTK + j);
+                const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) {
+                    acc[i][0] = fmaf(pj[jj], v[jj].x, acc[i][0]);
+                    acc[i][1] = fmaf(pj[jj], v[jj].y, acc[i][1]);
+                    acc[i][2] = fmaf(pj[jj], v[jj].z, acc[i][2]);
+                    acc[i][3] = fmaf(pj[jj], v[jj].w, acc[i][3]);
+                }
+            }
         }
     }
 
-    const long part = (static_cast<long>(b * p.Hkv + h) * p.n_splits + split) * R;
-    if (lane == 0) {
+    // The block's partials go where the ring was (few rows: the key slices
+    // summed in slice order first); the cluster merges them.
+    cp_wait<0>();
+    __syncthreads();
+    float* cacc = reinterpret_cast<float*>(smem);      // [R][D]
+    float* cml = cacc + R * D;                         // [R][2]
+    if constexpr (FEW) {
+        float* pz = cml + 2 * R;                       // [ZS][R][D]
 #pragma unroll
-        for (int i = 0; i < NOWN; ++i) {
-            const int r = warp + NWARPS * i;
+        for (int r = 0; r < MAXR; ++r) {
             if (r >= R) break;
-            p.part_ml[(part + r) * 2] = m_run[i];
-            p.part_ml[(part + r) * 2 + 1] = l_run[i];
+            float* dst = pz + (z * R + r) * D + c4;
+            dst[0] = acc[r][0];
+            dst[1] = acc[r][1];
+            dst[2] = acc[r][2];
+            dst[3] = acc[r][3];
+        }
+        __syncthreads();
+        for (int idx = tid; idx < R * D; idx += FTHREADS) {
+            float a = pz[idx];
+#pragma unroll
+            for (int zz = 1; zz < ZS; ++zz) a += pz[zz * R * D + idx];
+            cacc[idx] = a;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) {
+            const int r = z + ZS * i;
+            if (r >= R) break;
+            *reinterpret_cast<float4*>(cacc + r * D + c4) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-        const int r = r_own + RSTEP * i;
+    for (int i = 0; i < NOWN; ++i) {
+        const int r = warp + FWARPS * i;
         if (r >= R) break;
-        p.part_acc[(part + r) * D + c_own] = acc[i];
+        const float l = warp_sum(l_run[i]);
+        if (lane == 0) {
+            cml[2 * r] = ta < tb ? m_run[i] : -CUDART_INF_F;
+            cml[2 * r + 1] = l;
+        }
     }
+    cluster_merge(p, cluster, cacc, cml, R, D, b, h);
 }
 
 // Int8 dots: one block per (block_k-key block, kv head, batch row).  Three
@@ -305,10 +646,10 @@ decode_split_int8_kernel(Params p) {
     constexpr int RSTEP = THREADS / D;
     constexpr int NACC = MAXR / RSTEP;
     constexpr int NOWN = MAXR / NWARPS;
-    extern __shared__ __align__(16) float smem[];
+    extern __shared__ __align__(16) float smem_f[];
 
     const int G = p.Hq / p.Hkv, R = G * p.T;
-    float* skv = smem;                       // [TK][D + 4]: the K tile, then the V tile
+    float* skv = smem_f;                     // [TK][D + 4]: the K tile, then the V tile
     float* sq = skv + TK * (D + 4);          // [R][D]: q8 values
     float* sqsc = sq + R * D;                // [R]: qrow * scale
     float* spsc = sqsc + R;                  // [R]: psc
@@ -448,8 +789,9 @@ decode_split_int8_kernel(Params p) {
     }
 }
 
-// One block per (kv head, batch row): merges the live splits of each row
-// in split order, applies the sinks and writes o in q's dtype.
+// The int8 dots' second kernel, one block per (kv head, batch row): merges
+// the live splits of each row in split order, applies the sinks and writes
+// o in q's dtype.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 decode_combine_kernel(Params p) {
@@ -473,95 +815,101 @@ decode_combine_kernel(Params p) {
             l = fmaf(p.part_ml[i * 2 + 1], w, l);
             a = fmaf(p.part_acc[i * D + c], w, a);
         }
-        const int g = r / p.T, t = r - g * p.T;
-        float sc;
-        if (p.sinks) {
-            const float sink = p.sinks[h * G + g];
-            const float m_f = fmaxf(m, sink);
-            l = l * expf(m - m_f) + expf(sink - m_f);
-            sc = expf(m - m_f) / fmaxf(l, 1e-30f);
-        } else {
-            sc = 1.f / fmaxf(l, 1e-30f);
-        }
-        const long off = b * p.os.b + t * p.os.t + static_cast<long>(h * G + g) * p.os.h + c;
-        if (p.q_kind == KIND_F32)
-            static_cast<float*>(p.o)[off] = a * sc;
-        else
-            static_cast<__nv_bfloat16*>(p.o)[off] = __float2bfloat16_rn(a * sc);
+        write_out(p, b, h, r, c, m, l, a);
     }
 }
 
-// Above 48 KB of dynamic shared memory a kernel needs the attribute set
-// first; smaller launches (E7's) make no call besides the launch, so that a
-// CUDA-graph capture records them as they are.
+// A float-dot kernel as one cluster launch of gridDim (C, Hkv, B).  Its
+// attributes (the shared memory of its most rows, clusters above 8) are
+// set at its first launch; later launches, and a CUDA-graph capture of
+// them, make no call besides the launch.
 template <typename K>
-int run_split(K kernel, size_t smem, const Params& p, int B, cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
+int launch_cluster(K kernel, bool& attrs_set, int smem_max, int smem, const Params& p, int B,
+                   cudaStream_t stream) {
+    if (!attrs_set) {
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             smem_max);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        attrs_set = true;
     }
-    kernel<<<dim3(p.n_splits, p.Hkv, B), THREADS, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(p.n_splits, p.Hkv, B);
+    cfg.blockDim = dim3(FTHREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.n_splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <int D, typename KV, int MAXR>
-int launch(const Params& p, int B, bool int8_dots, cudaStream_t stream) {
-    const int R = (p.Hq / p.Hkv) * p.T;
-    int rc;
-    if constexpr (sizeof(KV) == 1) {
-        if (int8_dots) {
-            const size_t smem = sizeof(float) * (TK * (D + 4) + R * D + 2 * R + R * p.split);
-            rc = run_split(decode_split_int8_kernel<D, MAXR>, smem, p, B, stream);
-        } else {
-            const size_t smem = sizeof(float) * (TK * (D + 4) + TK * D + R * D + R * TK + R);
-            rc = run_split(decode_split_kernel<D, KV, MAXR>, smem, p, B, stream);
-        }
-    } else {
-        if (int8_dots) return static_cast<int>(cudaErrorInvalidValue);
-        const size_t smem = sizeof(float) * (TK * (D + 4) + TK * D + R * D + R * TK + R);
-        rc = run_split(decode_split_kernel<D, KV, MAXR>, smem, p, B, stream);
-    }
-    if (rc != 0) return rc;
-    decode_combine_kernel<D><<<dim3(p.Hkv, B), THREADS, 0, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
+int launch_rows(const Params& p, int R, int B, cudaStream_t stream) {
+    static bool set = false;
+    return launch_cluster(decode_kernel<D, KV, MAXR>, set, FGeom<D, KV, MAXR>::smem_bytes(MAXR),
+                          FGeom<D, KV, MAXR>::smem_bytes(R), p, B, stream);
 }
 
-template <int D, int MAXR>
-int launch_kv(int kv_kind, const Params& p, int B, bool int8_dots, cudaStream_t stream) {
+template <int D, typename KV>
+int launch_float_rows(const Params& p, int B, cudaStream_t stream) {
+    const int R = (p.Hq / p.Hkv) * p.T;
+    if (R <= 8) return launch_rows<D, KV, 8>(p, R, B, stream);
+    if (R <= 32) return launch_rows<D, KV, 32>(p, R, B, stream);
+    return launch_rows<D, KV, 64>(p, R, B, stream);
+}
+
+template <int D>
+int launch_float_kv(int kv_kind, const Params& p, int B, cudaStream_t stream) {
     switch (kv_kind) {
-        case KIND_I8: return launch<D, int8_t, MAXR>(p, B, int8_dots, stream);
-        case KIND_BF16: return launch<D, __nv_bfloat16, MAXR>(p, B, int8_dots, stream);
-        case KIND_F32: return launch<D, float, MAXR>(p, B, int8_dots, stream);
+        case KIND_I8: return launch_float_rows<D, int8_t>(p, B, stream);
+        case KIND_BF16: return launch_float_rows<D, __nv_bfloat16>(p, B, stream);
+        case KIND_F32: return launch_float_rows<D, float>(p, B, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-int dispatch(const Params& p, int B, int D, int kv_kind, bool int8_dots, cudaStream_t st) {
-    const bool wide = (p.Hq / p.Hkv) * p.T > 32;
-    if (D == 128) return wide ? launch_kv<128, 64>(kv_kind, p, B, int8_dots, st)
-                              : launch_kv<128, 32>(kv_kind, p, B, int8_dots, st);
-    if (D == 64) return wide ? launch_kv<64, 64>(kv_kind, p, B, int8_dots, st)
-                             : launch_kv<64, 32>(kv_kind, p, B, int8_dots, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+// The int8 dots: the split kernel, above 48 KB of dynamic shared memory
+// after setting the attribute, then the combine kernel.
+template <int D, int MAXR>
+int launch_int8(const Params& p, int B, cudaStream_t stream) {
+    const int R = (p.Hq / p.Hkv) * p.T;
+    const size_t smem = sizeof(float) * (TK * (D + 4) + R * D + 2 * R + R * p.split);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            decode_split_int8_kernel<D, MAXR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    decode_split_int8_kernel<D, MAXR><<<dim3(p.n_splits, p.Hkv, B), THREADS, smem, stream>>>(p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_combine_kernel<D><<<dim3(p.Hkv, B), THREADS, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 Params make_params(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const float* sinks, const long long* np_vec, int np_scalar,
                    void* o, float* part_ml, float* part_acc, const long* st, int T, int S,
                    int Hq, int Hkv, int n_tokens, float scale, int window, float softcap,
-                   int q_kind, int bf16_dots, int split) {
+                   int q_kind, int bf16_dots, int split, int n_splits) {
     return Params{q, k, v, ks, vs, sinks, np_vec, np_scalar, o, part_ml, part_acc,
                   Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                   Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                   Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]},
-                  T, S, Hq, Hkv, n_tokens, window, q_kind, bf16_dots, split,
-                  (S + split - 1) / split, scale, softcap};
+                  T, S, Hq, Hkv, n_tokens, window, q_kind, bf16_dots, split, n_splits,
+                  scale, softcap};
 }
 
-bool bad_shape(int Hq, int Hkv, int T, int q_kind) {
+bool bad_shape(int Hq, int Hkv, int T, int D, int q_kind) {
     return Hkv <= 0 || Hq % Hkv || T <= 0 || (Hq / Hkv) * T > MAX_ROWS ||
-           (q_kind != KIND_F32 && q_kind != KIND_BF16);
+           (D != 64 && D != 128) || (q_kind != KIND_F32 && q_kind != KIND_BF16);
 }
 
 }  // namespace
@@ -569,27 +917,29 @@ bool bad_shape(int Hq, int Hkv, int T, int q_kind) {
 // q: bf16 (q_kind KIND_BF16) or f32 (KIND_F32); k/v: int8 with ks/vs
 // (kv_kind KIND_I8) or bf16 / f32 without; unit stride along D and 16-byte
 // aligned rows; strides: 18 element strides (b, t|s, h) of q, k, v, o, ks,
-// vs.  np_vec: int64 [B] per-row n_past, or null to use np_scalar.
-// part_ml and part_acc: f32 scratch of [B, Hkv, ceil(S / split), G*T] x 2
-// and x D.  D must be 64 or 128 and G*T at most 64.  bf16 or f32 dots, in
-// splits of `split` keys (flash_decode.py SPLIT_K).
+// vs.  np_vec: int64 [B] per-row n_past, or null to use np_scalar.  D must
+// be 64 or 128 and G*T at most 64.  bf16 or f32 dots; `ctas` (1..16) blocks
+// per (batch row, kv head), one cluster (flash_decode.py decode_geometry).
 CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
                                   const float* ks, const float* vs, const float* sinks,
                                   const long long* np_vec, int np_scalar, void* o,
-                                  float* part_ml, float* part_acc, const long* strides,
-                                  int B, int T, int S, int Hq, int Hkv, int D, int n_tokens,
-                                  float scale, int window, float softcap, int q_kind,
-                                  int kv_kind, int bf16_dots, int split, void* stream) {
-    if (bad_shape(Hq, Hkv, T, q_kind) || (kv_kind == KIND_I8) != (ks != nullptr) || split <= 0)
+                                  const long* strides, int B, int T, int S, int Hq, int Hkv,
+                                  int D, int n_tokens, float scale, int window, float softcap,
+                                  int q_kind, int kv_kind, int bf16_dots, int ctas,
+                                  void* stream) {
+    if (bad_shape(Hq, Hkv, T, D, q_kind) || (kv_kind == KIND_I8) != (ks != nullptr) ||
+        (ks != nullptr) != (vs != nullptr) || ctas <= 0 || ctas > MAX_CLUSTER)
         return static_cast<int>(cudaErrorInvalidValue);
-    const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, part_ml, part_acc,
+    const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, nullptr, nullptr,
                                  strides, T, S, Hq, Hkv, n_tokens, scale, window, softcap,
-                                 q_kind, bf16_dots, split);
-    return dispatch(p, B, D, kv_kind, false, static_cast<cudaStream_t>(stream));
+                                 q_kind, bf16_dots, FTK, ctas);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return D == 128 ? launch_float_kv<128>(kv_kind, p, B, st) : launch_float_kv<64>(kv_kind, p, B, st);
 }
 
-// The int8-dot mode over an int8 cache with its scales: the arguments of
-// flash_decode_launch less kv_kind and bf16_dots; `block_k` (1..512) keys
+// The int8-dot mode over an int8 cache with its scales: q to sinks, np_vec,
+// np_scalar and o as flash_decode_launch; part_ml and part_acc: f32 scratch
+// of [B, Hkv, ceil(S / block_k), G*T] x 2 and x D; `block_k` (1..512) keys
 // per split, the Pallas kernel's quantization block.
 CL_EXPORT int flash_decode_int8_launch(const void* q, const void* k, const void* v,
                                        const float* ks, const float* vs, const float* sinks,
@@ -598,10 +948,13 @@ CL_EXPORT int flash_decode_int8_launch(const void* q, const void* k, const void*
                                        int B, int T, int S, int Hq, int Hkv, int D,
                                        int n_tokens, float scale, int window, float softcap,
                                        int q_kind, int block_k, void* stream) {
-    if (bad_shape(Hq, Hkv, T, q_kind) || !ks || !vs || block_k <= 0 || block_k > MAX_SPLIT)
+    if (bad_shape(Hq, Hkv, T, D, q_kind) || !ks || !vs || block_k <= 0 || block_k > MAX_SPLIT)
         return static_cast<int>(cudaErrorInvalidValue);
     const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, part_ml, part_acc,
                                  strides, T, S, Hq, Hkv, n_tokens, scale, window, softcap,
-                                 q_kind, 0, block_k);
-    return dispatch(p, B, D, KIND_I8, true, static_cast<cudaStream_t>(stream));
+                                 q_kind, 0, block_k, (S + block_k - 1) / block_k);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool wide = (Hq / Hkv) * T > 32;
+    if (D == 128) return wide ? launch_int8<128, 64>(p, B, st) : launch_int8<128, 32>(p, B, st);
+    return wide ? launch_int8<64, 64>(p, B, st) : launch_int8<64, 32>(p, B, st);
 }

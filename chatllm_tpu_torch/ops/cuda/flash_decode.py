@@ -4,7 +4,10 @@
 Replaces chatllm_tpu/ops/pallas/flash_decode.py::flash_decode (its batched
 all-heads kernel `_batched_kernel` and its per-head kernel `_decode_kernel`).
 `flash_decode` launches the CUDA kernel for CUDA tensors and runs
-`flash_decode_plain`, its plain PyTorch version, for CPU tensors.
+`flash_decode_plain`, its plain PyTorch version, for CPU tensors.  With
+bf16 or f32 dots a call is one launch: a cluster of `decode_geometry`
+blocks per (batch row, kv head), each taking its share (`decode_share`) of
+the row's live keys (`live_range`), merged inside the cluster.
 
 The contract, as in the Pallas kernels: the G*T query rows of each kv head
 are folded together, row r = g*T + t at position n_past[b] + t.  A key at
@@ -35,13 +38,15 @@ import os
 
 import torch
 
-from .build import FLASH_DECODE, FLASH_DECODE_INT8, ptr, stream_ptr
+from .build import FLASH_DECODE, FLASH_DECODE_INT8, num_sms, ptr, stream_ptr
 from .checks import KIND_BF16, KIND_F32, KIND_I8
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)     # head dims the CUDA kernel is instantiated for
 MAX_ROWS = 64             # G * T query rows per kv head the kernel holds (csrc MAX_ROWS)
-SPLIT_K = 256             # keys per split of the bf16 / f32 dots' split-K grid
+TILE_K = 64               # keys per tile of the bf16 / f32 dots (csrc FTK)
+MAX_CLUSTER = 16          # their blocks per (batch row, kv head) at most (csrc MAX_CLUSTER)
+PORTABLE_CLUSTER = 8      # above it the launcher sets the non-portable cluster attribute
 MAX_BLOCK_K = 512         # keys per split of the int8 dots at most (csrc MAX_SPLIT)
 QK_DTYPES = ("bfloat16", "float32", "int8")
 _QK_ENV = {"f32": "float32", "bf16": "bfloat16", "int8": "int8"}
@@ -77,6 +82,33 @@ def npast_vector(n_past, B: int, device) -> torch.Tensor:
     if isinstance(n_past, torch.Tensor):
         return n_past.to(device=device, dtype=torch.int64).reshape(-1).expand(B)
     return torch.full((B,), int(n_past), dtype=torch.int64, device=device)
+
+
+def decode_geometry(B: int, Hkv: int, S: int, sms: int) -> int:
+    """Blocks per (batch row, kv head) of the bf16 / f32 dots: each (b, kv
+    head) is one thread-block cluster of C blocks, C about two blocks per
+    SM over the B * Hkv clusters, at least 1 and at most MAX_CLUSTER (above
+    PORTABLE_CLUSTER the launcher allows a non-portable cluster) and at most
+    one block per 64-key tile of the cache.  The grid is (C, Hkv, B)."""
+    return max(1, min(MAX_CLUSTER, 2 * sms // (B * Hkv), -(-S // TILE_K)))
+
+
+def live_range(n_past: int, n_tokens: int, S: int, sliding_window: int = 0) -> tuple[int, int]:
+    """The keys [lo, hi) some query row of a batch row may see, as the
+    kernel takes them from its n_past (csrc `live_keys`)."""
+    lo = n_past - sliding_window + 1 if sliding_window > 0 else 0
+    return min(max(lo, 0), S), min(max(n_past + n_tokens, 0), S)
+
+
+def decode_share(lo: int, hi: int, rank: int, ctas: int) -> tuple[int, int]:
+    """The keys [begin, end) that block `rank` of a cluster of `ctas` takes
+    of the live keys [lo, hi) (csrc `decode_kernel`): the 64-key tiles
+    aligned at multiples of TILE_K that meet [lo, hi), split into `ctas`
+    contiguous runs in rank order, clipped to [lo, hi); empty when begin >= end."""
+    t0 = lo // TILE_K
+    nt = -(-hi // TILE_K) - t0 if hi > lo else 0
+    ta, tb = t0 + rank * nt // ctas, t0 + (rank + 1) * nt // ctas
+    return max(ta * TILE_K, lo), min(tb * TILE_K, hi)
 
 
 def _div127(x: torch.Tensor) -> torch.Tensor:
@@ -280,26 +312,25 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
     else:
         np_scalar = int(n_past)
 
-    int8_dots = qk_dtype == "int8"
-    split = batched_block_k(block_k, S, Hkv, D, Dv, 1) if int8_dots else SPLIT_K
-    if not 0 < split <= MAX_BLOCK_K:
-        raise ValueError(f"flash_decode: int8 dots over blocks of {split} keys "
-                         f"(1..{MAX_BLOCK_K})")
-    n_splits = -(-S // split)
-    R = G * T
-    part_ml = torch.empty(B, Hkv, n_splits, R, 2, dtype=torch.float32, device=dev)
-    part_acc = torch.empty(B, Hkv, n_splits, R, D, dtype=torch.float32, device=dev)
     o = torch.empty(B, T, Hq, D, dtype=q.dtype, device=dev)
     sc_strides = k_scale.stride() + v_scale.stride() if quant else (0,) * 6
     strides = (ctypes.c_long * 18)(*(q.stride()[:3] + k_cache.stride()[:3]
                                      + v_cache.stride()[:3] + o.stride()[:3] + sc_strides))
-    args = (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(sinks),
-            ptr(np_vec), np_scalar, ptr(o), ptr(part_ml), ptr(part_acc),
-            ctypes.cast(strides, ctypes.c_void_p), B, T, S, Hq, Hkv, D, int(n_tokens),
-            float(scale), int(sliding_window), float(logit_softcap),
-            KIND_F32 if q.dtype == torch.float32 else KIND_BF16)
-    if int8_dots:
-        FLASH_DECODE_INT8.launch(*args, split, stream_ptr(dev))
-    else:
-        FLASH_DECODE.launch(*args, kind, int(qk_dtype == "bfloat16"), split, stream_ptr(dev))
+    head = (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(sinks),
+            ptr(np_vec), np_scalar, ptr(o))
+    shape = (ctypes.cast(strides, ctypes.c_void_p), B, T, S, Hq, Hkv, D, int(n_tokens),
+             float(scale), int(sliding_window), float(logit_softcap),
+             KIND_F32 if q.dtype == torch.float32 else KIND_BF16)
+    if qk_dtype != "int8":
+        FLASH_DECODE.launch(*head, *shape, kind, int(qk_dtype == "bfloat16"),
+                            decode_geometry(B, Hkv, S, num_sms(dev)), stream_ptr(dev))
+        return o
+    split = batched_block_k(block_k, S, Hkv, D, Dv, 1)
+    if not 0 < split <= MAX_BLOCK_K:
+        raise ValueError(f"flash_decode: int8 dots over blocks of {split} keys "
+                         f"(1..{MAX_BLOCK_K})")
+    n_splits = -(-S // split)
+    part_ml = torch.empty(B, Hkv, n_splits, G * T, 2, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(B, Hkv, n_splits, G * T, D, dtype=torch.float32, device=dev)
+    FLASH_DECODE_INT8.launch(*head, ptr(part_ml), ptr(part_acc), *shape, split, stream_ptr(dev))
     return o

@@ -963,6 +963,39 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 8, 32, 4, 128, [7000], "int8", "bfloat16", {}, None),     # G*T = 64
 ]
 
+# The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
+# multiples of 64 (a lane scores keys j and 32 + j), and C blocks per (batch
+# row, kv head) splitting the live tiles in rank order
+# (ops/cuda/flash_decode.py::decode_geometry: C = 16 at B * Hkv <= 16, 8 at
+# 32, 1 at 256).  Same columns as DECODE_CASES.
+DECODE_EDGE_CASES = [
+    (1, 1, 32, 8, 128, [0], "int8", "bfloat16", {}, "decode_floor"),   # one live key
+    (1, 1, 32, 8, 128, [1], "int8", "float32", {}, None),
+    (1, 1, 32, 8, 128, [31], "int8", "bfloat16", {}, None),      # the lanes' first keys
+    (1, 1, 32, 8, 128, [32], "int8", "float32", {}, None),       # one key of the second half
+    (1, 1, 32, 8, 128, [62], "int8", "bfloat16", {}, None),      # tile - 1 live keys
+    (1, 1, 32, 8, 128, [63], "int8", "float32", {}, None),       # one whole tile
+    (1, 1, 32, 8, 128, [64], "bfloat16", "bfloat16", {}, None),  # tile + 1
+    # 16 live tiles, one per block: the last share one key short of its
+    # edge, on it, one key past it (17 tiles)
+    (1, 1, 32, 8, 128, [1022], "int8", "bfloat16", {}, None),
+    (1, 1, 32, 8, 128, [1023], "int8", "float32", {}, None),
+    (1, 1, 32, 8, 128, [1024], "int8", "bfloat16", {}, None),
+    (1, 1, 14, 2, 64, [1024], "int8", "float32", {}, None),     # Qwen's route: f32 dots
+    (1, 1, 32, 8, 128, [8191], "int8", "bfloat16", {}, None),    # a row ending at S
+    (4, 1, 32, 8, 128, [0, 33, 1000, 8191], "int8", "float32", {}, None),
+    # 2 live tiles: 14 of 16 blocks have an empty share
+    (1, 1, 32, 8, 128, [5000], "int8", "bfloat16", {"sliding_window": 64}, None),
+    (1, 2, 32, 8, 128, [2047], "int8", "float32",
+     {"sliding_window": 1000, "sinks": True, "logit_softcap": 30.0}, None),
+    (32, 1, 32, 8, 128, [i * 263 % 8192 for i in range(32)], "int8", "bfloat16", {}, None),  # C = 1
+    (32, 1, 32, 8, 128, [i * 263 % 8192 for i in range(32)], "bfloat16", "float32", {}, None),
+    (1, 8, 32, 4, 128, [7000], "int8", "float32", {}, None),     # 64 rows
+    (1, 8, 32, 4, 128, [33], "float32", "bfloat16", {}, None),
+    (1, 8, 14, 2, 64, [1000], "bfloat16", "bfloat16", {}, None), # Qwen, 56 rows
+    (2, 8, 14, 2, 64, [0, 4000], "float32", "float32", {}, None),
+]
+
 # K4's int8 dots at Llama-3-8B's q8 shapes, S 8192, block_k 512 (the route's)
 # (B, T, Hq, Hkv, D, n_past, extra, timed as)
 DECODE_INT8_CASES = [
@@ -980,12 +1013,14 @@ DECODE_INT8_CASES = [
 
 
 def decode_cases(dev, timer, gen) -> dict:
-    """K4 at Llama-3-8B's attention shapes over an 8192-slot cache."""
+    """K4 at Llama-3-8B's and Qwen2.5-0.5B's attention shapes and on its
+    design's edges over an 8192-slot cache; each case launched twice,
+    bit-identical."""
     from chatllm_tpu_torch.ops.attention import quantize_kv
     from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
 
     out = {"cases": [], "shapes": {}}
-    for B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed in DECODE_CASES:
+    for B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed in DECODE_CASES + DECODE_EDGE_CASES:
         S = DECODE_S
         # bf16 dots take the model's bf16 query; f32 dots an f32 one
         q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(getattr(torch, dots))
@@ -1001,15 +1036,17 @@ def decode_cases(dev, timer, gen) -> dict:
             k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
         npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
         o = flash_decode(q, k, v, npv, T, **kw)
+        same = torch.equal(flash_decode(q, k, v, npv, T, **kw), o)
         err, scaled = flash_decode_errors(o, q, k, v, npv, T, **kw)
         name = (f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} n_past={n_past} {cache} {dots} dots "
                 f"{extra}")
         log(f"  flash_decode {name}  max_abs_err={err:.3e} scaled={scaled:.2e}")
         lim = DECODE_SCALED_TOL[dots]
         if not (o.dtype == q.dtype and torch.isfinite(o).all() and err <= DECODE_ATOL
-                and scaled <= lim):
+                and scaled <= lim and same):
             raise AssertionError(f"flash_decode {name}: err {err} (limit {DECODE_ATOL}), "
-                                 f"scaled {scaled} (limit {lim})")
+                                 f"scaled {scaled} (limit {lim}), second launch "
+                                 f"{'bit-identical' if same else 'differs'}")
         out["cases"].append({"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D, "n_past": n_past,
                              "cache": cache, "dots": dots, "extra": str(extra),
                              "max_abs_err": err, "scaled_err": scaled})
