@@ -79,11 +79,15 @@
 //     quarter-rate integer conversion.  Warp w keeps the softmax state of
 //     rows w, w+8, ...: the running max in every lane, the denominator as
 //     per-lane shares summed once at the end.
-//  5. The blocks of a cluster combine in the kernel: each leaves its rows'
-//     (max, denominator, accumulator) in its own shared memory and the
-//     cluster merges them through distributed shared memory in rank order
-//     (`cluster_merge`), then applies the sinks, the 1e-30 clamp and the
-//     cast: one launch per call, no scratch in device memory, no atomics.
+//  5. The blocks of a cluster combine in the kernel: each stores its rows'
+//     (max, denominator) and its accumulators into the shared memory of the
+//     blocks that own those outputs, through distributed shared memory
+//     (`Recv`, `send_acc`); after one cluster barrier the owners merge them
+//     in rank order (`owner_merge`) and apply the sinks, the 1e-30 clamp and
+//     the cast: one launch per call, no scratch in device memory, no
+//     atomics.  While n_past loads, each block prefetches a line of its
+//     row's cache into L2, so that the tiles' loads find its pages' address
+//     translations.
 //  6. The dots stay on the CUDA cores' FMAs.
 #include <math_constants.h>
 
@@ -261,36 +265,82 @@ __device__ __forceinline__ void block_share(int lo, int hi, int rank, int C, int
     tb = t0 + static_cast<int>(static_cast<long>(rank + 1) * nt / C);
 }
 
-// The blocks of the cluster (gridDim.x of them, one (batch row, kv head))
-// have each left their rows' accumulators cacc [R, D] and (max, denominator)
-// cml [R, 2] (max -inf: no live key) in their shared memory.  Block `rank`
-// merges every C-th group of FTHREADS outputs in rank order and writes them.
-__device__ __forceinline__ void cluster_merge(const Params& p, cg::cluster_group& cluster,
-                                              float* cacc, float* cml, int R, int D, int b,
-                                              int h) {
-    cluster.sync();
-    const int C = gridDim.x, rank = blockIdx.x;
-    for (int idx = rank * FTHREADS + threadIdx.x; idx < R * D; idx += C * FTHREADS) {
-        const int r = idx / D;
-        float ms[MAX_CLUSTER];
+// The cluster's merge.  Block o of the cluster owns the outputs [o SP,
+// (o + 1) SP) of the flattened [R, D] output (SP, the span: R D / C rounded
+// up to 4).  Every block stores its partial accumulators of them, under its
+// own rank, and its rows' (max, denominator) into the owner's receive buffer
+// through distributed shared memory.  After one cluster barrier each owner
+// merges what it received in rank order.
+struct Recv {
+    __host__ __device__ static int span(int R, int D, int C) {
+        return ((R * D + C - 1) / C + 3) / 4 * 4;
+    }
+    // racc [C][SP], rml [C][R][2], then the merge's weights [R][C] and maxima [R]
+    __host__ __device__ static int bytes(int R, int D, int C) {
+        return 4 * (C * (span(R, D, C) + 2 * R) + R * (C + 1));
+    }
+};
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// N (1 or 4) partials of consecutive outputs idx .. idx + N - 1 (one owner)
+template <int N>
+__device__ __forceinline__ void send_acc(cg::cluster_group& cluster, float* racc, int idx,
+                                         int span, const float* a) {
+    float* dst = cluster.map_shared_rank(racc, idx / span) + blockIdx.x * span + idx % span;
+    if constexpr (N == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+    else
+        *dst = a[0];
+}
+
+// row r's (max (-inf: no live key in this block's share), denominator) to
+// the owners of its outputs
+__device__ __forceinline__ void send_ml(cg::cluster_group& cluster, float* rml, int R, int D,
+                                        int span, int r, float m, float l) {
+    for (int o = r * D / span; o <= ((r + 1) * D - 1) / span; ++o)
+        *reinterpret_cast<float2*>(cluster.map_shared_rank(rml, o) + (blockIdx.x * R + r) * 2) =
+            make_float2(m, l);
+}
+
+// The owner's merge of its outputs, in rank order, and their output.  The
+// weights exp(m_s - m) of the rows it touches are taken once, into ws; a
+// block with no live key (max -inf) weighs 0, and its partials are 0.
+__device__ __forceinline__ void owner_merge(const Params& p, const float* racc, const float* rml,
+                                            float* ws, int R, int D, int span, int b, int h) {
+    const int C = gridDim.x, base = blockIdx.x * span;
+    const int r0 = base / D, nr = base < R * D ? min(R, (base + span - 1) / D + 1) - r0 : 0;
+    for (int t = threadIdx.x; t < nr * C; t += FTHREADS) {
+        const int r = r0 + t / C, s = t - (t / C) * C;
         float m = -CUDART_INF_F;
 #pragma unroll
-        for (int s = 0; s < MAX_CLUSTER; ++s) {
-            ms[s] = -CUDART_INF_F;
-            if (s < C) ms[s] = cluster.map_shared_rank(cml, s)[2 * r];
-            m = fmaxf(m, ms[s]);
-        }
+        for (int s2 = 0; s2 < MAX_CLUSTER; ++s2)
+            if (s2 < C) m = fmaxf(m, rml[(s2 * R + r) * 2]);
+        const float ms = rml[(s * R + r) * 2];
+        ws[t] = ms == -CUDART_INF_F ? 0.f : expf(ms - m);
+        if (s == 0) ws[nr * C + t / C] = m;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < span && base + j < R * D; j += FTHREADS) {
+        const int idx = base + j, r = idx / D;
+        const float* w = ws + (r - r0) * C;
         float l = 0.f, a = 0.f;
 #pragma unroll
         for (int s = 0; s < MAX_CLUSTER; ++s) {
-            if (ms[s] == -CUDART_INF_F) continue;    // no live key in block s's share
-            const float w = expf(ms[s] - m);
-            l = fmaf(cluster.map_shared_rank(cml, s)[2 * r + 1], w, l);
-            a = fmaf(cluster.map_shared_rank(cacc, s)[idx], w, a);
+            if (s >= C) break;
+            l = fmaf(rml[(s * R + r) * 2 + 1], w[s], l);
+            a = fmaf(racc[s * span + j], w[s], a);
         }
-        write_out(p, b, h, r, idx - r * D, m, l, a);
+        write_out(p, b, h, r, idx - r * D, ws[nr * C + r - r0], l, a);
     }
-    cluster.sync();        // keep this block's partials alive until every peer has read them
 }
 
 // q [R, D] of kv head h into f32 registers, FTHREADS apart (rounded to bf16
@@ -319,10 +369,10 @@ __device__ __forceinline__ void store_q_rows(const Params& p, int R, const float
 // The float-dot kernel's shared memory: a ring of STAGES stages, each a
 // 64-key K tile (rows padded by 16 bytes), a V tile and the tile's k and v
 // scales, all in the cache's dtype; after the last tile the ring's space
-// takes the block's partials [R, D] + [R, 2] (and, with few rows, the key
-// slices' [ZS, R, D]).  Then, in f32: q [R, D], with few rows the warps'
-// partial dots [FWARPS, R, 32], p * v_scale [R, FTK] and the tile's rescale
-// factors [R].
+// takes, with few rows, the key slices' partials [ZS, R, D].  Then, in f32:
+// q [R, D], with few rows the warps' partial dots [FWARPS, R, 32], p *
+// v_scale [R, FTK], the tile's rescale factors [R], and the receive buffer
+// of the cluster's merge (Recv).
 template <int D, typename KV, int MAXR>
 struct FGeom {
     static constexpr bool FEW = MAXR <= 8;
@@ -339,12 +389,16 @@ struct FGeom {
     static constexpr int ZS = FTHREADS / CW;       // slices of the keys (FEW) or rows in P V
 
     __host__ __device__ static int ring_bytes(int R) {
-        const int part = (R * D + 2 * R + (FEW ? ZS * R * D : 0)) * 4;
+        const int part = FEW ? ZS * R * D * 4 : 0;
         const int ring = STAGES * STAGE > part ? STAGES * STAGE : part;
         return (ring + 15) / 16 * 16;
     }
-    __host__ __device__ static int smem_bytes(int R) {
-        return ring_bytes(R) + 4 * (R * D + (FEW ? FWARPS * R * 32 : 0) + R * FTK + R);
+    __host__ __device__ static int recv_offset(int R) {
+        return (ring_bytes(R) + 4 * (R * D + (FEW ? FWARPS * R * 32 : 0) + R * FTK + R) + 15) /
+               16 * 16;
+    }
+    __host__ __device__ static int smem_bytes(int R, int C) {
+        return recv_offset(R) + Recv::bytes(R, D, C);
     }
 };
 
@@ -362,20 +416,29 @@ decode_kernel(Params p) {
     extern __shared__ __align__(16) uint8_t smem[];
     cg::cluster_group cluster = cg::this_cluster();
 
+    cluster_arrive_relaxed();                        // this block has started
     const int R = (p.Hq / p.Hkv) * p.T;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int h = blockIdx.y, b = blockIdx.z;
+    const KV* kb = static_cast<const KV*>(p.k) + b * p.kst.b + h * p.kst.h;
+    const KV* vb = static_cast<const KV*>(p.v) + b * p.vst.b + h * p.vst.h;
+    const float* ksb = p.ks ? p.ks + b * p.kss.b + h * p.kss.h : nullptr;
+    const float* vsb = p.ks ? p.vs + b * p.vss.b + h * p.vss.h : nullptr;
+    if (tid == 0) {    // the row's cache pages into the address translation while n_past loads
+        const long kp = static_cast<long>(blockIdx.x) * p.S / gridDim.x;
+        prefetch_l2(kb + kp * p.kst.t);
+        prefetch_l2(vb + kp * p.vst.t);
+        if (ksb) {
+            prefetch_l2(ksb + kp * p.kss.t);
+            prefetch_l2(vsb + kp * p.vss.t);
+        }
+    }
     float qv[QPT];
     load_q_rows<QPT, D>(p, b, h, R, qv);             // in flight beside n_past's load
     long long np;
     int lo, hi, ta, tb;
     live_keys(p, b, np, lo, hi);
     block_share(lo, hi, blockIdx.x, gridDim.x, ta, tb);
-
-    const KV* kb = static_cast<const KV*>(p.k) + b * p.kst.b + h * p.kst.h;
-    const KV* vb = static_cast<const KV*>(p.v) + b * p.vst.b + h * p.vst.h;
-    const float* ksb = p.ks ? p.ks + b * p.kss.b + h * p.kss.h : nullptr;
-    const float* vsb = p.ks ? p.vs + b * p.vss.b + h * p.vss.h : nullptr;
 
     // tile t into its stage; keys outside [lo, hi) are zero-filled
     auto issue = [&](int t) {
@@ -589,14 +652,15 @@ decode_kernel(Params p) {
         }
     }
 
-    // The block's partials go where the ring was (few rows: the key slices
-    // summed in slice order first); the cluster merges them.
+    // The block's partials go to their owners (few rows: the key slices,
+    // left where the ring was, summed in slice order first).
     cp_wait<0>();
     __syncthreads();
-    float* cacc = reinterpret_cast<float*>(smem);      // [R][D]
-    float* cml = cacc + R * D;                         // [R][2]
+    const int span = Recv::span(R, D, gridDim.x);
+    float* racc = reinterpret_cast<float*>(smem + Gm::recv_offset(R));
+    float* rml = racc + gridDim.x * span;
     if constexpr (FEW) {
-        float* pz = cml + 2 * R;                       // [ZS][R][D]
+        float* pz = reinterpret_cast<float*>(smem);    // [ZS][R][D]
 #pragma unroll
         for (int r = 0; r < MAXR; ++r) {
             if (r >= R) break;
@@ -607,19 +671,20 @@ decode_kernel(Params p) {
             dst[3] = acc[r][3];
         }
         __syncthreads();
+        cluster_wait();    // every block of the cluster has started: owners may be written
         for (int idx = tid; idx < R * D; idx += FTHREADS) {
             float a = pz[idx];
 #pragma unroll
             for (int zz = 1; zz < ZS; ++zz) a += pz[zz * R * D + idx];
-            cacc[idx] = a;
+            send_acc<1>(cluster, racc, idx, span, &a);
         }
     } else {
+        cluster_wait();
 #pragma unroll
         for (int i = 0; i < NACC; ++i) {
             const int r = z + ZS * i;
             if (r >= R) break;
-            *reinterpret_cast<float4*>(cacc + r * D + c4) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            send_acc<4>(cluster, racc, r * D + c4, span, acc[i]);
         }
     }
 #pragma unroll
@@ -627,12 +692,11 @@ decode_kernel(Params p) {
         const int r = warp + FWARPS * i;
         if (r >= R) break;
         const float l = warp_sum(l_run[i]);
-        if (lane == 0) {
-            cml[2 * r] = ta < tb ? m_run[i] : -CUDART_INF_F;
-            cml[2 * r + 1] = l;
-        }
+        if (lane == 0)
+            send_ml(cluster, rml, R, D, span, r, ta < tb ? m_run[i] : -CUDART_INF_F, l);
     }
-    cluster_merge(p, cluster, cacc, cml, R, D, b, h);
+    cluster.sync();        // every partial has landed
+    owner_merge(p, racc, rml, rml + gridDim.x * R * 2, R, D, span, b, h);
 }
 
 // Int8 dots: one block per (block_k-key block, kv head, batch row).  Three
@@ -853,8 +917,13 @@ int launch_cluster(K kernel, bool& attrs_set, int smem_max, int smem, const Para
 template <int D, typename KV, int MAXR>
 int launch_rows(const Params& p, int R, int B, cudaStream_t stream) {
     static bool set = false;
-    return launch_cluster(decode_kernel<D, KV, MAXR>, set, FGeom<D, KV, MAXR>::smem_bytes(MAXR),
-                          FGeom<D, KV, MAXR>::smem_bytes(R), p, B, stream);
+    int most = 0;
+    for (int c = 1; c <= MAX_CLUSTER; ++c) {
+        const int bytes = FGeom<D, KV, MAXR>::smem_bytes(MAXR, c);
+        most = bytes > most ? bytes : most;
+    }
+    return launch_cluster(decode_kernel<D, KV, MAXR>, set, most,
+                          FGeom<D, KV, MAXR>::smem_bytes(R, p.n_splits), p, B, stream);
 }
 
 template <int D, typename KV>
