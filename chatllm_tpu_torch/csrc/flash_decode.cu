@@ -85,9 +85,7 @@
 //     (`Recv`, `send_acc`); after one cluster barrier the owners merge them
 //     in rank order (`owner_merge`) and apply the sinks, the 1e-30 clamp and
 //     the cast: one launch per call, no scratch in device memory, no
-//     atomics.  While n_past loads, each block prefetches a line of its
-//     row's cache into L2, so that the tiles' loads find its pages' address
-//     translations.
+//     atomics.
 //  6. The dots stay on the CUDA cores' FMAs.
 #include <math_constants.h>
 
@@ -287,9 +285,6 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
 
 // N (1 or 4) partials of consecutive outputs idx .. idx + N - 1 (one owner)
 template <int N>
@@ -343,29 +338,6 @@ __device__ __forceinline__ void owner_merge(const Params& p, const float* racc, 
     }
 }
 
-// q [R, D] of kv head h into f32 registers, FTHREADS apart (rounded to bf16
-// with bf16 dots at the store)
-template <int QPT, int D>
-__device__ __forceinline__ void load_q_rows(const Params& p, int b, int h, int R, float* qv) {
-    const int G = p.Hq / p.Hkv;
-#pragma unroll
-    for (int i = 0; i < QPT; ++i) {
-        const int idx = threadIdx.x + i * FTHREADS;
-        if (idx >= R * D) break;
-        const int r = idx / D, c = idx - r * D, g = r / p.T, t = r - g * p.T;
-        qv[i] = load_q(p, b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h + c);
-    }
-}
-template <int QPT, int D>
-__device__ __forceinline__ void store_q_rows(const Params& p, int R, const float* qv, float* sq) {
-#pragma unroll
-    for (int i = 0; i < QPT; ++i) {
-        const int idx = threadIdx.x + i * FTHREADS;
-        if (idx >= R * D) break;
-        sq[idx] = p.bf16_dots ? round_bf16(qv[i]) : qv[i];
-    }
-}
-
 // The float-dot kernel's shared memory: a ring of STAGES stages, each a
 // 64-key K tile (rows padded by 16 bytes), a V tile and the tile's k and v
 // scales, all in the cache's dtype; after the last tile the ring's space
@@ -412,29 +384,17 @@ decode_kernel(Params p) {
     constexpr int NACC = FEW ? MAXR : MAXR / ZS;
     constexpr int QCH = Gm::NCH / 4;             // FEW: chunks of a key row's quarter
     constexpr int KZ = FTK / ZS;                 // FEW: keys per slice in P V
-    constexpr int QPT = MAXR * D / FTHREADS;
     extern __shared__ __align__(16) uint8_t smem[];
     cg::cluster_group cluster = cg::this_cluster();
 
     cluster_arrive_relaxed();                        // this block has started
-    const int R = (p.Hq / p.Hkv) * p.T;
+    const int G = p.Hq / p.Hkv, R = G * p.T;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int h = blockIdx.y, b = blockIdx.z;
     const KV* kb = static_cast<const KV*>(p.k) + b * p.kst.b + h * p.kst.h;
     const KV* vb = static_cast<const KV*>(p.v) + b * p.vst.b + h * p.vst.h;
     const float* ksb = p.ks ? p.ks + b * p.kss.b + h * p.kss.h : nullptr;
     const float* vsb = p.ks ? p.vs + b * p.vss.b + h * p.vss.h : nullptr;
-    if (tid == 0) {    // the row's cache pages into the address translation while n_past loads
-        const long kp = static_cast<long>(blockIdx.x) * p.S / gridDim.x;
-        prefetch_l2(kb + kp * p.kst.t);
-        prefetch_l2(vb + kp * p.vst.t);
-        if (ksb) {
-            prefetch_l2(ksb + kp * p.kss.t);
-            prefetch_l2(vsb + kp * p.vss.t);
-        }
-    }
-    float qv[QPT];
-    load_q_rows<QPT, D>(p, b, h, R, qv);             // in flight beside n_past's load
     long long np;
     int lo, hi, ta, tb;
     live_keys(p, b, np, lo, hi);
@@ -467,7 +427,11 @@ decode_kernel(Params p) {
     float* spart = sq + R * D;               // FEW: [FWARPS][R][32] partial dots
     float* sp = spart + (FEW ? FWARPS * R * 32 : 0);   // [R][FTK]: p * v_scale of the tile
     float* scorr = sp + R * FTK;             // [R]: the tile's rescale factor
-    store_q_rows<QPT, D>(p, R, qv, sq);
+    for (int idx = tid; idx < R * D; idx += FTHREADS) {   // in flight beside the tiles' loads
+        const int r = idx / D, c = idx - r * D, g = r / p.T, t = r - g * p.T;
+        const float x = load_q(p, b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h + c);
+        sq[idx] = p.bf16_dots ? round_bf16(x) : x;
+    }
 
     // the keys [rlo, rhi) that row w + FWARPS i may see (the mask of
     // finish_score, for keys in [lo, hi))

@@ -5,10 +5,12 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build   nvcc-build every kernel library from csrc/, print the card.
   2. kernels hold K1 qgemv, K2 qmm, K3 flash_attention, K4 flash_decode
-             (also its int8 dots, its 64-row shapes, and E7's head-major
-             cache at B 32), K5 qmm_decode, K6 the read probe, E2's
-             stream_once / vpu_once (also at E1's 4096 x 14336), E3's
-             stream_read / qgemv_bf16, E4's unpack_gemv (modes v0-v3), E5's
+             (also its int8 dots, its 64-row shapes, E7's head-major cache
+             at B 32, and the edges of its tiles and blocks' shares, every
+             case launched twice and bit-identical), K5 qmm_decode, K6 the
+             read probe, E2's stream_once / vpu_once (also at E1's 4096 x
+             14336), E3's stream_read / qgemv_bf16, E4's unpack_gemv (modes
+             v0-v3), E5's
              qmm_dma and E6's qmm_unpack (three variants) and
              qmm_unpack_diag (five modes)
              against their plain PyTorch versions at the Llama-3-8B shapes,
@@ -772,7 +774,7 @@ def flash_errors(o, q, k, v, n_past: int, n_tokens: int, **kw) -> tuple[float, f
 
 
 # K4's limits, per element as for K3: the kernel rounds each probability
-# to bf16 against its 32-key tile's running max, the plain version against
+# to bf16 against its 64-key tile's running max, the plain version against
 # the row's max, so with bf16 dots the two round p * v_scale differently
 # (each at most 2^-9 relative) and the output once each (q's dtype).  f32
 # dots over an f32 query round nothing: summation order only.
