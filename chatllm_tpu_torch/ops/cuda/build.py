@@ -125,7 +125,7 @@ FLASH_DECODE_INT8 = CudaKernel("flash_decode.cu", "flash_decode_int8_launch",
                                [P, P, P, P, P, P, P, I, P, P, P, P,
                                 I, I, I, I, I, I, I, F, I, F, I, I, P], name="flash_decode_int8")
 QMM_DECODE = CudaKernel("qmm_decode.cu", "qmm_decode_launch",
-                        [P, P, I, I, I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
+                        [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
 BW_PROBE = CudaKernel("bw_probe.cu", "bw_probe_launch", [P, L, P, P, P, I, I, P])
 GEMV_STREAM = CudaKernel("gemv_probe.cu", "gemv_stream_launch", [P, P, I, I, I, P],
                          name="gemv_stream")

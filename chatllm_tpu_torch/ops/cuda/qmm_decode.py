@@ -1,12 +1,13 @@
-"""K5: pipelined fused dequant x matmul for batched decode, 2..64 rows
+"""K5: pipelined fused dequant x matmul for batched decode, 1..64 rows
 (csrc/qmm_decode.cu).
 
 Replaces chatllm_tpu/ops/pallas/qmm_decode.py::qmm_decode_pallas.  Same
-arguments and layouts as K2 (`qmm_kernel.qmm`), but the activations are
-split outside the kernel into the columns that meet the low and the high
-nibbles of each group, the kernel keeps two weight slots in flight, and the
-superblock affine term is rounded into every bf16 weight instead of being
-added in f32 (so its results differ from K2's in the last bf16 digits).
+arguments and layouts as K2 (`qmm_kernel.qmm`), but the superblock affine
+term is rounded into every bf16 weight instead of being added in f32 (so
+its results differ from K2's in the last bf16 digits).  The kernel takes x
+whole and pairs each byte row's low and high nibbles inside one mma step;
+`split_lo_hi` states that pairing.  One launch per call: split-K runs over
+a thread-block cluster (`qmm_decode_splits`), summed in shared memory.
 `qmm_decode` launches the CUDA kernel for CUDA tensors and runs
 `qmm_decode_plain`, its plain PyTorch version, for CPU tensors.
 """
@@ -18,18 +19,38 @@ import torch
 
 from ..qmm import effective_scales, stored_values
 from .build import QMM_DECODE, num_sms, ptr, stream_ptr
-from .checks import check_weight, scale_kind
+from .checks import check_weight, elem_kind, scale_kind
 from .qmm_kernel import MAX_ROWS
 
-TN = 64               # columns per block (csrc/qmm_decode.cu)
-TK = 64               # K tile
+# csrc/qmm_decode.cu's geometry
+TK = 128              # K rows per pipeline stage
+TN = 128              # columns per block
+MAX_SPLITS = 8        # blocks per thread-block cluster (the portable limit)
+SMEM_BUDGET = 110 * 1024   # 4 stages where they fit in it, else 3
+SM_SMEM = 228 * 1024       # shared memory of one SM; 1 KB of it is reserved per block
 
 
-def qmm_decode_splits(K: int, N: int, sms: int) -> int:
-    """Split-K factor: enough blocks for two waves over the SMs, at least
-    two K tiles per split."""
-    n_tiles = math.ceil(N / TN)
-    return max(1, min(math.ceil(2 * sms / n_tiles), math.ceil(K / TK) // 2))
+def qmm_decode_smem(rows: int, packed: bool, group: int, x_bytes: int) -> int:
+    """Dynamic shared memory of one block (csrc `Geom::SMEM`): the stages
+    of raw weight, x and scale rows, or the K parts' partial tiles."""
+    rows8 = 8 * (1 if rows <= 8 else 2 if rows <= 16 else 4 if rows <= 32 else 8)
+    stage = ((TK // 2 if packed else TK) * (TN + 16) + rows8 * (TK * x_bytes + 16)
+             + TK // group * 6 * TN)
+    stages = 4 if SMEM_BUDGET // stage >= 4 else 3
+    return max(stages * stage, 2 * rows8 * TN * 4)
+
+
+def qmm_decode_splits(K: int, N: int, rows: int, sms: int, *, packed: bool,
+                      group: int, x_bytes: int) -> int:
+    """Split-K factor: the blocks of a column tile that share its 128-deep K
+    tiles, one cluster along K.  About 3/4 of the blocks the SMs hold at
+    once (two per SM where their shared memory fits, else one; fewer
+    blocks than that leave SMs idle, a partial second wave or 2 K tiles
+    per block cost more), at most MAX_SPLITS and never more splits than K
+    tiles."""
+    per_sm = min(2, SM_SMEM // (qmm_decode_smem(rows, packed, group, x_bytes) + 1024))
+    want = int(0.75 * sms * per_sm / math.ceil(N / TN) + 0.5)
+    return max(1, min(MAX_SPLITS, math.ceil(K / TK), want))
 
 
 def split_lo_hi(x: torch.Tensor, group: int):
@@ -38,7 +59,8 @@ def split_lo_hi(x: torch.Tensor, group: int):
     last two axes, the K/2 columns of each half).  With the group-local
     nibble pairing (byte row j of group g = weight rows G*g + j and
     G*g + j + G/2) x_lo meets the low nibbles and x_hi the high ones, run
-    for run.  Both are views of x: nothing is copied."""
+    for run: the pairing the kernel follows inside each mma step.  Both are
+    views of x: nothing is copied."""
     B, K = x.shape
     halves = x.view(B, K // group, 2, group // 2)
     return halves[:, :, 0], halves[:, :, 1]
@@ -93,22 +115,17 @@ def qmm_decode(x, q, s, b=None, bias=None, *, group: int = 32, packed: bool = Fa
     N = q.shape[1]
     check_weight(x.device, q, s, b, d, dm, bias, K=K, group=group,
                  packed=packed, sb=sb)
-    xc = x.to(torch.bfloat16)
-    if xc.data_ptr() % 16:                 # cp.async moves 16 aligned bytes
+    xc = x.contiguous()
+    if xc.data_ptr() % 16:                 # the kernel reads x in 16-byte vectors
         xc = xc.clone()
-    xc = xc.contiguous()
-    # x_lo, x_hi [M, runs, run]: views of x when packed, x itself otherwise
-    x_lo, x_hi = split_lo_hi(xc, group) if packed else (xc.view(M, 1, K),) * 2
     y = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    n_splits = qmm_decode_splits(K, N, num_sms(x.device))
-    part = (torch.empty(n_splits * M * N, dtype=torch.float32, device=x.device)
-            if n_splits > 1 else None)
+    n_splits = qmm_decode_splits(K, N, M, num_sms(x.device), packed=packed, group=group,
+                                 x_bytes=xc.element_size())
     # the kernel takes the superblock min term only; a classic b is added below
-    QMM_DECODE.launch(ptr(x_lo), ptr(x_hi), x_lo.stride(0), x_lo.shape[1] * x_lo.shape[2],
-                      x_lo.shape[2], x_lo.stride(1), ptr(q), ptr(s),
-                      ptr(b) if sb else None, ptr(d), ptr(dm) if sb else None,
-                      ptr(bias), ptr(part), ptr(y), M, K, N, group, sb, int(packed),
-                      zero_point, scale_kind(s, sb), n_splits, stream_ptr(x.device))
+    QMM_DECODE.launch(ptr(xc), elem_kind(xc), ptr(q), ptr(s), ptr(b) if sb else None,
+                      ptr(d), ptr(dm) if sb else None, ptr(bias), ptr(y), M, K, N, group,
+                      sb, int(packed), zero_point, scale_kind(s, sb), n_splits,
+                      stream_ptr(x.device))
     if b is not None and not sb:
         y += _group_sum_affine(x, b, group)
     return y

@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. kernels hold K1 qgemv, K2 qmm, K3 flash_attention, K4 flash_decode
              (also its int8 dots, its 64-row shapes, E7's head-major cache
              at B 32, and the edges of its tiles and blocks' shares, every
-             case launched twice and bit-identical), K5 qmm_decode, K6 the
+             case launched twice and bit-identical), K5 qmm_decode (timed at 8
+             and 64 rows beside K2 and the library), K6 the
              read probe, E2's stream_once / vpu_once (also at E1's 4096 x
              14336), E3's stream_read / qgemv_bf16, E4's unpack_gemv (modes
              v0-v3), E5's
@@ -15,13 +16,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              qmm_unpack_diag (five modes)
              against their plain PyTorch versions at the Llama-3-8B shapes,
              and K1-K5 at the Qwen2.5-0.5B shapes too (q8_0 with a bias, head
-             dim 64, 14 query heads over 2 kv heads); K1 and K2 also on every
-             layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1, f32
-             scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows on
-             both sides of every tile edge, N that are not multiples of K2's
-             128 or 256 columns and a K that ends a tile part way, each
-             launch twice and bit-identical, and K2 bit-equal to its plain
-             version on one-hot rows (COVER_*); `quantize_kv` on the card
+             dim 64, 14 query heads over 2 kv heads); K1, K2 and K5 also on
+             every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
+             f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
+             on both sides of every tile edge, N that are not multiples of
+             the 128- or 256-column tiles and a K that ends a tile part way,
+             each launch twice and bit-identical, and K2 and K5 bit-equal to
+             their plain versions on one-hot rows (COVER_*, ONE_HOT_ROWS);
+             `quantize_kv` on the card
              bit-equal to the CPU
              (K1: rel 1e-4 of the output scale; K2, K5: 2e-2 of it; K6 and
              stream_once: exact; vpu_once: 1e-5 of the output scale; K3: atol
@@ -376,23 +378,27 @@ def _time_matmul(timer, kern, plain, x, lin, y, w_bf16, peak) -> dict:
     return r
 
 
-# Everything K1 and K2 take, at row counts either side of every tile edge of
-# K2 (8-row mma tiles, instantiations for 8/16/32/64 rows) and at N that are
-# not multiples of K2's column tiles (400: 128 columns; 4112: 256 columns
-# above 16 rows); K 544 ends K2's last 128-deep tile part way (classic
-# layouts only: a superblock needs K % 256 == 0).
+# Everything K1, K2 and K5 take, at row counts either side of every tile
+# edge of K2 and K5 (8-row mma tiles, instantiations for 8/16/32/64 rows)
+# and at N that are not multiples of their column tiles (400: 128 columns;
+# 4112: K2's 256 columns above 16 rows); K 544 ends their last 128-deep tile
+# part way (classic layouts only: a superblock needs K % 256 == 0).
 COVER_FMTS = ("q4_k", "q5_k", "q6_k", "q2_k", "q8_0", "q4_0", "q4_1", "q8_f32b", "q8+b")
 COVER_ROWS = (1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 37, 63, 64)
 COVER_SHAPES = ((512, 400), (544, 128), (512, 4112))
 
 
 def coverage_cases(dev, gen, res) -> int:
-    """K1 (one row, 1e-4 of the output scale) and K2 (every row count, 2e-2)
-    against their plain versions on every layout, bf16 and f32 x; each
-    kernel launched twice on the same inputs must give the same bits.
-    Returns the number of kernel calls checked."""
+    """K1 (one row, 1e-4 of the output scale), K2 and K5 (every row count,
+    2e-2) against their plain versions on every layout, bf16 and f32 x;
+    each kernel launched twice on the same inputs must give the same bits,
+    and K2 and K5 must equal their plain versions bit for bit on one-hot
+    rows.  Returns the number of kernel calls checked."""
     from chatllm_tpu_torch.ops.cuda.gemv_kernel import qgemv, qgemv_plain
+    from chatllm_tpu_torch.ops.cuda.qmm_decode import qmm_decode, qmm_decode_plain
     from chatllm_tpu_torch.ops.cuda.qmm_kernel import qmm, qmm_plain
+
+    matmuls = [("qmm", qmm, qmm_plain), ("qmm_decode", qmm_decode, qmm_decode_plain)]
 
     n = 0
     for fmt in COVER_FMTS:
@@ -406,7 +412,7 @@ def coverage_cases(dev, gen, res) -> int:
                 tag = f"{fmt}/{'bf16' if xdt == torch.bfloat16 else 'f32'}"
                 for rows in COVER_ROWS:
                     x = torch.randn(rows, K, generator=gen, device=dev).to(xdt)
-                    pairs = [("qmm", qmm, qmm_plain, 2e-2)]
+                    pairs = [(name, kern, plain, 2e-2) for name, kern, plain in matmuls]
                     if rows == 1:
                         pairs.append(("qgemv", qgemv, qgemv_plain, 1e-4))
                     for name, kern, plain, tol in pairs:
@@ -418,25 +424,38 @@ def coverage_cases(dev, gen, res) -> int:
                                                  "differ")
                         n += 2
                 # one-hot rows: each output is one dequantized weight plus its
-                # affine term, so K2 must equal its plain version bit for bit
-                # (its bf16 unpack, subtract and multiply round q * bf16(s_eff)
-                # once, as the Pallas kernel's f32 product rounded to bf16)
-                for rows in (8, 64):
-                    x = torch.zeros(rows, K, device=dev)
-                    x[torch.arange(rows, device=dev), torch.arange(rows, device=dev) * (K // rows)
-                      + torch.arange(rows, device=dev) % 7] = 1.0
-                    x = x.to(xdt)
+                # affine term, so K2 and K5 must equal their plain versions bit
+                # for bit (K2's bf16 unpack, subtract and multiply round
+                # q * bf16(s_eff) once, as the Pallas kernel's f32 product
+                # rounded to bf16; K5 rounds that, and then its sum with
+                # bf16(bb), once each, as its Pallas kernel does in bf16)
+                for rows in ONE_HOT_ROWS:
+                    x = one_hot_rows(rows, K, dev).to(xdt)
                     arrays, kw = lin_args(lin)
-                    y, ref = qmm(x, *arrays, **kw), qmm_plain(x, *arrays, **kw)
-                    if not torch.equal(y, ref):
-                        raise AssertionError(f"qmm {tag} {K}x{N} one-hot B={rows}: the dequantized "
-                                             f"weights differ from the plain version's by "
-                                             f"{(y - ref).abs().max().item()}")
-                    n += 1
-    log(f"  coverage: {n} K1/K2 launches on {len(COVER_FMTS)} layouts x bf16/f32 x rows "
+                    for name, kern, plain in matmuls:
+                        y, ref = kern(x, *arrays, **kw), plain(x, *arrays, **kw)
+                        if not torch.equal(y, ref):
+                            raise AssertionError(
+                                f"{name} {tag} {K}x{N} one-hot B={rows}: the dequantized weights "
+                                f"differ from the plain version's by {(y - ref).abs().max().item()}")
+                        n += 1
+    log(f"  coverage: {n} K1/K2/K5 launches on {len(COVER_FMTS)} layouts x bf16/f32 x rows "
         f"{COVER_ROWS} x (K, N) {COVER_SHAPES}: all within tolerance, every pair bit-identical, "
-        f"K2 bit-equal to its plain version on one-hot rows")
+        f"K2 and K5 bit-equal to their plain versions on one-hot rows {ONE_HOT_ROWS}")
     return n
+
+
+ONE_HOT_ROWS = (1, 8, 17, 64)
+
+
+def one_hot_rows(rows: int, K: int, dev) -> torch.Tensor:
+    """f32 [rows, K]: row r is 1 at column r * (K // rows) + r % 7, else 0,
+    so each output is one weight (the columns meet different groups, and
+    both nibbles of a byte row)."""
+    x = torch.zeros(rows, K, device=dev)
+    r = torch.arange(rows, device=dev)
+    x[r, r * (K // rows) + r % 7] = 1.0
+    return x
 
 
 def quantize_kv_case(dev, gen) -> dict:
@@ -480,7 +499,9 @@ def kernels_phase(dev, timer) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     res = {k: {"cases": [], "shapes": {}, "qwen_shapes": {}}
            for k in ("qgemv", "qmm", "qmm_decode")}
-    res["qmm"]["shapes_b8"] = {}
+    # K2 at 8 rows and K5 at 64 rows too, so that the two compare at both
+    res["qmm"].update(shapes_b8={}, qwen_shapes_b8={})
+    res["qmm_decode"].update(shapes_b64={}, qwen_shapes_b64={})
 
     def run(lin, fmt, sname, timed, shapes_key):
         K, N = lin.shape_in_out
@@ -496,13 +517,16 @@ def kernels_phase(dev, timer) -> dict:
             if timed and B == 64 and sname != "lm_head":
                 res["qmm"][shapes_key][sname] = _time_matmul(
                     timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
-            if timed and B == K5_ROWS and shapes_key == "shapes":
-                res["qmm"]["shapes_b8"][sname] = _time_matmul(
+            if timed and B == K5_ROWS:
+                res["qmm"][shapes_key + "_b8"][sname] = _time_matmul(
                     timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
             yb = _check_matmul(res, "qmm_decode", qmm_decode, qmm_decode_plain, xb, lin,
                                2e-2, fmt)
             if timed and B == K5_ROWS:
                 res["qmm_decode"][shapes_key][sname] = _time_matmul(
+                    timer, qmm_decode, qmm_decode_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
+            if timed and B == 64 and sname != "lm_head":
+                res["qmm_decode"][shapes_key + "_b64"][sname] = _time_matmul(
                     timer, qmm_decode, qmm_decode_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
 
     for fmt in ("q4_k", "q8_0", "q4_0", "q4_1"):
@@ -2092,6 +2116,29 @@ def _line_entry(name, src, rep, shapes, mult, cases, launches) -> dict:
             "bound_by": shapes[top]["bound_by"], "library_ms": tot["library_ms"]}
 
 
+def k5_vs_k2(kres: dict) -> dict:
+    """K5 beside K2, the library call and the bound, each summed over one
+    8-row batched decode step (Llama-3-8B: 32 x 7 projections + the
+    lm_head; Qwen2.5-0.5B: 24 x 7) and one 64-row chunk (no lm_head), from
+    this run's kernel table."""
+    out = {}
+    for model, key, layers, head in (("llama3_8b", "shapes", N_LAYERS, True),
+                                      ("qwen2_5_0_5b", "qwen_shapes", QWEN_LAYERS, False)):
+        for rows, mult, k5_key, k2_key in ((8, _per_token(layers, head), key, key + "_b8"),
+                                           (64, _per_token(layers, False), key + "_b64", key)):
+            k5, k2 = kres["qmm_decode"][k5_key], kres["qmm"][k2_key]
+            tot = {name: sum(mult[s] * shapes[s][f] for s in mult)
+                   for name, shapes, f in (("k5_ms", k5, "ms"), ("k2_ms", k2, "ms"),
+                                           ("library_ms", k5, "library_ms"),
+                                           ("k2_library_ms", k2, "library_ms"),
+                                           ("bound_ms", k5, "bound_ms"))}
+            out[f"{model}_b{rows}"] = tot
+            log(f"  {model} {rows} rows ({sum(mult.values())} launches): K5 {tot['k5_ms']:.3f} ms, "
+                f"K2 {tot['k2_ms']:.3f}, library {tot['library_ms']:.3f} / "
+                f"{tot['k2_library_ms']:.3f}, bound {tot['bound_ms']:.3f}")
+    return out
+
+
 def qwen_totals(kres: dict) -> dict:
     """K1-K5 summed over one unit of Qwen2.5-0.5B's path (24 layers, no
     quantized lm_head): per decode token, per 64-row chunk, per 1000-token
@@ -2142,12 +2189,7 @@ def main() -> int:
     report["kernels"] = kernels_phase(dev, timer)
     report["qwen_kernel_totals"] = qwen_totals(report["kernels"])
     log(f"  Qwen2.5-0.5B totals per unit of its path: {report['qwen_kernel_totals']}")
-    b8 = {n: sum(_per_token(N_LAYERS, True)[s] * report["kernels"][n][key][s]["ms"]
-                 for s in _per_token(N_LAYERS, True))
-          for n, key in (("qmm", "shapes_b8"), ("qmm_decode", "shapes"))}
-    report["batched_step_b8_ms"] = b8
-    log(f"  one 8-row batched step of Llama-3-8B (225 launches), kernel time: K2 "
-        f"{b8['qmm']:.2f} ms, K5 {b8['qmm_decode']:.2f} ms")
+    report["k5_vs_k2"] = k5_vs_k2(report["kernels"])
     del timer
     torch.cuda.empty_cache()
 

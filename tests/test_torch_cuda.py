@@ -165,9 +165,12 @@ QWEN_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
 @pytest.mark.parametrize("rows", [2, 17, 32, 37, 64])
 @pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
 def test_qmm_decode_kernel(dev, fmt, rows, with_bias):
-    """K5 against its plain version (the same roundings; summation order
-    and the bf16 rounding of sums that land on a tie differ): 2e-2 of the
-    output scale, as for K2."""
+    """K5 against its plain version (the same roundings; only the order of
+    the f32 sums differs): 2e-2 of the output scale, as for K2; a second
+    launch gives the same bits (the cluster sums its splits in rank
+    order); on one-hot rows, where each output is one dequantized weight,
+    the kernel equals its plain version bit for bit."""
+    import chip_smoke
     from chatllm_tpu_torch.ops.cuda.build import KERNELS
     from chatllm_tpu_torch.ops.cuda.qmm_decode import qmm_decode, qmm_decode_plain
 
@@ -183,6 +186,10 @@ def test_qmm_decode_kernel(dev, fmt, rows, with_bias):
     torch.cuda.synchronize()
     assert KERNELS["qmm_decode"].launches == before + 1
     assert (y - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    assert torch.equal(qmm_decode(x, lin.q, lin.s, lin.b, bias, **kw), y)
+    x1 = chip_smoke.one_hot_rows(rows, 512, dev).to(torch.bfloat16)
+    assert torch.equal(qmm_decode(x1, lin.q, lin.s, lin.b, bias, **kw),
+                       qmm_decode_plain(x1, lin.q, lin.s, lin.b, bias, **kw))
     with pytest.raises(TypeError):
         qmm_decode(x, lin.q, lin.s, lin.b, bias, compute_dtype=torch.float32, **kw)
 

@@ -190,13 +190,45 @@ def test_gemv_geometry(K, N, G, packed):
     assert -(-N // (k1.CPT * cl)) < 2 ** 31 and splits <= MAX_GRID_Y
 
 
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("K,N,G", GEOMETRY_SHAPES)
-def test_qmm_decode_geometry(K, N, G):
-    """K5's split-K factor (its own 64-column tiles): every split owns at
-    least one 64-deep K tile and the grid fits gridDim."""
+def test_qmm_decode_geometry(K, N, G, packed, rows):
+    """K5's split-K factor at 132 SMs, bf16 and f32 x: within the portable
+    cluster limit of 8, every split owns at least one 128-deep K tile, the
+    blocks fit the SMs in one wave (as many as their shared memory lets
+    one SM hold, at most two) unless one split per column tile already
+    exceeds them, the block's shared memory fits an SM, and the grid fits
+    gridDim."""
     from chatllm_tpu_torch.ops.cuda import qmm_decode as k5
 
-    splits = k5.qmm_decode_splits(K, N, 132)
-    n_kt = -(-K // k5.TK)
-    assert 1 <= splits <= MAX_GRID_Y
-    assert all((s + 1) * n_kt // splits > s * n_kt // splits for s in range(splits))
+    for x_bytes in (2, 4):
+        smem = k5.qmm_decode_smem(rows, packed, G, x_bytes)
+        per_sm = min(2, k5.SM_SMEM // (smem + 1024))
+        splits = k5.qmm_decode_splits(K, N, rows, 132, packed=packed, group=G, x_bytes=x_bytes)
+        n_kt = -(-K // k5.TK)
+        n_tiles = -(-N // k5.TN)
+        assert smem <= 227 * 1024 and per_sm >= 1
+        assert 1 <= splits <= k5.MAX_SPLITS == 8
+        assert all((s + 1) * n_kt // splits > s * n_kt // splits for s in range(splits))
+        assert splits == 1 or n_tiles * splits <= per_sm * 132
+        assert n_tiles < 2 ** 31 and splits <= MAX_GRID_Y
+
+
+@pytest.mark.parametrize("rows,packed,G,x_bytes,splits", [
+    (8, True, 32, 2, {"q_o": 6, "k_v": 8, "gate_up": 2, "down": 6, "lm_head": 1}),
+    (64, True, 32, 2, {"q_o": 6, "k_v": 8, "gate_up": 2, "down": 6}),
+    (64, False, 32, 2, {"qwen_gate_up": 3, "qwen_down": 8})])
+def test_qmm_decode_splits_at_model_shapes(rows, packed, G, x_bytes, splits):
+    """The split factors of the Llama-3-8B projections (q4_k) and of two
+    Qwen2.5-0.5B ones (q8_0, whose block at 64 rows takes a whole SM's
+    shared memory) on 132 SMs, pinned: chip_smoke times K5 at these
+    shapes, and a change of the rule changes those times."""
+    from chatllm_tpu_torch.ops.cuda import qmm_decode as k5
+
+    shapes = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
+              "down": (14336, 4096), "lm_head": (4096, 128256),
+              "qwen_gate_up": (896, 4864), "qwen_down": (4864, 896)}
+    got = {name: k5.qmm_decode_splits(*shapes[name], rows, 132, packed=packed, group=G,
+                                      x_bytes=x_bytes) for name in splits}
+    assert got == splits

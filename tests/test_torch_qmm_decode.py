@@ -60,6 +60,62 @@ def test_qmm_decode_plain_matches_pallas(fmt, with_bias, B):
                                     **tkw).numpy())
 
 
+def _sb_unpacked(rng, K, N, G, with_m):
+    """q5_k / q6_k-shaped superblock arrays: int8 values (0..31 with a min,
+    -32..31 without), sc (signed without a min), f16 d / dmin."""
+    SB = 256 // G
+    lo, hi = (0, 32) if with_m else (-32, 32)
+    q = rng.integers(lo, hi, size=(K, N)).astype(np.int8)
+    sc = rng.integers(0 if with_m else -128, 64 if with_m else 128,
+                      size=(K // G, N)).astype(np.int8)
+    d = (rng.random((K // (G * SB), N)) * 0.002 + 1e-4).astype(np.float16)
+    w = dict(q=q, s=sc, b=None, d=d, dm=None, sb=SB, group=G, packed=False, zero_point=0)
+    if with_m:
+        w["b"] = rng.integers(0, 64, size=(K // G, N)).astype(np.int8)
+        w["dm"] = (rng.random((K // (G * SB), N)) * 0.001 + 1e-4).astype(np.float16)
+    return w
+
+
+# Every layout K5 takes: the four of the main path, the G 16 and int8
+# superblock layouts, and classic f32 scales with a b
+ONE_HOT_WEIGHTS = {
+    **WEIGHTS,
+    "q2_k": lambda r: _superblock(r, K, N, G=16, SB=16),
+    "q5_k": lambda r: _sb_unpacked(r, K, N, 32, True),
+    "q6_k": lambda r: _sb_unpacked(r, K, N, 16, False),
+    "q8_f32b": lambda r: _classic(r, K, N, 32, False, True),
+}
+
+
+def _one_hot(rows):
+    """Row r is 1 at column r * (K // rows) + r % 7 (chip_smoke.one_hot_rows)."""
+    x = np.zeros((rows, K), np.float32)
+    r = np.arange(rows)
+    x[r, r * (K // rows) + r % 7] = 1.0
+    return x
+
+
+@pytest.mark.parametrize("rows", [1, 8, 17])
+@pytest.mark.parametrize("fmt", list(ONE_HOT_WEIGHTS))
+def test_plain_equals_pallas_bitwise_on_one_hot_rows(fmt, rows):
+    """On one-hot rows every output is one dequantized weight (plus the bias
+    and a classic b): K5's plain version, which the card's kernel must equal
+    bit for bit on such rows, forms each weight with the Pallas kernel's
+    roundings exactly, so the two agree bit for bit on every layout."""
+    rng = np.random.default_rng(rows + 3 * len(fmt))
+    w = ONE_HOT_WEIGHTS[fmt](rng)
+    x = _one_hot(rows)
+    bias = rng.standard_normal(N).astype(np.float32) if rows == 8 else None
+    ja, jkw = _jax_args(w)
+    ref = np.asarray(qmm_decode_pallas(
+        jnp.asarray(x), *ja, None if bias is None else jnp.asarray(bias),
+        tile_n=128, tile_k=256, interpret=True, **jkw))
+    ta, tkw = _torch_args(w)
+    y = qmm_decode_plain(torch.from_numpy(x), *ta,
+                         None if bias is None else torch.from_numpy(bias), **tkw)
+    np.testing.assert_array_equal(y.numpy(), ref)
+
+
 def test_rounding_differs_from_k2_on_q4_k():
     """K5 rounds the superblock min term into every bf16 weight; K2 adds it
     in f32 from group sums of x.  On q4_k the two plain versions differ by
