@@ -27,12 +27,13 @@
 // k_scale.  Per block of block_k keys (aligned at multiples of block_k from
 // key 0) p = exp(s - m_block), l sums the unscaled p, then p * v_scale is
 // quantized per row, psc = max p / 127 (1 where 0), pq = rint(p / psc), and
-// the block adds f32(pq . v8) * psc.  Integer products of magnitude <= 127^2
-// summed over <= 512 terms stay below 2^24, so f32 FMAs on the integer
-// values give the s8 dots' int32 sums exactly.  A split of the int8 kernel
-// is exactly one such block: the quantization of p depends only on the
-// block's own keys (exp(-m) cancels between p and psc), and the fixed-order
-// combine weighs the blocks as the Pallas kernel's running rescale does.
+// the block adds f32(pq . v8) * psc.  The dots are dp4a's: integer sums of
+// at most 512 products of magnitude <= 127^2, exact in int32 as in the s8
+// MXU dots.  m_block is the block's own max over its live keys (the Pallas
+// kernel's running max differs from it by a factor exp(-m) that cancels
+// between p and psc up to float rounding); the blocks are weighed by their
+// maxima in the cluster's merge as the Pallas kernel's running rescale
+// weighs them.
 //
 // Up to 64 query rows G*T per kv head (Qwen2.5-0.5B's 7 heads per kv head
 // at T = 8 are 56).  The cache is read through element strides, the scales
@@ -87,6 +88,41 @@
 //     the cast: one launch per call, no scratch in device memory, no
 //     atomics.
 //  6. The dots stay on the CUDA cores' FMAs.
+//
+// Int8 dots (`decode_int8_kernel`), the Hopper design.  The first design
+// (one block of 128 threads per block_k-key quantization block, a grid
+// sized by S; three serial passes staging K and V twice as f32 tiles;
+// integer dots as f32 FMAs; scales read per key from device memory; a
+// second kernel merging f32 scratch) took ~84 us per Llama-3-8B call at
+// n_past 1000.  The same cluster, ring and merge as the float dots, and:
+//  1. Shares count whole quantization blocks and tiles (`int8_share`,
+//     ops/cuda/flash_decode.py::int8_share): with at least C live blocks
+//     each rank takes a contiguous run of whole blocks; with fewer, live
+//     block j goes to the contiguous ranks [j C / nb, (j + 1) C / nb), which
+//     split its live 64-key tiles (aligned at the block's start) in rank
+//     order.  The mode is the same in every rank of a cluster.
+//  2. Ranks that share a block agree on its m and psc bit for bit: each
+//     stores its rows' max of s, one cluster barrier, each takes the max
+//     over its group through distributed shared memory; then the same for
+//     the max of p * v_scale.  Every rank arrives at both barriers, with or
+//     without keys.  fmaxf is exact, so the order of the group is moot.
+//  3. The ring carries raw int8 K and V tiles (rows padded by 16 bytes),
+//     per block its K tiles then its V tiles, each K tile with its k and v
+//     scales; nothing is widened in shared memory.  Scores go to shared
+//     memory ([R][<= 512] f32, one row per warp in the softmax), p * v_scale
+//     in place, then pq as int8 over the first quarter of its own row.
+//  4. q . k: thread (key j, row group) reads key row j 16 bytes at a time
+//     and takes __dp4a against the packed q8 rows.  pq . v8: four keys of four
+//     columns transposed by eight __byte_perm into four words of one column
+//     each, __dp4a against the pq word of each row, int32 sums per block,
+//     scaled by psc (times the rank's rescale) once per block.
+//  5. One launch: the partials (m, l, acc) go to their owners through
+//     distributed shared memory and merge in rank order (`owner_merge`),
+//     which is key order; no scratch, no atomics, the same bits each launch.
+//  6. Up to 8 rows, two blocks per SM (__launch_bounds__, 128 registers a
+//     thread, no spills): unbounded, the kernel took 214 registers, one
+//     block per SM, and a 16-block cluster then needs 16 free SMs of one
+//     GPC, so some of a call's clusters waited for a second round.
 #include <math_constants.h>
 
 #include <cooperative_groups.h>
@@ -97,14 +133,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
-constexpr int TK = 32;            // keys per tile of the int8 kernel, one per lane
-constexpr int FTHREADS = 256;     // the float-dot kernel: threads per block,
+constexpr int FTHREADS = 256;     // threads per block (both kernels)
 constexpr int FWARPS = FTHREADS / 32;
-constexpr int FTK = 64;           //   keys per tile, two per lane
+constexpr int FTK = 64;           // keys per tile
 constexpr int MAX_ROWS = 64;      // query rows G*T per kv head (flash_decode.py MAX_ROWS)
-constexpr int MAX_SPLIT = 512;    // keys per split of the int8 kernel at most
+constexpr int MAX_BLOCK_K = 512;  // keys per quantization block of the int8 dots at most
 constexpr int MAX_CLUSTER = 16;   // blocks per (batch row, kv head) (flash_decode.py MAX_CLUSTER)
 constexpr float NEG_INF = -1e30f;
 
@@ -120,12 +153,10 @@ struct Params {
     const long long* np_vec;    // [B] per-row n_past, or null: np_scalar
     long long np_scalar;
     void* o;
-    float* part_ml;             // int8 dots: [B, Hkv, n_splits, R, 2]: running max, denominator
-    float* part_acc;            //   [B, Hkv, n_splits, R, D]; null for float dots
     Strides qs, kst, vst, os;   // element strides of q, k, v, o
     Strides kss, vss;           // element strides (b, s, h) of ks, vs
-    // split: keys per split (int8 dots) or per tile (FTK); n_splits: splits
-    // per row (int8 dots) or blocks per cluster (float dots)
+    // split: keys per quantization block (int8 dots) or per tile (FTK);
+    // n_splits: blocks per cluster
     int T, S, Hq, Hkv, n_tokens, window, q_kind, bf16_dots, split, n_splits;
     float scale, softcap;
 };
@@ -216,11 +247,6 @@ __device__ __forceinline__ void live_keys(const Params& p, int b, long long& np,
 __device__ __forceinline__ float load_q(const Params& p, long off) {
     return p.q_kind == KIND_F32 ? static_cast<const float*>(p.q)[off]
                                 : __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[off]);
-}
-
-__device__ __forceinline__ float scale_at(const float* sc, const Strides& st, int b, long kp,
-                                          int h) {
-    return sc[b * st.b + kp * st.t + h * st.h];
 }
 
 // The masked (softcapped) score of row r at key kp, from its raw dot.
@@ -663,191 +689,443 @@ decode_kernel(Params p) {
     owner_merge(p, racc, rml, rml + gridDim.x * R * 2, R, D, span, b, h);
 }
 
-// Int8 dots: one block per (block_k-key block, kv head, batch row).  Three
-// passes over the block's live keys: (A) scores of the quantized q rows
-// against the int8 keys into shared memory, with each row's max; (B) per
-// row p, l, p * v_scale and its quantization, in place; (C) pq . v8.
+// The live tiles [u0, u1) of quantization block j (keys [j bk, (j + 1) bk)):
+// its FTK-key tiles, aligned at the block's first key, that meet [lo, hi).
+__device__ __forceinline__ void block_tiles(int j, int lo, int hi, int bk, int& u0, int& u1) {
+    const int base = j * bk, a = max(base, lo), e = min(base + bk, hi);
+    u0 = (a - base) / FTK;
+    u1 = e > a ? (e - base + FTK - 1) / FTK : u0;
+}
+
+// What rank `rank` of C takes of the live keys [lo, hi) in quantization
+// blocks of bk keys (ops/cuda/flash_decode.py::int8_share): with nb >= C
+// live blocks the whole blocks [j0, j1) (each its live tiles); with 0 < nb
+// < C live block j = ((rank + 1) nb - 1) / C, shared by the ranks [g0, g0 +
+// gn) = [j C / nb, (j + 1) C / nb), the i-th of which takes the tiles
+// [u0 + i n / gn, u0 + (i + 1) n / gn) of its n live tiles [u0, u1).
+struct I8Share {
+    int j0, j1;      // quantization blocks
+    int u0, u1;      // shared: this rank's tiles of block j0
+    int g0, gn;      // shared: the ranks that take block j0
+    bool shared;     // 0 < nb < C: the same in every rank of the cluster
+};
+
+__device__ __forceinline__ I8Share int8_share(int lo, int hi, int bk, int rank, int C) {
+    I8Share s{0, 0, 0, 0, rank, 1, false};
+    if (hi <= lo) return s;
+    const int q0 = lo / bk, nb = (hi + bk - 1) / bk - q0;
+    if (nb >= C) {
+        s.j0 = q0 + static_cast<int>(static_cast<long>(rank) * nb / C);
+        s.j1 = q0 + static_cast<int>(static_cast<long>(rank + 1) * nb / C);
+        return s;
+    }
+    const int j = ((rank + 1) * nb - 1) / C;
+    s.shared = true;
+    s.j0 = q0 + j;
+    s.j1 = s.j0 + 1;
+    s.g0 = j * C / nb;
+    s.gn = (j + 1) * C / nb - s.g0;
+    int u0, u1;
+    block_tiles(s.j0, lo, hi, bk, u0, u1);
+    const int i = rank - s.g0, n = u1 - u0;
+    s.u0 = u0 + i * n / s.gn;
+    s.u1 = u0 + (i + 1) * n / s.gn;
+    return s;
+}
+
+// The int8 kernel's shared memory: a ring of STAGES slots, each one 64-key
+// K or V tile of raw int8 rows padded by 16 bytes, a K tile's slot also its
+// k and v scales (with few rows the ring's space takes the key slices'
+// partials [ZS, R, D] at the end); then the block's scores [R][SSK] f32
+// (p * v_scale in place, then pq as int8 over each row's first SSK bytes),
+// its v scales [SSK], q8 [R][D], and per row in f32 qrow * scale, the two
+// exchanged maxima (s; p * v_scale), the block's max and denominator, the
+// rank's rescale factors (old accumulators; new ones, times psc), the
+// rank's running max and denominator; then the merge's receive buffer.
 template <int D, int MAXR>
-__global__ void __launch_bounds__(THREADS)
-decode_split_int8_kernel(Params p) {
-    constexpr int NV = D / 16;               // 16-byte loads per int8 key row
-    constexpr int RSTEP = THREADS / D;
-    constexpr int NACC = MAXR / RSTEP;
-    constexpr int NOWN = MAXR / NWARPS;
-    extern __shared__ __align__(16) float smem_f[];
+struct IGeom {
+    static constexpr bool FEW = MAXR <= 8;
+    static constexpr int KROW = D + 16;
+    static constexpr int NCH = D / 16;             // 16-byte chunks per row
+    static constexpr int SOFF = FTK * KROW;
+    static constexpr int SLOT = SOFF + 2 * FTK * 4;
+    static constexpr int STAGES = 4;
+    static constexpr int CW = D / 4;               // threads across a row in P V, 4 columns each
+    static constexpr int ZS = FTHREADS / CW;       // key slices (FEW) or rows in P V
+    static constexpr int NSTAT = 9;                // the per-row f32 arrays
 
-    const int G = p.Hq / p.Hkv, R = G * p.T;
-    float* skv = smem_f;                     // [TK][D + 4]: the K tile, then the V tile
-    float* sq = skv + TK * (D + 4);          // [R][D]: q8 values
-    float* sqsc = sq + R * D;                // [R]: qrow * scale
-    float* spsc = sqsc + R;                  // [R]: psc
-    float* ss = spsc + R;                    // [R][split]: scores, then pq
+    // score columns per row: a block's tiles, rounded up to 128 (whole
+    // 32-lane x 4-key chunks when pq is written over the row)
+    __host__ __device__ static int ssk(int bk) {
+        return ((bk + FTK - 1) / FTK * FTK + 127) / 128 * 128;
+    }
+    __host__ __device__ static int ring_bytes(int R) {
+        const int part = FEW ? ZS * R * D * 4 : 0;
+        return STAGES * SLOT > part ? STAGES * SLOT : part;
+    }
+    __host__ __device__ static int recv_offset(int R, int bk) {
+        return (ring_bytes(R) + 4 * (R * ssk(bk) + ssk(bk)) + R * D + 4 * NSTAT * R + 15) / 16 * 16;
+    }
+    __host__ __device__ static int smem_bytes(int R, int bk, int C) {
+        return recv_offset(R, bk) + Recv::bytes(R, D, C);
+    }
+};
 
+// Four int8 keys of four columns (word i: key i, columns 0-3) as four words
+// of one column each (word c: column c, keys 0-3).
+__device__ __forceinline__ void transpose4x4(const uint32_t* w, int* col) {
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140), t3 = __byte_perm(w[2], w[3], 0x7362);
+    col[0] = static_cast<int>(__byte_perm(t0, t2, 0x5410));
+    col[1] = static_cast<int>(__byte_perm(t0, t2, 0x7632));
+    col[2] = static_cast<int>(__byte_perm(t1, t3, 0x5410));
+    col[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));
+}
+
+// The max over the group's ranks of their rows' value x[r] (the group may
+// be this rank alone).
+__device__ __forceinline__ float group_max(cg::cluster_group& cluster, float* x, int r,
+                                           const I8Share& sh) {
+    if (sh.gn == 1) return x[r];
+    float m = -CUDART_INF_F;
+    for (int g = sh.g0; g < sh.g0 + sh.gn; ++g) m = fmaxf(m, cluster.map_shared_rank(x, g)[r]);
+    return m;
+}
+
+// Few rows: two blocks per SM (at most 128 registers a thread), so that
+// the 16-block clusters of a call do not wait for whole free GPCs.
+template <int D, int MAXR>
+__global__ void __launch_bounds__(FTHREADS, MAXR <= 8 ? 2 : 1)
+decode_int8_kernel(Params p) {
+    using Gm = IGeom<D, MAXR>;
+    constexpr bool FEW = Gm::FEW;
+    constexpr int CW = Gm::CW, ZS = Gm::ZS, STAGES = Gm::STAGES;
+    constexpr int NACC = FEW ? MAXR : MAXR / ZS;
+    constexpr int KZ = FTK / ZS;                 // FEW: keys per slice in P V
+    constexpr int RG = FTHREADS / FTK;           // row groups in q . k
+    constexpr int NRA = (MAXR + RG - 1) / RG;    // rows per thread in q . k
+    extern __shared__ __align__(16) uint8_t smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+
+    const int G = p.Hq / p.Hkv, R = G * p.T, bk = p.split;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int h = blockIdx.y, b = blockIdx.z;
     long long np;
     int lo, hi;
     live_keys(p, b, np, lo, hi);
-    const int k_begin = max(split * p.split, lo), k_end = min(split * p.split + p.split, hi);
-    if (k_begin >= k_end) return;
-    const int n_keys = k_end - k_begin;
+    const I8Share sh = int8_share(lo, hi, bk, blockIdx.x, gridDim.x);
+    // this block has started (shared blocks: the first exchange says so)
+    if (!sh.shared) cluster_arrive_relaxed();
 
-    // per-row symmetric quantization of q (the Pallas wrapper's, :438-444)
-    for (int r = warp; r < R; r += NWARPS) {
-        const int g = r / p.T, t = r - g * p.T;
-        const long base = b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h;
-        float amax = 0.f;
-        for (int c = lane; c < D; c += 32) {
-            const float x = load_q(p, base + c);
-            sq[r * D + c] = x;
-            amax = fmaxf(amax, fabsf(x));
-        }
-        amax = warp_max(amax);
-        const float qrow = amax > 0.f ? amax / 127.f : 1.f;
-        for (int c = lane; c < D; c += 32)
-            sq[r * D + c] = fminf(fmaxf(rintf(sq[r * D + c] / qrow), -127.f), 127.f);
-        if (lane == 0) sqsc[r] = qrow * p.scale;
-    }
+    const int SSK = Gm::ssk(bk);
+    float* ss = reinterpret_cast<float*>(smem + Gm::ring_bytes(R));   // [R][SSK]
+    float* svs = ss + R * SSK;                                        // [SSK]
+    int8_t* sq8 = reinterpret_cast<int8_t*>(svs + SSK);                // [R][D]
+    float* sqsc = reinterpret_cast<float*>(sq8 + R * D);
+    float* smax = sqsc + R;      // exchanged: the rank's max of s over the block
+    float* spmax = smax + R;     // exchanged: its max of p * v_scale
+    float* sm = spmax + R;       // the block's max
+    float* sl = sm + R;          // the rank's denominator over the block
+    float* sfo = sl + R;         // the rank's rescale of its older blocks
+    float* sfn = sfo + R;        //   and of this block's sums (times psc)
+    float* sM = sfn + R;         // the rank's running max (-inf: no key yet)
+    float* sL = sM + R;          //   and denominator
 
     const int8_t* kb = static_cast<const int8_t*>(p.k) + b * p.kst.b + h * p.kst.h;
     const int8_t* vb = static_cast<const int8_t*>(p.v) + b * p.vst.b + h * p.vst.h;
-    auto stage = [&](const int8_t* base, long row_stride, int k0, int nk) {
-        for (int idx = tid; idx < TK * NV; idx += THREADS) {
-            const int j = idx / NV, c = (idx - j * NV) * 16;
-            float f[16];
-            if (j < nk) {
-                cvt(*reinterpret_cast<const uint4*>(base + (k0 + j) * row_stride + c), f, int8_t{});
-            } else {
-#pragma unroll
-                for (int e = 0; e < 16; ++e) f[e] = 0.f;
-            }
-#pragma unroll
-            for (int e = 0; e < 16; e += 4)
-                *reinterpret_cast<float4*>(skv + j * (D + 4) + c + e) =
-                    make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    const float* ksb = p.ks + b * p.kss.b + h * p.kss.h;
+    const float* vsb = p.vs + b * p.vss.b + h * p.vss.h;
+    auto tiles = [&](int j, int& u0, int& u1) {
+        if (sh.shared) {
+            u0 = sh.u0;
+            u1 = sh.u1;
+        } else {
+            block_tiles(j, lo, hi, bk, u0, u1);
         }
     };
 
-    // (A) s = f32(q8 . k8) * qsc * k_scale, softcapped and masked
-    float m_run[NOWN];
+    // The copy ring's producer walks, per block, its K tiles then its V
+    // tiles; keys outside the block's live keys are zero-filled.
+    int pj = sh.j0, pv = 0, pt = 0, pu1 = 0;
+    if (pj < sh.j1) tiles(pj, pt, pu1);
+    bool pmore = pj < sh.j1 && pt < pu1;
+    auto issue = [&](int slot) {
+        uint8_t* st = smem + slot * Gm::SLOT;
+        const int base = pj * bk + pt * FTK;
+        const int ka = max(lo, pj * bk), kz = min(hi, pj * bk + bk);
+        const int8_t* src = pv ? vb : kb;
+        const long rs = pv ? p.vst.t : p.kst.t;
+        for (int idx = tid; idx < FTK * Gm::NCH; idx += FTHREADS) {
+            const int j = idx / Gm::NCH, c = idx - j * Gm::NCH, kp = base + j;
+            const bool ok = kp >= ka && kp < kz;
+            cp16(st + j * Gm::KROW + c * 16, ok ? src + kp * rs + c * 16 : src, ok);
+        }
+        if (!pv && tid < 2 * FTK) {
+            const int kp = base + (tid & (FTK - 1));
+            const bool ok = kp >= ka && kp < kz;
+            const float* s = tid < FTK ? (ok ? ksb + kp * p.kss.t : ksb)
+                                       : (ok ? vsb + kp * p.vss.t : vsb);
+            cp4(st + Gm::SOFF + tid * 4, s, ok);
+        }
+        if (++pt < pu1) return;
+        if (pv == 0) {
+            pv = 1;
+            tiles(pj, pt, pu1);
+        } else {
+            pv = 0;
+            if (++pj < sh.j1) tiles(pj, pt, pu1);
+        }
+        pmore = pj < sh.j1;
+    };
 #pragma unroll
-    for (int i = 0; i < NOWN; ++i) m_run[i] = NEG_INF;
-    for (int k0 = k_begin; k0 < k_end; k0 += TK) {
-        const int nk = min(TK, k_end - k0);
-        __syncthreads();   // q staged / the previous tile's readers are done
-        stage(kb, p.kst.t, k0, nk);
-        __syncthreads();
-        const int kp = k0 + lane;
-        const bool in_tile = lane < nk;
-        const float ksc = in_tile ? scale_at(p.ks, p.kss, b, kp, h) : 1.f;
-        const float* kr = skv + lane * (D + 4);
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (pmore) issue(s);
+        cp_commit();
+    }
+    int n_used = 0;              // ring items taken
+    auto next_tile = [&]() -> const uint8_t* {
+        cp_wait<STAGES - 2>();
+        __syncthreads();         // the item has landed; every thread is done with the last
+        if (pmore) issue((n_used + STAGES - 1) % STAGES);
+        cp_commit();
+        return smem + (n_used++ % STAGES) * Gm::SLOT;
+    };
+
+    // per-row symmetric quantization of q (the Pallas wrapper's, :438-444),
+    // packed four values to a word; in flight beside the first tiles' loads
+    for (int r = warp; r < R; r += FWARPS) {
+        const int g = r / p.T, t = r - g * p.T;
+        const long base = b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h;
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+        const bool mine = lane * 4 < D;
+        if (mine) {
 #pragma unroll
-        for (int i = 0; i < NOWN; ++i) {
-            const int r = warp + NWARPS * i;
-            if (r >= R) break;
-            const float* qr = sq + r * D;
-            float s = 0.f;                   // exact: an integer below 2^24
-#pragma unroll 8
-            for (int c = 0; c < D; c += 4) {
-                const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
-                const float4 q4 = *reinterpret_cast<const float4*>(qr + c);
-                s = fmaf(q4.x, k4.x, s);
-                s = fmaf(q4.y, k4.y, s);
-                s = fmaf(q4.z, k4.z, s);
-                s = fmaf(q4.w, k4.w, s);
+            for (int e = 0; e < 4; ++e) x[e] = load_q(p, base + lane * 4 + e);
+        }
+        const float amax =
+            warp_max(fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3]))));
+        const float qrow = amax > 0.f ? amax / 127.f : 1.f;
+        if (mine) {
+            uint32_t w = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int v = static_cast<int>(fminf(fmaxf(rintf(x[e] / qrow), -127.f), 127.f));
+                w |= (static_cast<uint32_t>(v) & 0xffu) << (8 * e);
             }
-            s = finish_score(p, s * sqsc[r] * ksc, np, r, kp, in_tile);
-            if (in_tile) ss[r * p.split + (kp - k_begin)] = s;
-            m_run[i] = fmaxf(m_run[i], warp_max(in_tile ? s : -CUDART_INF_F));
+            reinterpret_cast<uint32_t*>(sq8 + r * D)[lane] = w;
         }
-    }
-    __syncwarp();
-
-    // (B) per row: p = exp(s - m), l = sum p, p * v_scale quantized per row
-    const long part = (static_cast<long>(b * p.Hkv + h) * p.n_splits + split) * R;
-#pragma unroll
-    for (int i = 0; i < NOWN; ++i) {
-        const int r = warp + NWARPS * i;
-        if (r >= R) break;
-        float* sr = ss + r * p.split;
-        float lsum = 0.f, pmax = 0.f;
-        for (int j = lane; j < n_keys; j += 32) {
-            const float pj = expf(sr[j] - m_run[i]);
-            lsum += pj;
-            const float pv = pj * scale_at(p.vs, p.vss, b, k_begin + j, h);
-            sr[j] = pv;
-            pmax = fmaxf(pmax, pv);
-        }
-        const float l = warp_sum(lsum);
-        pmax = warp_max(pmax);
-        const float psc = pmax > 0.f ? pmax / 127.f : 1.f;
-        for (int j = lane; j < n_keys; j += 32) sr[j] = rintf(sr[j] / psc);
         if (lane == 0) {
-            spsc[r] = psc;
-            p.part_ml[(part + r) * 2] = m_run[i];
-            p.part_ml[(part + r) * 2 + 1] = l;
+            sqsc[r] = qrow * p.scale;
+            sM[r] = -CUDART_INF_F;
+            sL[r] = 0.f;
         }
     }
 
-    // (C) acc = f32(pq . v8) * psc: column c_own of rows r_own, r_own + RSTEP, ...
-    float acc[NACC];
+    int iacc[NACC][4];
+    float acc[NACC][4];
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-    const int c_own = tid % D, r_own = tid / D;
-    for (int k0 = k_begin; k0 < k_end; k0 += TK) {
-        const int nk = min(TK, k_end - k0);
-        __syncthreads();   // pq and psc written / the previous tile's readers are done
-        stage(vb, p.vst.t, k0, nk);
+    for (int i = 0; i < NACC; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            iacc[i][e] = 0;
+            acc[i][e] = 0.f;
+        }
+    const int c4 = (tid % CW) * 4, z = tid / CW;
+    const uint8_t* spq = reinterpret_cast<const uint8_t*>(ss);   // pq of row r: spq + 4 r SSK
+
+    for (int j = sh.j0; j < sh.j1; ++j) {
+        int u0, u1;
+        tiles(j, u0, u1);
+        const int ka = max(lo, j * bk), kz = min(hi, j * bk + bk);
+        const int kbase = j * bk + u0 * FTK;                 // the key of score column 0
+        const int ncol = (u1 - u0) * FTK;
+        const int va = max(ka - kbase, 0), vz = min(kz - kbase, ncol);   // live columns
+
+        // (A) s = f32(q8 . k8) * (qrow * scale) * k_scale, softcapped and
+        // masked: thread (key jj, row group rg) over rows rg, rg + RG, ...,
+        // 16 bytes of its key row at a time
+        for (int u = u0; u < u1; ++u) {
+            const uint8_t* st = next_tile();
+            const int jj = tid & (FTK - 1), rg = tid / FTK;
+            const int col = (u - u0) * FTK + jj, kp = kbase + col;
+            const bool in = kp >= ka && kp < kz;
+            int d[NRA][2];
+#pragma unroll
+            for (int i = 0; i < NRA; ++i) d[i][0] = d[i][1] = 0;
+#pragma unroll
+            for (int c = 0; c < Gm::NCH; ++c) {
+                const uint4 kw = *reinterpret_cast<const uint4*>(st + jj * Gm::KROW + c * 16);
+#pragma unroll
+                for (int i = 0; i < NRA; ++i) {
+                    const int r = rg + RG * i;
+                    if (r >= R) break;
+                    const uint4 q4 = reinterpret_cast<const uint4*>(sq8 + r * D)[c];
+                    d[i][0] = __dp4a(static_cast<int>(kw.x), static_cast<int>(q4.x), d[i][0]);
+                    d[i][1] = __dp4a(static_cast<int>(kw.y), static_cast<int>(q4.y), d[i][1]);
+                    d[i][0] = __dp4a(static_cast<int>(kw.z), static_cast<int>(q4.z), d[i][0]);
+                    d[i][1] = __dp4a(static_cast<int>(kw.w), static_cast<int>(q4.w), d[i][1]);
+                }
+            }
+            const float* ssc = reinterpret_cast<const float*>(st + Gm::SOFF);
+            const float ksc = ssc[jj];
+            if (rg == 0) svs[col] = ssc[FTK + jj];
+#pragma unroll
+            for (int i = 0; i < NRA; ++i) {
+                const int r = rg + RG * i;
+                if (r >= R) break;
+                const float x = static_cast<float>(d[i][0] + d[i][1]) * sqsc[r];
+                ss[r * SSK + col] = finish_score(p, x * ksc, np, r, kp, in);
+            }
+        }
+        __syncthreads();         // the block's scores are in
+
+        // (B) per row (warp w: rows w, w + 8, ...): the block's max m over
+        // its group, p = exp(s - m), the rank's l, p * v_scale, psc over
+        // the group, pq
+        for (int r = warp; r < R; r += FWARPS) {
+            float mx = -CUDART_INF_F;
+            for (int c = va + lane; c < vz; c += 32) mx = fmaxf(mx, ss[r * SSK + c]);
+            mx = warp_max(mx);
+            if (lane == 0) smax[r] = mx;
+        }
+        if (sh.shared)
+            cluster.sync();      // every rank of the group has its max
+        else
+            __syncwarp();
+        for (int r = warp; r < R; r += FWARPS) {
+            const float m = group_max(cluster, smax, r, sh);
+            float l = 0.f, pmax = 0.f;
+            for (int c = va + lane; c < vz; c += 32) {
+                const float pk = expf(ss[r * SSK + c] - m);
+                l += pk;
+                const float pvj = pk * svs[c];
+                ss[r * SSK + c] = pvj;
+                pmax = fmaxf(pmax, pvj);
+            }
+            l = warp_sum(l);
+            pmax = warp_max(pmax);
+            if (lane == 0) {
+                sm[r] = m;
+                sl[r] = l;
+                spmax[r] = pmax;
+            }
+        }
+        if (sh.shared)
+            cluster.sync();      // every rank of the group has its max of p * v_scale
+        else
+            __syncwarp();
+        for (int r = warp; r < R; r += FWARPS) {
+            const float pmax = group_max(cluster, spmax, r, sh);
+            const float psc = pmax > 0.f ? pmax / 127.f : 1.f;
+            // pq over the row's first SSK bytes: chunk k of 128 columns
+            // writes words [32 k, 32 k + 32) of the row, read before
+            float* row = ss + r * SSK;
+            for (int k = 0; k * 128 < ncol; ++k) {
+                const int c = k * 128 + lane * 4;
+                const float4 v4 = *reinterpret_cast<const float4*>(row + c);
+                const float pv4[4] = {v4.x, v4.y, v4.z, v4.w};
+                uint32_t w = 0;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool ok = c + e >= va && c + e < vz;
+                    const uint32_t q = ok ? static_cast<uint32_t>(rintf(pv4[e] / psc)) : 0u;
+                    w |= q << (8 * e);
+                }
+                __syncwarp();
+                reinterpret_cast<uint32_t*>(row)[k * 32 + lane] = w;
+            }
+            if (lane == 0 && u1 > u0) {
+                const float mo = sM[r], mn = fmaxf(mo, sm[r]);
+                const float fo = expf(mo - mn), fw = expf(sm[r] - mn);
+                sfo[r] = fo;
+                sfn[r] = fw * psc;
+                sL[r] = sL[r] * fo + sl[r] * fw;
+                sM[r] = mn;
+            }
+        }
+        __syncthreads();         // pq and the rescale factors are in
+
+        // (C) the block's int32 sums pq . v8 over columns c4 .. c4 + 3: few
+        // rows, every row over the keys of slice z; many rows, rows z, z +
+        // ZS, ... over every key.  (pq of dead keys is 0, their V rows 0.)
+        for (int u = u0; u < u1; ++u) {
+            const uint8_t* st = next_tile();
+            const int cb = (u - u0) * FTK;
+#pragma unroll 2
+            for (int jb = 0; jb < (FEW ? KZ : FTK); jb += 4) {
+                const int jk = FEW ? z * KZ + jb : jb;
+                uint32_t w[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    w[e] = *reinterpret_cast<const uint32_t*>(st + (jk + e) * Gm::KROW + c4);
+                int col[4];
+                transpose4x4(w, col);
+#pragma unroll
+                for (int i = 0; i < NACC; ++i) {
+                    const int r = FEW ? i : z + ZS * i;
+                    if (r >= R) break;
+                    const int pw = *reinterpret_cast<const int*>(spq + 4 * r * SSK + cb + jk);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) iacc[i][e] = __dp4a(pw, col[e], iacc[i][e]);
+                }
+            }
+        }
+        if (u1 > u0) {
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) {
+                const int r = FEW ? i : z + ZS * i;
+                if (r >= R) break;
+                const float fo = sfo[r], fn = sfn[r];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    acc[i][e] = acc[i][e] * fo + static_cast<float>(iacc[i][e]) * fn;
+                    iacc[i][e] = 0;
+                }
+            }
+        }
+    }
+
+    // The rank's partials go to their owners (few rows: the key slices,
+    // left where the ring was, summed in slice order first).
+    cp_wait<0>();
+    __syncthreads();
+    const int C = gridDim.x, span = Recv::span(R, D, C);
+    float* racc = reinterpret_cast<float*>(smem + Gm::recv_offset(R, bk));
+    float* rml = racc + C * span;
+    if constexpr (FEW) {
+        float* pz = reinterpret_cast<float*>(smem);    // [ZS][R][D]
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) {
+            if (r >= R) break;
+            float* dst = pz + (z * R + r) * D + c4;
+            dst[0] = acc[r][0];
+            dst[1] = acc[r][1];
+            dst[2] = acc[r][2];
+            dst[3] = acc[r][3];
+        }
         __syncthreads();
+        if (!sh.shared) cluster_wait();   // every block has started: owners may be written
+        for (int idx = tid; idx < R * D; idx += FTHREADS) {
+            float a = pz[idx];
+#pragma unroll
+            for (int zz = 1; zz < ZS; ++zz) a += pz[zz * R * D + idx];
+            send_acc<1>(cluster, racc, idx, span, &a);
+        }
+    } else {
+        if (!sh.shared) cluster_wait();
 #pragma unroll
         for (int i = 0; i < NACC; ++i) {
-            const int r = r_own + RSTEP * i;
+            const int r = z + ZS * i;
             if (r >= R) break;
-            const float* pr = ss + r * p.split + (k0 - k_begin);
-            float a = acc[i];                // exact: an integer below 2^24
-            for (int j = 0; j < nk; ++j) a = fmaf(pr[j], skv[j * (D + 4) + c_own], a);
-            acc[i] = a;
+            send_acc<4>(cluster, racc, r * D + c4, span, acc[i]);
         }
     }
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-        const int r = r_own + RSTEP * i;
-        if (r >= R) break;
-        p.part_acc[(part + r) * D + c_own] = acc[i] * spsc[r];
-    }
+    for (int r = tid; r < R; r += FTHREADS) send_ml(cluster, rml, R, D, span, r, sM[r], sL[r]);
+    cluster.sync();        // every partial has landed
+    owner_merge(p, racc, rml, rml + C * R * 2, R, D, span, b, h);
 }
 
-// The int8 dots' second kernel, one block per (kv head, batch row): merges
-// the live splits of each row in split order, applies the sinks and writes
-// o in q's dtype.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(Params p) {
-    constexpr int RSTEP = THREADS / D;
-    const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
-    const int G = p.Hq / p.Hkv, R = G * p.T;
-    long long np;
-    int lo, hi;
-    live_keys(p, b, np, lo, hi);
-    const int s_begin = lo / p.split;
-    const int s_end = hi > lo ? (hi + p.split - 1) / p.split : s_begin;
-    const long base = static_cast<long>(b * p.Hkv + h) * p.n_splits;
-    const int c = tid % D;
-    for (int r = tid / D; r < R; r += RSTEP) {
-        float m = -CUDART_INF_F;
-        for (int s = s_begin; s < s_end; ++s) m = fmaxf(m, p.part_ml[((base + s) * R + r) * 2]);
-        float l = 0.f, a = 0.f;
-        for (int s = s_begin; s < s_end; ++s) {
-            const long i = (base + s) * R + r;
-            const float w = expf(p.part_ml[i * 2] - m);
-            l = fmaf(p.part_ml[i * 2 + 1], w, l);
-            a = fmaf(p.part_acc[i * D + c], w, a);
-        }
-        write_out(p, b, h, r, c, m, l, a);
-    }
-}
-
-// A float-dot kernel as one cluster launch of gridDim (C, Hkv, B).  Its
+// A kernel (either dots) as one cluster launch of gridDim (C, Hkv, B).  Its
 // attributes (the shared memory of its most rows, clusters above 8) are
 // set at its first launch; later launches, and a CUDA-graph capture of
 // them, make no call besides the launch.
@@ -908,31 +1186,35 @@ int launch_float_kv(int kv_kind, const Params& p, int B, cudaStream_t stream) {
     }
 }
 
-// The int8 dots: the split kernel, above 48 KB of dynamic shared memory
-// after setting the attribute, then the combine kernel.
+// The int8 dots as one cluster launch of gridDim (C, Hkv, B), block_k
+// (p.split) keys per quantization block.
 template <int D, int MAXR>
+int launch_int8_rows(const Params& p, int R, int B, cudaStream_t stream) {
+    using Gm = IGeom<D, MAXR>;
+    static bool set = false;
+    int most = 0;
+    for (int c = 1; c <= MAX_CLUSTER; ++c) {
+        const int bytes = Gm::smem_bytes(MAXR, MAX_BLOCK_K, c);
+        most = bytes > most ? bytes : most;
+    }
+    return launch_cluster(decode_int8_kernel<D, MAXR>, set, most,
+                          Gm::smem_bytes(R, p.split, p.n_splits), p, B, stream);
+}
+
+template <int D>
 int launch_int8(const Params& p, int B, cudaStream_t stream) {
     const int R = (p.Hq / p.Hkv) * p.T;
-    const size_t smem = sizeof(float) * (TK * (D + 4) + R * D + 2 * R + R * p.split);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            decode_split_int8_kernel<D, MAXR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    decode_split_int8_kernel<D, MAXR><<<dim3(p.n_splits, p.Hkv, B), THREADS, smem, stream>>>(p);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_combine_kernel<D><<<dim3(p.Hkv, B), THREADS, 0, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    if (R <= 8) return launch_int8_rows<D, 8>(p, R, B, stream);
+    if (R <= 32) return launch_int8_rows<D, 32>(p, R, B, stream);
+    return launch_int8_rows<D, 64>(p, R, B, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const float* sinks, const long long* np_vec, int np_scalar,
-                   void* o, float* part_ml, float* part_acc, const long* st, int T, int S,
-                   int Hq, int Hkv, int n_tokens, float scale, int window, float softcap,
-                   int q_kind, int bf16_dots, int split, int n_splits) {
-    return Params{q, k, v, ks, vs, sinks, np_vec, np_scalar, o, part_ml, part_acc,
+                   void* o, const long* st, int T, int S, int Hq, int Hkv, int n_tokens,
+                   float scale, int window, float softcap, int q_kind, int bf16_dots, int split,
+                   int n_splits) {
+    return Params{q, k, v, ks, vs, sinks, np_vec, np_scalar, o,
                   Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                   Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                   Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]},
@@ -963,31 +1245,29 @@ CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
     if (bad_shape(Hq, Hkv, T, D, q_kind) || (kv_kind == KIND_I8) != (ks != nullptr) ||
         (ks != nullptr) != (vs != nullptr) || ctas <= 0 || ctas > MAX_CLUSTER)
         return static_cast<int>(cudaErrorInvalidValue);
-    const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, nullptr, nullptr,
-                                 strides, T, S, Hq, Hkv, n_tokens, scale, window, softcap,
-                                 q_kind, bf16_dots, FTK, ctas);
+    const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, strides, T, S, Hq,
+                                 Hkv, n_tokens, scale, window, softcap, q_kind, bf16_dots, FTK,
+                                 ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     return D == 128 ? launch_float_kv<128>(kv_kind, p, B, st) : launch_float_kv<64>(kv_kind, p, B, st);
 }
 
 // The int8-dot mode over an int8 cache with its scales: q to sinks, np_vec,
-// np_scalar and o as flash_decode_launch; part_ml and part_acc: f32 scratch
-// of [B, Hkv, ceil(S / block_k), G*T] x 2 and x D; `block_k` (1..512) keys
-// per split, the Pallas kernel's quantization block.
+// np_scalar, o and strides as flash_decode_launch; `block_k` (1..512) keys
+// per quantization block, the Pallas kernel's; `ctas` (1..16) blocks per
+// (batch row, kv head), one cluster (flash_decode.py decode_geometry).
 CL_EXPORT int flash_decode_int8_launch(const void* q, const void* k, const void* v,
                                        const float* ks, const float* vs, const float* sinks,
                                        const long long* np_vec, int np_scalar, void* o,
-                                       float* part_ml, float* part_acc, const long* strides,
-                                       int B, int T, int S, int Hq, int Hkv, int D,
-                                       int n_tokens, float scale, int window, float softcap,
-                                       int q_kind, int block_k, void* stream) {
-    if (bad_shape(Hq, Hkv, T, D, q_kind) || !ks || !vs || block_k <= 0 || block_k > MAX_SPLIT)
+                                       const long* strides, int B, int T, int S, int Hq, int Hkv,
+                                       int D, int n_tokens, float scale, int window,
+                                       float softcap, int q_kind, int block_k, int ctas,
+                                       void* stream) {
+    if (bad_shape(Hq, Hkv, T, D, q_kind) || !ks || !vs || block_k <= 0 ||
+        block_k > MAX_BLOCK_K || ctas <= 0 || ctas > MAX_CLUSTER)
         return static_cast<int>(cudaErrorInvalidValue);
-    const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, part_ml, part_acc,
-                                 strides, T, S, Hq, Hkv, n_tokens, scale, window, softcap,
-                                 q_kind, 0, block_k, (S + block_k - 1) / block_k);
+    const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, strides, T, S, Hq,
+                                 Hkv, n_tokens, scale, window, softcap, q_kind, 0, block_k, ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool wide = (Hq / Hkv) * T > 32;
-    if (D == 128) return wide ? launch_int8<128, 64>(p, B, st) : launch_int8<128, 32>(p, B, st);
-    return wide ? launch_int8<64, 64>(p, B, st) : launch_int8<64, 32>(p, B, st);
+    return D == 128 ? launch_int8<128>(p, B, st) : launch_int8<64>(p, B, st);
 }

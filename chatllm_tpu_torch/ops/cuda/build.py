@@ -122,8 +122,9 @@ FLASH_DECODE = CudaKernel("flash_decode.cu", "flash_decode_launch",
                           [P, P, P, P, P, P, P, I, P, P,
                            I, I, I, I, I, I, I, F, I, F, I, I, I, I, P])
 FLASH_DECODE_INT8 = CudaKernel("flash_decode.cu", "flash_decode_int8_launch",
-                               [P, P, P, P, P, P, P, I, P, P, P, P,
-                                I, I, I, I, I, I, I, F, I, F, I, I, P], name="flash_decode_int8")
+                               [P, P, P, P, P, P, P, I, P, P,
+                                I, I, I, I, I, I, I, F, I, F, I, I, I, P],
+                               name="flash_decode_int8")
 QMM_DECODE = CudaKernel("qmm_decode.cu", "qmm_decode_launch",
                         [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
 BW_PROBE = CudaKernel("bw_probe.cu", "bw_probe_launch", [P, L, P, P, P, I, I, P])

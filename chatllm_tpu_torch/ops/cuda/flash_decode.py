@@ -4,10 +4,13 @@
 Replaces chatllm_tpu/ops/pallas/flash_decode.py::flash_decode (its batched
 all-heads kernel `_batched_kernel` and its per-head kernel `_decode_kernel`).
 `flash_decode` launches the CUDA kernel for CUDA tensors and runs
-`flash_decode_plain`, its plain PyTorch version, for CPU tensors.  With
-bf16 or f32 dots a call is one launch: a cluster of `decode_geometry`
-blocks per (batch row, kv head), each taking its share (`decode_share`) of
-the row's live keys (`live_range`), merged inside the cluster.
+`flash_decode_plain`, its plain PyTorch version, for CPU tensors.  A call
+is one launch: a cluster of `decode_geometry` blocks per (batch row, kv
+head), each taking its share of the row's live keys (`live_range`): with
+bf16 or f32 dots 64-key tiles (`decode_share`), with int8 dots whole
+quantization blocks or, where a row has fewer live blocks than the cluster
+has ranks, tiles of one block (`int8_share`); merged inside the cluster.
+The wrapper allocates nothing but the output.
 
 The contract, as in the Pallas kernels: the G*T query rows of each kv head
 are folded together, row r = g*T + t at position n_past[b] + t.  A key at
@@ -47,7 +50,7 @@ MAX_ROWS = 64             # G * T query rows per kv head the kernel holds (csrc 
 TILE_K = 64               # keys per tile of the bf16 / f32 dots (csrc FTK)
 MAX_CLUSTER = 16          # their blocks per (batch row, kv head) at most (csrc MAX_CLUSTER)
 PORTABLE_CLUSTER = 8      # above it the launcher sets the non-portable cluster attribute
-MAX_BLOCK_K = 512         # keys per split of the int8 dots at most (csrc MAX_SPLIT)
+MAX_BLOCK_K = 512         # keys per quantization block of the int8 dots at most (csrc MAX_BLOCK_K)
 QK_DTYPES = ("bfloat16", "float32", "int8")
 _QK_ENV = {"f32": "float32", "bf16": "bfloat16", "int8": "int8"}
 _CACHE_KINDS = {torch.int8: KIND_I8, torch.bfloat16: KIND_BF16, torch.float32: KIND_F32}
@@ -85,7 +88,7 @@ def npast_vector(n_past, B: int, device) -> torch.Tensor:
 
 
 def decode_geometry(B: int, Hkv: int, S: int, sms: int) -> int:
-    """Blocks per (batch row, kv head) of the bf16 / f32 dots: each (b, kv
+    """Blocks per (batch row, kv head), for every dot dtype: each (b, kv
     head) is one thread-block cluster of C blocks, C about two blocks per
     SM over the B * Hkv clusters, at least 1 and at most MAX_CLUSTER (above
     PORTABLE_CLUSTER the launcher allows a non-portable cluster) and at most
@@ -109,6 +112,45 @@ def decode_share(lo: int, hi: int, rank: int, ctas: int) -> tuple[int, int]:
     nt = -(-hi // TILE_K) - t0 if hi > lo else 0
     ta, tb = t0 + rank * nt // ctas, t0 + (rank + 1) * nt // ctas
     return max(ta * TILE_K, lo), min(tb * TILE_K, hi)
+
+
+def block_tiles(j: int, lo: int, hi: int, block_k: int) -> tuple[int, int]:
+    """The live tiles [u0, u1) of quantization block j (keys [j block_k,
+    (j + 1) block_k)): its TILE_K-key tiles, aligned at the block's first
+    key, that meet [lo, hi) (csrc `block_tiles`)."""
+    base = j * block_k
+    a, e = max(base, lo), min(base + block_k, hi)
+    u0 = (a - base) // TILE_K
+    return u0, (-(-(e - base) // TILE_K) if e > a else u0)
+
+
+def int8_share(lo: int, hi: int, rank: int, ctas: int,
+               block_k: int) -> tuple[int, int, int, int]:
+    """What block `rank` of a cluster of `ctas` takes of the live keys [lo,
+    hi) with int8 dots (csrc `int8_share`), as (begin, end, first, count):
+    the keys [begin, end) (empty when begin >= end) and the ranks [first,
+    first + count) that take its quantization block.  The nb blocks of
+    `block_k` keys aligned at multiples of block_k that meet [lo, hi): with
+    nb >= ctas each rank takes a contiguous run of whole blocks (count 1);
+    with fewer, block j goes to the ranks [j ctas // nb, (j + 1) ctas //
+    nb), which split its live TILE_K-key tiles, aligned at the block's
+    start, into contiguous runs in rank order."""
+    if hi <= lo:
+        return lo, lo, rank, 1
+    q0 = lo // block_k
+    nb = -(-hi // block_k) - q0
+    if nb >= ctas:
+        j0, j1 = q0 + rank * nb // ctas, q0 + (rank + 1) * nb // ctas
+        return max(j0 * block_k, lo), min(j1 * block_k, hi), rank, 1
+    j = ((rank + 1) * nb - 1) // ctas
+    first = j * ctas // nb
+    count = (j + 1) * ctas // nb - first
+    base = (q0 + j) * block_k
+    u0, u1 = block_tiles(q0 + j, lo, hi, block_k)
+    i, n = rank - first, u1 - u0
+    ta, tb = u0 + i * n // count, u0 + (i + 1) * n // count
+    return (max(base + ta * TILE_K, lo), min(base + tb * TILE_K, base + block_k, hi),
+            first, count)
 
 
 def _div127(x: torch.Tensor) -> torch.Tensor:
@@ -325,12 +367,10 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
         FLASH_DECODE.launch(*head, *shape, kind, int(qk_dtype == "bfloat16"),
                             decode_geometry(B, Hkv, S, num_sms(dev)), stream_ptr(dev))
         return o
-    split = batched_block_k(block_k, S, Hkv, D, Dv, 1)
-    if not 0 < split <= MAX_BLOCK_K:
-        raise ValueError(f"flash_decode: int8 dots over blocks of {split} keys "
+    bk = batched_block_k(block_k, S, Hkv, D, Dv, 1)
+    if not 0 < bk <= MAX_BLOCK_K:
+        raise ValueError(f"flash_decode: int8 dots over blocks of {bk} keys "
                          f"(1..{MAX_BLOCK_K})")
-    n_splits = -(-S // split)
-    part_ml = torch.empty(B, Hkv, n_splits, G * T, 2, dtype=torch.float32, device=dev)
-    part_acc = torch.empty(B, Hkv, n_splits, G * T, D, dtype=torch.float32, device=dev)
-    FLASH_DECODE_INT8.launch(*head, ptr(part_ml), ptr(part_acc), *shape, split, stream_ptr(dev))
+    FLASH_DECODE_INT8.launch(*head, *shape, bk, decode_geometry(B, Hkv, S, num_sms(dev)),
+                             stream_ptr(dev))
     return o

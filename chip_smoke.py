@@ -63,7 +63,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              CHATLLM_TPU_FLASH_QK=int8: the first decode step after the
              1000-token prompt against the bf16-dot run (INT8_LOGIT_TOL, same
              argmax), then 16 greedy tokens, K4's int8 dots launched 32
-             times per decode step.
+             times per decode step (their decode rate recorded).
      switches  CHATLLM_TPU_FLASH_DECODE=1 (forced) and =0 on a bf16 cache at
              B = 8 through BatchedEngine (K4 32 times per batched step, or
              never), CHATLLM_TPU_FLASH=0 on the 1000-token prefill (no K3).
@@ -1022,12 +1022,13 @@ DECODE_EDGE_CASES = [
     (2, 8, 14, 2, 64, [0, 4000], "float32", "float32", {}, None),
 ]
 
-# K4's int8 dots at Llama-3-8B's q8 shapes, S 8192, block_k 512 (the route's)
+# K4's int8 dots at Llama-3-8B's q8 shapes, S 8192, block_k 512 (the route's),
+# timed at the float dots' four shapes
 # (B, T, Hq, Hkv, D, n_past, extra, timed as)
 DECODE_INT8_CASES = [
     (1, 1, 32, 8, 128, [1000], {}, "decode_1000"),
-    (1, 1, 32, 8, 128, [8000], {}, None),
-    (4, 1, 32, 8, 128, [10, 1000, 4095, 8000], {}, None),
+    (1, 1, 32, 8, 128, [8000], {}, "decode_8000"),
+    (4, 1, 32, 8, 128, [10, 1000, 4095, 8000], {}, "serve_4"),
     (2, 2, 32, 8, 128, [3000, 6000], {}, None),
     (1, 1, 32, 8, 128, [5000], {"sliding_window": 256, "logit_softcap": 30.0}, None),
     (1, 1, 32, 8, 128, [3000], {"sinks": True}, None),
@@ -1035,6 +1036,38 @@ DECODE_INT8_CASES = [
     (1, 1, 32, 8, 128, [2500], {"block_k": 256}, None),
     (2, 8, 32, 4, 128, [100, 7000], {}, None),                     # G*T = 64
     (1, 1, 8, 1, 128, [2000], {}, None),                           # one kv head
+    (1, 4, 32, 8, 128, [3000], {}, None),                         # G*T = 16
+    # head dim 64 (Qwen2.5-0.5B's heads): 7, 14 and 56 rows per kv head
+    (2, 1, 14, 2, 64, [10, 5000], {}, None),
+    (1, 2, 14, 2, 64, [4000], {}, None),
+    (1, 8, 14, 2, 64, [1000], {"q": torch.float32}, None),
+]
+
+# The int8 dots on the edges of their design (csrc `int8_share`): a row with
+# fewer live quantization blocks than the cluster's C ranks splits each
+# block's 64-key tiles over a group of ranks that exchange the block's
+# maxima; with C or more each rank takes whole blocks (C = 16 at B = 1, 8 at
+# B = 4, 1 at B = 32).  Same columns as DECODE_INT8_CASES.
+DECODE_INT8_EDGE_CASES = [
+    (1, 1, 32, 8, 128, [0], {}, "decode_floor"),                  # one live key
+    (1, 1, 32, 8, 128, [1], {}, None),
+    (1, 1, 32, 8, 128, [31], {}, None),
+    (1, 1, 32, 8, 128, [63], {}, None),                           # one whole tile
+    (1, 1, 32, 8, 128, [64], {}, None),                           # tile + 1
+    # one 512-key block, then one and two keys of the second
+    (1, 1, 32, 8, 128, [511], {}, None),
+    (1, 1, 32, 8, 128, [512], {}, None),
+    (1, 1, 32, 8, 128, [513], {}, None),
+    # a 256-key block one key short, whole, one key past
+    (1, 1, 32, 8, 128, [254], {"block_k": 256}, None),
+    (1, 1, 32, 8, 128, [255], {"block_k": 256}, None),
+    (1, 1, 32, 8, 128, [256], {"block_k": 256}, None),
+    (1, 1, 32, 8, 128, [1023], {}, None),
+    (1, 1, 32, 8, 128, [1024], {}, None),
+    (1, 1, 32, 8, 128, [8191], {}, None),                         # 16 blocks, a row ending at S
+    (32, 1, 32, 8, 128, [i * 263 % 8192 for i in range(32)], {}, None),   # C = 1
+    (1, 1, 32, 8, 128, [600], {"sliding_window": 200}, None),    # a window across key 512
+    (1, 8, 32, 4, 128, [3000], {"sinks": True, "logit_softcap": 30.0}, None),   # G*T = 64
 ]
 
 
@@ -1116,12 +1149,13 @@ def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_s
 
 def decode_int8_cases(dev, timer, gen) -> dict:
     """K4's int8 dots against their plain version (DECODE_INT8_STEPS) at
-    Llama-3-8B's q8 shapes over an 8192-slot cache."""
+    Llama-3-8B's q8 shapes and on their design's edges over an 8192-slot
+    cache; each case launched twice, bit-identical."""
     from chatllm_tpu_torch.ops.attention import quantize_kv
     from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
 
     out = {"cases": [], "shapes": {}}
-    for B, T, Hq, Hkv, D, n_past, extra, timed in DECODE_INT8_CASES:
+    for B, T, Hq, Hkv, D, n_past, extra, timed in DECODE_INT8_CASES + DECODE_INT8_EDGE_CASES:
         S = DECODE_S
         q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(extra.get("q", torch.bfloat16))
         (k, ks), (v, vs) = (quantize_kv(torch.randn(B, S, Hkv, D, generator=gen, device=dev))
@@ -1133,12 +1167,15 @@ def decode_int8_cases(dev, timer, gen) -> dict:
             kw["sinks"] = torch.randn(Hq, generator=gen, device=dev)
         npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
         o = flash_decode(q, k, v, npv, T, qk_dtype="int8", **kw)
+        same = torch.equal(flash_decode(q, k, v, npv, T, qk_dtype="int8", **kw), o)
         err, steps = flash_decode_int8_errors(o, q, k, v, npv, T, **kw)
         name = f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} n_past={n_past} q {q.dtype} {extra}"
         log(f"  flash_decode int8 {name}  max_abs_err={err:.3e} steps={steps:.3f}")
-        if not (o.dtype == q.dtype and torch.isfinite(o).all() and steps <= DECODE_INT8_STEPS):
+        if not (o.dtype == q.dtype and torch.isfinite(o).all() and steps <= DECODE_INT8_STEPS
+                and same):
             raise AssertionError(f"flash_decode int8 {name}: {steps} steps (limit "
-                                 f"{DECODE_INT8_STEPS}), err {err}")
+                                 f"{DECODE_INT8_STEPS}), err {err}, second launch "
+                                 f"{'bit-identical' if same else 'differs'}")
         out["cases"].append({"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D, "n_past": n_past,
                              "extra": str(extra), "max_abs_err": err, "steps": steps})
         if timed:
@@ -1897,12 +1934,13 @@ def int8_engine_phase(dev, cfg, params) -> dict:
     """Llama-3-8B at full width over a q8 cache under CHATLLM_TPU_FLASH_QK=int8:
     the first decode step after the 1000-token prompt against the bf16-dot
     run's (INT8_LOGIT_TOL of the logit scale, the same argmax), then 16
-    greedy tokens with K4's int8 dots on every layer of every decode step."""
+    greedy tokens with K4's int8 dots on every layer of every decode step,
+    and their decode rate (recorded, not checked)."""
     import os
 
     from chatllm_tpu_torch.nn.transformer import transformer_forward
     from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
-    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
 
     eng = InferenceEngine(replace(cfg, cache_dtype="int8"), params, device=dev)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 1000).tolist()
@@ -1928,14 +1966,17 @@ def int8_engine_phase(dev, cfg, params) -> dict:
             raise AssertionError(f"int8 first step launches {got}, expected {want}")
         reset_launch_counts()
         gcfg = GenerationConfig(do_sample=False, max_new_tokens=16)
-        out, _, _ = eng.generate(ids, gcfg)
+        perf = PerfInfo()
+        out, _, _ = eng.generate(ids, gcfg, perf=perf)
         torch.cuda.synchronize()
         res["launches"] = got = launch_counts()
         res["tokens_int8"] = out
     finally:
         os.environ.pop("CHATLLM_TPU_FLASH_QK", None)
     steps = len(out) - 1
-    log(f"  int8 dots: 16 greedy tokens {out}, launches {got}")
+    res["decode_tok_s"] = steps / perf.gen_ms * 1e3
+    log(f"  int8 dots: 16 greedy tokens {out}, {res['decode_tok_s']:.2f} decode steps/s, "
+        f"launches {got}")
     if len(out) != 16 or got["flash_decode_int8"] != N_LAYERS * steps or got["flash_decode"]:
         raise AssertionError(f"int8 run: {len(out)} tokens, K4 int8 launched "
                              f"{got['flash_decode_int8']} times (expected {N_LAYERS * steps}), "
@@ -2139,6 +2180,21 @@ def k5_vs_k2(kres: dict) -> dict:
     return out
 
 
+def k4_int8_vs_float(kres: dict) -> dict:
+    """K4's int8 dots beside its bf16 dots, per call at the four shapes both
+    are timed at in this run, with the int8 dots' library time and bound."""
+    out = {}
+    for shape in ("decode_1000", "decode_8000", "serve_4", "decode_floor"):
+        i8, fl = kres["flash_decode_int8"]["shapes"][shape], kres["flash_decode"]["shapes"][shape]
+        out[shape] = {"int8_ms": i8["ms"], "bf16_ms": fl["ms"],
+                      "int8_over_bf16": i8["ms"] / fl["ms"],
+                      "library_ms": i8["library_ms"], "bound_ms": i8["bound_ms"]}
+        log(f"  K4 {shape}: int8 dots {i8['ms']:.4f} ms, bf16 dots {fl['ms']:.4f} "
+            f"({i8['ms'] / fl['ms']:.2f}x), library {i8['library_ms']:.4f}, "
+            f"bound {i8['bound_ms']:.5f}")
+    return out
+
+
 def qwen_totals(kres: dict) -> dict:
     """K1-K5 summed over one unit of Qwen2.5-0.5B's path (24 layers, no
     quantized lm_head): per decode token, per 64-row chunk, per 1000-token
@@ -2190,6 +2246,7 @@ def main() -> int:
     report["qwen_kernel_totals"] = qwen_totals(report["kernels"])
     log(f"  Qwen2.5-0.5B totals per unit of its path: {report['qwen_kernel_totals']}")
     report["k5_vs_k2"] = k5_vs_k2(report["kernels"])
+    report["k4_int8_vs_float"] = k4_int8_vs_float(report["kernels"])
     del timer
     torch.cuda.empty_cache()
 

@@ -391,7 +391,7 @@ def test_probe_mains_at_a_small_size(dev):
 @pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
 def test_flash_decode_int8_kernel(dev, B, T, Hq, Hkv, n_past, block_k, extra, q_dtype):
     """K4's int8 dots against their plain version: chip_smoke's
-    DECODE_INT8_STEPS, its own launch count."""
+    DECODE_INT8_STEPS, its own launch count, a second launch bit-identical."""
     import chip_smoke
     from chatllm_tpu_torch.ops.attention import quantize_kv
     from chatllm_tpu_torch.ops.cuda.build import KERNELS
@@ -414,6 +414,36 @@ def test_flash_decode_int8_kernel(dev, B, T, Hq, Hkv, n_past, block_k, extra, q_
         (before[0] + 1, before[1])
     _, steps = chip_smoke.flash_decode_int8_errors(o, q, k, v, npv, T, **kw)
     assert o.dtype == q.dtype and steps <= chip_smoke.DECODE_INT8_STEPS
+    assert torch.equal(flash_decode(q, k, v, npv, T, qk_dtype="int8", **kw), o)
+
+
+@pytest.mark.parametrize("B,n_past,new_n_past", [(1, [1000], [5000]), (4, [0, 600, 4095, 700],
+                                                                       [8000, 1, 511, 3000])])
+def test_flash_decode_int8_replays_in_a_cuda_graph(dev, B, n_past, new_n_past):
+    """One int8-dot call captured in a CUDA graph reads n_past on the card:
+    replayed after the n_past tensor's values change, it gives the eager
+    call's bits at the new values (the wrapper allocates nothing but the
+    output, and the launch reads nothing back)."""
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(B)
+    T, Hq, Hkv, D, S = 1, 32, 8, 128, 8192
+    q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    (k, ks), (v, vs) = (quantize_kv(torch.randn(B, S, Hkv, D, generator=gen, device=dev))
+                        for _ in range(2))
+    kw = dict(scale=D ** -0.5, k_scale=ks, v_scale=vs, qk_dtype="int8")
+    npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
+    flash_decode(q, k, v, npv, T, **kw)          # first launch sets the kernel's attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = flash_decode(q, k, v, npv, T, **kw)
+    for values in (new_n_past, n_past):
+        npv.copy_(torch.tensor(values, dtype=torch.int64))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o, flash_decode(q, k, v, npv.clone(), T, **kw)), values
 
 
 @pytest.mark.parametrize("cache", ["int8", "bfloat16"])
