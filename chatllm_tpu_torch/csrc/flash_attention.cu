@@ -17,32 +17,61 @@
 // bf16 tensor-core work (4*D flops per visible query/key pair per head) is
 // well above the bytes of q, k, v and o, so 989 TFLOP/s bounds it.
 //
-// Design (FlashAttention-2 on mma.sync): one block per (64-query tile, head,
-// batch), 4 warps of 16 query rows each.  The block walks 64-key tiles from
-// the first live one to the last: tiles wholly above the causal diagonal,
-// past the written keys or before the window are never visited, and tiles
-// where every key is visible to every row skip the mask arithmetic.  Q lives
-// in registers as mma A fragments; each K tile is staged row-major and each
-// V tile transposed in shared memory so every B fragment is one 32-bit
-// load.  Scores, the running max/denominator and the output accumulator are
-// f32; probabilities enter the P.V product as bf16.
+// bf16 design (`flash_wgmma_kernel`, Hopper warpgroup MMA over a TMA ring):
+// one block per (head, batch row, 128-query tile): two consumer warpgroups
+// of 64 query rows each and a producer warpgroup, one thread of which
+// issues every load; `setmaxnreg` moves the producer's registers to the
+// consumers (24 / 240 a thread), which hold the scores, the probabilities
+// and the output accumulator at once.  What it does about the causes that
+// held the earlier mma.sync kernel to 4% of the bound:
+//  1. Nothing in flight during the math -> the producer keeps a ring of
+//     STAGES K and V tiles of 128 keys in flight with TMA
+//     (cp.async.bulk.tensor, completion on mbarriers); each consumer
+//     warpgroup starts Q.K^T as soon as a K tile lands, and frees each
+//     stage through an "empty" barrier that the producer waits on before
+//     reloading it.  Q is loaded once, the same way.  Inside a warpgroup,
+//     Q.K_i^T and P_{i-1}.V_{i-1} are issued together and the softmax of
+//     tile i runs while P_{i-1}.V_{i-1} is still on the tensor cores.
+//     TMA's out-of-bounds zero fill replaces the row guards: rows past T
+//     or S read as zeros, and rows past T are never stored.
+//  2. V transposed by scalar stores -> V stays in its row-major [keys, D]
+//     layout as TMA writes it; P.V reads it through wgmma's transpose bit
+//     (an MN-major B operand).
+//  3. mma.sync with hand-gathered fragments -> wgmma: S = Q.K^T is
+//     m64n128k16 with Q and K read from shared memory through 128-byte
+//     swizzled descriptors (the swizzle TMA writes); the probabilities stay
+//     in registers, rounded to bf16, as the A operand of m64n{D}k16 for P.V.
+//  4. Small tiles, heaviest last -> 128 x 128 tiles, and the grid's slowest
+//     dimension is a launch slot: slot r runs the query tile with the r-th
+//     most key tiles (ties: the later tile first), computed on the card from
+//     the same formulas as ops/cuda/flash.py::prefill_geometry.
+//  5. expf and a separate scale -> the online softmax runs on the wgmma
+//     accumulator fragments with scale * log2(e) folded into one FMA before
+//     ex2; only tiles that cross the diagonal, the written end or the
+//     window do mask arithmetic (per warpgroup, `tile_interior`).
+// Scores, running max and denominator and the output accumulator are f32;
+// each probability is rounded to bf16 for P.V while the denominator sums
+// it unrounded (flash.py:75).  The tensor maps are encoded on the host per
+// call (cuTensorMapEncodeTiled, fetched from the driver at run time, so the
+// library needs no -lcuda) and passed as __grid_constant__ parameters.
 //
 // An f32 cache (--cache_dtype float32) takes `flash_f32_kernel`: the Pallas
 // kernel runs its dots in the inputs' dtype, so there every product is an
-// f32 FMA on the CUDA cores (67 TFLOP/s bounds it).  Same tiling of the
-// mask; one block per (32-query tile, head, batch), 4 warps of 8 query rows,
-// lane j scoring key j of each 32-key tile.  An f32 query over a bf16 cache
-// (--compute_dtype f32 --cache_dtype bf16) takes the same kernel with bf16
-// K/V loads: the Pallas kernel's mixed dot q.k runs in f32 (bf16 keys are
-// exact in f32), it rounds the probabilities to the cache's dtype before
-// P.V (flash.py:75) and writes q's dtype, f32.
+// f32 FMA on the CUDA cores (67 TFLOP/s bounds it).  One block per
+// (32-query tile, head, batch), 4 warps of 8 query rows, lane j scoring key
+// j of each 32-key tile; tiles wholly above the causal diagonal, past the
+// written keys or before the window are never visited, and tiles where
+// every key is visible to every row skip the mask arithmetic.  An f32 query
+// over a bf16 cache (--compute_dtype f32 --cache_dtype bf16) takes the same
+// kernel with bf16 K/V loads: the Pallas kernel's mixed dot q.k runs in f32
+// (bf16 keys are exact in f32), it rounds the probabilities to the cache's
+// dtype before P.V (flash.py:75) and writes q's dtype, f32.
 #include "common.cuh"
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int PAD = 8;
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
@@ -53,195 +82,543 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 struct Strides { long b, t, h; };
 
+// ------------------------------------------------------------ bf16: wgmma
+constexpr int HBQ = 128;                 // query rows per block
+constexpr int WG_ROWS = 64;              // query rows per consumer warpgroup
+constexpr int HBK = 128;                 // keys per K/V tile
+constexpr int CONSUMER_WARPS = 8;        // two warpgroups
+constexpr int HTHREADS = 32 * (CONSUMER_WARPS + 4);   // + the producer warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of one block, from a 1024-byte aligned base: Q as D/64
+// column blocks of [HBQ rows x 128 bytes], then STAGES K tiles and STAGES V
+// tiles, each D/64 column blocks of [HBK rows x 128 bytes] (the 128-byte
+// swizzle TMA writes and the wgmma descriptors read), then the barriers
+// (q_full, k_full[], v_full[], k_empty[], v_empty[]) and the tile index.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-             Strides qs, Strides ks, Strides vs, Strides os,
-             int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
-             int causal, int window, float softcap) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16 (*sq)[D + PAD] = reinterpret_cast<__nv_bfloat16 (*)[D + PAD]>(smem_raw);
-    __nv_bfloat16 (*sk)[D + PAD] = sq + BQ;
-    __nv_bfloat16 (*svt)[BK + PAD] = reinterpret_cast<__nv_bfloat16 (*)[BK + PAD]>(sk + BK);
+struct Geo {
+    static constexpr int STAGES = D == 128 ? 2 : 4;
+    static constexpr int CB = D / 64;
+    static constexpr int Q_BYTES = HBQ * D * 2;
+    static constexpr int KV_BYTES = HBK * D * 2;
+    static constexpr int K_OFF = Q_BYTES;
+    static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+    static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+    static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 4 * STAGES) + 8;
+};
 
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int gid = lane >> 2, tig = lane & 3;
-    const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / (Hq / Hkv);
-    const int t0 = qt * BQ;
+struct Problem {
+    int T, S, Hq, Hkv, n_past, n_tokens, causal, window;
+    float scale, softcap;
+    long os_b, os_t, os_h;
+};
 
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-    const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
+// The key tiles [first, end) query tile qt visits (flash.py::tile_keys).
+__device__ __forceinline__ void tile_keys(int qt, const Problem& p, int& first, int& end) {
+    const int t0 = qt * HBQ;
+    const int lo = p.window > 0 ? max(0, p.n_past + t0 - p.window + 1) : 0;
+    int hi = min(p.n_past + p.n_tokens, p.S);
+    if (p.causal) hi = min(hi, p.n_past + min(p.T, t0 + HBQ));
+    if (hi <= lo) {
+        first = end = 0;
+        return;
+    }
+    first = lo / HBK;
+    end = (hi + HBK - 1) / HBK;
+}
 
-    // Q tile -> shared -> A fragments (rows past T are zero and never stored)
-    for (int idx = tid; idx < BQ * (D / 8); idx += THREADS) {
-        const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (t0 + r < T) val = *reinterpret_cast<const uint4*>(qb + (t0 + r) * qs.t + c8);
-        *reinterpret_cast<uint4*>(&sq[r][c8]) = val;
+// Every key of tile kt visible to every row of the warpgroup whose first row
+// sits at position q_lo (flash.py::tile_interior).
+__device__ __forceinline__ bool tile_interior(int kt, int q_lo, const Problem& p) {
+    const int k0 = kt * HBK;
+    bool ok = k0 + HBK <= p.n_past + p.n_tokens;
+    if (p.causal) ok = ok && k0 + HBK - 1 <= q_lo;
+    if (p.window > 0) ok = ok && k0 > q_lo + WG_ROWS - 1 - p.window;
+    return ok;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// One TMA box of the [D, rows, heads, batch] tensor map into shared memory,
+// completing `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+    asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+                    "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (K-major: unused, 16; MN-major: the distance between 64-wide
+// column blocks), stride byte offset 1024 (between 8-row groups).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>(lbo >> 4) << 16
+         | static_cast<uint64_t>(1024 >> 4) << 32
+         | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Pin register values at this point of the instruction stream, so the
+// compiler moves no access to them across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// d[0:64] (+)= A[64 x 16] . B[128 x 16]^T, both in shared memory, K-major with
+// the 128-byte swizzle; acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[0:64] += A[64 x 16] (registers: bf16 pairs, the m16n8k16 A layout per warp)
+//                 . B[16 x 128] (shared memory, MN-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[0:32] += A[64 x 16] (registers: bf16 pairs, the m16n8k16 A layout per warp)
+//                 . B[16 x 64] (shared memory, MN-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t b) {
+    if constexpr (D == 128) wgmma_rs_n128(d, a, b);
+    else wgmma_rs_n64(d, a, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ o, const Problem p) {
+    using G = Geo<D>;
+    constexpr int ST = G::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    const uint32_t sq = base, sk = base + G::K_OFF, sv = base + G::V_OFF;
+    const uint32_t q_full = base + G::BAR_OFF;
+    const auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+    const auto v_full = [&](int s) { return q_full + 8u * (1 + ST + s); };
+    const auto k_empty = [&](int s) { return q_full + 8u * (1 + 2 * ST + s); };
+    const auto v_empty = [&](int s) { return q_full + 8u * (1 + 3 * ST + s); };
+    int* s_qt = reinterpret_cast<int*>(smem_raw + (base - raw) + G::BAR_OFF + 8 * (1 + 4 * ST));
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int hk = h / (p.Hq / p.Hkv);
+    const int n_qt = (p.T + HBQ - 1) / HBQ;
+
+    // launch slot blockIdx.z runs the query tile of that rank in the order
+    // of flash.py::prefill_geometry: most key tiles first, then later tiles
+    for (int i = tid; i < n_qt; i += HTHREADS) {
+        int a, e;
+        tile_keys(i, p, a, e);
+        int rank = 0;
+        for (int j = 0; j < n_qt; ++j) {
+            int aj, ej;
+            tile_keys(j, p, aj, ej);
+            rank += (ej - aj > e - a) || (ej - aj == e - a && j > i);
+        }
+        if (rank == static_cast<int>(blockIdx.z)) *s_qt = i;
+    }
+    if (tid == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(k_full(s), 1);
+            mbar_init(v_full(s), 1);
+            mbar_init(k_empty(s), CONSUMER_WARPS);
+            mbar_init(v_empty(s), CONSUMER_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
     __syncthreads();
-    uint32_t qf[D / 16][4];
-    const int r0 = warp * 16 + gid;
+    const int qt = *s_qt;
+    const int t0 = qt * HBQ;
+    int kt_first, kt_end;
+    tile_keys(qt, p, kt_first, kt_end);
+    const int n_tiles = kt_end - kt_first;
+
+    if (warp >= CONSUMER_WARPS) {
+        // producer: one thread loads Q once, then K and V tiles through the
+        // ring; the warpgroup gives its registers to the consumers
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+        if (warp == CONSUMER_WARPS && lane == 0) {
+            mbar_expect_tx(q_full, G::Q_BYTES);
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-        const int c = kc * 16 + tig * 2;
-        qf[kc][0] = *reinterpret_cast<const uint32_t*>(&sq[r0][c]);
-        qf[kc][1] = *reinterpret_cast<const uint32_t*>(&sq[r0 + 8][c]);
-        qf[kc][2] = *reinterpret_cast<const uint32_t*>(&sq[r0][c + 8]);
-        qf[kc][3] = *reinterpret_cast<const uint32_t*>(&sq[r0 + 8][c + 8]);
+            for (int c = 0; c < G::CB; ++c)
+                tma_load(sq + c * HBQ * 128, &tm_q, q_full, c * 64, t0, h, b);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % ST;
+                const uint32_t parity = ((i / ST) & 1) ^ 1;   // the previous round's release
+                const int k0 = (kt_first + i) * HBK;
+                if (i >= ST) mbar_wait(k_empty(s), parity);
+                mbar_expect_tx(k_full(s), G::KV_BYTES);
+#pragma unroll
+                for (int c = 0; c < G::CB; ++c)
+                    tma_load(sk + s * G::KV_BYTES + c * HBK * 128, &tm_k, k_full(s), c * 64, k0,
+                             hk, b);
+                if (i >= ST) mbar_wait(v_empty(s), parity);
+                mbar_expect_tx(v_full(s), G::KV_BYTES);
+#pragma unroll
+                for (int c = 0; c < G::CB; ++c)
+                    tma_load(sv + s * G::KV_BYTES + c * HBK * 128, &tm_v, v_full(s), c * 64, k0,
+                             hk, b);
+            }
+        }
+        return;
     }
 
-    float oacc[D / 8][4];
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // consumers: warpgroup wg owns rows wg*64 .. of the tile; this thread
+    // holds rows wr and wr + 8 of it (the wgmma accumulator layout: element
+    // 4j + e is row wr + 8 (e >> 1), column 8j + 2 tig + (e & 1))
+    const int wg = warp >> 2;
+    const int wr = (warp & 3) * 16 + (lane >> 2);
+    const int tig = lane & 3;
+    const int q_lo = p.n_past + t0 + wg * WG_ROWS;
+    const int qpos0 = q_lo + wr, qpos1 = qpos0 + 8;
+    const int kv_len = p.n_past + p.n_tokens;
+    // scores s enter exp2 as s * c: raw dots times scale * log2(e), or after
+    // the softcap (already scaled) times log2(e)
+    const float c = (p.softcap > 0.f ? 1.f : p.scale) * LOG2E;
+
+    float oacc[D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
     float m_run[2] = {NEG_INF, NEG_INF};
     float l_run[2] = {0.f, 0.f};
 
-    const int kv_len = n_past + n_tokens;
-    const int q_lo = n_past + t0;
-    const int q_hi = q_lo + BQ - 1;
-    int k_end = min(kv_len, S);
-    if (causal) k_end = min(k_end, q_hi + 1);
-    int kt_begin = 0;
-    if (window > 0) kt_begin = max(0, q_lo - window + 1) / BK;
-    const int kt_end = (k_end + BK - 1) / BK;
-    const int qpos0 = q_lo + r0, qpos1 = qpos0 + 8;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * BK;
-        __syncthreads();   // previous tile's readers are done
-        for (int idx = tid; idx < BK * (D / 8); idx += THREADS) {
-            const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-            uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-            if (k0 + r < S) {
-                kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * ks.t + c8);
-                vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * vs.t + c8);
-            }
-            *reinterpret_cast<uint4*>(&sk[r][c8]) = kv;
-            const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+    mbar_wait(q_full, 0);
+    float sacc[HBK / 2];
+    uint32_t pf[HBK / 16][4];
+    const uint32_t qa = sq + wg * (WG_ROWS * 128);
+    const auto softmax = [&](int kt, float* corr) {
+        const int k0 = kt * HBK;
+        if (p.softcap > 0.f) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) svt[c8 + e][r] = ve[e];
+            for (int j = 0; j < HBK / 2; ++j)
+                sacc[j] = tanhf(sacc[j] * p.scale / p.softcap) * p.softcap;
         }
-        __syncthreads();
-
-        // S = Q K^T for this warp's 16 rows x 64 keys
-        float sacc[BK / 8][4];
+        if (!tile_interior(kt, q_lo, p)) {
 #pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
+            for (int j = 0; j < HBK / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) sacc[nt][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < D / 16; ++kc) {
-            const int c = kc * 16 + tig * 2;
-#pragma unroll
-            for (int nt = 0; nt < BK / 8; ++nt) {
-                uint32_t bf[2];
-                bf[0] = *reinterpret_cast<const uint32_t*>(&sk[nt * 8 + gid][c]);
-                bf[1] = *reinterpret_cast<const uint32_t*>(&sk[nt * 8 + gid][c + 8]);
-                mma_bf16_16816(sacc[nt], qf[kc], bf);
-            }
-        }
-
-        bool interior = k0 + BK <= kv_len;
-        if (causal) interior = interior && (k0 + BK - 1 <= q_lo);
-        if (window > 0) interior = interior && (k0 > q_hi - window);
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                float sv = sacc[nt][e] * scale;
-                if (softcap > 0.f) sv = tanhf(sv / softcap) * softcap;
-                if (!interior) {
-                    const int kpos = k0 + nt * 8 + tig * 2 + (e & 1);
+                for (int e = 0; e < 4; ++e) {
+                    const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
                     const int qpos = e < 2 ? qpos0 : qpos1;
                     bool ok = kpos < kv_len;
-                    if (causal) ok = ok && kpos <= qpos;
-                    if (window > 0) ok = ok && kpos > qpos - window;
-                    if (!ok) sv = NEG_INF;
+                    if (p.causal) ok = ok && kpos <= qpos;
+                    if (p.window > 0) ok = ok && kpos > qpos - p.window;
+                    if (!ok) sacc[4 * j + e] = NEG_INF;
                 }
-                sacc[nt][e] = sv;
-            }
-
-        // online softmax for rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3)
+        }
+        // online softmax for rows wr (e = 0, 1) and wr + 8 (e = 2, 3)
         float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-            mx[0] = fmaxf(mx[0], fmaxf(sacc[nt][0], sacc[nt][1]));
-            mx[1] = fmaxf(mx[1], fmaxf(sacc[nt][2], sacc[nt][3]));
+        for (int j = 0; j < HBK / 8; ++j) {
+            mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+            mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
         }
-        float corr[2], rsum[2] = {0.f, 0.f};
+        float mc[2], rsum[2] = {0.f, 0.f};
+        bool none[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
-            const float m_new = fmaxf(m_run[i], mx[i]);
-            corr[i] = expf(m_run[i] - m_new);
-            m_run[i] = m_new;
-        }
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float p = expf(sacc[nt][e] - m_run[e >> 1]);
-                sacc[nt][e] = p;
-                rsum[e >> 1] += p;
-            }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            rsum[i] += __shfl_xor_sync(FULL_MASK, rsum[i], 1);
-            rsum[i] += __shfl_xor_sync(FULL_MASK, rsum[i], 2);
-            l_run[i] = l_run[i] * corr[i] + rsum[i];
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
+            const float m_new = fmaxf(m_run[r], mx[r]);
+            corr[r] = fast_exp2((m_run[r] - m_new) * c);
+            m_run[r] = m_new;
+            mc[r] = m_new * c;
+            // no visible key yet: every masked score equals the max, p = 1
+            // (the -1e30 contract), which exp2 of s*c - m*c would not give
+            // exactly at that magnitude
+            none[r] = m_new == NEG_INF;
         }
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-            oacc[dt][0] *= corr[0];
-            oacc[dt][1] *= corr[0];
-            oacc[dt][2] *= corr[1];
-            oacc[dt][3] *= corr[1];
+        for (int j = 0; j < HBK / 2; ++j) {
+            const int r = (j >> 1) & 1;
+            float pv = fast_exp2(fmaf(sacc[j], c, -mc[r]));
+            if (none[r]) pv = 1.f;
+            sacc[j] = pv;
+            rsum[r] += pv;
         }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 1);
+            rsum[r] += __shfl_xor_sync(FULL_MASK, rsum[r], 2);
+            l_run[r] = l_run[r] * corr[r] + rsum[r];
+        }
+    };
+    // S = Q K^T of stage s: 64 rows x 128 keys, D/16 steps of 16 along D
+    const auto issue_qk = [&](int s) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t a = qa + (kk >> 2) * (HBQ * 128) + (kk & 3) * 32;
+            const uint32_t k = sk + s * G::KV_BYTES + (kk >> 2) * (HBK * 128) + (kk & 3) * 32;
+            wgmma_ss_n128(sacc, sw128_desc(a, 16), sw128_desc(k, 16), kk > 0);
+        }
+        wgmma_commit();
+    };
+    // O += P V of stage s: V [128 keys x D] row-major, read MN-major
+    // (transposed) by wgmma, 16 keys a step
+    const auto issue_pv = [&](int s) {
+#pragma unroll
+        for (int kc = 0; kc < HBK / 16; ++kc)
+            wgmma_pv<D>(oacc, pf[kc], sw128_desc(sv + s * G::KV_BYTES + kc * 2048, HBK * 128));
+        wgmma_commit();
+    };
+    // P as bf16 A fragments (m16n8k16 layout per warp) straight from the
+    // score accumulator: 16 keys = accumulator columns 8 (2 kc) .. + 15
+    const auto pack_p = [&]() {
+#pragma unroll
+        for (int kc = 0; kc < HBK / 16; ++kc) {
+            pf[kc][0] = pack_bf16(sacc[8 * kc + 0], sacc[8 * kc + 1]);
+            pf[kc][1] = pack_bf16(sacc[8 * kc + 2], sacc[8 * kc + 3]);
+            pf[kc][2] = pack_bf16(sacc[8 * kc + 4], sacc[8 * kc + 5]);
+            pf[kc][3] = pack_bf16(sacc[8 * kc + 6], sacc[8 * kc + 7]);
+        }
+    };
 
-        // O += P V, P as bf16 A fragments taken straight from the score tiles
-#pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) {
-            uint32_t pf[4];
-            pf[0] = pack_bf16(sacc[2 * kc][0], sacc[2 * kc][1]);
-            pf[1] = pack_bf16(sacc[2 * kc][2], sacc[2 * kc][3]);
-            pf[2] = pack_bf16(sacc[2 * kc + 1][0], sacc[2 * kc + 1][1]);
-            pf[3] = pack_bf16(sacc[2 * kc + 1][2], sacc[2 * kc + 1][3]);
-            const int c = kc * 16 + tig * 2;
-#pragma unroll
-            for (int dt = 0; dt < D / 8; ++dt) {
-                uint32_t bf[2];
-                bf[0] = *reinterpret_cast<const uint32_t*>(&svt[dt * 8 + gid][c]);
-                bf[1] = *reinterpret_cast<const uint32_t*>(&svt[dt * 8 + gid][c + 8]);
-                mma_bf16_16816(oacc[dt], pf, bf);
-            }
-        }
+    // tile 0: S, then its probabilities; O is still zero
+    if (n_tiles > 0) {
+        float corr[2];
+        mbar_wait(k_full(0), 0);
+        wgmma_fence();
+        issue_qk(0);
+        wgmma_wait<0>();
+        reg_fence<HBK / 2>(sacc);
+        if (lane == 0) mbar_arrive(k_empty(0));
+        softmax(kt_first, corr);
+        pack_p();
     }
-
-    // finalize: o = acc / max(l, 1e-30)
+    // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} in flight together; the
+    // softmax of S_i runs while P_{i-1} V_{i-1} is still on the tensor cores
+    for (int i = 1; i < n_tiles; ++i) {
+        const int s = i % ST, sp = (i - 1) % ST;
+        float corr[2];
+        mbar_wait(k_full(s), (i / ST) & 1);
+        mbar_wait(v_full(sp), ((i - 1) / ST) & 1);
+        reg_fence<D / 2>(oacc);
+        reg_fence<HBK / 4>(&pf[0][0]);
+        wgmma_fence();
+        issue_qk(s);
+        issue_pv(sp);
+        wgmma_wait<1>();
+        reg_fence<HBK / 2>(sacc);
+        if (lane == 0) mbar_arrive(k_empty(s));
+        softmax(kt_first + i, corr);
+        wgmma_wait<0>();
+        reg_fence<D / 2>(oacc);
+        reg_fence<HBK / 4>(&pf[0][0]);
+        if (lane == 0) mbar_arrive(v_empty(sp));
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
+        pack_p();
+    }
+    if (n_tiles > 0) {
+        const int sp = (n_tiles - 1) % ST;
+        mbar_wait(v_full(sp), ((n_tiles - 1) / ST) & 1);
+        reg_fence<D / 2>(oacc);
+        reg_fence<HBK / 4>(&pf[0][0]);
+        wgmma_fence();
+        issue_pv(sp);
+        wgmma_wait<0>();
+        reg_fence<D / 2>(oacc);
+    }
+    // finalize: o = acc / max(l, 1e-30); rows past T are never stored
     const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
     const float inv1 = 1.f / fmaxf(l_run[1], 1e-30f);
-    __nv_bfloat16* ob = o + b * os.b + h * os.h;
-    const int ta = t0 + r0, tb = ta + 8;
+    __nv_bfloat16* ob = o + b * p.os_b + h * p.os_h;
+    const int ta = t0 + wg * WG_ROWS + wr, tb = ta + 8;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-        const int c = dt * 8 + tig * 2;
-        if (ta < T)
-            *reinterpret_cast<__nv_bfloat162*>(ob + ta * os.t + c) =
-                __floats2bfloat162_rn(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
-        if (tb < T)
-            *reinterpret_cast<__nv_bfloat162*>(ob + tb * os.t + c) =
-                __floats2bfloat162_rn(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
+    for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * tig;
+        if (ta < p.T)
+            *reinterpret_cast<__nv_bfloat162*>(ob + ta * p.os_t + col) =
+                __floats2bfloat162_rn(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+        if (tb < p.T)
+            *reinterpret_cast<__nv_bfloat162*>(ob + tb * p.os_t + col) =
+                __floats2bfloat162_rn(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
     }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                  cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+    return fn;
+}
+
+// A bf16 [B, rows, H, D] tensor with element strides st = (b, t, h) as a
+// tensor map of boxes [64 of D, box_rows rows, one head, one batch row],
+// 128-byte swizzled, zero fill past the edges.  A dimension of extent 1 is
+// only read at coordinate 0, so its stride is set to a legal one.
+int encode_rows(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int batch,
+                const long* st, int box_rows) {
+    const EncodeTiled encode = encoder();
+    if (!encode) return static_cast<int>(cudaErrorNotSupported);
+    cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                          static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+    cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[1]) * 2, static_cast<cuuint64_t>(st[2]) * 2,
+                             static_cast<cuuint64_t>(st[0]) * 2};
+    for (int i = 0; i < 3; ++i)
+        if (dims[i + 1] == 1) strides[i] = 16;
+    cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+    cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, const long* st, int B,
+                 int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
+                 int causal, int window, float softcap, cudaStream_t stream) {
+    CUtensorMap tq, tk, tv;
+    int err = encode_rows(&tq, q, D, T, Hq, B, st, HBQ);
+    if (!err) err = encode_rows(&tk, k, D, S, Hkv, B, st + 3, HBK);
+    if (!err) err = encode_rows(&tv, v, D, S, Hkv, B, st + 6, HBK);
+    if (err) return err;
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const Problem p{T, S, Hq, Hkv, n_past, n_tokens, causal, window, scale, softcap,
+                    st[9], st[10], st[11]};
+    const dim3 grid(Hq, B, (T + HBQ - 1) / HBQ);
+    flash_wgmma_kernel<D><<<grid, HTHREADS, Geo<D>::SMEM, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ f32: CUDA cores
 constexpr int FBQ = 32;           // f32 kernel: query rows per block
 constexpr int FBK = 32;           // keys per tile, one per lane
 constexpr int FROWS = FBQ / 4;    // query rows per warp
@@ -441,11 +818,8 @@ int launch(int mode, const void* q, const void* k, const void* v, void* o, const
             flash_f32_kernel<D, __nv_bfloat16>, f32_smem, FBQ, q, k, v, o, st, B, T, S,
             Hq, Hkv, n_past, n_tokens, scale, causal, window, softcap, stream);
     if (mode != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_kernel<__nv_bfloat16, __nv_bfloat16>(
-        flash_kernel<D>,
-        sizeof(__nv_bfloat16) * ((BQ + BK) * (D + PAD) + D * (BK + PAD)), BQ,
-        q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens, scale, causal, window,
-        softcap, stream);
+    return launch_wgmma<D>(q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens, scale, causal,
+                           window, softcap, stream);
 }
 
 }  // namespace
@@ -453,8 +827,8 @@ int launch(int mode, const void* q, const void* k, const void* v, void* o, const
 // mode 0: q/k/v/o all bf16; 1: all f32; 2: q/o f32 over bf16 k/v.  Unit
 // stride along D;
 // strides: 12 element strides (b, t, h) for q, k, v, o in that order, each
-// a multiple of 16 bytes.  D must be 64 or 128; Hq % Hkv == 0;
-// n_past + n_tokens <= S.
+// a multiple of 16 bytes, and 16-byte aligned q, k, v (mode 0 reads them
+// through TMA).  D must be 64 or 128; Hq % Hkv == 0; n_past + n_tokens <= S.
 CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                      const long* strides, int B, int T, int S, int Hq,
                                      int Hkv, int D, int n_past, int n_tokens, float scale,

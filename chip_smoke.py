@@ -24,7 +24,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              each launch twice and bit-identical, and K2 and K5 bit-equal to
              their plain versions on one-hot rows (COVER_*, ONE_HOT_ROWS);
              `quantize_kv` on the card
-             bit-equal to the CPU
+             bit-equal to the CPU; K3 also at the edges of its bf16 kernel's
+             128 x 128 tiles (n_past off the tile grid, the cache's last
+             tile, a window crossing key tiles, softcap with a window, T off
+             the grid), each bf16 case launched twice and bit-identical, and
+             timed beside two library calls (SDPA with a mask over the whole
+             cache, and SDPA over the live keys with is_causal)
              (K1: rel 1e-4 of the output scale; K2, K5: 2e-2 of it; K6 and
              stream_once: exact; vpu_once: 1e-5 of the output scale; K3: atol
              2e-2, and per element 2^-7 (bf16 cache, or an f32 query over
@@ -908,6 +913,16 @@ def flash_cases(dev, timer, gen) -> dict:
         (QW, 128, 1024, 0, 100, 0, 0.0, None),
         (QW, 512, 8192, 1000, 512, 0, 0.0, None),
         (QW, 1024, 8192, 0, 1000, 0, 0.0, "prefill_1000_qwen"),
+        # the edges of the bf16 kernel's 128 x 128 tiles: n_past off the tile
+        # grid, the cache's last tile, a window crossing key tiles, softcap
+        # with a window, T off the tile grid, 7 heads per kv head at T 1024
+        (L3, 128, 1024, 37, 128, 0, 0.0, None),
+        (L3, 512, 8192, 1001, 512, 0, 0.0, None),
+        (L3, 128, 8192, 8064, 128, 0, 0.0, "prefill_8064"),   # a chunk at the cache's end
+        (L3, 512, 8192, 1001, 512, 300, 0.0, None),
+        (L3, 320, 2048, 700, 320, 300, 30.0, None),
+        (QW, 200, 1024, 37, 180, 0, 0.0, None),
+        (QW, 1024, 8192, 37, 1024, 0, 0.0, None),
     ]
     out = {"cases": [], "shapes": {}}
     # --cache_dtype bf16 / f32, and --compute_dtype f32 over a bf16 cache
@@ -923,6 +938,9 @@ def flash_cases(dev, timer, gen) -> dict:
             v[:, :kv_len] = torch.randn(1, kv_len, Hkv, D, generator=gen, device=dev).to(dtype)
             kw = dict(scale=D ** -0.5, causal=True, sliding_window=win, logit_softcap=cap)
             o = flash_attention(q, k, v, n_past, n_tok, **kw)
+            # the bf16 kernel's second launch is bit-identical (no atomics)
+            same = qdt != torch.bfloat16 or torch.equal(flash_attention(q, k, v, n_past,
+                                                                        n_tok, **kw), o)
             err, scaled = flash_errors(o, q, k, v, n_past, n_tok, **kw)
             name = f"{str(qdt)[6:]}/{str(dtype)[6:]}"
             log(f"  flash {name:17s} Hq={Hq} Hkv={Hkv} D={D} T={T:4d} S={S:5d} n_past={n_past:4d} "
@@ -930,15 +948,16 @@ def flash_cases(dev, timer, gen) -> dict:
                 f"scaled={scaled:.2e}")
             lim = FLASH_SCALED_TOL[dtype]
             if not (o.dtype == qdt and torch.isfinite(o).all() and err <= FLASH_ATOL
-                    and scaled <= lim):
+                    and scaled <= lim and same):
                 case = (Hq, Hkv, D, T, S, n_past, n_tok, win, cap)
                 raise AssertionError(f"flash {name} case {case}: "
                                      f"{o.dtype}, err {err} (limit {FLASH_ATOL}), scaled "
-                                     f"{scaled} (limit {lim})")
+                                     f"{scaled} (limit {lim}), second launch same: {same}")
             out["cases"].append({"dtype": str(dtype), "q_dtype": str(qdt), "Hq": Hq, "Hkv": Hkv,
                                  "D": D, "T": T, "S": S,
                                  "n_past": n_past, "n_tokens": n_tok, "window": win,
-                                 "softcap": cap, "max_abs_err": err, "scaled_err": scaled})
+                                 "softcap": cap, "max_abs_err": err, "scaled_err": scaled,
+                                 "second_launch_same": same})
             if timed and tag != "_f32q":
                 # visible (query, key) pairs: causal rows; padded rows see all keys
                 qpos = n_past + np.arange(T)
@@ -954,15 +973,36 @@ def flash_cases(dev, timer, gen) -> dict:
                 kp = torch.arange(S, device=dev)[None, :]
                 mask = (kp < kv_len) & (kp <= qp)
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                out["shapes"][timed + tag] = {
+                # K3's function in one library call at n_past 0: the live keys
+                # only, is_causal's top-left alignment (row i sees keys j <= i;
+                # the padding rows past kv_len see them all)
+                kc = k[:, :kv_len].transpose(1, 2).repeat_interleave(G, dim=1)
+                vc = v[:, :kv_len].transpose(1, 2).repeat_interleave(G, dim=1)
+                causal_ms = None
+                if n_past == 0:
+                    lib = sdpa(qt, kc, vc, is_causal=True, scale=kw["scale"]).transpose(1, 2)
+                    l_scaled = flash_errors(lib, q, k, v, n_past, n_tok, **kw)[1]
+                    if not l_scaled <= FLASH_SCALED_TOL[dtype]:
+                        raise AssertionError(f"flash {timed + tag}: the causal library "
+                                             f"yardstick is {l_scaled} from the plain version")
+                    del lib
+                    causal_ms = timer(lambda: sdpa(qt, kc, vc, is_causal=True,
+                                                   scale=kw["scale"]))
+                shape = {
                     "T": T, "S": S, "n_tokens": n_tok, "dtype": str(dtype),
                     "ms": timer(lambda: flash_attention(q, k, v, n_past, n_tok, **kw)),
                     "plain_ms": timer(lambda: flash_attention_plain(q, k, v, n_past, n_tok,
                                                                     **kw), iters=5),
                     "library_ms": timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                                      scale=kw["scale"])),
-                    "bound_ms": b_ms, "bound_by": b_by}
-                log(f"    timing {out['shapes'][timed + tag]}")
+                    "library_causal_ms": causal_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": 4.0 * D * Hq * pairs}
+                shape["tflops"] = shape["flops"] / shape["ms"] * 1e-9
+                shape["share_of_bound"] = b_ms / shape["ms"]
+                out["shapes"][timed + tag] = shape
+                log(f"    timing {shape}")
+                log(f"    {timed + tag}: {shape['tflops']:.1f} TFLOP/s, "
+                    f"{100 * shape['share_of_bound']:.1f}% of the bound")
             del q, k, v, o
     return out
 

@@ -29,6 +29,11 @@ FLASH_CASES = {   # tests/test_flash.py
     "softcap": dict(softcap=30.0, seed=2),
     "fresh_prefill_full_causal": dict(n_past=0, T=256, S=256, seed=3),
     "mqa_uneven_blocks": dict(Hq=4, Hkv=1, T=96, S=192, n_past=96, seed=4),
+    # the CUDA kernel's tile edges: n_past off the key tiles, a window across
+    # them, Qwen2.5-0.5B's 7 query heads per kv head at head dim 64
+    "n_past_off_tiles": dict(n_past=37, seed=5),
+    "window_across_tiles": dict(sliding_window=100, seed=6),
+    "gqa_7_heads_d64": dict(Hq=7, Hkv=1, D=64, seed=7),
 }
 
 

@@ -51,7 +51,12 @@ def test_quantized_matmul_kernels(dev, fmt, rows):
 
 @pytest.mark.parametrize("T,S,n_past,n_tokens,window,softcap", [
     (128, 1024, 0, 128, 0, 0.0), (128, 1024, 0, 100, 0, 0.0),
-    (192, 1024, 300, 192, 64, 0.0), (128, 1024, 64, 128, 0, 30.0)])
+    (192, 1024, 300, 192, 64, 0.0), (128, 1024, 64, 128, 0, 30.0),
+    # the bf16 kernel's 128 x 128 tiles: n_past off the tile grid, T off it
+    # with padded rows, a window crossing key tiles with a softcap, and the
+    # cache's last tile
+    (128, 1024, 37, 128, 0, 0.0), (200, 1024, 37, 180, 0, 0.0),
+    (320, 2048, 700, 320, 300, 30.0), (128, 8192, 8064, 128, 0, 0.0)])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_kernel(dev, T, S, n_past, n_tokens, window, softcap, D, dtype):
@@ -70,6 +75,8 @@ def test_flash_attention_kernel(dev, T, S, n_past, n_tokens, window, softcap, D,
     assert KERNELS["flash_attention"].launches == before + 1 and o.dtype == dt
     err, scaled = chip_smoke.flash_errors(o, q, k, v, n_past, n_tokens, **kw)
     assert err <= chip_smoke.FLASH_ATOL and scaled <= chip_smoke.FLASH_SCALED_TOL[dt]
+    # a second launch is bit-identical (no atomics, a fixed order of sums)
+    assert torch.equal(flash_attention(q, k, v, n_past, n_tokens, **kw), o)
 
 
 # card vs CPU logits, relative to the logit scale: the quantized matmuls
