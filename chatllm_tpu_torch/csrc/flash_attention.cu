@@ -55,24 +55,68 @@
 // call (cuTensorMapEncodeTiled, fetched from the driver at run time, so the
 // library needs no -lcuda) and passed as __grid_constant__ parameters.
 //
-// An f32 cache (--cache_dtype float32) takes `flash_f32_kernel`: the Pallas
-// kernel runs its dots in the inputs' dtype, so there every product is an
-// f32 FMA on the CUDA cores (67 TFLOP/s bounds it).  One block per
-// (32-query tile, head, batch), 4 warps of 8 query rows, lane j scoring key
-// j of each 32-key tile; tiles wholly above the causal diagonal, past the
-// written keys or before the window are never visited, and tiles where
-// every key is visible to every row skip the mask arithmetic.  An f32 query
-// over a bf16 cache (--compute_dtype f32 --cache_dtype bf16) takes the same
-// kernel with bf16 K/V loads: the Pallas kernel's mixed dot q.k runs in f32
-// (bf16 keys are exact in f32), it rounds the probabilities to the cache's
-// dtype before P.V (flash.py:75) and writes q's dtype, f32.
+// f32 modes (`flash_f32_kernel`): an f32 cache (--cache_dtype float32, mode
+// 1), and an f32 query over a bf16 cache (mode 2): --compute_dtype f32, and
+// also the chat path's prefill over a bf16 cache, whose projections return
+// f32 as the JAX package's do (matmul's f32 result is not cast back).  The
+// Pallas kernel runs its dots in the inputs' dtypes, so every product is an
+// f32 product.  No Hopper tensor-core instruction multiplies f32 by f32 in
+// one pass: TF32 keeps about three digits, and 3xTF32 changes the roundings
+// and, at 495 / 3 TFLOP/s, gains little; so the CUDA cores' 67 TFLOP/s of
+// f32 FMAs bound both modes.  In mode 2 the bf16 keys are exact in f32, each
+// probability is rounded to bf16 before P.V while the denominator sums it
+// unrounded (flash.py:75), and the output is q's dtype, f32.  What the
+// design does about the causes that held the first f32 kernel (32 x 32
+// tiles of 128 threads) to 21% of that bound:
+//  1. Synchronous loads -> a ring of K and V tiles of 64 keys (2 stages at
+//     D 128, 4 at D 64) filled by cp.async (16-byte copies, zero fill past
+//     S) as the cache's raw bytes: the next tiles load while one is worked
+//     on.  A bf16 tile is widened once into f32 tiles beside the ring, so
+//     both modes' products read f32 (widening at every read was slower).
+//  2. Q.K^T bound by shared-memory loads -> blocks of 256 threads own 128
+//     query rows at D 128 (64 at D 64, or where 128-row tiles would leave
+//     SMs idle: `f32_rows`); each thread holds an 8 x 4 (4 x 4) register
+//     tile of S, rows ty + 16 r and keys tx + 16 j, read from padded rows of
+//     Q and K: 10.7 FMAs per 16-byte shared read, 8 at 4 x 4 (was 3.6).
+//     At D 64, 128-row blocks would hold the 1000-token Qwen2.5-0.5B chunk
+//     to 112 blocks on 132 SMs with twice the longest walk.
+//  3. P.V bound by shuffles -> P goes to shared memory key-major (into the
+//     f32 K tile once Q.K^T is done), each thread's rows side by side, so
+//     one 16-byte read gives a key's probabilities for four of them; a
+//     thread owns its rows x D / 16 columns of O: no shuffles in P.V.  A
+//     row's max takes 4 xor shuffles per tile (its scores lie across 16
+//     lanes); its denominator is kept as per-thread shares summed once at
+//     the end; exp2 with scale * log2(e) folded into one multiply.  The
+//     scores are scaled before the mask, so a row whose visited keys are
+//     all masked gets exp2(-1e30 - -1e30) = 1 for each, the -1e30 contract.
+//     Only tiles that cross the diagonal, the written end or the window do
+//     mask arithmetic.
+//  4. Small tiles, lightest first -> the grid's slowest dimension is a
+//     launch slot: slot r runs the query tile with the r-th most key tiles
+//     (ties: the later tile first), as mode 0 does, from the formulas of
+//     flash.py::prefill_geometry (mode 1 / 2).
+//  5. Too few blocks on a long walk -> each query tile's key walk is split
+//     over a cluster of C blocks, C the largest power of two <= 8 for which
+//     the card holds all the grid's clusters at once
+//     (cudaOccupancyMaxActiveClusters; flash.py::f32_splits): 1 for the
+//     1000-token chunk, 2 for Llama-3-8B's 128-token chunk at n_past 8064
+//     (64 clusters of 64-row blocks; 66 fit).  Each block walks a
+//     contiguous share of the key tiles; the blocks merge (max,
+//     denominator, accumulators) through distributed shared memory in rank
+//     order, K4's pattern (csrc/flash_decode.cu): one launch, no scratch,
+//     no atomics, the same bits on every launch.
+// One block an SM (up to 254 registers a thread; 196 KB of shared memory at
+// D 128); two blocks of the D 64 kernel on one SM ran slower than one.
 #include "common.cuh"
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -619,204 +663,528 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const lon
 }
 
 // ------------------------------------------------------ f32: CUDA cores
-constexpr int FBQ = 32;           // f32 kernel: query rows per block
-constexpr int FBK = 32;           // keys per tile, one per lane
-constexpr int FROWS = FBQ / 4;    // query rows per warp
+constexpr int FBK = 64;            // f32 kernel: keys per K/V tile
+constexpr int FTHREADS = 256;      // 16 x 16 threads
+constexpr int MAX_SPLIT = 8;       // blocks of a cluster (the portable limit)
+constexpr int MIN_SHARE = 4;       // key tiles each block of a split walks at least
+constexpr int QK_UNROLL = 8;       // Q.K^T steps unrolled (measured: 8 of 2-32)
+constexpr int PV_UNROLL = 16;      // P.V keys unrolled (measured: 16 of 2-16)
 
-__device__ __forceinline__ void to_f32(const uint4& u, float* out, float) {
-    const float* e = reinterpret_cast<const float*>(&u);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[c] = e[c];
+__device__ __forceinline__ void cp16(void* smem, const void* gmem, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(smem)), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
+
+// The f32 kernel's geometry, KV the cache's dtype (f32, or bf16 in mode 2).
+// A block of 256 threads owns BQ query rows (128, or 64: `f32_rows`) and
+// walks FBK-key tiles; thread (ty, tx) holds S for the RT = BQ / 16 rows
+// ty + 16 r and the keys tx + 16 j, and O for the same rows and D / 16
+// columns c 64 + 4 tx + e.  Shared memory: Q [BQ][D + 4] f32; a ring of
+// STAGES stages of K and V tiles as the cache's raw bytes (f32: K [FBK][D +
+// 4], V [FBK][D]; bf16: K and V [FBK][D], widened once per tile into f32
+// tiles KF [FBK][D + 4] and VF [FBK][D] after the ring); the products read
+// only f32 tiles.  P [FBK][BQ + 4] f32, key-major, row ty + 16 r at column
+// RT ty + r (so one 16-byte read gives four of a thread's rows), takes the
+// f32 K tile's place once Q.K^T is done.  The pads put the 16-byte reads
+// and writes of 8 consecutive threads on distinct banks.  After the walk
+// the space from the ring on holds the cluster's merge: [C][BQ / C][D]
+// accumulators and [C][BQ / C] (max, denominator).
+template <int D, typename KV, int BQ>
+struct FGeo {
+    static constexpr bool WIDEN = sizeof(KV) == 2;                      // bf16 cache
+    static constexpr int STAGES = D == 64 ? 4 : 2;                      // tiles in the ring
+    static constexpr int RT = BQ / 16;                                  // rows a thread
+    static constexpr int QS = D + 4;                                    // floats per q row
+    static constexpr int FKS = D + 4;                                   // floats per f32 K row
+    static constexpr int PS = BQ + 4;                                   // floats per P row
+    static constexpr int RAW = D * static_cast<int>(sizeof(KV));        // bytes of a cache row
+    static constexpr int KROW = WIDEN ? RAW : FKS * 4;                  // bytes per ring K row
+    static constexpr int K_OFF = BQ * QS * 4;
+    static constexpr int STAGE = FBK * (KROW + RAW);
+    static constexpr int KF_OFF = K_OFF + STAGES * STAGE;               // bf16: the f32 tiles
+    static constexpr int VF_OFF = KF_OFF + FBK * FKS * 4;
+    static constexpr int SMEM = WIDEN ? VF_OFF + FBK * D * 4 : KF_OFF;
+    static_assert(D >= BQ, "P fits the f32 K tile");
+    static_assert(SMEM - K_OFF >= 4 * (BQ * D + 2 * BQ), "the merge fits after Q");
+};
+
+struct FProblem {
+    const float* q;
+    const void* k;
+    const void* v;
+    float* o;
+    Strides qs, ks, vs, os;
+    int T, S, Hq, Hkv, n_past, n_tokens, causal, window, splits;
+    float scale, softcap;
+};
+
+// The key tiles [first, end) that the f32 kernel's query tile qt of bq rows
+// visits (flash.py::tile_keys).
+__host__ __device__ inline void f32_tile_keys(int qt, int bq, int T, int S, int n_past,
+                                              int n_tokens, int causal, int window,
+                                              int& first, int& end) {
+    const int t0 = qt * bq;
+    const int w0 = n_past + t0 - window + 1;
+    const int lo = window > 0 && w0 > 0 ? w0 : 0;
+    int hi = n_past + n_tokens < S ? n_past + n_tokens : S;
+    const int last = n_past + (T < t0 + bq ? T : t0 + bq);
+    if (causal && last < hi) hi = last;
+    if (hi <= lo) {
+        first = end = 0;
+        return;
+    }
+    first = lo / FBK;
+    end = (hi + FBK - 1) / FBK;
 }
 
-__device__ __forceinline__ void to_f32(const uint4& u, float* out, __nv_bfloat16) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) out[c] = __bfloat162float(e[c]);
+__device__ __forceinline__ float4 lds4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
 }
 
-// f32 q and o; K/V of type KV (f32, or bf16 staged as f32).  Lane j scores
-// key k0 + j against the warp's 8 rows (q read as broadcasts, K rows padded
-// by 4 floats so the 16-byte reads of 8 consecutive lanes hit distinct
-// banks), then owns output columns lane + 32i and gathers each key's
-// probability with a shuffle.  Over a bf16 cache that probability is
-// rounded to bf16 first; the denominator sums it unrounded.
-template <int D, typename KV>
-__global__ void __launch_bounds__(THREADS)
-flash_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                 const KV* __restrict__ v, float* __restrict__ o,
-                 Strides qs, Strides ks, Strides vs, Strides os,
-                 int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
-                 int causal, int window, float softcap) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float (*sq)[D] = reinterpret_cast<float (*)[D]>(smem_raw);
-    float (*sk)[D + 4] = reinterpret_cast<float (*)[D + 4]>(sq + FBQ);
-    float (*sv)[D] = reinterpret_cast<float (*)[D]>(sk + FBK);
-    constexpr int NC = D / 32;     // output columns per lane
+// f32 q and o over K/V of type KV (FGeo's layout).  Rank `rank` of a
+// cluster of C walks its share of the query tile's key tiles; the ranks
+// merge in rank order.  Over a bf16 cache each probability is rounded to
+// bf16 for P V and the denominator sums it unrounded.
+template <int D, typename KV, int BQ>
+__global__ void __launch_bounds__(FTHREADS, 1)
+flash_f32_kernel(const FProblem p) {
+    using G = FGeo<D, KV, BQ>;
+    constexpr int RT = G::RT;
+    constexpr int NV = D / 64;                    // 16-byte reads of a V row per thread
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int s_qt;
+    float* sq = reinterpret_cast<float*>(smem);
 
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / (Hq / Hkv);
-    const int t0 = qt * FBQ;
-    const int row0 = warp * FROWS;
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int tx = lane & 15, ty = 2 * (tid >> 5) + (lane >> 4);
+    const int C = p.splits, rank = blockIdx.x % C, h = blockIdx.x / C, b = blockIdx.y;
+    const int hk = h / (p.Hq / p.Hkv);
+    const int n_qt = (p.T + BQ - 1) / BQ;
 
-    const float* qb = q + b * qs.b + h * qs.h;
-    const KV* kb = k + b * ks.b + hk * ks.h;
-    const KV* vb = v + b * vs.b + hk * vs.h;
-    constexpr int VEC = 16 / sizeof(KV);     // K/V elements per 16-byte load
-    constexpr bool ROUND_P = sizeof(KV) == 2;
+    // launch slot blockIdx.z runs the query tile of that rank in the order
+    // of flash.py::prefill_geometry: most key tiles first, then later tiles
+    for (int i = tid; i < n_qt; i += FTHREADS) {
+        int a, e;
+        f32_tile_keys(i, BQ, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, a, e);
+        int r = 0;
+        for (int j = 0; j < n_qt; ++j) {
+            int aj, ej;
+            f32_tile_keys(j, BQ, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, aj, ej);
+            r += (ej - aj > e - a) || (ej - aj == e - a && j > i);
+        }
+        if (r == static_cast<int>(blockIdx.z)) s_qt = i;
+    }
+    __syncthreads();
+    const int qt = s_qt, t0 = qt * BQ;
+    int first, end;
+    f32_tile_keys(qt, BQ, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, first, end);
+    const int n_all = end - first;
+    const int ka = first + static_cast<int>(static_cast<long>(rank) * n_all / C);
+    const int n_tiles = first + static_cast<int>(static_cast<long>(rank + 1) * n_all / C) - ka;
 
-    for (int idx = tid; idx < FBQ * (D / 4); idx += THREADS) {
-        const int r = idx / (D / 4), c4 = (idx % (D / 4)) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (t0 + r < T) val = *reinterpret_cast<const float4*>(qb + (t0 + r) * qs.t + c4);
-        *reinterpret_cast<float4*>(&sq[r][c4]) = val;
+    const float* qb = p.q + b * p.qs.b + h * p.qs.h;
+    const KV* kb = static_cast<const KV*>(p.k) + b * p.ks.b + hk * p.ks.h;
+    const KV* vb = static_cast<const KV*>(p.v) + b * p.vs.b + hk * p.vs.h;
+    const auto load_tile = [&](int kt, int stage) {
+        unsigned char* sk = smem + G::K_OFF + stage * G::STAGE;
+        unsigned char* sv = sk + FBK * G::KROW;
+        constexpr int NCH = G::RAW / 16;            // 16-byte chunks of a row
+#pragma unroll
+        for (int it = 0; it < FBK * NCH / FTHREADS; ++it) {
+            const int idx = tid + it * FTHREADS, r = idx / NCH, c = idx % NCH;
+            const int key = kt * FBK + r;
+            const bool ok = key < p.S;              // keys past S read as zeros
+            const long row = ok ? key : 0;
+            cp16(sk + r * G::KROW + c * 16,
+                 reinterpret_cast<const unsigned char*>(kb + row * p.ks.t) + c * 16, ok);
+            cp16(sv + r * G::RAW + c * 16,
+                 reinterpret_cast<const unsigned char*>(vb + row * p.vs.t) + c * 16, ok);
+        }
+    };
+    if (n_tiles > 0) {
+        // Q once, rows past T as zeros (never stored), with the first tile
+#pragma unroll
+        for (int it = 0; it < BQ * D / 4 / FTHREADS; ++it) {
+            const int idx = tid + it * FTHREADS, r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+            const bool ok = t0 + r < p.T;
+            cp16(sq + r * G::QS + c, qb + (ok ? t0 + r : 0) * p.qs.t + c, ok);
+        }
+        load_tile(ka, 0);
+    }
+    cp_commit();
+#pragma unroll
+    for (int s = 1; s < G::STAGES - 1; ++s) {
+        if (s < n_tiles) load_tile(ka + s, s);
+        cp_commit();
     }
 
-    float oacc[FROWS][NC];
-    float m_run[FROWS], l_run[FROWS];
+    float acc[RT][D / 16];
+    float m_run[RT], l_run[RT];
 #pragma unroll
-    for (int r = 0; r < FROWS; ++r) {
+    for (int r = 0; r < RT; ++r) {
         m_run[r] = NEG_INF;
         l_run[r] = 0.f;
 #pragma unroll
-        for (int i = 0; i < NC; ++i) oacc[r][i] = 0.f;
+        for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
     }
+    const int q_lo = p.n_past + t0, kv_len = p.n_past + p.n_tokens;
+    // scores enter exp2 as s * c2: raw dots times scale * log2(e), or after
+    // the softcap (already scaled) times log2(e)
+    const float c2 = (p.softcap > 0.f ? 1.f : p.scale) * LOG2E;
+    const float cap_in = p.softcap > 0.f ? p.scale / p.softcap : 0.f;
 
-    const int kv_len = n_past + n_tokens;
-    const int q_lo = n_past + t0;
-    const int q_hi = q_lo + FBQ - 1;
-    int k_end = min(kv_len, S);
-    if (causal) k_end = min(k_end, q_hi + 1);
-    int kt_begin = 0;
-    if (window > 0) kt_begin = max(0, q_lo - window + 1) / FBK;
-    const int kt_end = (k_end + FBK - 1) / FBK;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * FBK;
-        __syncthreads();   // q staged / previous tile's readers are done
-        for (int idx = tid; idx < FBK * (D / VEC); idx += THREADS) {
-            const int r = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
-            float kf[VEC], vf[VEC];
-            if (k0 + r < S) {
-                to_f32(*reinterpret_cast<const uint4*>(kb + (k0 + r) * ks.t + c), kf, KV{});
-                to_f32(*reinterpret_cast<const uint4*>(vb + (k0 + r) * vs.t + c), vf, KV{});
-            } else {
+    for (int i = 0; i < n_tiles; ++i) {
+        cp_wait<G::STAGES - 2>();
+        __syncthreads();      // tile i has landed; every thread is done with tile i - 1
+        if (i + G::STAGES - 1 < n_tiles)
+            load_tile(ka + i + G::STAGES - 1, (i + G::STAGES - 1) % G::STAGES);
+        cp_commit();
+        unsigned char* sk = smem + G::K_OFF + (i % G::STAGES) * G::STAGE;
+        float* kf = reinterpret_cast<float*>(G::WIDEN ? smem + G::KF_OFF : sk);
+        const float* vf = reinterpret_cast<const float*>(G::WIDEN ? smem + G::VF_OFF
+                                                                  : sk + FBK * G::KROW);
+        if constexpr (G::WIDEN) {
+            // the bf16 tile widened once into the f32 tiles (the f32 of a
+            // bf16 value is its 16 bits in the upper half)
+            const uint16_t* rk = reinterpret_cast<const uint16_t*>(sk);
+            const uint16_t* rv = rk + FBK * D;
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
+            for (int it = 0; it < FBK * D / 8 / FTHREADS; ++it) {
+                const int idx = tid + it * FTHREADS, r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+                const uint4 uk = *reinterpret_cast<const uint4*>(rk + r * D + c);
+                const uint4 uv = *reinterpret_cast<const uint4*>(rv + r * D + c);
+                const uint32_t wk[4] = {uk.x, uk.y, uk.z, uk.w}, wv[4] = {uv.x, uv.y, uv.z, uv.w};
+                float fk[8], fv[8];
+#pragma unroll
+                for (int w = 0; w < 4; ++w) {
+                    fk[2 * w] = __uint_as_float(wk[w] << 16);
+                    fk[2 * w + 1] = __uint_as_float(wk[w] & 0xffff0000u);
+                    fv[2 * w] = __uint_as_float(wv[w] << 16);
+                    fv[2 * w + 1] = __uint_as_float(wv[w] & 0xffff0000u);
+                }
+                float* dk = kf + r * G::FKS + c;
+                float* dv = reinterpret_cast<float*>(smem + G::VF_OFF) + r * D + c;
+                *reinterpret_cast<float4*>(dk) = make_float4(fk[0], fk[1], fk[2], fk[3]);
+                *reinterpret_cast<float4*>(dk + 4) = make_float4(fk[4], fk[5], fk[6], fk[7]);
+                *reinterpret_cast<float4*>(dv) = make_float4(fv[0], fv[1], fv[2], fv[3]);
+                *reinterpret_cast<float4*>(dv + 4) = make_float4(fv[4], fv[5], fv[6], fv[7]);
             }
-#pragma unroll
-            for (int e = 0; e < VEC; e += 4) {
-                *reinterpret_cast<float4*>(&sk[r][c + e]) =
-                    make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
-                *reinterpret_cast<float4*>(&sv[r][c + e]) =
-                    make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
-            }
-        }
-        __syncthreads();
-
-        float s[FROWS];
-#pragma unroll
-        for (int r = 0; r < FROWS; ++r) s[r] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < D; c += 4) {
-            const float4 kv = *reinterpret_cast<const float4*>(&sk[lane][c]);
-#pragma unroll
-            for (int r = 0; r < FROWS; ++r) {
-                const float4 qv = *reinterpret_cast<const float4*>(&sq[row0 + r][c]);
-                s[r] = fmaf(qv.x, kv.x, s[r]);
-                s[r] = fmaf(qv.y, kv.y, s[r]);
-                s[r] = fmaf(qv.z, kv.z, s[r]);
-                s[r] = fmaf(qv.w, kv.w, s[r]);
-            }
+            __syncthreads();
         }
 
+        // S = Q K^T, an RT x 4 tile per thread: RT + 4 reads of 16 bytes per
+        // 16 RT FMAs
+        float s[RT][4];
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+#pragma unroll QK_UNROLL
+        for (int d = 0; d < D; d += 4) {
+            float4 kv[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) kv[j] = lds4(kf + (tx + 16 * j) * G::FKS + d);
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+                const float4 qv = lds4(sq + (ty + 16 * r) * G::QS + d);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    s[r][j] = fmaf(qv.x, kv[j].x, s[r][j]);
+                    s[r][j] = fmaf(qv.y, kv[j].y, s[r][j]);
+                    s[r][j] = fmaf(qv.z, kv[j].z, s[r][j]);
+                    s[r][j] = fmaf(qv.w, kv[j].w, s[r][j]);
+                }
+            }
+        }
+
+        // online softmax: a row's 64 scores lie across 16 lanes of a warp
+        const int k0 = (ka + i) * FBK;
         bool interior = k0 + FBK <= kv_len;
-        if (causal) interior = interior && (k0 + FBK - 1 <= q_lo);
-        if (window > 0) interior = interior && (k0 > q_hi - window);
-        const int kpos = k0 + lane;
+        if (p.causal) interior = interior && k0 + FBK - 1 <= q_lo;
+        if (p.window > 0) interior = interior && k0 > q_lo + BQ - 1 - p.window;
 #pragma unroll
-        for (int r = 0; r < FROWS; ++r) {
-            float sv_ = s[r] * scale;
-            if (softcap > 0.f) sv_ = tanhf(sv_ / softcap) * softcap;
-            if (!interior) {
-                const int qpos = q_lo + row0 + r;
-                bool ok = kpos < kv_len;
-                if (causal) ok = ok && kpos <= qpos;
-                if (window > 0) ok = ok && kpos > qpos - window;
-                if (!ok) sv_ = NEG_INF;
+        for (int r = 0; r < RT; ++r) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                float x = s[r][j];
+                if (p.softcap > 0.f) x = tanhf(x * cap_in) * p.softcap;
+                x *= c2;
+                if (!interior) {
+                    const int kpos = k0 + tx + 16 * j, qpos = q_lo + ty + 16 * r;
+                    bool ok = kpos < kv_len;
+                    if (p.causal) ok = ok && kpos <= qpos;
+                    if (p.window > 0) ok = ok && kpos > qpos - p.window;
+                    if (!ok) x = NEG_INF;
+                }
+                s[r][j] = x;
             }
-            float mx = sv_;
+            float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
+            for (int off = 1; off < 16; off <<= 1)
                 mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
             const float m_new = fmaxf(m_run[r], mx);
-            const float corr = expf(m_run[r] - m_new);
+            // the scores are already scaled, so a masked score equal to the
+            // max gives exp2(0) = 1: a row that sees none of the visited keys
+            // takes p = 1 for each, the Pallas kernel's -1e30 contract
+            const float corr = fast_exp2(m_run[r] - m_new);
             m_run[r] = m_new;
-            s[r] = expf(sv_ - m_new);
-            l_run[r] = l_run[r] * corr + warp_sum(s[r]);
-            if (ROUND_P) s[r] = __bfloat162float(__float2bfloat16_rn(s[r]));
+            float sum = 0.f;
 #pragma unroll
-            for (int i = 0; i < NC; ++i) oacc[r][i] *= corr;
+            for (int j = 0; j < 4; ++j) {
+                s[r][j] = fast_exp2(s[r][j] - m_new);
+                sum += s[r][j];
+            }
+            l_run[r] = fmaf(l_run[r], corr, sum);       // this thread's share of the row
+#pragma unroll
+            for (int c = 0; c < D / 16; ++c) acc[r][c] *= corr;
         }
+        __syncthreads();      // every thread is done with the f32 K tile: P takes its place
+        float* sp = kf;
+        // P key-major: one 16-byte read gives a key's probabilities of 4 rows
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h4 = 0; h4 < RT / 4; ++h4) {
+                float4 pv = make_float4(s[4 * h4][j], s[4 * h4 + 1][j], s[4 * h4 + 2][j],
+                                        s[4 * h4 + 3][j]);
+                if (G::WIDEN) {
+                    pv.x = __bfloat162float(__float2bfloat16_rn(pv.x));
+                    pv.y = __bfloat162float(__float2bfloat16_rn(pv.y));
+                    pv.z = __bfloat162float(__float2bfloat16_rn(pv.z));
+                    pv.w = __bfloat162float(__float2bfloat16_rn(pv.w));
+                }
+                *reinterpret_cast<float4*>(sp + (tx + 16 * j) * G::PS + RT * ty + 4 * h4) = pv;
+            }
+        __syncthreads();
 
-        // O += P V: key j's probability comes from lane j
-#pragma unroll 4
-        for (int j = 0; j < FBK; ++j) {
-            float vj[NC];
+        // O += P V: per key RT / 4 reads of P and D / 64 of V for RT x D / 16
+        // FMAs
+#pragma unroll PV_UNROLL
+        for (int k = 0; k < FBK; ++k) {
+            float4 pr[RT / 4];
 #pragma unroll
-            for (int i = 0; i < NC; ++i) vj[i] = sv[j][lane + 32 * i];
+            for (int h4 = 0; h4 < RT / 4; ++h4) pr[h4] = lds4(sp + k * G::PS + RT * ty + 4 * h4);
 #pragma unroll
-            for (int r = 0; r < FROWS; ++r) {
-                const float p = __shfl_sync(FULL_MASK, s[r], j);
+            for (int c = 0; c < NV; ++c) {
+                const float4 v4 = lds4(vf + k * D + c * 64 + tx * 4);
+                const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-                for (int i = 0; i < NC; ++i) oacc[r][i] = fmaf(p, vj[i], oacc[r][i]);
+                for (int h4 = 0; h4 < RT / 4; ++h4)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        acc[4 * h4][c * 4 + e] = fmaf(pr[h4].x, vv[e], acc[4 * h4][c * 4 + e]);
+                        acc[4 * h4 + 1][c * 4 + e] =
+                            fmaf(pr[h4].y, vv[e], acc[4 * h4 + 1][c * 4 + e]);
+                        acc[4 * h4 + 2][c * 4 + e] =
+                            fmaf(pr[h4].z, vv[e], acc[4 * h4 + 2][c * 4 + e]);
+                        acc[4 * h4 + 3][c * 4 + e] =
+                            fmaf(pr[h4].w, vv[e], acc[4 * h4 + 3][c * 4 + e]);
+                    }
             }
         }
     }
+    cp_wait<0>();
+    // a row's denominator: the 16 shares summed in a fixed order
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+            l_run[r] += __shfl_xor_sync(FULL_MASK, l_run[r], off);
 
-    float* ob = o + b * os.b + h * os.h;
+    float* ob = p.o + b * p.os.b + h * p.os.h;
+    if (C == 1) {
+        // o = acc / max(l, 1e-30); rows past T are never stored
 #pragma unroll
-    for (int r = 0; r < FROWS; ++r) {
-        const int t = t0 + row0 + r;
-        if (t >= T) continue;
-        const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+        for (int r = 0; r < RT; ++r) {
+            const int t = t0 + ty + 16 * r;
+            if (t >= p.T) continue;
+            const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
 #pragma unroll
-        for (int i = 0; i < NC; ++i) ob[t * os.t + lane + 32 * i] = oacc[r][i] * inv;
+            for (int c = 0; c < NV; ++c)
+                *reinterpret_cast<float4*>(ob + t * p.os.t + c * 64 + tx * 4) =
+                    make_float4(acc[r][c * 4] * inv, acc[r][c * 4 + 1] * inv,
+                                acc[r][c * 4 + 2] * inv, acc[r][c * 4 + 3] * inv);
+        }
+        return;
+    }
+
+    // The cluster's merge: rank o owns rows [o RO, (o + 1) RO) of the tile.
+    // Every rank stores its (max, denominator) and accumulators of those
+    // rows into the owner's shared memory through distributed shared
+    // memory; after one cluster barrier each owner merges them in rank order.
+    cg::cluster_group cluster = cg::this_cluster();
+    __syncthreads();
+    cluster.sync();           // every rank is done with its tiles: they may be written
+    const int RO = BQ / C;
+    float* racc = reinterpret_cast<float*>(smem + G::K_OFF);     // [C][RO][D]
+    float* rml = racc + BQ * D;                                   // [C][RO][2]
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const int row = ty + 16 * r, own = row / RO, rl = row - own * RO;
+        float* dst = cluster.map_shared_rank(racc, own) + (rank * RO + rl) * D;
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+            *reinterpret_cast<float4*>(dst + c * 64 + tx * 4) =
+                make_float4(acc[r][c * 4], acc[r][c * 4 + 1], acc[r][c * 4 + 2],
+                            acc[r][c * 4 + 3]);
+        if (tx == 0)
+            *reinterpret_cast<float2*>(cluster.map_shared_rank(rml, own) +
+                                       (rank * RO + rl) * 2) = make_float2(m_run[r], l_run[r]);
+    }
+    cluster.sync();           // every partial has landed
+    for (int idx = tid; idx < RO * D / 4; idx += FTHREADS) {
+        const int rl = idx / (D / 4), c4 = (idx % (D / 4)) * 4;
+        const int t = t0 + rank * RO + rl;
+        if (t >= p.T) continue;
+        float m = NEG_INF;
+        for (int s = 0; s < C; ++s) m = fmaxf(m, rml[(s * RO + rl) * 2]);
+        float l = 0.f;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < C; ++s) {
+            // a rank that saw no visible key (max -1e30) weighs 0 beside one
+            // that did, and 1 when no rank did (the -1e30 contract)
+            const float w = fast_exp2(rml[(s * RO + rl) * 2] - m);
+            l = fmaf(rml[(s * RO + rl) * 2 + 1], w, l);
+            const float4 x = lds4(racc + (s * RO + rl) * D + c4);
+            a.x = fmaf(x.x, w, a.x);
+            a.y = fmaf(x.y, w, a.y);
+            a.z = fmaf(x.z, w, a.z);
+            a.w = fmaf(x.w, w, a.w);
+        }
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        *reinterpret_cast<float4*>(ob + t * p.os.t + c4) =
+            make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
     }
 }
 
-template <typename QO, typename KV, typename KernelFn>
-int launch_kernel(KernelFn kernel, size_t smem, int bq, const void* q, const void* k,
-                  const void* v, void* o, const long* st, int B, int T, int S, int Hq,
-                  int Hkv, int n_past, int n_tokens, float scale, int causal, int window,
-                  float softcap, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((T + bq - 1) / bq, Hq, B);
-    kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const QO*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-        static_cast<QO*>(o), Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-        Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
-        T, S, Hq, Hkv, n_past, n_tokens, scale, causal, window, softcap);
-    return static_cast<int>(cudaGetLastError());
+// The query rows of an f32 block (flash.py::f32_rows): 128 at D 128 where
+// the grid of 128-row tiles fills the SMs (128 rows cut the shared-memory
+// reads per FMA by a quarter in Q.K^T and a third in P.V), else 64, so that
+// a short chunk has twice the blocks.
+__host__ inline int f32_rows(int D, int T, int Hq, int B, int sms) {
+    return D == 128 && (T + 127) / 128 * Hq * B >= sms ? 128 : 64;
+}
+
+// How many clusters of C blocks of this kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters, asked once per C), or a CUDA error < 0.
+template <int D, typename KV, int BQ>
+int cluster_slots(int C) {
+    static bool attr_set = false;
+    static int slots[4] = {0, 0, 0, 0};
+    if (!attr_set) {
+        const cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<D, KV, BQ>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   FGeo<D, KV, BQ>::SMEM);
+        if (e != cudaSuccess) return -static_cast<int>(e);
+        attr_set = true;
+    }
+    const int i = C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3;
+    if (!slots[i]) {
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(C, 1, 1);
+        cfg.blockDim = dim3(FTHREADS, 1, 1);
+        cfg.dynamicSmemBytes = FGeo<D, KV, BQ>::SMEM;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = C;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        int n = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, flash_f32_kernel<D, KV, BQ>, &cfg);
+        if (e != cudaSuccess) return -static_cast<int>(e);
+        slots[i] = n;
+    }
+    return slots[i];
+}
+
+int last_splits = 0;      // the split of the last f32 launch
+
+// One f32 launch of BQ-row blocks.  The split of each query tile's key walk
+// over a cluster (flash.py::f32_splits): the largest power of two C <=
+// MAX_SPLIT such that the card holds all the grid's clusters of C at once
+// and the longest walk gives each block at least MIN_SHARE tiles.
+template <int D, typename KV, int BQ>
+int launch_f32(const void* q, const void* k, const void* v, void* o, const long* st, int B,
+               int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale, int causal,
+               int window, float softcap, cudaStream_t stream) {
+    using G = FGeo<D, KV, BQ>;
+    const int n_qt = (T + BQ - 1) / BQ;
+    int longest = 0;
+    for (int qt = 0; qt < n_qt; ++qt) {
+        int a, b;
+        f32_tile_keys(qt, BQ, T, S, n_past, n_tokens, causal, window, a, b);
+        longest = b - a > longest ? b - a : longest;
+    }
+    const int blocks = n_qt * Hq * B;
+    int C = 1;
+    while (2 * C <= MAX_SPLIT && longest >= 2 * C * MIN_SHARE) {
+        const int n = cluster_slots<D, KV, BQ>(2 * C);
+        if (n < 0) return -n;
+        if (blocks > n) break;
+        C *= 2;
+    }
+    const int err = cluster_slots<D, KV, BQ>(1);     // sets the shared-memory attribute
+    if (err < 0) return -err;
+    const FProblem p{static_cast<const float*>(q), k, v, static_cast<float*>(o),
+                     Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+                     Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+                     T, S, Hq, Hkv, n_past, n_tokens, causal, window, C, scale, softcap};
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C * Hq, B, n_qt);
+    cfg.blockDim = dim3(FTHREADS, 1, 1);
+    cfg.dynamicSmemBytes = G::SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_f32_kernel<D, KV, BQ>, p);
+    last_splits = C;
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+int sm_count(int& sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return static_cast<int>(e);
+}
+
+template <int D, typename KV>
+int launch_f32_rows(const void* q, const void* k, const void* v, void* o, const long* st, int B,
+                    int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
+                    int causal, int window, float softcap, cudaStream_t stream) {
+    int sms = 0;
+    const int e = sm_count(sms);
+    if (e) return e;
+    if constexpr (D == 128) {
+        if (f32_rows(D, T, Hq, B, sms) == 128)
+            return launch_f32<D, KV, 128>(q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens,
+                                          scale, causal, window, softcap, stream);
+    }
+    return launch_f32<D, KV, 64>(q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens, scale,
+                                 causal, window, softcap, stream);
 }
 
 template <int D>
 int launch(int mode, const void* q, const void* k, const void* v, void* o, const long* st,
            int B, int T, int S, int Hq, int Hkv, int n_past, int n_tokens, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
-    const size_t f32_smem = sizeof(float) * (FBQ * D + FBK * (D + 4) + FBK * D);
     if (mode == 1)
-        return launch_kernel<float, float>(
-            flash_f32_kernel<D, float>, f32_smem, FBQ, q, k, v, o, st, B, T, S, Hq, Hkv,
-            n_past, n_tokens, scale, causal, window, softcap, stream);
+        return launch_f32_rows<D, float>(q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens,
+                                         scale, causal, window, softcap, stream);
     if (mode == 2)
-        return launch_kernel<float, __nv_bfloat16>(
-            flash_f32_kernel<D, __nv_bfloat16>, f32_smem, FBQ, q, k, v, o, st, B, T, S,
-            Hq, Hkv, n_past, n_tokens, scale, causal, window, softcap, stream);
+        return launch_f32_rows<D, __nv_bfloat16>(q, k, v, o, st, B, T, S, Hq, Hkv, n_past,
+                                                 n_tokens, scale, causal, window, softcap,
+                                                 stream);
     if (mode != 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_wgmma<D>(q, k, v, o, st, B, T, S, Hq, Hkv, n_past, n_tokens, scale, causal,
                            window, softcap, stream);
@@ -842,4 +1210,21 @@ CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v
         return launch<64>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
                           scale, causal, window, softcap, st);
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split C (blocks per cluster) of the last mode 1 or 2 launch.
+CL_EXPORT int flash_attention_last_splits() { return last_splits; }
+
+// How many clusters of C blocks (1, 2, 4 or 8) of the f32 kernel of mode 1
+// or 2 with bq-row blocks the card holds at once (-1: no such kernel; below:
+// a CUDA error, negated).
+CL_EXPORT int flash_attention_cluster_slots(int D, int mode, int bq, int C) {
+    if (C != 1 && C != 2 && C != 4 && C != 8) return -1;
+    if (mode == 1 && D == 128 && bq == 128) return cluster_slots<128, float, 128>(C);
+    if (mode == 1 && D == 128 && bq == 64) return cluster_slots<128, float, 64>(C);
+    if (mode == 1 && D == 64 && bq == 64) return cluster_slots<64, float, 64>(C);
+    if (mode == 2 && D == 128 && bq == 128) return cluster_slots<128, __nv_bfloat16, 128>(C);
+    if (mode == 2 && D == 128 && bq == 64) return cluster_slots<128, __nv_bfloat16, 64>(C);
+    if (mode == 2 && D == 64 && bq == 64) return cluster_slots<64, __nv_bfloat16, 64>(C);
+    return -1;
 }

@@ -101,6 +101,14 @@ class CudaKernel:
             self._lib, self._call = lib, fn
         return self._call
 
+    def symbol(self, fn: str, argtypes: list, restype=I):
+        """Another function the same library exports (a query, not a
+        launch: it is not counted)."""
+        self._load()
+        f = getattr(self._lib, fn)
+        f.argtypes, f.restype = argtypes, restype
+        return f
+
     def launch(self, *args):
         """Call the launcher on the current stream's arguments; raises on a
         refused launch.  Counts one launch."""

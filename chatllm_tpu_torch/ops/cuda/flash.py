@@ -2,9 +2,10 @@
 
 Replaces chatllm_tpu/ops/pallas/flash.py::flash_attention.  `flash_attention`
 launches the CUDA kernel for CUDA tensors and runs `flash_attention_plain`,
-its plain PyTorch version, for CPU tensors.  `prefill_geometry` is the bf16
-kernel's schedule (which key tiles each query tile visits, which of them
-skip the mask, the launch order), which the kernel computes on the card.
+its plain PyTorch version, for CPU tensors.  `prefill_geometry` is the
+kernels' schedule (which key tiles each query tile visits, which of them
+skip the mask, the launch order and, in the f32 modes, the split of each
+walk over a cluster), which the kernels compute on the card.
 """
 from __future__ import annotations
 
@@ -21,62 +22,149 @@ HEAD_DIMS = (64, 128)     # head dims the CUDA kernel is instantiated for
 # of the cache through a ring of STAGES[D] shared-memory stages.
 BQ, WG_ROWS, BK = 128, 64, 128
 STAGES = {64: 4, 128: 2}
+# The f32 kernel's (modes 1 and 2): a block of 256 threads owns 128 or 64
+# query rows of one head (`f32_rows`) and walks FBK-key tiles through
+# F_STAGES[D] stages; a walk is split over a cluster of up to MAX_SPLIT
+# blocks, each taking at least MIN_SHARE tiles of the longest walk, where
+# the card holds all the grid's clusters at once.
+FBK, F_STAGES = 64, {64: 4, 128: 2}
+MAX_SPLIT, MIN_SHARE = 8, 4
+# Clusters of C blocks of the f32 kernel that one H100 holds at once, the
+# same for every D, mode and row count (one block an SM):
+# cudaOccupancyMaxActiveClusters on the card, which `cluster_slots` reads
+# there.
+H100_CLUSTER_SLOTS = {1: 132, 2: 66, 4: 30, 8: 15}
+H100_SMS = 132
 SMEM_LIMIT = 232448       # dynamic shared memory one block may use on the H100
 # (q dtype, cache dtype) -> the kernel variant (csrc/flash_attention.cu)
 MODES = {(torch.bfloat16, torch.bfloat16): 0, (torch.float32, torch.float32): 1,
          (torch.float32, torch.bfloat16): 2}
+# the wrapper's launches by mode, beside FLASH.launches (all modes)
+MODE_LAUNCHES = {mode: 0 for mode in MODES.values()}
+
+
+def reset_mode_launches():
+    for mode in MODE_LAUNCHES:
+        MODE_LAUNCHES[mode] = 0
 
 
 def tile_keys(qt: int, T: int, S: int, n_past: int, n_tokens: int, causal: bool,
-              window: int) -> tuple[int, int]:
-    """The key tiles [first, end) that query tile `qt` (rows qt*BQ .. of the
-    T) visits (csrc `tile_keys`): those that meet the keys some real row of
-    the tile may see, from the window's start for its first row to the last
-    written key, or its last row's position when causal.  (0, 0) when the
-    tile's rows see no key at all."""
-    t0 = qt * BQ
+              window: int, *, bq: int = BQ, bk: int = BK) -> tuple[int, int]:
+    """The key tiles [first, end) that query tile `qt` (rows qt*bq .. of the
+    T) visits (csrc `tile_keys`, `f32_tile_keys`): those that meet the keys
+    some real row of the tile may see, from the window's start for its first
+    row to the last written key, or its last row's position when causal.
+    (0, 0) when the tile's rows see no key at all."""
+    t0 = qt * bq
     lo = max(0, n_past + t0 - window + 1) if window > 0 else 0
     hi = min(n_past + n_tokens, S)
     if causal:
-        hi = min(hi, n_past + min(T, t0 + BQ))
+        hi = min(hi, n_past + min(T, t0 + bq))
     if hi <= lo:
         return 0, 0
-    return lo // BK, -(-hi // BK)
+    return lo // bk, -(-hi // bk)
 
 
 def tile_interior(qt: int, kt: int, half: int, n_past: int, n_tokens: int, causal: bool,
-                  window: int) -> bool:
-    """Whether every key of tile kt is visible to every row of consumer
-    warpgroup `half` of query tile qt (csrc `tile_interior`): those tiles skip
-    the mask arithmetic."""
-    k0, q_lo = kt * BK, n_past + qt * BQ + half * WG_ROWS
-    ok = k0 + BK <= n_past + n_tokens
+                  window: int, *, bq: int = BQ, bk: int = BK, rows: int = WG_ROWS) -> bool:
+    """Whether every key of tile kt is visible to every row of group `half`
+    (`rows` rows: a consumer warpgroup of the bf16 kernel, the whole block of
+    the f32 one) of query tile qt (csrc `tile_interior`, and the f32 kernel's
+    `interior`): those tiles skip the mask arithmetic."""
+    k0, q_lo = kt * bk, n_past + qt * bq + half * rows
+    ok = k0 + bk <= n_past + n_tokens
     if causal:
-        ok = ok and k0 + BK - 1 <= q_lo
+        ok = ok and k0 + bk - 1 <= q_lo
     if window > 0:
-        ok = ok and k0 > q_lo + WG_ROWS - 1 - window
+        ok = ok and k0 > q_lo + rows - 1 - window
     return ok
 
 
+def f32_rows(D: int, T: int, heads: int, batch: int, sms: int = H100_SMS) -> int:
+    """The query rows of an f32 block (csrc `f32_rows`): 128 at D 128 where
+    the grid of 128-row tiles fills the SMs, else 64."""
+    return 128 if D == 128 and -(-T // 128) * heads * batch >= sms else 64
+
+
+def f32_smem(D: int, kv_bytes: int, bq: int) -> int:
+    """The f32 kernel's dynamic shared memory (csrc `FGeo::SMEM`): Q [bq][D +
+    4] f32 and F_STAGES[D] stages of K and V tiles of FBK keys as the
+    cache's raw bytes (kv_bytes per value; an f32 K row padded to D + 4), and
+    over a bf16 cache the tiles widened to f32 (K [FBK][D + 4], V [FBK][D]);
+    P takes the f32 K tile's place."""
+    k_row = 2 * D if kv_bytes == 2 else 4 * (D + 4)
+    ring = F_STAGES[D] * FBK * (k_row + D * kv_bytes)
+    widened = 4 * FBK * (2 * D + 4) if kv_bytes == 2 else 0
+    return 4 * bq * (D + 4) + ring + widened
+
+
+def f32_splits(blocks: int, longest: int, slots: dict) -> int:
+    """The blocks C of a cluster that split each query tile's key walk (csrc
+    `launch_f32`): the largest power of two <= MAX_SPLIT such that the card
+    holds the grid's `blocks` clusters of C at once (`slots[C]` of them) and
+    the `longest` walk gives each block at least MIN_SHARE key tiles."""
+    c = 1
+    while 2 * c <= MAX_SPLIT and longest >= 2 * c * MIN_SHARE and blocks <= slots[2 * c]:
+        c *= 2
+    return c
+
+
 def prefill_geometry(T: int, S: int, n_past: int, n_tokens: int, D: int, *,
-                     causal: bool = True, window: int = 0) -> dict:
-    """The bf16 kernel's schedule, which the kernel computes on the card:
-    per query tile its key tiles [first, end) and, per visited tile, whether
-    each consumer warpgroup's rows take it unmasked; the launch order (slot
-    r of the grid's slowest dimension runs query tile order[r]: the tiles
-    that walk the most key tiles first, later tiles first among equals); the
-    ring's stages and the block's dynamic shared memory (Q, the K/V ring, a
-    1024-byte alignment pad, the barriers and the tile index)."""
-    n_qt = -(-T // BQ)
-    tiles = [tile_keys(qt, T, S, n_past, n_tokens, causal, window) for qt in range(n_qt)]
-    interior = [[tuple(tile_interior(qt, kt, h, n_past, n_tokens, causal, window)
-                       for h in range(BQ // WG_ROWS)) for kt in range(a, b)]
-                for qt, (a, b) in enumerate(tiles)]
+                     causal: bool = True, window: int = 0, mode: int = 0, heads: int = 1,
+                     batch: int = 1, sms: int = H100_SMS, slots: dict | None = None) -> dict:
+    """The kernel's schedule in `mode` (MODES), which the kernel computes on
+    the card: per query tile its key tiles [first, end) and, per visited
+    tile, whether each row group (the bf16 kernel's two consumer
+    warpgroups, the f32 kernel's whole block) takes it unmasked; the launch
+    order (slot r of the grid's slowest dimension runs query tile order[r]:
+    the tiles that walk the most key tiles first, later tiles first among
+    equals); the f32 kernel's rows a block (`f32_rows`) and the split C of
+    every walk over a cluster (`heads` x `batch` blocks per query tile, the
+    card's `slots`, H100_CLUSTER_SLOTS by default; always 1 in mode 0) and
+    each rank's contiguous share [a, b) of the tiles; the ring's stages and
+    the block's dynamic shared memory (mode 0: Q, the K/V ring, a 1024-byte
+    alignment pad, the barriers and the tile index)."""
+    f32 = mode != 0
+    bq, bk = (f32_rows(D, T, heads, batch, sms), FBK) if f32 else (BQ, BK)
+    rows = bq if f32 else WG_ROWS
+    n_qt = -(-T // bq)
+    tiles = [tile_keys(qt, T, S, n_past, n_tokens, causal, window, bq=bq, bk=bk)
+             for qt in range(n_qt)]
+    interior = [[tuple(tile_interior(qt, kt, h, n_past, n_tokens, causal, window, bq=bq,
+                                     bk=bk, rows=rows) for h in range(bq // rows))
+                 for kt in range(a, b)] for qt, (a, b) in enumerate(tiles)]
     order = sorted(range(n_qt), key=lambda i: (tiles[i][0] - tiles[i][1], -i))
-    stages = STAGES[D]
-    smem = 2 * D * (BQ + 2 * stages * BK) + 1024 + 8 * (1 + 4 * stages) + 8
-    return {"tiles": tiles, "interior": interior, "order": order, "stages": stages,
-            "smem": smem}
+    if f32:
+        longest = max(b - a for a, b in tiles)
+        slots = slots or H100_CLUSTER_SLOTS
+        splits = f32_splits(n_qt * heads * batch, longest, slots)
+        stages, smem = F_STAGES[D], f32_smem(D, 4 if mode == 1 else 2, bq)
+    else:
+        splits, stages = 1, STAGES[D]
+        smem = 2 * D * (BQ + 2 * stages * BK) + 1024 + 8 * (1 + 4 * stages) + 8
+    shares = [[(a + r * (b - a) // splits, a + (r + 1) * (b - a) // splits)
+               for r in range(splits)] for a, b in tiles]
+    return {"tiles": tiles, "interior": interior, "order": order, "splits": splits,
+            "shares": shares, "stages": stages, "smem": smem, "bq": bq, "bk": bk,
+            "rows": rows}
+
+
+def last_splits() -> int:
+    """The split C of the last mode 1 or 2 launch, as the kernel chose it on
+    the card (csrc `launch_f32`); `prefill_geometry(...)["splits"]` is its
+    twin."""
+    return FLASH.symbol("flash_attention_last_splits", [])()
+
+
+def cluster_slots(D: int, mode: int, bq: int) -> dict:
+    """{C: clusters of C blocks that the card holds at once} for the f32
+    kernel of `mode` with bq-row blocks, asked of the card (csrc
+    `cluster_slots`)."""
+    fn = FLASH.symbol("flash_attention_cluster_slots", [ctypes.c_int] * 4)
+    slots = {c: fn(D, mode, bq, c) for c in (1, 2, 4, 8)}
+    if min(slots.values()) < 0:
+        raise RuntimeError(f"flash_attention_cluster_slots({D}, {mode}, {bq}): {slots}")
+    return slots
 
 
 def flash_attention_plain(q, k, v, n_past: int, n_tokens: int, *, scale: float,
@@ -120,7 +208,8 @@ def flash_attention(q, k, v, n_past: int, n_tokens: int, *, scale: float,
     q, k and v all bf16 (tensor-core dots, read through TMA), all f32 (f32
     dots), or an f32 q over a bf16 cache (f32 dots, probabilities rounded to
     bf16), with unit stride along D, 16-byte aligned rows and D in
-    HEAD_DIMS."""
+    HEAD_DIMS.  In the f32 modes the kernel may split each key walk over a
+    cluster; `last_splits()` reads the split it chose."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, n_past, n_tokens, scale=scale,
                                      causal=causal, sliding_window=sliding_window,
@@ -154,4 +243,5 @@ def flash_attention(q, k, v, n_past: int, n_tokens: int, *, scale: float,
                  B, T, S, Hq, Hkv, D, int(n_past), int(n_tokens), float(scale),
                  int(causal), int(sliding_window), float(logit_softcap), mode,
                  stream_ptr(q.device))
+    MODE_LAUNCHES[mode] += 1
     return o

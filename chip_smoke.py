@@ -24,12 +24,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              each launch twice and bit-identical, and K2 and K5 bit-equal to
              their plain versions on one-hot rows (COVER_*, ONE_HOT_ROWS);
              `quantize_kv` on the card
-             bit-equal to the CPU; K3 also at the edges of its bf16 kernel's
-             128 x 128 tiles (n_past off the tile grid, the cache's last
-             tile, a window crossing key tiles, softcap with a window, T off
-             the grid), each bf16 case launched twice and bit-identical, and
-             timed beside two library calls (SDPA with a mask over the whole
-             cache, and SDPA over the live keys with is_causal)
+             bit-equal to the CPU; K3 in its three modes (bf16; f32 cache;
+             f32 query over a bf16 cache) also at the edges of the bf16
+             kernel's 128 x 128 tiles (n_past off the tile grid, the cache's
+             last tile, a window crossing key tiles, softcap with a window, T
+             off the grid) and of the f32 kernel's 128- or 64-row tiles and
+             split walks (a window crossing a split boundary, padded rows,
+             softcap and a one-tile query over splits of 2-8), every case launched
+             twice and bit-identical, each f32-mode split as its schedule
+             says, and each mode timed beside two library calls (SDPA with a
+             mask over the whole cache, and SDPA over the live keys with
+             is_causal; mode 2's over the cache cast to f32), mode 2 also
+             against the bound of its exact tensor-core route
              (K1: rel 1e-4 of the output scale; K2, K5: 2e-2 of it; K6 and
              stream_once: exact; vpu_once: 1e-5 of the output scale; K3: atol
              2e-2, and per element 2^-7 (bf16 cache, or an f32 query over
@@ -45,8 +51,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. llama3_8b  full-width Llama-3-8B (32 layers, vocab 128256, random q4_k
              weights from a seed, max_length 8192) through InferenceEngine: a
              40-token and a 1000-token prompt, 64 greedy tokens each, over a
-             bf16 cache (K1-K3 must launch), then the 1000-token prompt over
-             a q8 cache (K4 launches 32 times per decode step).
+             bf16 cache (K1, K2 and K3's mode 2 must launch: the projections
+             return f32, so K3 takes an f32 query and no path of the engine
+             launches its bf16 kernel), then the 1000-token prompt over a q8
+             cache (K4 launches 32 times per decode step).
   4. bench   `chatllm_tpu_torch.bench.run_bench` on the same full-width
              params (TTFT at 512 and 2048 tokens, single-stream and batched
              decode, the K6 read-bandwidth probe), its JSON line printed; then
@@ -69,6 +77,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              1000-token prompt against the bf16-dot run (INT8_LOGIT_TOL, same
              argmax), then 16 greedy tokens, K4's int8 dots launched 32
              times per decode step (their decode rate recorded).
+     f32_engine  the same model through InferenceEngine with K3's f32 modes:
+             the 1000-token prompt over an f32 cache (mode 1) and with f32
+             activations over a bf16 cache (mode 2), 16 greedy tokens each, K3
+             launched exactly 32 times in the run's mode; then a 2-layer cut
+             over an f32 cache, a 256-token prompt into 1024 slots, against
+             the CPU (1e-3 of the logit scale, same argmax).  (The bf16-cache
+             chat path of phase 3 also takes mode 2: its projections return
+             f32; the launches by mode are recorded.)
      switches  CHATLLM_TPU_FLASH_DECODE=1 (forced) and =0 on a bf16 cache at
              B = 8 through BatchedEngine (K4 32 times per batched step, or
              never), CHATLLM_TPU_FLASH=0 on the 1000-token prefill (no K3).
@@ -900,7 +916,17 @@ def flash_decode_int8_errors(o, q, k, v, n_past, n_tokens: int, **kw) -> tuple[f
 
 
 def flash_cases(dev, timer, gen) -> dict:
-    from chatllm_tpu_torch.ops.cuda.flash import flash_attention, flash_attention_plain
+    """K3 in its three modes (bf16; f32 cache; f32 query over a bf16 cache)
+    on every case, each launched twice and bit-identical, held to
+    FLASH_ATOL and FLASH_SCALED_TOL; the f32 modes' split (blocks per
+    cluster) as the kernel chose it, checked against its schedule.  The
+    timed shapes also time the plain version and two library calls: SDPA
+    with a mask over the whole cache, and at n_past 0 SDPA over the live
+    keys with is_causal.  Mode 2's library calls take the f32 query over
+    the cache cast to f32: its function without the bf16 rounding of p."""
+    from chatllm_tpu_torch.ops.cuda.flash import (MODES, cluster_slots, f32_rows,
+                                                  flash_attention, flash_attention_plain,
+                                                  last_splits, prefill_geometry)
 
     L3, QW = (32, 8, 128), (14, 2, 64)     # Llama-3-8B; Qwen2.5-0.5B (7 heads per kv head)
     cases = [  # (heads, T, S, n_past, n_tokens, window, softcap, timed as)
@@ -923,12 +949,35 @@ def flash_cases(dev, timer, gen) -> dict:
         (L3, 320, 2048, 700, 320, 300, 30.0, None),
         (QW, 200, 1024, 37, 180, 0, 0.0, None),
         (QW, 1024, 8192, 37, 1024, 0, 0.0, None),
+        # the f32 kernel's tiles (128 or 64 rows) and split walks (clusters of
+        # 2-8 blocks, logged as C): a window crossing split boundaries, T off
+        # the row grid with padded rows over a split, softcap over a split, a
+        # one-tile query at the cache's end, n_past off the row grid
+        (L3, 128, 8192, 5000, 128, 1000, 0.0, None),
+        (QW, 100, 8192, 3000, 90, 0, 0.0, None),
+        (QW, 128, 8192, 6000, 128, 0, 30.0, None),
+        (QW, 64, 8192, 8128, 64, 0, 0.0, None),
+        (L3, 192, 2048, 1001, 192, 0, 0.0, None),
+        (QW, 128, 8192, 8064, 128, 0, 0.0, "prefill_8064_qwen"),
+        # 128-row f32 blocks (Llama-3-8B, T >= 1024): T and n_past off the
+        # row grid; a window with a softcap and padded rows
+        (L3, 1000, 8192, 37, 1000, 0, 0.0, None),
+        (L3, 1024, 4096, 500, 1000, 300, 30.0, None),
     ]
-    out = {"cases": [], "shapes": {}}
-    # --cache_dtype bf16 / f32, and --compute_dtype f32 over a bf16 cache
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the clusters of each f32 kernel the card holds at once, which the
+    # kernel's split and its schedule's twin both read
+    slots = {(D, mode, bq): cluster_slots(D, mode, bq)
+             for D, bqs in ((128, (128, 64)), (64, (64,))) for mode in (1, 2) for bq in bqs}
+    log(f"  f32 kernels' cluster slots (D, mode, rows): {slots}")
+    out = {"cases": [], "shapes": {},
+           "cluster_slots": {"/".join(map(str, k)): v for k, v in slots.items()}}
+    # --cache_dtype bf16 / f32, and an f32 query over a bf16 cache (the chat
+    # path's projections return f32; --compute_dtype f32)
     for qdt, dtype, tag in ((torch.bfloat16, torch.bfloat16, ""),
                             (torch.float32, torch.float32, "_f32"),
                             (torch.float32, torch.bfloat16, "_f32q")):
+        mode = MODES[(qdt, dtype)]
         for (Hq, Hkv, D), T, S, n_past, n_tok, win, cap, timed in cases:
             q = torch.randn(1, T, Hq, D, generator=gen, device=dev).to(qdt)
             k = torch.zeros(1, S, Hkv, D, device=dev, dtype=dtype)
@@ -938,37 +987,42 @@ def flash_cases(dev, timer, gen) -> dict:
             v[:, :kv_len] = torch.randn(1, kv_len, Hkv, D, generator=gen, device=dev).to(dtype)
             kw = dict(scale=D ** -0.5, causal=True, sliding_window=win, logit_softcap=cap)
             o = flash_attention(q, k, v, n_past, n_tok, **kw)
-            # the bf16 kernel's second launch is bit-identical (no atomics)
-            same = qdt != torch.bfloat16 or torch.equal(flash_attention(q, k, v, n_past,
-                                                                        n_tok, **kw), o)
+            splits = last_splits() if mode else 1
+            bq = f32_rows(D, T, Hq, 1, sms)
+            want = prefill_geometry(T, S, n_past, n_tok, D, mode=mode, heads=Hq, window=win,
+                                    sms=sms, slots=slots.get((D, mode, bq)))["splits"]
+            # every mode's second launch is bit-identical (no atomics)
+            same = torch.equal(flash_attention(q, k, v, n_past, n_tok, **kw), o)
             err, scaled = flash_errors(o, q, k, v, n_past, n_tok, **kw)
             name = f"{str(qdt)[6:]}/{str(dtype)[6:]}"
             log(f"  flash {name:17s} Hq={Hq} Hkv={Hkv} D={D} T={T:4d} S={S:5d} n_past={n_past:4d} "
-                f"n_tokens={n_tok:4d} window={win} softcap={cap}  max_abs_err={err:.3e} "
-                f"scaled={scaled:.2e}")
+                f"n_tokens={n_tok:4d} window={win} softcap={cap} C={splits}  "
+                f"max_abs_err={err:.3e} scaled={scaled:.2e}")
             lim = FLASH_SCALED_TOL[dtype]
             if not (o.dtype == qdt and torch.isfinite(o).all() and err <= FLASH_ATOL
-                    and scaled <= lim and same):
+                    and scaled <= lim and same and splits == want):
                 case = (Hq, Hkv, D, T, S, n_past, n_tok, win, cap)
                 raise AssertionError(f"flash {name} case {case}: "
                                      f"{o.dtype}, err {err} (limit {FLASH_ATOL}), scaled "
-                                     f"{scaled} (limit {lim}), second launch same: {same}")
+                                     f"{scaled} (limit {lim}), second launch same: {same}, "
+                                     f"split {splits} (schedule {want})")
             out["cases"].append({"dtype": str(dtype), "q_dtype": str(qdt), "Hq": Hq, "Hkv": Hkv,
                                  "D": D, "T": T, "S": S,
                                  "n_past": n_past, "n_tokens": n_tok, "window": win,
-                                 "softcap": cap, "max_abs_err": err, "scaled_err": scaled,
-                                 "second_launch_same": same})
-            if timed and tag != "_f32q":
+                                 "softcap": cap, "splits": splits, "max_abs_err": err,
+                                 "scaled_err": scaled, "second_launch_same": same})
+            if timed:
                 # visible (query, key) pairs: causal rows; padded rows see all keys
                 qpos = n_past + np.arange(T)
                 pairs = int(np.minimum(qpos + 1, kv_len).sum())
-                peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-                b_ms, b_by = bound(nbytes(q, o) + 2 * kv_len * Hkv * D * k.element_size(),
-                                   4.0 * D * Hq * pairs, peak)
+                peak = BF16_TC_FLOPS if mode == 0 else F32_FLOPS
+                nb = nbytes(q, o) + 2 * kv_len * Hkv * D * k.element_size()
+                flops = 4.0 * D * Hq * pairs
+                b_ms, b_by = bound(nb, flops, peak)
                 G = Hq // Hkv
                 qt = q.transpose(1, 2)
-                kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
-                vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
+                kt = k.transpose(1, 2).repeat_interleave(G, dim=1).to(qdt)
+                vt = v.transpose(1, 2).repeat_interleave(G, dim=1).to(qdt)
                 qp = torch.arange(T, device=dev)[:, None] + n_past
                 kp = torch.arange(S, device=dev)[None, :]
                 mask = (kp < kv_len) & (kp <= qp)
@@ -976,10 +1030,10 @@ def flash_cases(dev, timer, gen) -> dict:
                 # K3's function in one library call at n_past 0: the live keys
                 # only, is_causal's top-left alignment (row i sees keys j <= i;
                 # the padding rows past kv_len see them all)
-                kc = k[:, :kv_len].transpose(1, 2).repeat_interleave(G, dim=1)
-                vc = v[:, :kv_len].transpose(1, 2).repeat_interleave(G, dim=1)
                 causal_ms = None
                 if n_past == 0:
+                    kc = kt[:, :, :kv_len]
+                    vc = vt[:, :, :kv_len]
                     lib = sdpa(qt, kc, vc, is_causal=True, scale=kw["scale"]).transpose(1, 2)
                     l_scaled = flash_errors(lib, q, k, v, n_past, n_tok, **kw)[1]
                     if not l_scaled <= FLASH_SCALED_TOL[dtype]:
@@ -989,20 +1043,29 @@ def flash_cases(dev, timer, gen) -> dict:
                     causal_ms = timer(lambda: sdpa(qt, kc, vc, is_causal=True,
                                                    scale=kw["scale"]))
                 shape = {
-                    "T": T, "S": S, "n_tokens": n_tok, "dtype": str(dtype),
+                    "T": T, "S": S, "n_past": n_past, "n_tokens": n_tok, "dtype": str(dtype),
+                    "q_dtype": str(qdt), "Hq": Hq, "D": D, "splits": splits,
                     "ms": timer(lambda: flash_attention(q, k, v, n_past, n_tok, **kw)),
                     "plain_ms": timer(lambda: flash_attention_plain(q, k, v, n_past, n_tok,
                                                                     **kw), iters=5),
                     "library_ms": timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                                      scale=kw["scale"])),
                     "library_causal_ms": causal_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "flops": 4.0 * D * Hq * pairs}
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
                 shape["tflops"] = shape["flops"] / shape["ms"] * 1e-9
                 shape["share_of_bound"] = b_ms / shape["ms"]
+                tc = ""
+                if mode == 2:
+                    # mode 2's products are all exact on the tensor cores
+                    # (ROADMAP §2): Q.K^T as three bf16 passes over q's bf16
+                    # planes and P.V as one, twice the f32 route's flops
+                    shape["bound_tc_ms"] = bound(nb, 2 * flops, BF16_TC_FLOPS)[0]
+                    shape["share_of_tc_bound"] = shape["bound_tc_ms"] / shape["ms"]
+                    tc = f", {100 * shape['share_of_tc_bound']:.1f}% of the tensor-core bound"
                 out["shapes"][timed + tag] = shape
                 log(f"    timing {shape}")
                 log(f"    {timed + tag}: {shape['tflops']:.1f} TFLOP/s, "
-                    f"{100 * shape['share_of_bound']:.1f}% of the bound")
+                    f"{100 * shape['share_of_bound']:.1f}% of the bound{tc}")
             del q, k, v, o
     return out
 
@@ -1352,6 +1415,7 @@ def chat_phase(dev, cfg, params) -> dict:
     qwen2_phase): bf16 cache (K1-K3), then a q8 cache (K4 on every decode
     step), each path's launches counted from 0."""
     from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
     from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
 
     eng = InferenceEngine(cfg, params, device=dev)
@@ -1381,16 +1445,23 @@ def chat_phase(dev, cfg, params) -> dict:
     res = {}
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
+    reset_mode_launches()
     before = launch_counts()
     for name, ids in prompts.items():
         res[name], before = run(eng, name, ids, before)
     res["launches"] = launch_counts()
+    # the projections return f32, so K3 takes an f32 query over the bf16
+    # cache: mode 2 (ops/cuda/flash.py MODES)
+    res["flash_modes"] = dict(MODE_LAUNCHES)
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    log(f"  main-path launches {res['launches']}, peak memory "
-        f"{res['peak_mem_gib']:.2f} GiB")
+    log(f"  main-path launches {res['launches']} (K3 by mode {res['flash_modes']}), peak "
+        f"memory {res['peak_mem_gib']:.2f} GiB")
     for k in ("qgemv", "qmm", "flash_attention"):
         if res["launches"][k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    if res["flash_modes"][2] <= 0:
+        raise AssertionError(f"K3's f32 kernel (mode 2) was not launched on the main path: "
+                             f"{res['flash_modes']}")
     del eng
     torch.cuda.empty_cache()
 
@@ -2025,6 +2096,75 @@ def int8_engine_phase(dev, cfg, params) -> dict:
     return res
 
 
+def f32_engine_phase(dev, cfg, params) -> dict:
+    """K3's f32 modes on the chat path, Llama-3-8B at full width through
+    InferenceEngine: the 1000-token prompt over an f32 cache (mode 1), and
+    again with f32 activations (the embedding in f32, as --compute_dtype f32
+    loads it) over a bf16 cache (mode 2), 16 greedy tokens each; K3 must
+    launch exactly 32 times in each run (the one 1024-token prefill chunk),
+    all in the run's mode; prefill ms and peak memory are recorded.  Then a
+    2-layer full-width cut over an f32 cache, a 256-token prompt into a
+    1024-slot cache (T 256, S 1024: the K3 route), the card (mode 1)
+    against the CPU (the plain version), within 1e-3 of the logit scale and
+    with the same argmax."""
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, 1000).tolist()
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=16)
+    res = {}
+    for name, mode, c, p in (
+            ("f32_cache", 1, replace(cfg, cache_dtype="float32"), params),
+            ("f32_compute", 2, cfg, dict(params, embed=params["embed"].float()))):
+        eng = InferenceEngine(c, p, device=dev)
+        eng.generate(ids[:8], replace(gcfg, max_new_tokens=4))      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        reset_mode_launches()
+        perf = PerfInfo()
+        out, _, n_past = eng.generate(ids, gcfg, perf=perf)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        steps = len(out) - 1
+        r = {"mode": mode, "prompt_tokens": len(ids), "prefill_ms": perf.prompt_ms,
+             "decode_steps": steps, "decode_tok_s": steps / perf.gen_ms * 1e3,
+             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+             "launches": got, "flash_modes": dict(MODE_LAUNCHES), "tokens": out}
+        res[name] = r
+        log(f"  {name} (K3 mode {mode}): prefill {r['prefill_ms']:.1f} ms, "
+            f"{r['decode_tok_s']:.2f} decode steps/s, peak memory {r['peak_mem_gib']:.2f} GiB, "
+            f"K3 launches {got['flash_attention']} by mode {r['flash_modes']}")
+        if (len(out) != gcfg.max_new_tokens or n_past != len(ids) + steps
+                or got["flash_attention"] != N_LAYERS or MODE_LAUNCHES[mode] != N_LAYERS):
+            raise AssertionError(f"{name}: {len(out)} tokens, n_past {n_past}, K3 launched "
+                                 f"{got['flash_attention']} times by mode {MODE_LAUNCHES} "
+                                 f"(expected {N_LAYERS} in mode {mode})")
+        del eng, p
+        torch.cuda.empty_cache()
+
+    cfg2 = replace(cfg, num_hidden_layers=2, cache_dtype="float32")
+    ids = rng.integers(0, cfg.vocab_size, 256).tolist()
+    outs = []
+    for d in (dev, "cpu"):
+        eng = InferenceEngine(cfg2, _cut(params, 2, d), device=d)
+        reset_launch_counts()
+        reset_mode_launches()
+        outs.append(eng.prefill(ids, eng.new_cache(1, 1024), 0)[0])
+        if d == dev:
+            torch.cuda.synchronize()
+            res["two_layer_flash_modes"] = dict(MODE_LAUNCHES)
+            if MODE_LAUNCHES[1] != 2 or launch_counts()["flash_attention"] != 2:
+                raise AssertionError(f"2-layer f32 cut: K3 launches by mode {MODE_LAUNCHES}, "
+                                     "expected 2 in mode 1")
+        del eng
+    res["two_layer_vs_cpu"] = _compare_logits(
+        "2-layer f32-cache prefill (K3 mode 1) card vs cpu", *outs)
+    return res
+
+
 def switch_phase(dev, cfg, params) -> dict:
     """The attention switches on the card: CHATLLM_TPU_FLASH_DECODE=1 (the
     forced mode) on a bf16 cache at B = 8 through BatchedEngine takes K4 on
@@ -2110,6 +2250,10 @@ KERNEL_META = {
     "qmm": ("chatllm_tpu_torch/csrc/qmm.cu", "chatllm_tpu/ops/pallas/qmm_kernel.py:141"),
     "flash_attention": ("chatllm_tpu_torch/csrc/flash_attention.cu",
                         "chatllm_tpu/ops/pallas/flash.py:113"),
+    "flash_attention_f32": ("chatllm_tpu_torch/csrc/flash_attention.cu",
+                            "chatllm_tpu/ops/pallas/flash.py:113"),
+    "flash_attention_f32q": ("chatllm_tpu_torch/csrc/flash_attention.cu",
+                             "chatllm_tpu/ops/pallas/flash.py:113"),
     "flash_decode": ("chatllm_tpu_torch/csrc/flash_decode.cu",
                      "chatllm_tpu/ops/pallas/flash_decode.py:114"),
     "qmm_decode": ("chatllm_tpu_torch/csrc/qmm_decode.cu",
@@ -2146,7 +2290,9 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     """One entry per kernel, its times summed over the main path's calls of
     one unit of work: qgemv = one decode token (32 x 7 projections + the
     lm_head), qmm = one <=64-token prefill chunk (32 x 7 at 64 rows),
-    flash_attention = the 1000-token prompt's chunk (32 layers), flash_decode
+    flash_attention = the 1000-token prompt's chunk (32 layers) in mode 0
+    (bf16), flash_attention_f32 / _f32q the same chunk in mode 1 (f32 cache)
+    / mode 2 (f32 query over a bf16 cache), flash_decode
     = one decode step after the 1000-token prompt over a q8 cache (32
     layers), qmm_decode = one batched decode step of 8 rows (32 x 7 + the
     lm_head), bw_probe = one pass over 256 MiB, gemv_stream / gemv_vpu = one
@@ -2158,13 +2304,18 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     n_past 47 (32 layers), qmm_unpack = one call of each of E6's three
     variants and qmm_unpack_diag of each of its five modes at M 32, K 4096,
     N 14336.  `launches` counts each kernel on its own path: K1-K3 on the
-    bf16-cache chat path, K4 on the q8-cache one (its int8 dots on the
+    bf16-cache chat path (K3 by mode: flash_attention its mode 0 launches
+    there, none, since the projections return f32; _f32q its mode 2
+    launches there; _f32 its mode 1 launches on the f32-cache engine run),
+    K4 on the q8-cache one (its int8 dots on the
     int8 engine run, and under E7's call site in E7's main), K5 on the
     bench's batched section under CHATLLM_TPU_QMM_V2=1, K6 in the bench,
     E2's two in E2's and E1's mains together, the others in their probe's
     main."""
     mult = {"qgemv": _per_token(N_LAYERS, True), "qmm": _per_token(N_LAYERS, False),
             "flash_attention": {"prefill_1000": N_LAYERS},
+            "flash_attention_f32": {"prefill_1000_f32": N_LAYERS},
+            "flash_attention_f32q": {"prefill_1000_f32q": N_LAYERS},
             "flash_decode": {"decode_1000": N_LAYERS},
             "qmm_decode": _per_token(N_LAYERS, True),
             "bw_probe": {"pass_256mb": 1},
@@ -2178,10 +2329,18 @@ def kernels_line(kres: dict, launches: dict) -> dict:
             "qmm_unpack": {name: 1 for name in ("v0_current", "v4_biasdot", "v5_f32+biasdot")},
             "qmm_unpack_diag": {f"diag_{m}": 1 for m in ("noscale", "nounpack", "storeonly",
                                                          "splitstore", "splitstore_bias")}}
+    # K3's three modes share one wrapper and its table: each entry holds its
+    # mode's cases
+    k3 = {"flash_attention": ("torch.bfloat16", "torch.bfloat16"),
+          "flash_attention_f32": ("torch.float32", "torch.float32"),
+          "flash_attention_f32q": ("torch.float32", "torch.bfloat16")}
     entries = []
     for name, (src, rep) in KERNEL_META.items():
-        entries.append(_line_entry(name, src, rep, kres[name]["shapes"], mult[name],
-                                   kres[name]["cases"], launches[name]))
+        r = kres["flash_attention"] if name in k3 else kres[name]
+        cases = [c for c in r["cases"] if name not in k3
+                 or (c["q_dtype"], c["dtype"]) == k3[name]]
+        entries.append(_line_entry(name, src, rep, r["shapes"], mult[name], cases,
+                                   launches[name]))
     return {"kernels": entries}
 
 
@@ -2243,8 +2402,9 @@ def qwen_totals(kres: dict) -> dict:
     units = {"qgemv": (kres["qgemv"]["qwen_shapes"], m),
              "qmm": (kres["qmm"]["qwen_shapes"], m),
              "qmm_decode": (kres["qmm_decode"]["qwen_shapes"], m),
+             # the chat path's K3 is mode 2 (an f32 query over the bf16 cache)
              "flash_attention": (kres["flash_attention"]["shapes"],
-                                 {"prefill_1000_qwen": QWEN_LAYERS}),
+                                 {"prefill_1000_qwen_f32q": QWEN_LAYERS}),
              "flash_decode": (kres["flash_decode"]["shapes"],
                               {"decode_1000_qwen": QWEN_LAYERS})}
     return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
@@ -2317,6 +2477,10 @@ def main() -> int:
     report["int8_engine"] = int8_engine_phase(dev, cfg, params)
     torch.cuda.empty_cache()
 
+    log("== f32_engine")
+    report["f32_engine"] = f32_engine_phase(dev, cfg, params)
+    torch.cuda.empty_cache()
+
     log("== switches")
     report["switches"] = switch_phase(dev, cfg, params)
     del params
@@ -2359,6 +2523,9 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     launches = dict(report["llama3_8b"]["launches"],
+                    flash_attention=report["llama3_8b"]["flash_modes"][0],
+                    flash_attention_f32=report["f32_engine"]["f32_cache"]["flash_modes"][1],
+                    flash_attention_f32q=report["llama3_8b"]["flash_modes"][2],
                     flash_decode=report["llama3_8b"]["q8_prompt_1000"]["launches"]["flash_decode"],
                     qmm_decode=report["bench"]["v2"]["launches"]["qmm_decode"],
                     bw_probe=report["bench"]["launches"]["bw_probe"],

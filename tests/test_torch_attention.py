@@ -34,6 +34,10 @@ FLASH_CASES = {   # tests/test_flash.py
     "n_past_off_tiles": dict(n_past=37, seed=5),
     "window_across_tiles": dict(sliding_window=100, seed=6),
     "gqa_7_heads_d64": dict(Hq=7, Hkv=1, D=64, seed=7),
+    # a chunk at the cache's end (n_past = S - T), where the f32 kernel
+    # splits its long key walks over a cluster
+    "chunk_at_cache_end": dict(n_past=128, seed=8),
+    "chunk_at_cache_end_7_heads_d64": dict(Hq=7, Hkv=1, D=64, T=64, S=320, n_past=256, seed=9),
 }
 
 

@@ -49,34 +49,86 @@ def test_quantized_matmul_kernels(dev, fmt, rows):
             qmm(x, lin.q, lin.s, lin.b, lin.bias, compute_dtype=torch.float32, **kw)
 
 
-@pytest.mark.parametrize("T,S,n_past,n_tokens,window,softcap", [
+# K3's card cases (T, S, n_past, n_tokens, window, softcap), at 8 query heads
+# over 2 kv heads
+FLASH_CASES = [
     (128, 1024, 0, 128, 0, 0.0), (128, 1024, 0, 100, 0, 0.0),
     (192, 1024, 300, 192, 64, 0.0), (128, 1024, 64, 128, 0, 30.0),
+    (128, 1024, 700, 128, 0, 0.0),   # the f32 query's first card case
     # the bf16 kernel's 128 x 128 tiles: n_past off the tile grid, T off it
     # with padded rows, a window crossing key tiles with a softcap, and the
     # cache's last tile
     (128, 1024, 37, 128, 0, 0.0), (200, 1024, 37, 180, 0, 0.0),
-    (320, 2048, 700, 320, 300, 30.0), (128, 8192, 8064, 128, 0, 0.0)])
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_flash_attention_kernel(dev, T, S, n_past, n_tokens, window, softcap, D, dtype):
+    (320, 2048, 700, 320, 300, 30.0), (128, 8192, 8064, 128, 0, 0.0),
+    # the f32 kernel's tiles (128 or 64 rows) and its split walks (clusters
+    # of 2-8 blocks, as ops/cuda/flash.py::prefill_geometry chooses for each
+    # D and mode): n_past off the 64-row grid, T off it with padded rows, a
+    # window crossing a split boundary, softcap over a split, a one-tile
+    # query at the cache's end; (128, 8192, 8064) above splits too
+    (256, 4096, 1001, 256, 0, 0.0), (100, 8192, 3000, 90, 0, 0.0),
+    (128, 4096, 2000, 128, 700, 0.0), (128, 8192, 5000, 128, 0, 30.0),
+    (64, 8192, 8128, 64, 0, 0.0)]
+
+
+def _flash_case(dev, T, S, n_past, n_tokens, window, softcap, D, qdt, kvdt, heads=(8, 2)):
+    """One K3 launch on seeded inputs, held to chip_smoke's limits, its second
+    launch bit-identical, and in the f32 modes the kernel's split equal to
+    its schedule's."""
     import chip_smoke
     from chatllm_tpu_torch.ops.cuda.build import KERNELS
-    from chatllm_tpu_torch.ops.cuda.flash import flash_attention
+    from chatllm_tpu_torch.ops.cuda.flash import (MODES, cluster_slots, f32_rows,
+                                                  flash_attention, last_splits,
+                                                  prefill_geometry)
 
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device=dev).manual_seed(T + D)
-    q = torch.randn(1, T, 8, D, generator=gen, device=dev).to(dt)
-    k = torch.randn(1, S, 2, D, generator=gen, device=dev).to(dt)
-    v = torch.randn(1, S, 2, D, generator=gen, device=dev).to(dt)
+    Hq, Hkv = heads
+    gen = torch.Generator(device=dev).manual_seed(T + D + n_past)
+    q = torch.randn(1, T, Hq, D, generator=gen, device=dev).to(qdt)
+    k = torch.randn(1, S, Hkv, D, generator=gen, device=dev).to(kvdt)
+    v = torch.randn(1, S, Hkv, D, generator=gen, device=dev).to(kvdt)
     kw = dict(scale=D ** -0.5, causal=True, sliding_window=window, logit_softcap=softcap)
     before = KERNELS["flash_attention"].launches
     o = flash_attention(q, k, v, n_past, n_tokens, **kw)
-    assert KERNELS["flash_attention"].launches == before + 1 and o.dtype == dt
+    assert KERNELS["flash_attention"].launches == before + 1 and o.dtype == qdt
+    mode = MODES[(qdt, kvdt)]
+    if mode:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slots = cluster_slots(D, mode, f32_rows(D, T, Hq, 1, sms))
+        g = prefill_geometry(T, S, n_past, n_tokens, D, mode=mode, heads=Hq, window=window,
+                             sms=sms, slots=slots)
+        assert last_splits() == g["splits"]
     err, scaled = chip_smoke.flash_errors(o, q, k, v, n_past, n_tokens, **kw)
-    assert err <= chip_smoke.FLASH_ATOL and scaled <= chip_smoke.FLASH_SCALED_TOL[dt]
+    assert err <= chip_smoke.FLASH_ATOL and scaled <= chip_smoke.FLASH_SCALED_TOL[kvdt]
     # a second launch is bit-identical (no atomics, a fixed order of sums)
     assert torch.equal(flash_attention(q, k, v, n_past, n_tokens, **kw), o)
+    return g["splits"] if mode else 1
+
+
+@pytest.mark.parametrize("T,S,n_past,n_tokens,window,softcap", FLASH_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernel(dev, T, S, n_past, n_tokens, window, softcap, D, dtype):
+    dt = getattr(torch, dtype)
+    _flash_case(dev, T, S, n_past, n_tokens, window, softcap, D, dt, dt)
+
+
+@pytest.mark.parametrize("heads,D,T,n_past,n_tok,window,want", [
+    ((32, 8), 128, 128, 8064, 128, 0, 2), ((14, 2), 64, 128, 8064, 128, 0, 4),
+    ((32, 8), 128, 1024, 0, 1000, 0, 1), ((14, 2), 64, 1024, 0, 1000, 0, 1),
+    ((32, 8), 128, 1000, 37, 1000, 0, 1), ((32, 8), 128, 1024, 500, 1000, 300, 1)])
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"), ("float32", "bfloat16")])
+def test_flash_attention_f32_model_heads(dev, heads, D, T, n_past, n_tok, window, want, qdt,
+                                         kvdt):
+    """The f32 modes at the models' head counts: the 128-token chunk at
+    n_past 8064 splits over 2 blocks for Llama-3-8B (64 blocks of 64 rows)
+    and over 4 for Qwen2.5-0.5B (7 query heads per kv head); the 1000-token
+    chunk is not
+    split, and Llama-3-8B's takes 128-row blocks, here also with T and
+    n_past off their grid and with a window.  The counts are an H100's (132
+    SMs)."""
+    got = _flash_case(dev, T, 8192, n_past, n_tok, window, 0.0, D, getattr(torch, qdt),
+                      getattr(torch, kvdt), heads=heads)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert got == want
 
 
 # card vs CPU logits, relative to the logit scale: the quantized matmuls
@@ -97,24 +149,14 @@ def test_tiny_model_card_matches_cpu(dev, tmp_path, dtype, tol):
     np.testing.assert_allclose(lc.numpy(), lp.numpy(), atol=tol * lp.abs().max().item())
 
 
+@pytest.mark.parametrize("T,S,n_past,n_tokens,window,softcap", FLASH_CASES)
 @pytest.mark.parametrize("D", [64, 128])
-def test_flash_attention_f32_query_bf16_cache(dev, D):
-    """An f32 query over a bf16 cache (--compute_dtype f32 --cache_dtype
-    bf16): f32 scores, probabilities rounded to bf16, f32 output."""
-    import chip_smoke
-    from chatllm_tpu_torch.ops.cuda.build import KERNELS
-    from chatllm_tpu_torch.ops.cuda.flash import flash_attention
-
-    gen = torch.Generator(device=dev).manual_seed(D)
-    q = torch.randn(1, 128, 8, D, generator=gen, device=dev)
-    k = torch.randn(1, 1024, 2, D, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(1, 1024, 2, D, generator=gen, device=dev).to(torch.bfloat16)
-    kw = dict(scale=D ** -0.5, causal=True, sliding_window=0, logit_softcap=0.0)
-    before = KERNELS["flash_attention"].launches
-    o = flash_attention(q, k, v, 700, 128, **kw)
-    assert KERNELS["flash_attention"].launches == before + 1 and o.dtype == torch.float32
-    err, scaled = chip_smoke.flash_errors(o, q, k, v, 700, 128, **kw)
-    assert err <= chip_smoke.FLASH_ATOL and scaled <= chip_smoke.FLASH_SCALED_TOL[torch.bfloat16]
+def test_flash_attention_f32_query_bf16_cache(dev, T, S, n_past, n_tokens, window, softcap, D):
+    """An f32 query over a bf16 cache (--compute_dtype f32, and the chat
+    path's f32 projections over a bf16 cache): f32 scores, probabilities
+    rounded to bf16, f32 output."""
+    _flash_case(dev, T, S, n_past, n_tokens, window, softcap, D, torch.float32,
+                torch.bfloat16)
 
 
 FLASH_DECODE_CASES = {   # B, T, Hq, Hkv, D, S, n_past, cache, extra
