@@ -20,11 +20,14 @@ the ideal q4_k footprint (4.5 bits per weight) at the card's device-memory
 rate: 1.0 means decode runs as fast as a perfectly packed model can be read.
 
 The original keeps the whole decode loop on the device in one compiled
-scan.  Here the loop is Python over `transformer_forward`; the argmax stays
-on the device and the tokens are read back once, after the last step, so no
-step waits for the host.  Every section is warmed once and the second call
-is timed, between two device synchronisations.  A section that fails makes
-the run fail: nothing is caught.
+scan (`decode_n`, `decode_n_b`).  Here decode runs through the engine's
+block decoder (runtime/decode_graph.py): blocks of DECODE_BLOCK greedy
+steps, each a CUDA graph on the card, replayed back to back with the
+tokens read back once, after the last block, so the host neither waits nor
+launches a kernel inside the loop.  Every section is warmed once (which
+captures its graphs) and the second call is timed, between two device
+synchronisations.  A section that fails makes the run fail: nothing is
+caught.
 
 Not carried over from the original: its tables of TPU memory rates and
 peaks and its `mxu_floor_tok_s` (a constant of the TPU's matrix unit).
@@ -48,6 +51,11 @@ from .device import resolve_device
 from .models.synthetic import build_synthetic_params, llama3_8b_config, param_bytes
 from .nn.transformer import TransformerConfig, init_cache, transformer_forward
 from .ops.cuda.bw_probe import measure_read_bw
+from .ops.sampling import SamplerConfig
+from .runtime.decode_graph import BlockDecoder, kv_bucket
+
+DECODE_BLOCK = 16          # steps per captured block (the engine's default)
+GREEDY = SamplerConfig(do_sample=False, sampling="greedy")
 
 # device name -> published peaks (NVIDIA H100 SXM data sheet, dense rates)
 DEVICE_PEAKS = {
@@ -100,17 +108,23 @@ def prefill_token(cfg, params, ids, cache, n_past: int = 0) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def greedy_decode(cfg, params, cache, tok, n_past: int, steps: int) -> torch.Tensor:
+def greedy_decode(cfg, params, cache, tok, n_past: int, steps: int, *,
+                  decoder: BlockDecoder | None = None) -> torch.Tensor:
     """`steps` greedy tokens after `tok` ([B] ids at position n_past), all
-    rows at the same position.  Returns int64 [B, steps] on the device; the
-    host reads nothing inside the loop."""
-    tok = tok.reshape(-1, 1)
-    out = []
-    for i in range(steps):
-        logits, _ = transformer_forward(cfg, params, tok, cache, n_past + i)
-        tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
-        out.append(tok)
-    return torch.cat(out, dim=1)
+    rows at the same position, in blocks of DECODE_BLOCK steps (the last
+    block's steps past `steps` are speculative and dropped).  Returns int64
+    [B, steps] on the device; the host reads nothing inside the loop.  Pass
+    the same `decoder` to replay its graphs on a later call."""
+    decoder = decoder or BlockDecoder(cfg, params, tok.device)
+    B = tok.shape[0]
+    st = decoder.state(B)
+    st.tok.copy_(tok.reshape(B, 1))
+    st.n_past.fill_(n_past)
+    block = min(DECODE_BLOCK, steps)
+    cache_len = cache.k[0].shape[1]
+    out = [decoder.run(st, cache, GREEDY, block, kv_bucket(n_past + i + block, cache_len)).clone()
+           for i in range(0, steps, block)]
+    return torch.cat(out)[:steps].t()
 
 
 def batched_decode_rate(cfg, params, device, batch: int, ctx: int, steps: int) -> float:
@@ -118,7 +132,8 @@ def batched_decode_rate(cfg, params, device, batch: int, ctx: int, steps: int) -
     from an empty cache of `ctx` slots (the continuous-batching shape)."""
     cache = init_cache(cfg, batch, ctx, device=device)
     tok = torch.zeros(batch, dtype=torch.int64, device=device)
-    dt, _ = _timed(lambda: greedy_decode(cfg, params, cache, tok, 0, steps), device)
+    dec = BlockDecoder(cfg, params, device)
+    dt, _ = _timed(lambda: greedy_decode(cfg, params, cache, tok, 0, steps, decoder=dec), device)
     del cache
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -144,7 +159,9 @@ def run_bench(cfg: TransformerConfig, params, device, *, ctx: int | None = None,
     dt, tok = _timed(lambda: prefill_token(cfg, params, ids, cache), device)
     ttft_ms = dt * 1000
     tok = tok.to(device)
-    dt, _ = _timed(lambda: greedy_decode(cfg, params, cache, tok, prompt_len, steps), device)
+    dec = BlockDecoder(cfg, params, device)
+    dt, _ = _timed(lambda: greedy_decode(cfg, params, cache, tok, prompt_len, steps,
+                                         decoder=dec), device)
     tok_s = steps / dt
 
     # long-context TTFT: the prompt fills the cache (K3 on a float cache)
@@ -153,7 +170,7 @@ def run_bench(cfg: TransformerConfig, params, device, *, ctx: int | None = None,
     ids2 = torch.zeros(1, long_len, dtype=torch.int64, device=device)
     dt, _ = _timed(lambda: prefill_token(cfg, params, ids2, cache2), device)
     ttft2k_ms = dt * 1000
-    del cache, cache2
+    del cache, cache2, dec
     if device.type == "cuda":
         torch.cuda.empty_cache()
 

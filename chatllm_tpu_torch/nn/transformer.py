@@ -5,8 +5,11 @@ q/k/v projections, RoPE, GQA attention, SwiGLU MLP) and the model forward.
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
 "final_norm" {"w"}, "layers" (a tuple of per-layer dicts) and "lm_head";
 linears are DenseLinear/QuantLinear from ops/qtensor.py.  The KV cache is
-written in place.  `n_past` is an int (one stream) or an int64 [B] tensor
-of per-slot offsets (the continuous-batching decode, runtime/batching.py).
+written in place.  `n_past` is an int (one stream's prefill), a 0-d int64
+device tensor (rows sharing one position read on the device: the decode
+block a CUDA graph captures, runtime/decode_graph.py, with `kv_len` its
+static bound on the keys read) or an int64 [B] tensor of per-slot offsets
+(the continuous-batching decode, runtime/batching.py).
 """
 from __future__ import annotations
 
@@ -115,7 +118,7 @@ def gated_mlp(cfg: TransformerConfig, p, x):
 
 
 def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
-                    k_cache, v_cache, n_past, k_scale=None, v_scale=None):
+                    k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
     B, T, _ = x.shape
     d = cfg.resolved_head_dim()
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -130,17 +133,17 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
     scale = cfg.attention_scale if cfg.attention_scale > 0 else d ** -0.5
     out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale,
                                causal=cfg.causal, sliding_window=spec.sliding_window,
-                               k_scale=k_scale, v_scale=v_scale)
+                               k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
     out = out.reshape(B, T, hq * d)
     return matmul(out, p["o"]).to(x.dtype)
 
 
 def decoder_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
-                  k_cache, v_cache, n_past, k_scale=None, v_scale=None):
+                  k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
     """Pre-norm decoder layer (reference LMBlock1)."""
     h = _norm(cfg, x, p["attn_norm"])
     x = x + attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
-                            k_scale, v_scale)
+                            k_scale, v_scale, kv_len)
     h = _norm(cfg, x, p["ffn_norm"])
     return x + gated_mlp(cfg, p["mlp"], h)
 
@@ -157,16 +160,19 @@ def lm_logits(cfg: TransformerConfig, params, x):
 
 
 def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor,
-                        cache: KVCache, n_past, *, last_index: int | None = None):
+                        cache: KVCache, n_past, *, last_index: int | None = None,
+                        kv_len: int | None = None):
     """ids: [B, T] int64 -> (logits [B, T|1, V] f32, cache updated in place).
 
     `last_index` slices the hidden state at one position before the lm_head
     (bucketed prefill: the last real token sits at n_valid - 1 inside the
-    right-padded chunk), so the vocab projection runs on one row."""
+    right-padded chunk), so the vocab projection runs on one row.  With a
+    tensor `n_past`, `kv_len` bounds the keys attention reads (None: the
+    whole cache)."""
     B, T = ids.shape
     x = embed_tokens(cfg, params, ids)
     steps = torch.arange(T, device=ids.device)
-    if isinstance(n_past, torch.Tensor):        # per-slot offsets [B]
+    if isinstance(n_past, torch.Tensor) and n_past.dim() == 1:   # per-slot offsets [B]
         positions = n_past[:, None] + steps[None, :]
     else:
         positions = (n_past + steps)[None, :].expand(B, T)
@@ -176,7 +182,7 @@ def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor,
         x = decoder_layer(cfg, cfg.layer_spec(i), params["layers"][i], x, cos, sin,
                           cache.k[i], cache.v[i], n_past,
                           cache.k_scale[i] if quant else None,
-                          cache.v_scale[i] if quant else None)
+                          cache.v_scale[i] if quant else None, kv_len)
     x = _norm(cfg, x, params["final_norm"])
     if last_index is not None:
         x = x[:, last_index:last_index + 1, :]

@@ -2,6 +2,14 @@
 `ops/attention.py`: bf16/f32 and q8 caches, a scalar n_past or a per-slot
 [B] n_past vector).
 
+`n_past` is an int (the eager prefill), a 0-d int64 device tensor (one
+position shared by every row: the decode block that a CUDA graph captures,
+runtime/decode_graph.py) or an int64 [B] tensor (per-slot positions: the
+continuous-batching decode).  With a tensor nothing is read back to the
+host, and the keys read are bounded by `kv_len`, a static count of slots
+(the decode block's KV bucket; None reads the whole cache): every key at or
+past n_past + n_tokens is masked, so the bound only spares the reads.
+
 The cache is a pair of [B, S_max, H_kv, D] tensors written in place; a q8
 cache holds int8 values with f32 [B, S_max, H_kv] scales beside them.
 Routing follows the JAX package's conditions:
@@ -36,7 +44,7 @@ import os
 import torch
 
 from .cuda.flash import flash_attention
-from .cuda.flash_decode import flash_decode
+from .cuda.flash_decode import flash_decode, npast_vector
 from .qmm import _count
 
 NEG_INF = -1e30
@@ -80,6 +88,11 @@ def quantize_kv(x: torch.Tensor):
     return q, scale
 
 
+def _per_row(n_past) -> bool:
+    """A per-slot [B] vector (not an int or a shared 0-d position)."""
+    return isinstance(n_past, torch.Tensor) and n_past.dim() == 1
+
+
 def _rows_write(cache: torch.Tensor, val: torch.Tensor, n_past: torch.Tensor):
     """cache[b, n_past[b] + t] = val[b, t] in place, dropping the rows whose
     position is past the cache (the JAX package's scatter mode="drop").
@@ -100,13 +113,18 @@ def update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale=None, v_scale=None):
     """Write new K/V ([B, T, H, D]) at position n_past, in place (and their
     scales, for a q8 cache).
 
-    `n_past` is an int (all rows share one write offset: the chat path) or
-    an int64 [B] tensor on the cache's device (per-slot offsets: the
-    continuous-batching decode, runtime/batching.py); rows past capacity
-    are dropped, not clamped onto the last slot."""
+    `n_past` is an int (all rows share one write offset: the chat path's
+    prefill), a 0-d int64 tensor on the cache's device (the same, read on
+    the device: the captured decode block) or an int64 [B] tensor (per-slot
+    offsets: the continuous-batching decode, runtime/batching.py).  With a
+    tensor, rows past capacity are dropped, not clamped onto the last slot
+    or wrapped: a decode block's speculative steps past the cache write
+    nothing."""
     if k_scale is not None:
         (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
     if isinstance(n_past, torch.Tensor):
+        if n_past.dim() == 0:
+            n_past = n_past.reshape(1).expand(k.shape[0])
         _rows_write(k_cache, k, n_past)
         _rows_write(v_cache, v, n_past)
         if k_scale is not None:
@@ -144,9 +162,9 @@ def _scale_rows(x, scale):
 
 
 def _mask(n_past, T: int, k_pos, n_tokens: int, causal: bool, sliding_window: int):
-    """Valid (query, key) pairs: [T, S] for an int n_past, [B, T, S] for a
-    per-row vector."""
-    if isinstance(n_past, torch.Tensor):
+    """Valid (query, key) pairs: [T, S] for an int or 0-d n_past, [B, T, S]
+    for a per-row vector."""
+    if _per_row(n_past):
         q_pos = n_past[:, None, None] + torch.arange(T, device=k_pos.device)[None, :, None]
         kv_end = n_past[:, None, None] + n_tokens
     else:
@@ -163,12 +181,14 @@ def _mask(n_past, T: int, k_pos, n_tokens: int, causal: bool, sliding_window: in
 def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
                          scale: float, causal: bool = True,
                          logit_softcap: float = 0.0, sliding_window: int = 0,
-                         k_scale=None, v_scale=None) -> torch.Tensor:
+                         k_scale=None, v_scale=None, kv_len: int | None = None) -> torch.Tensor:
     """q: [B, T, Hq, D]; caches [B, S, Hkv, D] already holding this step's
     keys (int8 with [B, S, Hkv] scales for a q8 cache).  A key at position p
     is visible to query t of row b iff p < n_past[b] + n_tokens (and
     p <= n_past[b] + t when causal, and p > n_past[b] + t - sliding_window
-    with a window).  `n_past` is an int or an int64 [B] tensor."""
+    with a window).  `n_past` is an int, a 0-d or an int64 [B] tensor;
+    with a tensor, `kv_len` (at least every n_past + n_tokens) bounds the
+    keys the einsum routes read (module docstring)."""
     B, T, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
@@ -199,6 +219,8 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
             and causal and (forced or (B * G * T <= DECODE_MAX_ROWS and k_scale is not None))
             and flash_decode_enabled() and block_k >= 128):
         _count("flash_decode" + (":q8kv" if k_scale is not None else ""))
+        if isinstance(n_past, torch.Tensor):
+            n_past = npast_vector(n_past, B, q.device)
         return flash_decode(q, k_cache, v_cache, n_past, n_tokens, scale=scale,
                             sliding_window=sliding_window, logit_softcap=logit_softcap,
                             k_scale=k_scale, v_scale=v_scale, block_k=block_k)
@@ -212,18 +234,20 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
               sliding_window=sliding_window, k_scale=k_scale, v_scale=v_scale,
               bf16_dots=bf16_dots)
 
-    if isinstance(n_past, torch.Tensor):
-        out = _batched_npast_attention(qg, k_cache, v_cache, n_past, n_tokens, **kw)
+    if _per_row(n_past):
+        out = _batched_npast_attention(qg, k_cache, v_cache, n_past, n_tokens,
+                                       kv_len=kv_len, **kw)
         return out.reshape(B, T, Hq, Dv).to(q.dtype)
 
     if S >= CHUNKED_ATTN_THRESHOLD and S % 1024 == 0:
-        out = _chunked_attention(qg, k_cache, v_cache, n_past, n_tokens, **kw)
+        out = _chunked_attention(qg, k_cache, v_cache, n_past, n_tokens, kv_len=kv_len, **kw)
         return out.reshape(B, T, Hq, Dv).to(q.dtype)
 
     # Keys at or past n_past + n_tokens are masked for every row; dropping
     # them leaves each row with a visible key unchanged (its masked scores
     # weigh exp(-1e30 - max) = 0) and keeps decode off the unwritten cache.
-    kv_len = min(S, n_past + n_tokens)
+    # A device n_past reads up to its static bound instead.
+    kv_len = _key_bound(S, n_past, n_tokens, kv_len)
     kc, vc = k_cache[:, :kv_len], v_cache[:, :kv_len]
     scores = _dot("bthgd,bshd->bhgts", qg, kc, bf16_dots) * scale
     if k_scale is not None:
@@ -239,15 +263,27 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
     return out.reshape(B, T, Hq, Dv).to(q.dtype)
 
 
-def _chunked_attention(qg, k_cache, v_cache, n_past: int, n_tokens: int, *, scale,
+def _key_bound(S: int, n_past, n_tokens: int, kv_len: int | None) -> int:
+    """Slots a route reads: the written keys for an int n_past, else the
+    static bound (the whole cache when there is none)."""
+    if not isinstance(n_past, torch.Tensor):
+        return min(S, n_past + n_tokens)
+    return S if kv_len is None else min(S, kv_len)
+
+
+def _chunked_attention(qg, k_cache, v_cache, n_past, n_tokens: int, *, scale,
                        causal, logit_softcap, sliding_window, k_scale=None,
-                       v_scale=None, bf16_dots=False, chunk: int = 1024):
+                       v_scale=None, bf16_dots=False, kv_len: int | None = None,
+                       chunk: int = 1024):
     """Flash-style attention over KV chunks with a running softmax, so the
     [T, S] score matrix never materializes (long-context prefill).  Exact,
     with the dense path's masking.  Chunks that no row can see are skipped:
     in the JAX package's scan they change nothing (a chunk past the written
     keys adds p = 0 with corr = 1; one before every window is wiped by
-    corr = 0 once a visible key arrives).  Returns [B, T, Hkv, G, Dv]."""
+    corr = 0 once a visible key arrives).  With a device n_past the walk
+    covers the chunks below `kv_len`, from the first: the same chunks as
+    the int route's up to ones that add nothing, so the result is the int
+    route's bit for bit.  Returns [B, T, Hkv, G, Dv]."""
     B, T, Hkv, G, D = qg.shape
     S = k_cache.shape[1]
     Dv = v_cache.shape[-1]
@@ -255,8 +291,10 @@ def _chunked_attention(qg, k_cache, v_cache, n_past: int, n_tokens: int, *, scal
     m = torch.full((B, Hkv, G, T), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, G, T), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, G, T, Dv), dtype=torch.float32, device=dev)
-    k_end = min(S, n_past + n_tokens)
-    k_begin = max(0, n_past - sliding_window + 1) if sliding_window > 0 else 0
+    k_end = _key_bound(S, n_past, n_tokens, kv_len)
+    k_begin = 0
+    if sliding_window > 0 and not isinstance(n_past, torch.Tensor):
+        k_begin = max(0, n_past - sliding_window + 1)
     for c0 in range(k_begin // chunk * chunk, k_end, chunk):
         sl = slice(c0, c0 + chunk)
         s = _dot("bthgd,bshd->bhgts", qg, k_cache[:, sl], bf16_dots) * scale
@@ -282,12 +320,17 @@ def _chunked_attention(qg, k_cache, v_cache, n_past: int, n_tokens: int, *, scal
 
 def _batched_npast_attention(qg, k_cache, v_cache, n_past: torch.Tensor, n_tokens: int,
                              *, scale, causal, logit_softcap, sliding_window,
-                             k_scale=None, v_scale=None, bf16_dots=False):
+                             k_scale=None, v_scale=None, bf16_dots=False,
+                             kv_len: int | None = None):
     """Dense attention with a per-row n_past vector [B]: each batch slot
     sees its own causal frontier (the continuous-batching decode over one
-    shared [B, S] cache).  Returns [B, T, Hkv, G, Dv]."""
+    shared [B, S] cache), over the first `kv_len` slots (all when None).
+    Returns [B, T, Hkv, G, Dv]."""
     B, T, Hkv, G, D = qg.shape
-    S = k_cache.shape[1]
+    S = _key_bound(k_cache.shape[1], n_past, n_tokens, kv_len)
+    k_cache, v_cache = k_cache[:, :S], v_cache[:, :S]
+    if k_scale is not None:
+        k_scale, v_scale = k_scale[:, :S], v_scale[:, :S]
     scores = _dot("bthgd,bshd->bhgts", qg, k_cache, bf16_dots) * scale
     if k_scale is not None:
         scores = _scale_rows(scores, k_scale)

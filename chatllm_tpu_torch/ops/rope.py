@@ -40,23 +40,39 @@ def _yarn_corr_dim(n_dims: int, n_ctx_orig: int, beta: float, base: float) -> fl
     return n_dims * math.log(n_ctx_orig / (beta * 2 * math.pi)) / (2 * math.log(base))
 
 
+_INV_FREQ: dict = {}
+
+
+def _inv_freq(cfg: RopeConfig, dev: torch.device) -> torch.Tensor:
+    """freq_base^(-2i/rot) / freq_factors on `dev`, made once per config and
+    device: the table holds host constants, so a forward captured in a CUDA
+    graph reads it instead of copying them to the card."""
+    key = (cfg, dev)
+    if key not in _INV_FREQ:
+        rot = cfg.resolved_rot_dim()
+        with torch.inference_mode(False):        # a normal tensor, usable in any mode
+            dim_i = torch.arange(rot // 2, dtype=torch.float32, device=dev)
+            inv = torch.pow(torch.tensor(cfg.freq_base, dtype=torch.float32, device=dev),
+                            -2.0 * dim_i / rot)
+            if cfg.freq_factors is not None:
+                inv = inv / torch.tensor(cfg.freq_factors, dtype=torch.float32, device=dev)
+        _INV_FREQ[key] = inv
+    return _INV_FREQ[key]
+
+
 def precompute_rope_cache(positions: torch.Tensor, cfg: RopeConfig):
     """positions: int tensor [...]; returns (cos, sin): f32 [..., rot/2]."""
     rot = cfg.resolved_rot_dim()
     half = rot // 2
     dev = positions.device
-    dim_i = torch.arange(half, dtype=torch.float32, device=dev)
-    inv_freq = torch.pow(torch.tensor(cfg.freq_base, dtype=torch.float32, device=dev),
-                         -2.0 * dim_i / rot)
-    if cfg.freq_factors is not None:
-        inv_freq = inv_freq / torch.tensor(cfg.freq_factors, dtype=torch.float32,
-                                           device=dev)
+    inv_freq = _inv_freq(cfg, dev)
     theta_extrap = positions.float()[..., None] * inv_freq
     mscale = cfg.attn_factor * cfg.mscale_all
     if cfg.ext_factor != 0.0 and cfg.orig_ctx > 0:
         low = max(0.0, math.floor(_yarn_corr_dim(rot, cfg.orig_ctx, cfg.beta_fast, cfg.freq_base)))
         high = min(rot - 1.0, math.ceil(_yarn_corr_dim(rot, cfg.orig_ctx, cfg.beta_slow, cfg.freq_base)))
         denom = max(0.001, high - low)
+        dim_i = torch.arange(half, dtype=torch.float32, device=dev)
         ramp = torch.clamp((dim_i - low) / denom, 0.0, 1.0)
         ramp_mix = (1.0 - ramp) * cfg.ext_factor
         theta_interp = cfg.freq_scale * theta_extrap

@@ -3,7 +3,14 @@
 Same filter order as the reference: temperature -> penalties -> top-k ->
 (top-p | tfs) -> draw.  Draws use an explicit `torch.Generator` on the
 logits' device, so they match the JAX package in distribution, not bit for
-bit.  Penalty state is a token-count vector [V] plus a ring history.
+bit.  Penalty state is a token-count vector [V] plus a ring history, with
+its write position on the device, as the JAX state's.
+
+Nothing here reads a value back to the host, so a decode block that samples
+runs inside a CUDA graph (runtime/decode_graph.py): indices are tensors
+taken by `index_select` / `gather` / `index_add_` (indexing with a 0-d
+tensor would call `.item()`), and `torch.multinomial` draws from a generator
+that the graph registers.
 """
 from __future__ import annotations
 
@@ -31,28 +38,35 @@ class SamplerConfig:
 
 @dataclass
 class PenaltyState:
-    token_count: torch.Tensor    # int32 [V]
-    history: torch.Tensor        # int64 [window]
-    write_pos: int
+    token_count: torch.Tensor    # int32 [V] ([B, V] per serving slot)
+    history: torch.Tensor        # int64 [window] ([B, window])
+    write_pos: torch.Tensor      # int64 0-d ([B]), updated in place
 
     @classmethod
     def init(cls, vocab_size: int, window: int, device="cpu"):
         return cls(torch.zeros(vocab_size, dtype=torch.int32, device=device),
-                   torch.full((window,), -1, dtype=torch.int64, device=device), 0)
+                   torch.full((window,), -1, dtype=torch.int64, device=device),
+                   torch.zeros((), dtype=torch.int64, device=device))
+
+    def reset(self):
+        """Back to the empty window, in place (the buffers a captured
+        decode block reads stay where they are)."""
+        self.token_count.zero_()
+        self.history.fill_(-1)
+        self.write_pos.zero_()
 
 
 def penalty_accept(state: PenaltyState, token_id: torch.Tensor) -> PenaltyState:
     """Ring-buffer accept (reference src/models.cpp:617-638); updates the
     state in place and returns it.  `token_id` is a 0-d device tensor."""
     window = state.history.shape[0]
-    old = state.history[state.write_pos]
-    state.token_count.index_add_(0, old.clamp(min=0).reshape(1),
-                                 -(old >= 0).to(torch.int32).reshape(1))
+    pos = state.write_pos.reshape(1)
+    old = state.history.index_select(0, pos)
+    state.token_count.index_add_(0, old.clamp(min=0), -(old >= 0).to(torch.int32))
     tok = token_id.reshape(1).to(torch.int64)
-    state.token_count.index_add_(0, tok, torch.ones(1, dtype=torch.int32,
-                                                    device=tok.device))
-    state.history[state.write_pos] = tok[0]
-    state.write_pos = (state.write_pos + 1) % window
+    state.token_count.index_add_(0, tok, torch.ones_like(tok, dtype=torch.int32))
+    state.history.index_copy_(0, pos, tok)
+    state.write_pos.add_(1).remainder_(window)
     return state
 
 
@@ -61,16 +75,17 @@ def penalty_accept_batched(state: PenaltyState, token_ids: torch.Tensor) -> Pena
     runtime/batching.py): token_count [B, V], history [B, window] and
     write_pos an int64 [B] tensor.  Same semantics per row as
     `penalty_accept`; updates in place and returns the state."""
-    window = state.history.shape[-1]
-    b = torch.arange(token_ids.shape[0], device=token_ids.device)
-    old = state.history[b, state.write_pos]
-    state.token_count.index_put_((b, old.clamp(min=0)), -(old >= 0).to(torch.int32),
-                                 accumulate=True)
+    B, window = state.history.shape
+    V = state.token_count.shape[-1]
+    b = torch.arange(B, device=token_ids.device)
+    hist_at = b * window + state.write_pos                      # flat ring slots [B]
+    old = state.history.view(-1).index_select(0, hist_at)
+    counts = state.token_count.view(-1)
+    counts.index_add_(0, b * V + old.clamp(min=0), -(old >= 0).to(torch.int32))
     tok = token_ids.to(torch.int64)
-    state.token_count.index_put_((b, tok), torch.ones_like(tok, dtype=torch.int32),
-                                 accumulate=True)
-    state.history[b, state.write_pos] = tok
-    state.write_pos = (state.write_pos + 1) % window
+    counts.index_add_(0, b * V + tok, torch.ones_like(tok, dtype=torch.int32))
+    state.history.view(-1).index_copy_(0, hist_at, tok)
+    state.write_pos.add_(1).remainder_(window)
     return state
 
 
@@ -144,8 +159,13 @@ def sample_token(logits: torch.Tensor, cfg: SamplerConfig,
     lf = logits.float()
     if not cfg.do_sample or cfg.sampling == "greedy":
         tok = torch.argmax(lf, dim=-1)
-        return tok, torch.softmax(lf, dim=-1)[tok]
+        return tok, _at(torch.softmax(lf, dim=-1), tok)
     lf = filter_logits(lf, cfg, penalty)
     probs = torch.softmax(lf, dim=-1)
     tok = torch.multinomial(probs, 1, generator=generator)[0]
-    return tok, probs[tok]
+    return tok, _at(probs, tok)
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, read on the device."""
+    return x.gather(-1, i.reshape(1))[0]

@@ -10,13 +10,18 @@ batched KV cache (counterpart of the JAX package's `runtime/batching.py`).
     through a B=1 forward against a [slot:slot+1] view of each layer's
     cache, so it is written in place and running streams are never
     re-padded or interrupted;
-  - decode runs `decode_block` batched steps with the tokens kept on the
-    device and reads the block's tokens back once (the JAX package scans
-    the block on the device); slots that finish mid-block waste at most
+  - decode runs `decode_block` batched steps on the device and reads the
+    block's tokens back once (the JAX package scans the block on the
+    device): the scheduler writes each slot's token, n_past and whether it
+    is active into the decoder's static buffers, and on the card the block
+    replays a CUDA graph captured over the shared cache
+    (runtime/decode_graph.py); slots that finish mid-block waste at most
     block-1 speculative rows, which are overwritten when the slot is reused;
+  - attention reads the whole cache in every block (no KV bucket), so a
+    slot's result does not depend on where the other slots stand;
   - sampling: greedy is one batched argmax; sampled decoding draws each
     slot's token from that slot's `torch.Generator` (seeded by its
-    request) with that slot's penalty ring.
+    request, registered with every graph) with that slot's penalty ring.
 
 The SWA ring cache and the device mesh of the JAX engine are not ported.
 """
@@ -31,8 +36,8 @@ import numpy as np
 import torch
 
 from ..nn.transformer import KVCache, TransformerConfig, init_cache, transformer_forward
-from ..ops.sampling import (PenaltyState, SamplerConfig, penalty_accept,
-                            penalty_accept_batched, sample_token)
+from ..ops.sampling import PenaltyState, SamplerConfig, penalty_accept, sample_token
+from .decode_graph import BlockDecoder
 from .generate import _fit_bucket
 
 PREFILL_CHUNK = 1024
@@ -94,18 +99,18 @@ class BatchedEngine:
         self.toks = np.zeros(B, np.int64)
         self.slots: list[Optional[_Slot]] = [None] * B
         self._handles: list[Optional[StreamHandle]] = [None] * B
-        self.penalty = PenaltyState(
-            token_count=torch.zeros(B, cfg.vocab_size, dtype=torch.int32, device=dev),
-            history=torch.full((B, self.scfg.penalty_window), -1, dtype=torch.int64,
-                               device=dev),
-            write_pos=torch.zeros(B, dtype=torch.int64, device=dev))
-        self.gens = [torch.Generator(device=dev) for _ in range(B)]
+        self.decoder = BlockDecoder(cfg, params, dev)
+        self._st = self.decoder.state(B, per_row=True, window=self.scfg.penalty_window,
+                                      sampled=self.sampled)
+        self.penalty = self._st.penalty
+        self.gens = self._st.gens
 
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._pending: list[tuple[StreamHandle, list[int], int, Callable, int]] = []
         self._next_id = 0
         self._stop = False
+        self._failed: Optional[BaseException] = None     # what stopped the worker
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -122,6 +127,8 @@ class BatchedEngine:
                is_terminator: Callable[[int], bool] = lambda t: False,
                seed: int = 0) -> StreamHandle:
         with self._cv:
+            if self._failed is not None:
+                raise RuntimeError("the batching worker stopped") from self._failed
             h = StreamHandle(self._next_id)
             self._next_id += 1
             ids = list(ids)[-(self.max_length - 1):]   # keep the newest that fit
@@ -153,7 +160,7 @@ class BatchedEngine:
     def _slot_penalty(self, slot: int) -> PenaltyState:
         """Views of one slot's penalty rows (written in place)."""
         p = self.penalty
-        return PenaltyState(p.token_count[slot], p.history[slot], int(p.write_pos[slot]))
+        return PenaltyState(p.token_count[slot], p.history[slot], p.write_pos[slot])
 
     @torch.inference_mode()
     def _admit(self, h: StreamHandle, ids, max_new, is_term, seed, slot: int):
@@ -161,10 +168,11 @@ class BatchedEngine:
         ids = np.asarray(ids, np.int64)[None, :]
         T = ids.shape[1]
         # a request's draws depend on its seed only, not on its slot
-        self.gens[slot].manual_seed(seed)
-        self.penalty.token_count[slot] = 0
-        self.penalty.history[slot] = -1
-        self.penalty.write_pos[slot] = 0
+        pen = None
+        if self.sampled:
+            self.gens[slot].manual_seed(seed)
+            pen = self._slot_penalty(slot)
+            pen.reset()
         # chunked prefill into the slot's cache row, a view written in place
         row = KVCache(k=[t[slot:slot + 1] for t in self.cache.k],
                       v=[t[slot:slot + 1] for t in self.cache.v])
@@ -182,11 +190,10 @@ class BatchedEngine:
                                             row, n_past, last_index=n - 1)
             n_past += n
         # the first token comes from the slot's generator and penalty ring
-        pen = self._slot_penalty(slot) if self.sampled else None
-        tok0, _ = sample_token(logits[0, 0], self.scfg, self.gens[slot], pen)
+        tok0, _ = sample_token(logits[0, 0], self.scfg,
+                               self.gens[slot] if self.sampled else None, pen)
         if pen is not None:
             penalty_accept(pen, tok0)
-            self.penalty.write_pos[slot] = pen.write_pos
         tok0 = int(tok0)
         s = _Slot(req_id=h.req_id, out=h._q, n_past=n_past, max_new=max_new,
                   is_terminator=is_term)
@@ -229,10 +236,12 @@ class BatchedEngine:
                 continue
             try:
                 self._decode_block_once()
-            except Exception:
+            except Exception as e:
                 # drain every in-flight consumer before the worker dies, so
-                # no StreamHandle blocks forever on its queue
+                # no StreamHandle blocks forever on its queue, and refuse
+                # later requests
                 with self._cv:
+                    self._failed = e
                     for b, s in enumerate(self.slots):
                         if s is not None:
                             s.out.put(None)
@@ -243,38 +252,14 @@ class BatchedEngine:
                     self._pending.clear()
                 raise
 
-    @torch.inference_mode()
-    def _decode_steps(self, toks, n_past, active) -> np.ndarray:
-        """`decode_block` batched steps on the device; returns the sampled
-        ids [block, B], read back to the host once."""
-        hist = []
-        for _ in range(self.decode_block):
-            logits, _ = transformer_forward(self.cfg, self.params, toks[:, None],
-                                            self.cache, n_past)
-            lf = logits[:, -1, :]
-            if self.sampled:
-                nxt = torch.stack([
-                    sample_token(lf[b], self.scfg, self.gens[b],
-                                 PenaltyState(self.penalty.token_count[b],
-                                              self.penalty.history[b], 0))[0]
-                    for b in range(self.max_slots)])
-            else:
-                nxt = torch.argmax(lf.float(), dim=-1)
-            nxt = torch.where(active, nxt, toks)
-            if self.sampled:
-                penalty_accept_batched(self.penalty, nxt)
-            n_past = n_past + active.to(n_past.dtype)
-            toks = nxt
-            hist.append(nxt)
-        return torch.stack(hist).cpu().numpy()
-
     def _decode_block_once(self):
-        dev = self.device
+        st = self._st
         with self._lock:
-            active = torch.tensor([s is not None for s in self.slots], device=dev)
-            n_past = torch.from_numpy(self.n_past.copy()).to(dev)
-            toks = torch.from_numpy(self.toks.copy()).to(dev)
-        hist = self._decode_steps(toks, n_past, active)
+            st.active.copy_(torch.tensor([s is not None for s in self.slots]))
+            st.n_past.copy_(torch.from_numpy(self.n_past))
+            st.tok.copy_(torch.from_numpy(self.toks)[:, None])
+        # the block's ids [block, B], read back once
+        hist = self.decoder.run(st, self.cache, self.scfg, self.decode_block).cpu().numpy()
         with self._cv:
             for b, s in enumerate(self.slots):
                 if s is None:

@@ -1,14 +1,18 @@
-"""Generation loop: bucketed prefill + token-by-token decode over an
-in-place KV cache (counterpart of the JAX package's `runtime/generate.py`).
+"""Generation loop: bucketed prefill + block decode over an in-place KV
+cache (counterpart of the JAX package's `runtime/generate.py`).
 
   - Prompt chunks are right-padded to power-of-two buckets; attention masks
     by `n_past + n_tokens`, so padded positions never leak into real rows
     (the next write overwrites their cache slots), and the lm_head runs on
     the last real position only.
-  - Decode is a Python loop of single-token forwards; sampling (with
-    penalties) runs on the device, and the host reads one token id per step.
-    (The JAX package scans blocks of steps on the device; capturing the step
-    in a CUDA graph is the counterpart, not in this slice.)
+  - Decode runs in blocks of `decode_block` steps (forward, draw, penalty
+    update, n_past += 1) on the device, with n_past a device tensor, and the
+    host reads each block's tokens back once: on the card a block replays a
+    CUDA graph, on the CPU it runs uncaptured (runtime/decode_graph.py).
+    The bookkeeping is the JAX loop's: a block's steps past `max_new` or the
+    context are speculative (their cache writes past the cache are dropped,
+    the others are overwritten by the next block), terminators are checked
+    on the host after each block, and `should_stop()` between blocks.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from ..nn.transformer import KVCache, TransformerConfig, init_cache, transformer_forward
-from ..ops.sampling import PenaltyState, SamplerConfig, penalty_accept, sample_token
+from ..ops.sampling import SamplerConfig, penalty_accept, sample_token
+from .decode_graph import BlockDecoder, kv_bucket
 
 
 @dataclass
@@ -121,15 +126,21 @@ class _Emitter:
 
 
 class InferenceEngine:
-    """Runs one model (parameters + static config) on one device."""
+    """Runs one model (parameters + static config) on one device.
 
-    def __init__(self, cfg: TransformerConfig, params, *, device="cuda"):
+    `cuda_graphs=False` runs the decode blocks uncaptured on the card too:
+    the reference a replay is held against, not a fallback."""
+
+    def __init__(self, cfg: TransformerConfig, params, *, max_length: int = -1,
+                 decode_block: int = 16, device=None, cuda_graphs: bool = True):
         from ..device import resolve_device
 
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
-        self.max_length = cfg.max_length
+        self.max_length = max_length if max_length > 0 else cfg.max_length
+        self.decode_block = decode_block
+        self.decoder = BlockDecoder(cfg, params, self.device, graphs=cuda_graphs)
 
     def new_cache(self, batch: int = 1, max_len: int | None = None) -> KVCache:
         return init_cache(self.cfg, batch, max_len or self.max_length, device=self.device)
@@ -173,21 +184,30 @@ class InferenceEngine:
         perf: Optional[PerfInfo] = None,
         cache: Optional[KVCache] = None,
         n_past: int = 0,
+        completion_limit: int = -1,
+        should_stop: Callable[[], bool] = lambda: False,
         terminate_seq: Optional[list] = None,
     ):
         """Autoregressive generation.  Returns (generated ids, cache, n_past)."""
         scfg = gen_cfg.sampler_config()
         max_len = self.max_length if gen_cfg.max_length <= 0 else min(gen_cfg.max_length, self.max_length)
-        max_new = gen_cfg.max_new_tokens if gen_cfg.max_new_tokens > 0 else max_len
+        max_new = completion_limit if completion_limit > 0 else (
+            gen_cfg.max_new_tokens if gen_cfg.max_new_tokens > 0 else max_len)
         if cache is None:
             cache = self.new_cache(1, max_len)
-        gen = torch.Generator(device=self.device).manual_seed(gen_cfg.seed or 0)
 
         t0 = time.perf_counter()
         logits, cache, n_past = self.prefill(input_ids, cache, n_past, chunk=gen_cfg.batch_size)
-        penalty = PenaltyState.init(self.cfg.vocab_size, scfg.penalty_window, self.device)
-        tok, _ = sample_token(logits[0], scfg, gen, penalty)
-        penalty_accept(penalty, tok)
+        sampled = scfg.do_sample and scfg.sampling != "greedy"
+        st = self.decoder.state(1, window=scfg.penalty_window if sampled else 0, sampled=sampled)
+        gen = st.gens[0] if sampled else None
+        if sampled:
+            gen.manual_seed(gen_cfg.seed or 0)
+            st.penalty.reset()
+        # the first token comes from the prefill's logits, on the device
+        tok, _ = sample_token(logits[0], scfg, gen, st.penalty)
+        if st.penalty is not None:
+            penalty_accept(st.penalty, tok)
         first = int(tok)
         if perf:
             perf.prompt_tokens += len(input_ids)
@@ -200,17 +220,26 @@ class InferenceEngine:
         if not done:
             out.append(first)
             done = emit.step(out)
-        while not done and len(out) < max_new and n_past + 1 < max_len:
-            x = tok.reshape(1, 1)
-            logits, cache = transformer_forward(self.cfg, self.params, x, cache, n_past)
-            tok, _ = sample_token(logits[0, -1], scfg, gen, penalty)
-            penalty_accept(penalty, tok)
-            t = int(tok)
-            n_past += 1
-            if is_terminator(t):
-                break
-            out.append(t)
-            done = emit.step(out)
+        block = max(1, min(self.decode_block, max_new))
+        st.tok.copy_(tok.reshape(1, 1))
+        st.n_past.fill_(n_past)
+        cache_len = cache.k[0].shape[1]
+        while not done and len(out) < max_new and n_past + 1 < max_len and not should_stop():
+            steps = min(block, max_new - len(out), max_len - 1 - n_past)
+            toks = self.decoder.run(st, cache, scfg, block,
+                                    kv_bucket(n_past + block, cache_len))
+            toks = toks[:, 0].cpu().tolist()            # one read-back per block
+            for t in toks[:steps]:
+                n_past += 1
+                if is_terminator(t):
+                    done = True
+                    break
+                out.append(t)
+                if emit.step(out):
+                    done = True
+                    break
+            # steps past `steps` were speculative: n_past counts only the
+            # consumed ones, so the next block (or prefill) overwrites them
         emit.flush(out)
         if perf:
             perf.gen_tokens += len(out)

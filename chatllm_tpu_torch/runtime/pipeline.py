@@ -1,7 +1,7 @@
 """Pipeline: model + tokenizer orchestration for multi-round chat
 (counterpart of the JAX package's `runtime/pipeline.py` with the Restart
-context-extending method and text completion; Shift and sessions come
-later).
+context-extending method, text completion and `abort_generation`; Shift and
+sessions come later).
 """
 from __future__ import annotations
 
@@ -20,17 +20,24 @@ class Pipeline:
         self.gen_config = GenerationConfig()
         self._cache = None
         self.n_past = 0
+        self.aborted = False
         self.perf = model.perf
 
+    def abort_generation(self):
+        """Stop the running generation after its current decode block."""
+        self.aborted = True
+
     def _gen(self, ids, streamer: Optional[BaseStreamer], gen_config):
+        self.aborted = False
         eng = self.model.engine
+        max_len = eng.max_length
 
         def on_token(t):
             if streamer is not None:
                 streamer.put([t])
 
         if self._cache is None:
-            self._cache = eng.new_cache(1, eng.max_length)
+            self._cache = eng.new_cache(1, max_len)
         out, self._cache, self.n_past = eng.generate(
             ids, gen_config,
             is_terminator=self.tokenizer.is_terminate_token,
@@ -38,6 +45,7 @@ class Pipeline:
             perf=self.perf,
             cache=self._cache,
             n_past=self.n_past,
+            should_stop=lambda: self.aborted,
             terminate_seq=getattr(self.tokenizer, "terminate_seq", None),
         )
         return out

@@ -54,10 +54,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              bf16 cache (K1, K2 and K3's mode 2 must launch: the projections
              return f32, so K3 takes an f32 query and no path of the engine
              launches its bf16 kernel), then the 1000-token prompt over a q8
-             cache (K4 launches 32 times per decode step).
+             cache (K4 launches 32 times per decode step).  Decode runs in
+             blocks of 16 steps replayed from CUDA graphs: each engine runs
+             its prompts once (capturing) and is counted on the second run,
+             in which every block replays (63 decode steps: 4 blocks, 64
+             steps launched, K4 32 x 64).
+     graph_decode  the same model and the 1000-token prompt, 64 greedy
+             tokens, over a bf16 and a q8 cache, with the decode blocks
+             uncaptured (the reference) and replayed from graphs in the same
+             call: identical tokens, exact launches per replayed step (K1 225,
+             K4 32 over the q8 cache), both decode rates, the graphs and
+             their capture ms, peak memory, one replayed block timed and
+             profiled (busy share, top kernels) and K1's and K4's shares of
+             a replayed step from the kernel table.
   4. bench   `chatllm_tpu_torch.bench.run_bench` on the same full-width
              params (TTFT at 512 and 2048 tokens, single-stream and batched
-             decode, the K6 read-bandwidth probe), its JSON line printed; then
+             decode replayed from CUDA graphs, the K6 read-bandwidth probe),
+             its JSON line printed, launches exact per section (its warm-up
+             blocks and two runs of replays); then
              the B=8 batched decode once more with CHATLLM_TPU_QMM_V2=1 (K5
              launches 225 times per step, K2 not at all) and K5's tokens and
              last-step logits held against K2's on the same token history
@@ -67,7 +81,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   5. serve   the same model with a q8 cache behind the HTTP server with 4
              slots: 8 chat requests of ~30 to ~1000 tokens, 32 greedy tokens
              each, sent one at a time and then all at once; the replies must
-             be identical, and K2 and K4 must launch.
+             be identical, and K2 and K4 must launch (BatchedEngine's decode
+             blocks replay CUDA graphs captured over the shared cache).
   6. two_layer  2-layer cuts at full width against a CPU run of the same
              weights (1e-3 of the logit scale, same argmax): a 40-token
              prefill, and one batched decode step of 4 slots at per-row
@@ -86,14 +101,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              chat path of phase 3 also takes mode 2: its projections return
              f32; the launches by mode are recorded.)
      switches  CHATLLM_TPU_FLASH_DECODE=1 (forced) and =0 on a bf16 cache at
-             B = 8 through BatchedEngine (K4 32 times per batched step, or
-             never), CHATLLM_TPU_FLASH=0 on the 1000-token prefill (no K3).
+             B = 8 through BatchedEngine (K4 32 times per batched step, warm-up
+             and replayed, or never), CHATLLM_TPU_FLASH=0 on the 1000-token
+             prefill (no K3).
   7. qwen2   full-width Qwen2.5-0.5B (24 layers, vocab 151936, random q8_0
              weights with non-zero q/k/v biases, tied lm_head, max_length
              8192) through InferenceEngine over bf16 and q8 caches with exact
-             launch counts (168 quantized projections per token), and its
-             2-layer cuts against the CPU (1e-2 of the logit scale, same
-             argmax).
+             launch counts (168 quantized projections per token), its 2-layer
+             cuts against the CPU (1e-2 of the logit scale, same argmax), and
+             graph_decode at its width.
   8. cli     write narrow LLAMA3 and Qwen2 GGMMs with the port's writer and
              chat through `python -m chatllm_tpu_torch.main` twice each
              (bf16 cache; --cache_dtype q8_0; Qwen2 with ChatML and a tied
@@ -146,6 +162,7 @@ SHAPES_8B = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
              "down": (14336, 4096), "lm_head": (4096, 128256)}
 PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}
 N_LAYERS = 32
+DECODE_BLOCK = 16                  # InferenceEngine's default decode_block
 
 
 def log(msg: str):
@@ -1410,24 +1427,36 @@ def e6_cases(dev, timer, gen) -> dict:
 
 
 # --------------------------------------------------------- llama3_8b phase
+def decode_launches(new_tokens: int, block: int = DECODE_BLOCK) -> int:
+    """Decode steps one greedy generate launches: its `new_tokens` - 1
+    decode steps after the prompt run as ceil(. / b) whole blocks of b =
+    min(block, new_tokens) steps (the last block's extra steps are
+    speculative)."""
+    b = min(block, new_tokens)
+    return -(-(new_tokens - 1) // b) * b
+
+
 def chat_phase(dev, cfg, params) -> dict:
     """The chat path at full width (Llama-3-8B, and Qwen2.5-0.5B from
     qwen2_phase): bf16 cache (K1-K3), then a q8 cache (K4 on every decode
-    step), each path's launches counted from 0."""
+    step), each path's launches counted from 0.  Each engine runs its
+    prompts once on the cache it keeps (capturing its decode graphs), then
+    again, counted: every decode block of the counted run replays a graph,
+    and the launches are exact per replayed step."""
     from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
     from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
     from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
 
-    eng = InferenceEngine(cfg, params, device=dev)
     rng = np.random.default_rng(0)
     prompts = {"prompt_40": rng.integers(0, cfg.vocab_size, 40).tolist(),
                "prompt_1000": rng.integers(0, cfg.vocab_size, 1000).tolist()}
     gcfg = GenerationConfig(do_sample=False, max_new_tokens=64)
-    eng.generate(prompts["prompt_40"][:8], replace(gcfg, max_new_tokens=4))   # warm-up
 
-    def run(engine, name, ids, before):
+    def run(engine, kv, name, ids, before):
         perf = PerfInfo()
-        out, _, n_past = engine.generate(ids, gcfg, perf=perf)
+        dec = engine.decoder
+        was = (dec.num_graphs(), dec.eager_steps, dec.replayed_steps)
+        out, _, n_past = engine.generate(ids, gcfg, perf=perf, cache=kv)
         torch.cuda.synchronize()
         after = launch_counts()
         # the first token comes out of the prefill; gen_ms times the
@@ -1436,51 +1465,191 @@ def chat_phase(dev, cfg, params) -> dict:
         r = {"prompt_tokens": len(ids), "prefill_ms": perf.prompt_ms,
              "gen_tokens": perf.gen_tokens, "decode_steps": steps,
              "decode_ms": perf.gen_ms, "decode_tok_s": steps / perf.gen_ms * 1e3,
+             "replayed_steps": dec.replayed_steps - was[2],
              "launches": {k: after[k] - before[k] for k in after}}
         log(f"  {name}: {r}")
+        want = decode_launches(gcfg.max_new_tokens)
         if len(out) != gcfg.max_new_tokens or n_past != len(ids) + len(out) - 1:
             raise AssertionError(f"{name}: {len(out)} tokens, n_past {n_past}")
+        if (dec.num_graphs(), dec.eager_steps) != was[:2] or r["replayed_steps"] != want:
+            raise AssertionError(f"{name}: graphs / warm-up steps {was[:2]} -> "
+                                 f"{(dec.num_graphs(), dec.eager_steps)}, replayed "
+                                 f"{r['replayed_steps']} steps (expected {want}): a decode "
+                                 "block of the counted run did not replay a graph")
         return r, after
 
-    res = {}
+    eng = InferenceEngine(cfg, params, device=dev)
+    kv = eng.new_cache(1)
+    # warm: the 1000-token prompt captures the buckets of both prompts
+    # (1024 and 2048 slots; the 40-token one stays in the first)
+    eng.generate(prompts["prompt_1000"], gcfg, cache=kv)
+    res = {"graphs": eng.decoder.num_graphs(), "capture_ms": eng.decoder.capture_ms}
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     reset_mode_launches()
     before = launch_counts()
     for name, ids in prompts.items():
-        res[name], before = run(eng, name, ids, before)
+        res[name], before = run(eng, kv, name, ids, before)
     res["launches"] = launch_counts()
     # the projections return f32, so K3 takes an f32 query over the bf16
     # cache: mode 2 (ops/cuda/flash.py MODES)
     res["flash_modes"] = dict(MODE_LAUNCHES)
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     log(f"  main-path launches {res['launches']} (K3 by mode {res['flash_modes']}), peak "
-        f"memory {res['peak_mem_gib']:.2f} GiB")
+        f"memory {res['peak_mem_gib']:.2f} GiB, {res['graphs']} decode graphs captured in "
+        f"{res['capture_ms']:.0f} ms (warm-up blocks included)")
     for k in ("qgemv", "qmm", "flash_attention"):
         if res["launches"][k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     if res["flash_modes"][2] <= 0:
         raise AssertionError(f"K3's f32 kernel (mode 2) was not launched on the main path: "
                              f"{res['flash_modes']}")
-    del eng
+    del eng, kv
     torch.cuda.empty_cache()
 
     # --cache_dtype q8_0: the 1000-token prompt, 64 greedy tokens
     eng = InferenceEngine(replace(cfg, cache_dtype="int8"), params, device=dev)
-    eng.generate(prompts["prompt_40"][:8], replace(gcfg, max_new_tokens=4))   # warm-up
+    kv = eng.new_cache(1)
+    eng.generate(prompts["prompt_1000"], gcfg, cache=kv)              # warm
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    r, _ = run(eng, "q8_prompt_1000", prompts["prompt_1000"], launch_counts())
+    r, _ = run(eng, kv, "q8_prompt_1000", prompts["prompt_1000"], launch_counts())
     r["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    r["flash_decode_per_step"] = r["launches"]["flash_decode"] / r["decode_steps"]
+    r["flash_decode_per_step"] = r["launches"]["flash_decode"] / r["replayed_steps"]
     res["q8_prompt_1000"] = r
     log(f"  q8 cache: prefill {r['prefill_ms']:.1f} ms, {r['decode_tok_s']:.2f} decode "
         f"steps/s, peak memory {r['peak_mem_gib']:.2f} GiB, K4 launches "
-        f"{r['launches']['flash_decode']} ({r['flash_decode_per_step']:.0f} per step)")
-    want = cfg.num_hidden_layers * (gcfg.max_new_tokens - 1)
+        f"{r['launches']['flash_decode']} ({r['flash_decode_per_step']:.0f} per replayed step)")
+    # 63 decode steps in blocks of 16: 4 replayed blocks, 64 steps, 32 K4 each
+    want = cfg.num_hidden_layers * decode_launches(gcfg.max_new_tokens)
     if r["launches"]["flash_decode"] != want:
         raise AssertionError(f"q8 run: K4 launched {r['launches']['flash_decode']} times, "
-                             f"expected {want}")
+                             f"expected {want} (layers x replayed steps)")
+    return res
+
+
+def _profile_block(eng, kv, n_past: int) -> dict:
+    """One replayed decode block of 16 greedy steps at `n_past` (its graph
+    already captured) timed with CUDA events, then once more under
+    torch.profiler: the kernels' device time by name, and their sum over
+    the block's time on the card (the device's busy share; None when the
+    profiler sees no device time)."""
+    from chatllm_tpu_torch.runtime.decode_graph import kv_bucket
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig
+
+    scfg = GenerationConfig(do_sample=False).sampler_config()    # the engine's key
+    dec, st = eng.decoder, eng.decoder.state(1)
+    kv_len = kv_bucket(n_past + DECODE_BLOCK, kv.k[0].shape[1])
+
+    def block():
+        st.n_past.fill_(n_past)
+        return dec.run(st, kv, scfg, DECODE_BLOCK, kv_len)
+
+    graphs = dec.num_graphs()
+    block()
+    torch.cuda.synchronize()
+    if dec.num_graphs() != graphs:
+        raise AssertionError("the profiled block captured a new graph")
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(5):
+        t0.record()
+        block()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    block_ms = float(np.median(times))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        block()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1000.0
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:10]
+    return {"block_ms": block_ms, "step_ms": block_ms / DECODE_BLOCK,
+            "kernel_ms": dev_ms or None,
+            "busy_share": dev_ms / block_ms if dev_ms else None,
+            "top_kernels_ms": {k: v for k, v in top}}
+
+
+def graph_decode_phase(dev, cfg, params, name: str, *, tied: bool = False) -> dict:
+    """CUDA-graph decode against the uncaptured loop at full width (max_length
+    8192): over a bf16 and a q8 cache, the 1000-token prompt and 64 greedy
+    tokens through InferenceEngine, once with its decode blocks uncaptured
+    (`cuda_graphs=False`, the reference) and once replayed from graphs, each
+    counted after one warm run on the cache it keeps.  The tokens must be
+    identical.  (The uncaptured engine needs no warm run: the kernels are
+    loaded.)  Both runs launch 64 steps (63 decode steps in 4 blocks of
+    16), exactly: K1 7 x layers per step (+ the lm_head when untied; + one
+    for the prefill's last row), K4 once per layer and step over the q8
+    cache.  Recorded: eager and graph decode steps/s in the same call, the
+    graphs and their capture ms, peak memory, and one replayed block timed
+    and profiled (`_profile_block`)."""
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
+
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 1000).tolist()
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=64)
+    L = cfg.num_hidden_layers
+    steps = decode_launches(gcfg.max_new_tokens)
+    res = {}
+    for cache in ("bfloat16", "int8"):
+        c = replace(cfg, cache_dtype=cache)
+        want = {"qgemv": (7 * L + (0 if tied else 1)) * steps + (0 if tied else 1),
+                "flash_decode": L * steps if cache == "int8" else 0}
+        runs = {}
+        for mode in ("eager", "graph"):
+            eng = InferenceEngine(c, params, device=dev, cuda_graphs=mode == "graph")
+            kv = eng.new_cache(1)
+            t0 = time.perf_counter()
+            if mode == "graph":
+                eng.generate(ids, gcfg, cache=kv)               # warm: captures
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            perf = PerfInfo()
+            out, kv, n_past = eng.generate(ids, gcfg, perf=perf, cache=kv)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            dec = eng.decoder
+            r = {"tokens": out, "n_past": n_past, "prefill_ms": perf.prompt_ms,
+                 "decode_ms": perf.gen_ms, "decode_steps_s": (len(out) - 1) / perf.gen_ms * 1e3,
+                 "launched_steps_s": steps / perf.gen_ms * 1e3, "warm_run_s": warm_s,
+                 "graphs": dec.num_graphs(), "capture_ms": dec.capture_ms,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                 "launches": {k: got[k] for k in ("qgemv", "qmm", "flash_attention",
+                                                  "flash_decode", "flash_decode_int8")}}
+            if mode == "graph":
+                r["profiled_block"] = _profile_block(eng, kv, len(ids) + 48)
+            runs[mode] = r
+            log(f"  {name} {cache} cache, {mode}: {r['decode_steps_s']:.2f} decode steps/s "
+                f"({r['decode_ms']:.1f} ms), prefill {r['prefill_ms']:.1f} ms, warm run "
+                f"{warm_s:.2f} s, {r['graphs']} graphs captured in {r['capture_ms']:.0f} ms, "
+                f"peak {r['peak_mem_gib']:.2f} GiB, launches {r['launches']}")
+            if len(out) != gcfg.max_new_tokens or n_past != len(ids) + len(out) - 1:
+                raise AssertionError(f"{name} {cache} {mode}: {len(out)} tokens, n_past {n_past}")
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"{name} {cache} {mode}: launches {r['launches']}, "
+                                     f"expected {want} ({steps} launched steps)")
+            del eng, kv
+            torch.cuda.empty_cache()
+        pb = runs["graph"]["profiled_block"]
+        log(f"  {name} {cache} cache: replayed block {pb['block_ms']:.2f} ms "
+            f"({pb['step_ms']:.3f} per step), kernels {pb['kernel_ms']} ms, busy share "
+            f"{pb['busy_share']}; top kernels {pb['top_kernels_ms']}")
+        if runs["graph"]["tokens"] != runs["eager"]["tokens"]:
+            raise AssertionError(f"{name} {cache}: graph tokens differ from the eager loop's:\n"
+                                 f"{runs['graph']['tokens']}\n{runs['eager']['tokens']}")
+        runs["graph_over_eager"] = (runs["graph"]["decode_steps_s"]
+                                    / runs["eager"]["decode_steps_s"])
+        res[cache] = runs
     return res
 
 
@@ -1734,6 +1903,18 @@ def _forced_decode(cfg, params, cache, feed):
     return torch.stack(toks, dim=1), logits[:, -1, :].float()
 
 
+def bench_section_steps(n_past: int, steps: int, ctx: int) -> int:
+    """Decode steps one bench section launches: its two calls (warm, timed)
+    replay ceil(steps / b) blocks of b = min(16, steps) each, and the warm
+    call first runs one uncaptured warm-up block per KV bucket it captures."""
+    from chatllm_tpu_torch.bench import DECODE_BLOCK
+    from chatllm_tpu_torch.runtime.decode_graph import kv_bucket
+
+    b = min(DECODE_BLOCK, steps)
+    starts = range(n_past, n_past + steps, b)
+    return b * len({kv_bucket(i + b, ctx) for i in starts}) + 2 * b * len(starts)
+
+
 def bench_phase(dev, cfg, params) -> dict:
     """The bench entry point on the full-width params already on the card,
     launches counted from 0; then the batched section under
@@ -1763,11 +1944,14 @@ def bench_phase(dev, cfg, params) -> dict:
         raise AssertionError(f"bench: measured read bandwidth {line['bw_measured_gb_s']} GB/s "
                              "is outside 1000..3350 (above the H100's peak is an error)")
     # every section runs twice (warm, timed): 4 prefills (K3 on each layer, K1
-    # for the one-row lm_head), 2 single-stream decodes (K1), 3 batched
-    # sections (K2), and the probe (K6)
+    # for the one-row lm_head), a single-stream decode section (K1) and 3
+    # batched ones (K2), each its warm-up blocks and two runs of replays,
+    # and the probe (K6)
     L = cfg.num_hidden_layers
-    want = {"flash_attention": 4 * L, "qgemv": 2 * steps * per_step + 4,
-            "qmm": 3 * 2 * steps * per_step, "qmm_decode": 0, "flash_decode": 0}
+    one, batched = bench_section_steps(512, steps, ctx), bench_section_steps(0, steps, ctx)
+    res["section_steps"] = {"single": one, "batched": batched}
+    want = {"flash_attention": 4 * L, "qgemv": one * per_step + 4,
+            "qmm": 3 * batched * per_step, "qmm_decode": 0, "flash_decode": 0}
     got = res["launches"]
     if any(got[k] != v for k, v in want.items()) or got["bw_probe"] <= 0:
         raise AssertionError(f"bench launches {got}, expected {want} and bw_probe > 0")
@@ -1779,8 +1963,8 @@ def bench_phase(dev, cfg, params) -> dict:
         v2 = launch_counts()
         log(f"  bench B={B} under CHATLLM_TPU_QMM_V2=1: {v2_rate:.1f} tok/s (K2: "
             f"{line['batched8_tok_s']}), launches {v2}")
-        if v2["qmm_decode"] != 2 * steps * per_step or v2["qmm"] != 0:
-            raise AssertionError(f"V2 run: launches {v2}, expected K5 {2 * steps * per_step} "
+        if v2["qmm_decode"] != batched * per_step or v2["qmm"] != 0:
+            raise AssertionError(f"V2 run: launches {v2}, expected K5 {batched * per_step} "
                                  "and K2 0")
         # K5 against K2 on K2's own token history (so a flipped argmax does
         # not send the two runs down different paths)
@@ -1865,10 +2049,11 @@ def qwen2_phase(dev) -> dict:
     params = build_synthetic_params(cfg, "q8", zeros=False, seed=0, device=dev)
     torch.cuda.synchronize()
     res = chat_phase(dev, cfg, params)
-    L, steps = cfg.num_hidden_layers, 63
+    L = cfg.num_hidden_layers
+    steps = decode_launches(64)   # 63 decode steps: 4 blocks of 16
     per_token = 7 * L                       # 168 quantized projections
-    # bf16: two prompts x 63 decode steps (K1); the 40-token prompt is one
-    # 64-row chunk (K2); the 1000-token prompt one 1024-row chunk (K3)
+    # bf16: two prompts x 64 replayed decode steps (K1); the 40-token prompt
+    # is one 64-row chunk (K2); the 1000-token prompt one 1024-row chunk (K3)
     want = {"qgemv": 2 * steps * per_token, "qmm": per_token, "flash_attention": L,
             "flash_decode": 0}
     got = res["launches"]
@@ -1887,6 +2072,7 @@ def qwen2_phase(dev) -> dict:
     # (tests/test_torch_qwen.py::test_two_layer_cut_logits_move_with_an_f32_level_perturbation).
     # The card read 2.1e-3 (prefill) and 4.5e-3 (batched q8 step), same argmax.
     res["two_layer"] = two_layer_phase(dev, cfg, params, tol=1e-2)
+    res["graph_decode"] = graph_decode_phase(dev, cfg, params, "qwen2_5_0_5b", tied=True)
     return res
 
 
@@ -2045,8 +2231,9 @@ def int8_engine_phase(dev, cfg, params) -> dict:
     """Llama-3-8B at full width over a q8 cache under CHATLLM_TPU_FLASH_QK=int8:
     the first decode step after the 1000-token prompt against the bf16-dot
     run's (INT8_LOGIT_TOL of the logit scale, the same argmax), then 16
-    greedy tokens with K4's int8 dots on every layer of every decode step,
-    and their decode rate (recorded, not checked)."""
+    greedy tokens with K4's int8 dots on every layer of every decode step
+    (one block of 16 steps, warmed once, then counted as a replay), and
+    their decode rate (recorded, not checked)."""
     import os
 
     from chatllm_tpu_torch.nn.transformer import transformer_forward
@@ -2075,24 +2262,29 @@ def int8_engine_phase(dev, cfg, params) -> dict:
         got = res["first_step_launches_int8"]
         if any(got[k] != v for k, v in want.items()):
             raise AssertionError(f"int8 first step launches {got}, expected {want}")
-        reset_launch_counts()
         gcfg = GenerationConfig(do_sample=False, max_new_tokens=16)
+        kv = eng.new_cache(1)
+        eng.generate(ids, gcfg, cache=kv)                   # warm: captures the block
+        reset_launch_counts()
         perf = PerfInfo()
-        out, _, _ = eng.generate(ids, gcfg, perf=perf)
+        out, _, _ = eng.generate(ids, gcfg, perf=perf, cache=kv)
         torch.cuda.synchronize()
         res["launches"] = got = launch_counts()
         res["tokens_int8"] = out
+        del kv
     finally:
         os.environ.pop("CHATLLM_TPU_FLASH_QK", None)
     steps = len(out) - 1
+    launched = decode_launches(16)      # 15 decode steps: one block of 16
     res["decode_tok_s"] = steps / perf.gen_ms * 1e3
     log(f"  int8 dots: 16 greedy tokens {out}, {res['decode_tok_s']:.2f} decode steps/s, "
         f"launches {got}")
-    if len(out) != 16 or got["flash_decode_int8"] != N_LAYERS * steps or got["flash_decode"]:
+    if (len(out) != 16 or got["flash_decode_int8"] != N_LAYERS * launched
+            or got["flash_decode"]):
         raise AssertionError(f"int8 run: {len(out)} tokens, K4 int8 launched "
-                             f"{got['flash_decode_int8']} times (expected {N_LAYERS * steps}), "
-                             f"bf16-dot K4 {got['flash_decode']}")
-    res["flash_decode_int8_per_step"] = got["flash_decode_int8"] / steps
+                             f"{got['flash_decode_int8']} times (expected {N_LAYERS * launched}: "
+                             f"layers x replayed steps), bf16-dot K4 {got['flash_decode']}")
+    res["flash_decode_int8_per_step"] = got["flash_decode_int8"] / launched
     return res
 
 
@@ -2119,13 +2311,14 @@ def f32_engine_phase(dev, cfg, params) -> dict:
             ("f32_cache", 1, replace(cfg, cache_dtype="float32"), params),
             ("f32_compute", 2, cfg, dict(params, embed=params["embed"].float()))):
         eng = InferenceEngine(c, p, device=dev)
-        eng.generate(ids[:8], replace(gcfg, max_new_tokens=4))      # warm-up
+        kv = eng.new_cache(1)
+        eng.generate(ids, gcfg, cache=kv)        # warm-up: captures the decode graph
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_launch_counts()
         reset_mode_launches()
         perf = PerfInfo()
-        out, _, n_past = eng.generate(ids, gcfg, perf=perf)
+        out, kv, n_past = eng.generate(ids, gcfg, perf=perf, cache=kv)
         torch.cuda.synchronize()
         got = launch_counts()
         steps = len(out) - 1
@@ -2142,7 +2335,7 @@ def f32_engine_phase(dev, cfg, params) -> dict:
             raise AssertionError(f"{name}: {len(out)} tokens, n_past {n_past}, K3 launched "
                                  f"{got['flash_attention']} times by mode {MODE_LAUNCHES} "
                                  f"(expected {N_LAYERS} in mode {mode})")
-        del eng, p
+        del eng, p, kv
         torch.cuda.empty_cache()
 
     cfg2 = replace(cfg, num_hidden_layers=2, cache_dtype="float32")
@@ -2177,21 +2370,12 @@ def switch_phase(dev, cfg, params) -> dict:
     from chatllm_tpu_torch.runtime import batching
     from chatllm_tpu_torch.runtime.generate import InferenceEngine
 
-    calls = []
-    forward = batching.transformer_forward
-
-    def counted(cfg_, params_, x, *a, **kw):
-        calls.append(x.shape[0])
-        return forward(cfg_, params_, x, *a, **kw)
-
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, 20 + 7 * i).tolist() for i in range(8)]
     res = {}
-    batching.transformer_forward = counted
     try:
         for value in ("1", "0"):
             os.environ["CHATLLM_TPU_FLASH_DECODE"] = value
-            calls.clear()
             reset_launch_counts()
             eng = batching.BatchedEngine(cfg, params, max_slots=8, max_length=2048,
                                          decode_block=4, scfg=SamplerConfig(do_sample=False),
@@ -2202,17 +2386,22 @@ def switch_phase(dev, cfg, params) -> dict:
                 eng.shutdown()
             torch.cuda.synchronize()
             got = launch_counts()
-            steps = sum(b == 8 for b in calls)
+            # batched steps launched: the uncaptured warm-up blocks and the
+            # replayed ones (the slots' prefills are single-row forwards)
+            dec = eng.decoder
+            steps = dec.eager_steps + dec.replayed_steps
             res[f"flash_decode_{value}"] = {"launches": got, "batched_steps": steps,
-                                           "tokens": toks}
-            log(f"  CHATLLM_TPU_FLASH_DECODE={value}, bf16 cache, B=8: {steps} batched steps, "
-                f"K4 launches {got['flash_decode']}")
+                                           "replayed_steps": dec.replayed_steps,
+                                           "graphs": dec.num_graphs(), "tokens": toks}
+            log(f"  CHATLLM_TPU_FLASH_DECODE={value}, bf16 cache, B=8: {steps} batched steps "
+                f"({dec.replayed_steps} replayed from {dec.num_graphs()} graphs), K4 launches "
+                f"{got['flash_decode']}")
             want = N_LAYERS * steps if value == "1" else 0
-            if got["flash_decode"] != want or steps == 0 or any(len(t) != 16 for t in toks):
+            if (got["flash_decode"] != want or dec.replayed_steps == 0
+                    or any(len(t) != 16 for t in toks)):
                 raise AssertionError(f"CHATLLM_TPU_FLASH_DECODE={value}: K4 {got['flash_decode']} "
                                      f"(expected {want}), {steps} steps, {toks}")
     finally:
-        batching.transformer_forward = forward
         os.environ.pop("CHATLLM_TPU_FLASH_DECODE", None)
     a, b = res["flash_decode_1"]["tokens"], res["flash_decode_0"]["tokens"]
     res["tokens_equal_share"] = float(np.mean([x == y for s, t in zip(a, b) for x, y in zip(s, t)]))
@@ -2356,6 +2545,22 @@ def _line_entry(name, src, rep, shapes, mult, cases, launches) -> dict:
             "bound_by": shapes[top]["bound_by"], "library_ms": tot["library_ms"]}
 
 
+def kernel_shares(kres: dict, gd: dict, key: str, layers: int, head: bool,
+                  k4_shape: str) -> dict:
+    """K1's time per decode token and K4's per q8 step (this run's kernel
+    table, L2 flushed before each launch) over the replayed step's time on
+    the card (the profiled block's events), per cache."""
+    k1 = sum(n * kres["qgemv"][key][s]["ms"] for s, n in _per_token(layers, head).items())
+    k4 = layers * kres["flash_decode"]["shapes"][k4_shape]["ms"]
+    out = {}
+    for cache, runs in gd.items():
+        step = runs["graph"]["profiled_block"]["step_ms"]
+        out[cache] = {"step_ms": step, "k1_ms": k1, "k1_share": k1 / step}
+        if cache == "int8":
+            out[cache].update(k4_ms=k4, k4_share=k4 / step)
+    return out
+
+
 def k5_vs_k2(kres: dict) -> dict:
     """K5 beside K2, the library call and the bound, each summed over one
     8-row batched decode step (Llama-3-8B: 32 x 7 projections + the
@@ -2461,6 +2666,13 @@ def main() -> int:
     report["llama3_8b"] = chat_phase(dev, cfg, params)
     torch.cuda.empty_cache()
 
+    log("== graph_decode")
+    report["graph_decode"] = graph_decode_phase(dev, cfg, params, "llama3_8b")
+    report["graph_decode"]["kernel_shares"] = kernel_shares(
+        report["kernels"], report["graph_decode"], "shapes", N_LAYERS, True, "decode_1000")
+    log(f"  kernel shares of a replayed step: {report['graph_decode']['kernel_shares']}")
+    torch.cuda.empty_cache()
+
     log("== bench")
     report["bench"] = bench_phase(dev, cfg, params)
     torch.cuda.empty_cache()
@@ -2489,6 +2701,11 @@ def main() -> int:
 
     log("== qwen2")
     report["qwen2"] = qwen2_phase(dev)
+    report["qwen2"]["graph_decode"]["kernel_shares"] = kernel_shares(
+        report["kernels"], report["qwen2"]["graph_decode"], "qwen_shapes", QWEN_LAYERS, False,
+        "decode_1000_qwen")
+    log(f"  Qwen2.5-0.5B kernel shares of a replayed step: "
+        f"{report['qwen2']['graph_decode']['kernel_shares']}")
     torch.cuda.empty_cache()
 
     log("== cli")

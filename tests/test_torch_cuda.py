@@ -495,6 +495,124 @@ def test_flash_decode_int8_replays_in_a_cuda_graph(dev, B, n_past, new_n_past):
         assert torch.equal(o, flash_decode(q, k, v, npv.clone(), T, **kw)), values
 
 
+def _replays_as_eager(dev, call, refill):
+    """`call()` captured in a CUDA graph after one eager call; `refill()`
+    writes new values into its inputs.  Each replay after a refill gives
+    the bits of an eager call on the same inputs."""
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for i in range(2):
+        refill(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call()), i
+
+
+@pytest.mark.parametrize("qk_dtype", ["bfloat16", "float32"])
+def test_flash_decode_float_dots_replay_in_a_cuda_graph(dev, qk_dtype):
+    """K4's float dots over a bf16 cache, captured: a replay after q and the
+    n_past vector change gives the eager call's bits."""
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, T, Hq, Hkv, D, S = 2, 1, 32, 8, 128, 8192
+    q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(getattr(torch, qk_dtype))
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    npv = torch.tensor([1000, 40], dtype=torch.int64, device=dev)
+
+    def refill(i):
+        q.copy_(torch.randn(q.shape, generator=gen, device=dev))
+        npv.copy_(torch.tensor([[5000, 8191], [3, 2048]][i]))
+
+    _replays_as_eager(dev, lambda: flash_decode(q, k, v, npv, T, scale=D ** -0.5,
+                                                qk_dtype=qk_dtype), refill)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_quantized_matmul_kernels_replay_in_a_cuda_graph(dev, rows):
+    """K1 (one row) and K2 (8 rows) on a q4_k weight at Llama-3-8B's
+    gate shape, captured: a replay after x changes gives the eager bits."""
+    from chatllm_tpu_torch.ops.cuda.gemv_kernel import qgemv
+    from chatllm_tpu_torch.ops.cuda.qmm_kernel import qmm
+
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    lin = _weights("q4_k", 4096, 14336, gen, dev)
+    kw = dict(group=lin.group_size, packed=lin.packed, zero_point=lin.zero_point,
+              d=lin.d, dm=lin.dm, sb=lin.sb)
+    x = torch.randn(rows, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    kern = qgemv if rows == 1 else qmm
+    _replays_as_eager(dev, lambda: kern(x, lin.q, lin.s, lin.b, lin.bias, **kw),
+                      lambda i: x.copy_(torch.randn(x.shape, generator=gen, device=dev)))
+
+
+def test_multinomial_draws_under_capture(dev):
+    """torch.multinomial from a generator registered with the graph makes no
+    host sync under capture, and a replay after a reseed draws what an eager
+    call of that seed draws."""
+    probs = torch.softmax(torch.randn(128256, generator=torch.Generator(device=dev)
+                                      .manual_seed(0), device=dev) * 3, dim=-1)
+    gen = torch.Generator(device=dev)
+    torch.multinomial(probs, 1, generator=gen)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        tok = torch.multinomial(probs, 1, generator=gen)
+    for seed in (1, 2):
+        gen.manual_seed(seed)
+        graph.replay()
+        got = tok.clone()
+        gen.manual_seed(seed)
+        assert torch.equal(got, torch.multinomial(probs, 1, generator=gen)), seed
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_engine_decode_blocks_replay_as_the_uncaptured_run(dev, cache, sampled):
+    """A 2-layer cut of Llama-3-8B (random q4_k weights, max_length 8192):
+    InferenceEngine replaying its decode blocks from CUDA graphs gives the
+    uncaptured run's tokens and cache bits, greedy and sampled, over a bf16
+    cache (the chunked attention over the KV bucket) and a q8 one (K4).  A 1000-token
+    prompt and 40 tokens: 39 decode steps in blocks of 16, so 3 blocks over
+    the buckets 1024, 2048, 2048 (2 captures, each after one warm-up
+    block).  The launch counts are exact: each step launches K1 15 times (2
+    x 7 projections + the lm_head) and K4 2 times over the q8 cache, and a
+    second run on the same cache replays every block."""
+    from dataclasses import replace
+
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, llama3_8b_config
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    cfg = replace(llama3_8b_config(max_length=8192), num_hidden_layers=2, cache_dtype=cache)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 1000).tolist()
+    g = GenerationConfig(do_sample=sampled, max_new_tokens=40, temperature=1.2, top_k=50,
+                         top_p=0.95, repeat_penalty=1.2, seed=5)
+    ref = InferenceEngine(cfg, params, device=dev, cuda_graphs=False).generate(ids, g)
+    eng = InferenceEngine(cfg, params, device=dev)
+    kv = eng.new_cache(1)
+    k4 = 2 if cache == "int8" else 0
+    for run, (eager_steps, replayed) in enumerate(((32, 48), (32, 96))):
+        reset_launch_counts()
+        out, _, n_past = eng.generate(ids, g, cache=kv)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        assert out == ref[0] and n_past == ref[2] == 1000 + 39, run
+        for name in ("k", "v", "k_scale", "v_scale"):
+            for got_t, want_t in zip(getattr(kv, name) or (), getattr(ref[1], name) or ()):
+                assert torch.equal(got_t, want_t), (run, name)
+        assert (eng.decoder.num_graphs(), eng.decoder.eager_steps,
+                eng.decoder.replayed_steps) == (2, eager_steps, replayed), run
+        steps = 48 + (32 if run == 0 else 0)     # replayed, and warm-up blocks in run 0
+        assert got["qgemv"] == 15 * steps + 1, (run, got)   # + the prefill's lm_head
+        assert got["flash_decode"] == k4 * steps, (run, got)
+
+
 @pytest.mark.parametrize("cache", ["int8", "bfloat16"])
 @pytest.mark.parametrize("n_past", [0, 47, 700])
 def test_flash_decode_on_a_head_major_cache(dev, cache, n_past):
