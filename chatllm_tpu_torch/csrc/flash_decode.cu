@@ -1,8 +1,10 @@
 // K4: flash decode, the attention of a few new tokens over the whole cache.
 //
-//   q [B, T, Hq, D] (bf16 or f32); cache k/v [B, S, Hkv, D], int8 with f32
-//   scales [B, S, Hkv] (the q8 cache) or bf16 / f32  ->  o [B, T, Hq, D]
-//   in q's dtype
+//   q [B, T, Hq, D] (bf16 or f32); cache k [B, S, Hkv, D] and v [B, S, Hkv,
+//   Dv], int8 with f32 scales [B, S, Hkv] (the q8 cache) or bf16 / f32  ->
+//   o [B, T, Hq, Dv] in q's dtype.  D = Dv = 64 or 128, or (float dots only)
+//   multi-head latent attention's expanded cache, D 192 (128 nope + 64 rope
+//   dims) and Dv 128, with one query head per kv head
 //
 // Replaces chatllm_tpu/ops/pallas/flash_decode.py::flash_decode: with bf16
 // or f32 dots its batched kernel `_batched_kernel` and its per-head kernel
@@ -88,6 +90,12 @@
 //     the cast: one launch per call, no scratch in device memory, no
 //     atomics.
 //  6. The dots stay on the CUDA cores' FMAs.
+//  7. K and V rows may differ in width (DK, DV): the ring's K tiles are DK
+//     wide, its V tiles, the P V columns and the merged outputs DV wide.
+//     MLA's (192, 128) is instantiated for up to 8 rows (G = 1, T <= 8), the
+//     rows the JAX package's per-head kernel takes there with f32 dots; its
+//     stages at 64 keys are 22 KB (int8), 42 KB (bf16) or 83 KB (f32), so 4,
+//     2 and 2 stages fit the ring's 96 KB target.
 //
 // Int8 dots (`decode_int8_kernel`), the Hopper design.  The first design
 // (one block of 128 threads per block_k-key quantization block, a grid
@@ -365,50 +373,53 @@ __device__ __forceinline__ void owner_merge(const Params& p, const float* racc, 
 }
 
 // The float-dot kernel's shared memory: a ring of STAGES stages, each a
-// 64-key K tile (rows padded by 16 bytes), a V tile and the tile's k and v
-// scales, all in the cache's dtype; after the last tile the ring's space
-// takes, with few rows, the key slices' partials [ZS, R, D].  Then, in f32:
-// q [R, D], with few rows the warps' partial dots [FWARPS, R, 32], p *
-// v_scale [R, FTK], the tile's rescale factors [R], and the receive buffer
-// of the cluster's merge (Recv).
-template <int D, typename KV, int MAXR>
+// 64-key K tile (DK wide, rows padded by 16 bytes), a V tile (DV wide) and
+// the tile's k and v scales, all in the cache's dtype; after the last tile
+// the ring's space takes, with few rows, the key slices' partials [ZS, R,
+// DV].  Then, in f32: q [R, DK], with few rows the warps' partial dots
+// [FWARPS, R, 32], p * v_scale [R, FTK], the tile's rescale factors [R], and
+// the receive buffer of the cluster's merge (Recv, over the [R, DV] output).
+template <int DK, int DV, typename KV, int MAXR>
 struct FGeom {
     static constexpr bool FEW = MAXR <= 8;
-    static constexpr int ROWB = D * static_cast<int>(sizeof(KV));   // bytes of a K or V row
-    static constexpr int KROW = ROWB + 16;
-    static constexpr int NCH = ROWB / 16;                            // 16-byte chunks per row
+    static constexpr int KROWB = DK * static_cast<int>(sizeof(KV));  // bytes of a K row
+    static constexpr int VROWB = DV * static_cast<int>(sizeof(KV));  // bytes of a V row
+    static constexpr int KROW = KROWB + 16;
+    static constexpr int KNCH = KROWB / 16;                          // 16-byte chunks per K row
+    static constexpr int VNCH = VROWB / 16;                          // ... per V row
     static constexpr int VEC = 16 / static_cast<int>(sizeof(KV));    // values per chunk
     static constexpr int VOFF = FTK * KROW;
-    static constexpr int SOFF = VOFF + FTK * ROWB;
+    static constexpr int SOFF = VOFF + FTK * VROWB;
     static constexpr int STAGE = SOFF + 2 * FTK * 4;
     static constexpr int FIT = 96 * 1024 / STAGE;
     static constexpr int STAGES = FIT > 4 ? 4 : (FIT < 2 ? 2 : FIT);
-    static constexpr int CW = D / 4;               // threads across a row in P V, 4 columns each
+    static constexpr int CW = DV / 4;              // threads across a row in P V, 4 columns each
     static constexpr int ZS = FTHREADS / CW;       // slices of the keys (FEW) or rows in P V
 
     __host__ __device__ static int ring_bytes(int R) {
-        const int part = FEW ? ZS * R * D * 4 : 0;
+        const int part = FEW ? ZS * R * DV * 4 : 0;
         const int ring = STAGES * STAGE > part ? STAGES * STAGE : part;
         return (ring + 15) / 16 * 16;
     }
     __host__ __device__ static int recv_offset(int R) {
-        return (ring_bytes(R) + 4 * (R * D + (FEW ? FWARPS * R * 32 : 0) + R * FTK + R) + 15) /
+        return (ring_bytes(R) + 4 * (R * DK + (FEW ? FWARPS * R * 32 : 0) + R * FTK + R) + 15) /
                16 * 16;
     }
     __host__ __device__ static int smem_bytes(int R, int C) {
-        return recv_offset(R) + Recv::bytes(R, D, C);
+        return recv_offset(R) + Recv::bytes(R, DV, C);
     }
 };
 
-template <int D, typename KV, int MAXR>
+template <int DK, int DV, typename KV, int MAXR>
 __global__ void __launch_bounds__(FTHREADS)
 decode_kernel(Params p) {
-    using Gm = FGeom<D, KV, MAXR>;
+    using Gm = FGeom<DK, DV, KV, MAXR>;
     constexpr bool FEW = Gm::FEW;
     constexpr int NOWN = (MAXR + FWARPS - 1) / FWARPS;   // rows whose softmax a warp keeps
     constexpr int CW = Gm::CW, ZS = Gm::ZS;
     constexpr int NACC = FEW ? MAXR : MAXR / ZS;
-    constexpr int QCH = Gm::NCH / 4;             // FEW: chunks of a key row's quarter
+    static_assert(Gm::KNCH >= Gm::VNCH, "the tile copy takes V no wider than K");
+    constexpr int QCH = Gm::KNCH / 4;            // FEW: chunks of a key row's quarter
     constexpr int KZ = FTK / ZS;                 // FEW: keys per slice in P V
     extern __shared__ __align__(16) uint8_t smem[];
     cg::cluster_group cluster = cg::this_cluster();
@@ -429,12 +440,15 @@ decode_kernel(Params p) {
     // tile t into its stage; keys outside [lo, hi) are zero-filled
     auto issue = [&](int t) {
         uint8_t* st = smem + ((t - ta) % Gm::STAGES) * Gm::STAGE;
-        for (int idx = tid; idx < FTK * Gm::NCH; idx += FTHREADS) {
-            const int j = idx / Gm::NCH, c = idx - j * Gm::NCH, kp = t * FTK + j;
+        // one pass over a key's chunks copies its K and V chunks together
+        // (for K wider than V, the last KNCH - VNCH chunks are K's alone)
+        for (int idx = tid; idx < FTK * Gm::KNCH; idx += FTHREADS) {
+            const int j = idx / Gm::KNCH, c = idx - j * Gm::KNCH, kp = t * FTK + j;
             const bool ok = kp >= lo && kp < hi;
             cp16(st + j * Gm::KROW + c * 16, ok ? kb + kp * p.kst.t + c * Gm::VEC : kb, ok);
-            cp16(st + Gm::VOFF + j * Gm::ROWB + c * 16, ok ? vb + kp * p.vst.t + c * Gm::VEC : vb,
-                 ok);
+            if (c < Gm::VNCH)
+                cp16(st + Gm::VOFF + j * Gm::VROWB + c * 16,
+                     ok ? vb + kp * p.vst.t + c * Gm::VEC : vb, ok);
         }
         if (ksb && tid < 2 * FTK) {
             const int kp = t * FTK + (tid & (FTK - 1));
@@ -450,11 +464,11 @@ decode_kernel(Params p) {
         cp_commit();
     }
     float* sq = reinterpret_cast<float*>(smem + Gm::ring_bytes(R));
-    float* spart = sq + R * D;               // FEW: [FWARPS][R][32] partial dots
+    float* spart = sq + R * DK;              // FEW: [FWARPS][R][32] partial dots
     float* sp = spart + (FEW ? FWARPS * R * 32 : 0);   // [R][FTK]: p * v_scale of the tile
     float* scorr = sp + R * FTK;             // [R]: the tile's rescale factor
-    for (int idx = tid; idx < R * D; idx += FTHREADS) {   // in flight beside the tiles' loads
-        const int r = idx / D, c = idx - r * D, g = r / p.T, t = r - g * p.T;
+    for (int idx = tid; idx < R * DK; idx += FTHREADS) {   // in flight beside the tiles' loads
+        const int r = idx / DK, c = idx - r * DK, g = r / p.T, t = r - g * p.T;
         const float x = load_q(p, b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h + c);
         sq[idx] = p.bf16_dots ? round_bf16(x) : x;
     }
@@ -502,7 +516,7 @@ decode_kernel(Params p) {
             float sw[MAXR];
 #pragma unroll
             for (int r = 0; r < MAXR; ++r) sw[r] = 0.f;
-            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * (Gm::ROWB / 4);
+            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * (Gm::KROWB / 4);
 #pragma unroll
             for (int c = 0; c < QCH; ++c) {
                 float kf[Gm::VEC];
@@ -514,7 +528,7 @@ decode_kernel(Params p) {
 #pragma unroll
                 for (int r = 0; r < MAXR; ++r) {
                     if (r >= R) break;
-                    const float* qr = sq + r * D + qd * (D / 4) + c * Gm::VEC;
+                    const float* qr = sq + r * DK + qd * (DK / 4) + c * Gm::VEC;
 #pragma unroll
                     for (int e = 0; e < Gm::VEC; e += 4) {
                         const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
@@ -545,7 +559,7 @@ decode_kernel(Params p) {
             for (int k = 0; k < 2; ++k) {
                 const uint8_t* kr = st + (k * 32 + lane) * Gm::KROW;
 #pragma unroll
-                for (int c = 0; c < Gm::NCH; ++c) {
+                for (int c = 0; c < Gm::KNCH; ++c) {
                     float kf[Gm::VEC];
                     cvt(*reinterpret_cast<const uint4*>(kr + c * 16), kf, KV{});
                     if (round_kv) {
@@ -556,7 +570,7 @@ decode_kernel(Params p) {
                     for (int i = 0; i < NOWN; ++i) {
                         const int r = warp + FWARPS * i;
                         if (r >= R) break;
-                        const float* qr = sq + r * D + c * Gm::VEC;
+                        const float* qr = sq + r * DK + c * Gm::VEC;
 #pragma unroll
                         for (int e = 0; e < Gm::VEC; e += 4) {
                             const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
@@ -620,7 +634,7 @@ decode_kernel(Params p) {
             float4 v[4];
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
-                v[jj] = load4(sv + (j + jj) * D + c4);
+                v[jj] = load4(sv + (j + jj) * DV + c4);
                 if (round_kv)
                     v[jj] = make_float4(round_bf16(v[jj].x), round_bf16(v[jj].y),
                                         round_bf16(v[jj].z), round_bf16(v[jj].w));
@@ -646,15 +660,15 @@ decode_kernel(Params p) {
     // left where the ring was, summed in slice order first).
     cp_wait<0>();
     __syncthreads();
-    const int span = Recv::span(R, D, gridDim.x);
+    const int span = Recv::span(R, DV, gridDim.x);
     float* racc = reinterpret_cast<float*>(smem + Gm::recv_offset(R));
     float* rml = racc + gridDim.x * span;
     if constexpr (FEW) {
-        float* pz = reinterpret_cast<float*>(smem);    // [ZS][R][D]
+        float* pz = reinterpret_cast<float*>(smem);    // [ZS][R][DV]
 #pragma unroll
         for (int r = 0; r < MAXR; ++r) {
             if (r >= R) break;
-            float* dst = pz + (z * R + r) * D + c4;
+            float* dst = pz + (z * R + r) * DV + c4;
             dst[0] = acc[r][0];
             dst[1] = acc[r][1];
             dst[2] = acc[r][2];
@@ -662,10 +676,10 @@ decode_kernel(Params p) {
         }
         __syncthreads();
         cluster_wait();    // every block of the cluster has started: owners may be written
-        for (int idx = tid; idx < R * D; idx += FTHREADS) {
+        for (int idx = tid; idx < R * DV; idx += FTHREADS) {
             float a = pz[idx];
 #pragma unroll
-            for (int zz = 1; zz < ZS; ++zz) a += pz[zz * R * D + idx];
+            for (int zz = 1; zz < ZS; ++zz) a += pz[zz * R * DV + idx];
             send_acc<1>(cluster, racc, idx, span, &a);
         }
     } else {
@@ -674,7 +688,7 @@ decode_kernel(Params p) {
         for (int i = 0; i < NACC; ++i) {
             const int r = z + ZS * i;
             if (r >= R) break;
-            send_acc<4>(cluster, racc, r * D + c4, span, acc[i]);
+            send_acc<4>(cluster, racc, r * DV + c4, span, acc[i]);
         }
     }
 #pragma unroll
@@ -683,10 +697,10 @@ decode_kernel(Params p) {
         if (r >= R) break;
         const float l = warp_sum(l_run[i]);
         if (lane == 0)
-            send_ml(cluster, rml, R, D, span, r, ta < tb ? m_run[i] : -CUDART_INF_F, l);
+            send_ml(cluster, rml, R, DV, span, r, ta < tb ? m_run[i] : -CUDART_INF_F, l);
     }
     cluster.sync();        // every partial has landed
-    owner_merge(p, racc, rml, rml + gridDim.x * R * 2, R, D, span, b, h);
+    owner_merge(p, racc, rml, rml + gridDim.x * R * 2, R, DV, span, b, h);
 }
 
 // The live tiles [u0, u1) of quantization block j (keys [j bk, (j + 1) bk)):
@@ -1156,32 +1170,38 @@ int launch_cluster(K kernel, bool& attrs_set, int smem_max, int smem, const Para
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <int D, typename KV, int MAXR>
+template <int DK, int DV, typename KV, int MAXR>
 int launch_rows(const Params& p, int R, int B, cudaStream_t stream) {
     static bool set = false;
     int most = 0;
     for (int c = 1; c <= MAX_CLUSTER; ++c) {
-        const int bytes = FGeom<D, KV, MAXR>::smem_bytes(MAXR, c);
+        const int bytes = FGeom<DK, DV, KV, MAXR>::smem_bytes(MAXR, c);
         most = bytes > most ? bytes : most;
     }
-    return launch_cluster(decode_kernel<D, KV, MAXR>, set, most,
-                          FGeom<D, KV, MAXR>::smem_bytes(R, p.n_splits), p, B, stream);
+    return launch_cluster(decode_kernel<DK, DV, KV, MAXR>, set, most,
+                          FGeom<DK, DV, KV, MAXR>::smem_bytes(R, p.n_splits), p, B, stream);
 }
 
-template <int D, typename KV>
+// K and V of one width: up to 64 rows.  MLA's K 192 / V 128 (one query
+// head per kv head, T <= 8): up to 8 rows.
+template <int DK, int DV, typename KV>
 int launch_float_rows(const Params& p, int B, cudaStream_t stream) {
     const int R = (p.Hq / p.Hkv) * p.T;
-    if (R <= 8) return launch_rows<D, KV, 8>(p, R, B, stream);
-    if (R <= 32) return launch_rows<D, KV, 32>(p, R, B, stream);
-    return launch_rows<D, KV, 64>(p, R, B, stream);
+    if (R <= 8) return launch_rows<DK, DV, KV, 8>(p, R, B, stream);
+    if constexpr (DK == DV) {
+        if (R <= 32) return launch_rows<DK, DV, KV, 32>(p, R, B, stream);
+        return launch_rows<DK, DV, KV, 64>(p, R, B, stream);
+    } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_float_kv(int kv_kind, const Params& p, int B, cudaStream_t stream) {
     switch (kv_kind) {
-        case KIND_I8: return launch_float_rows<D, int8_t>(p, B, stream);
-        case KIND_BF16: return launch_float_rows<D, __nv_bfloat16>(p, B, stream);
-        case KIND_F32: return launch_float_rows<D, float>(p, B, stream);
+        case KIND_I8: return launch_float_rows<DK, DV, int8_t>(p, B, stream);
+        case KIND_BF16: return launch_float_rows<DK, DV, __nv_bfloat16>(p, B, stream);
+        case KIND_F32: return launch_float_rows<DK, DV, float>(p, B, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -1230,26 +1250,32 @@ bool bad_shape(int Hq, int Hkv, int T, int D, int q_kind) {
 }  // namespace
 
 // q: bf16 (q_kind KIND_BF16) or f32 (KIND_F32); k/v: int8 with ks/vs
-// (kv_kind KIND_I8) or bf16 / f32 without; unit stride along D and 16-byte
-// aligned rows; strides: 18 element strides (b, t|s, h) of q, k, v, o, ks,
-// vs.  np_vec: int64 [B] per-row n_past, or null to use np_scalar.  D must
-// be 64 or 128 and G*T at most 64.  bf16 or f32 dots; `ctas` (1..16) blocks
-// per (batch row, kv head), one cluster (flash_decode.py decode_geometry).
+// (kv_kind KIND_I8) or bf16 / f32 without; unit stride along the head dim
+// and 16-byte aligned rows; strides: 18 element strides (b, t|s, h) of q,
+// k, v, o, ks, vs.  np_vec: int64 [B] per-row n_past, or null to use
+// np_scalar.  (D, Dv), the widths of q and K and of V and o: (64, 64) or
+// (128, 128) with G*T at most 64, or MLA's (192, 128) with G*T at most 8.
+// bf16 or f32 dots; `ctas` (1..16) blocks per (batch row, kv head), one
+// cluster (flash_decode.py decode_geometry).
 CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
                                   const float* ks, const float* vs, const float* sinks,
                                   const long long* np_vec, int np_scalar, void* o,
                                   const long* strides, int B, int T, int S, int Hq, int Hkv,
-                                  int D, int n_tokens, float scale, int window, float softcap,
-                                  int q_kind, int kv_kind, int bf16_dots, int ctas,
-                                  void* stream) {
-    if (bad_shape(Hq, Hkv, T, D, q_kind) || (kv_kind == KIND_I8) != (ks != nullptr) ||
-        (ks != nullptr) != (vs != nullptr) || ctas <= 0 || ctas > MAX_CLUSTER)
+                                  int D, int Dv, int n_tokens, float scale, int window,
+                                  float softcap, int q_kind, int kv_kind, int bf16_dots,
+                                  int ctas, void* stream) {
+    const bool mla = D == 192 && Dv == 128;
+    if ((mla ? bad_shape(Hq, Hkv, T, 128, q_kind) : bad_shape(Hq, Hkv, T, D, q_kind) || Dv != D) ||
+        (kv_kind == KIND_I8) != (ks != nullptr) || (ks != nullptr) != (vs != nullptr) ||
+        ctas <= 0 || ctas > MAX_CLUSTER)
         return static_cast<int>(cudaErrorInvalidValue);
     const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, strides, T, S, Hq,
                                  Hkv, n_tokens, scale, window, softcap, q_kind, bf16_dots, FTK,
                                  ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return D == 128 ? launch_float_kv<128>(kv_kind, p, B, st) : launch_float_kv<64>(kv_kind, p, B, st);
+    if (mla) return launch_float_kv<192, 128>(kv_kind, p, B, st);
+    return D == 128 ? launch_float_kv<128, 128>(kv_kind, p, B, st)
+                    : launch_float_kv<64, 64>(kv_kind, p, B, st);
 }
 
 // The int8-dot mode over an int8 cache with its scales: q to sinks, np_vec,

@@ -22,6 +22,7 @@ class Args:
     max_length: int = -1
     compute_dtype: str = "bfloat16"
     cache_dtype: str = "bfloat16"
+    mla_cache: str = "speed"
     device: str = "cuda"
 
 
@@ -63,6 +64,8 @@ def parse_args(argv: list[str]) -> Args:
         elif arg == "--cache_dtype":
             v = nxt()
             a.cache_dtype = _CACHE_DTYPES.get(v, v)
+        elif arg == "--mla_cache":
+            a.mla_cache = nxt()    # speed | memory (latent MLA cache)
         elif arg == "--device":
             a.device = nxt()
         else:
@@ -76,7 +79,7 @@ def usage() -> str:
         "usage: chatllm_tpu_torch [-m MODEL] [-i] [-p PROMPT] [options]\n"
         "Options: -m/--model, -p/--prompt, -i/--interactive, -t/--temp,\n"
         "--max_new_tokens, -l/--max_length, --compute_dtype bf16|f32,\n"
-        "--cache_dtype bf16|f32|q8_0, --device cuda|cpu\n"
+        "--cache_dtype bf16|f32|q8_0, --mla_cache speed|memory, --device cuda|cpu\n"
     )
 
 
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
     from .runtime.streamer import TextStreamer
 
     rt = RuntimeConfig(cache_dtype=a.cache_dtype, compute_dtype=a.compute_dtype,
-                       max_length=a.max_length)
+                       max_length=a.max_length, mla_cache=a.mla_cache)
     model = load_model(a.model_path, rt, device=a.device)
     pipe = Pipeline(model)
     pipe.gen_config = build_gen_config(a)

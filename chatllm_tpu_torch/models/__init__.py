@@ -3,3 +3,4 @@ from .base import (BaseConfig, BaseLLM, ParamBuilder, RuntimeConfig,
 from .model_types import ModelType
 from . import llama  # noqa: F401  (registers LLAMA3 / LLAMA3_1)
 from . import qwen  # noqa: F401  (registers QWEN2 / QWEN2TIE and relatives)
+from . import deepseek  # noqa: F401  (registers DEEPSEEK_V2_LIGHT / DEEPSEEK_V2)

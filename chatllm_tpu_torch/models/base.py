@@ -44,6 +44,8 @@ class RuntimeConfig:
     compute_dtype: str = "bfloat16" # activation dtype
     cache_dtype: str = "bfloat16"   # KV cache dtype
     max_length: int = -1            # context override (-1 = model default)
+    mla_cache: str = "speed"        # MLA cache mode: "speed" (expanded per-head
+                                    # K/V) | "memory" (latent cache)
 
 
 @dataclass
@@ -141,6 +143,29 @@ def load_llama_family_params(pb: ParamBuilder, n_layers: int, *,
     if not tie_lm_head:
         params["lm_head"] = pb.linear("lm_head")
     return params
+
+
+def load_moe_experts(pb: ParamBuilder, pfx: str, n_experts: int,
+                     names=("gate_proj", "up_proj", "down_proj"),
+                     container: str = "experts") -> dict:
+    """Per-expert FFN weights `{pfx}.{container}.{j}.<name>.weight` stacked
+    into gate/up [E, H, F] and down [E, F, H] tensors in the compute dtype,
+    with the JAX package's roundings (the file's values as f32, then the
+    compute dtype).  Each stack is allocated once on the device and filled
+    one expert at a time, so the host never holds more than one expert's
+    f32 copy."""
+    out = {}
+    for key, name in zip(("gate", "up", "down"), names):
+        stack = None
+        for j in range(n_experts):
+            w = torch.from_numpy(np.array(pb.raw_f32(f"{pfx}.{container}.{j}.{name}.weight").T,
+                                          dtype=np.float32))
+            if stack is None:
+                stack = torch.empty((n_experts, *w.shape), dtype=pb.compute_dtype,
+                                    device=pb.device)
+            stack[j].copy_(w)
+        out[key] = stack
+    return out
 
 
 class BaseLLM:

@@ -26,10 +26,14 @@ def _rand(gen, shape, scale, dtype, device):
 
 def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
                  gen: torch.Generator | None = None, zeros: bool = True,
-                 device="cpu"):
+                 device="cpu", centered: bool = False):
     """A linear layer in the given device format: 'q4k' = superblock
     QuantLinear (int8 sc/m + f16 d/dmin, the q4_k loader layout), 'q4'/'q8'
-    = grouped-affine QuantLinear, 'bf16'/'f32' = dense."""
+    = grouped-affine QuantLinear, 'bf16'/'f32' = dense.  Random q4k / q4
+    weights are positive-biased (d sc q - dm m, s q); `centered` draws them
+    around zero instead, about n_in^-0.5 in spread (m = sc and dm = 7.5 d,
+    b = -7.5 s: w = d sc (q - 7.5), s (q - 7.5)), so that a stack of them
+    keeps its activations' scale and its routing varied."""
     G = 32
     b_t = None
     if bias and zeros:
@@ -46,6 +50,13 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
             m = torch.full((n_in // G, n_out), 10, dtype=torch.int8, device=device)
             d = torch.full((n_in // (G * SB), n_out), 0.001, dtype=torch.float16, device=device)
             dm = torch.full((n_in // (G * SB), n_out), 0.0005, dtype=torch.float16, device=device)
+        elif centered:
+            q = _randint(gen, 0, 255, (n_in // 2, n_out), torch.uint8, device)
+            sc = _randint(gen, 0, 64, (n_in // G, n_out), torch.int8, device)
+            m = sc.clone()
+            d = _rand(gen, (n_in // (G * SB), n_out), 2 * n_in ** -0.5 / 193.6,
+                      torch.float32, device)
+            d, dm = d.to(torch.float16), (d * 7.5).to(torch.float16)
         else:
             q = _randint(gen, 0, 255, (n_in // 2, n_out), torch.uint8, device)
             sc = _randint(gen, 0, 64, (n_in // G, n_out), torch.int8, device)
@@ -62,12 +73,15 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
             s = torch.full((n_in // G, n_out), 0.01, dtype=torch.float16, device=device)
         elif packed:
             q = _randint(gen, 0, 255, (rows, n_out), torch.uint8, device)
-            s = _rand(gen, (n_in // G, n_out), 0.01, torch.float16, device)
+            s = _rand(gen, (n_in // G, n_out), 2 * n_in ** -0.5 / 5.32 if centered else 0.01,
+                      torch.float16, device)
         else:
             q = _randint(gen, -127, 127, (rows, n_out), torch.int8, device)
             s = _rand(gen, (n_in // G, n_out), 0.01, torch.float16, device)
-        b = (torch.zeros(n_in // G, n_out, dtype=torch.float16, device=device)
-             if packed else None)
+        b = None
+        if packed:
+            b = ((s.float() * -7.5).to(torch.float16) if centered and not zeros else
+                 torch.zeros(n_in // G, n_out, dtype=torch.float16, device=device))
         return QuantLinear(q=q, s=s, b=b, packed=packed, bias=b_t)
     dt = torch.bfloat16 if fmt == "bf16" else torch.float32
     if zeros:
@@ -79,7 +93,15 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
 
 def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                            zeros: bool = True, compute_dtype=torch.bfloat16,
-                           seed: int = 0, device="cpu"):
+                           seed: int = 0, device="cpu", centered: bool = False):
+    """The parameter dict of `cfg` in format `fmt` (see synth_linear), zero
+    or seeded random.  MLA layers (cfg.mla) get the converter's split kv
+    projections, and in latent mode the absorbed wk_abs / wv_abs; MoE layers
+    a router, `cfg.moe_num_experts` experts of width
+    `cfg.moe_intermediate_size`, stacked
+    dense in the compute dtype as the loader stacks them (random: N(0,
+    1 / fan-in), drawn on the device), and a shared expert of width
+    cfg.moe_shared_intermediate.  `centered`: see synth_linear."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H = cfg.hidden_size
     d = cfg.resolved_head_dim()
@@ -88,10 +110,42 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     F = cfg.intermediate_size
 
     def lin(i, o, bias=False):
-        return synth_linear(i, o, fmt, bias=bias, gen=gen, zeros=zeros, device=device)
+        return synth_linear(i, o, fmt, bias=bias, gen=gen, zeros=zeros, device=device,
+                            centered=centered)
 
-    def ones():
-        return {"w": torch.ones(H, dtype=torch.float32, device=device)}
+    def ones(n=H):
+        return {"w": torch.ones(n, dtype=torch.float32, device=device)}
+
+    def stack(*shape):
+        if zeros:
+            return torch.zeros(shape, dtype=compute_dtype, device=device)
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=compute_dtype).mul_(shape[1] ** -0.5)
+
+    def attention():
+        if cfg.mla is None:
+            return {"q": lin(H, qo, cfg.qkv_bias), "k": lin(H, kvo, cfg.qkv_bias),
+                    "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H)}
+        m, h = cfg.mla, cfg.num_attention_heads
+        attn = {"q": lin(H, h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                "d_kv": lin(H, m.kv_lora_rank), "k_pe": lin(H, m.qk_rope_head_dim),
+                "kv_norm": ones(m.kv_lora_rank),
+                "u_k_nope": lin(m.kv_lora_rank, h * m.qk_nope_head_dim),
+                "u_v": lin(m.kv_lora_rank, h * m.v_head_dim), "o": lin(h * m.v_head_dim, H)}
+        if cfg.mla_compressed:
+            from .deepseek import absorb_mla
+
+            attn.update(absorb_mla(attn, cfg, compute_dtype))
+        return attn
+
+    def ffn(spec):
+        if not spec.is_moe:
+            return {"gate": lin(H, F), "up": lin(H, F), "down": lin(F, H)}
+        E, Fe, Fs = cfg.moe_num_experts, cfg.moe_intermediate_size, cfg.moe_shared_intermediate
+        return {"gate": lin(H, E),
+                "experts": {"gate": stack(E, H, Fe), "up": stack(E, H, Fe),
+                            "down": stack(E, Fe, H)},
+                "shared": {"gate": lin(H, Fs), "up": lin(H, Fs), "down": lin(Fs, H)}}
 
     if zeros:
         embed = torch.zeros(cfg.vocab_size, H, dtype=compute_dtype, device=device)
@@ -99,14 +153,9 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
         embed = (torch.randn(cfg.vocab_size, H, generator=gen, device=device)
                  * 0.02).to(compute_dtype)
     layers = []
-    for _ in range(cfg.num_hidden_layers):
-        layers.append({
-            "attn_norm": ones(),
-            "attn": {"q": lin(H, qo, cfg.qkv_bias), "k": lin(H, kvo, cfg.qkv_bias),
-                     "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H)},
-            "ffn_norm": ones(),
-            "mlp": {"gate": lin(H, F), "up": lin(H, F), "down": lin(F, H)},
-        })
+    for i in range(cfg.num_hidden_layers):
+        layers.append({"attn_norm": ones(), "attn": attention(), "ffn_norm": ones(),
+                       "mlp": ffn(cfg.layer_spec(i))})
     params = {"embed": embed, "final_norm": ones(), "layers": tuple(layers)}
     if not cfg.tie_lm_head:
         params["lm_head"] = lin(H, cfg.vocab_size)
@@ -135,6 +184,38 @@ def qwen2_5_0_5b_config(max_length: int = 32768) -> TransformerConfig:
         rope=RopeConfig(head_dim=64, freq_base=1000000.0, layout=ROPE_NEOX),
         norm_eps=1e-6, qkv_bias=True, tie_lm_head=True,
     )
+
+
+def deepseek_v2_lite_config(max_length: int = 8192, *,
+                            mla_cache: str = "speed") -> TransformerConfig:
+    """DeepSeek-V2-Lite as published (Hugging Face `deepseek-ai/DeepSeek-V2-Lite`,
+    config.json; BASELINE.json config #3), only max_length cut:
+    num_hidden_layers 27, hidden_size 2048, num_attention_heads 16,
+    vocab_size 102400, intermediate_size 10944 (the dense layer 0:
+    first_k_dense_replace 1, moe_layer_freq 1); n_routed_experts 64,
+    moe_intermediate_size 1408, n_shared_experts 2 (shared width 2 x 1408
+    = 2816), num_experts_per_tok 6, norm_topk_prob false,
+    routed_scaling_factor 1.0, n_group 1, topk_group 1, scoring_func softmax; kv_lora_rank 512, q_lora_rank null,
+    qk_nope_head_dim 128, qk_rope_head_dim 64, v_head_dim 128; rope_theta
+    10000, rope_scaling yarn with factor 40,
+    original_max_position_embeddings 4096, beta_fast 32, beta_slow 1,
+    mscale 0.707, mscale_all_dim 0.707; rms_norm_eps 1e-6.  The rope table
+    and attention scale are the loader's (models/deepseek.py::yarn_rope)."""
+    from ..nn.transformer import LayerSpec, MLAConfig
+    from .deepseek import yarn_rope
+
+    rope, attn_scale = yarn_rope(128, 64, 10000.0, 40.0, 0.707, 0.707, 32.0, 1.0, 4096)
+    return TransformerConfig(
+        vocab_size=102400, hidden_size=2048, num_hidden_layers=27,
+        num_attention_heads=16, num_key_value_heads=16, intermediate_size=10944,
+        max_length=max_length, norm_eps=1e-6, rope=rope, attention_scale=attn_scale,
+        layer_specs=tuple(LayerSpec(is_moe=i >= 1) for i in range(27)),
+        moe_num_experts=64, moe_top_k=6, moe_norm_topk_prob=False, moe_intermediate_size=1408,
+        moe_shared_intermediate=2 * 1408, moe_n_group=1,
+        moe_topk_group=1, moe_routed_scale=1.0, moe_score_func="softmax",
+        mla=MLAConfig(q_lora_rank=0, kv_lora_rank=512, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128),
+        mla_compressed=mla_cache == "memory")
 
 
 def tiny_config(*, vocab=512, hidden=128, layers=2, heads=4, kv_heads=2,

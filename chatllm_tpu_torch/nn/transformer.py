@@ -1,6 +1,8 @@
 """Decoder-only transformer core, main-path subset of the JAX package's
 `nn/transformer.py`: config, KV cache, pre-norm decoder layer (separate
-q/k/v projections, RoPE, GQA attention, SwiGLU MLP) and the model forward.
+q/k/v projections, RoPE, GQA attention, SwiGLU MLP), the DeepSeek family's
+multi-head latent attention (both cache modes) and sparse MoE FFN, and the
+model forward.
 
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
 "final_norm" {"w"}, "layers" (a tuple of per-layer dicts) and "lm_head";
@@ -19,7 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import attention_with_cache, update_kv_cache
+from ..ops.attention import (NEG_INF, _key_bound, _rows_write, attention_with_cache,
+                             update_kv_cache)
 from ..ops.norm import rms_norm
 from ..ops.qmm import dot_f32, matmul
 from ..ops.rope import RopeConfig, apply_rope, precompute_rope_cache
@@ -27,10 +30,22 @@ from ..ops.rope import RopeConfig, apply_rope, precompute_rope_cache
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """Static per-layer variation; this slice supports plain full-attention
-    rope layers only (the JAX package's other fields come with their ports)."""
+    """Static per-layer variation: full-attention rope layers, dense or MoE
+    FFN (the JAX package's other fields come with their ports)."""
     sliding_window: int = 0        # 0 = full attention
     use_rope: bool = True
+    is_moe: bool = False           # sparse MoE FFN (moe_mlp) instead of the dense one
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention dims (chatllm.cpp BaseMLAttention,
+    models/deepseek.h:251-327)."""
+    q_lora_rank: int = 0            # 0 = direct q projection (V2-Lite)
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -52,6 +67,26 @@ class TransformerConfig:
     attention_scale: float = -1.0           # -1 = 1/sqrt(head_dim)
     causal: bool = True
     layer_specs: tuple = ()                 # per-layer LayerSpec; () = uniform
+    # MoE (layers whose LayerSpec has is_moe); the DeepSeek family's modes
+    moe_num_experts: int = 0
+    moe_top_k: int = 0
+    moe_norm_topk_prob: bool = True
+    moe_intermediate_size: int = 0  # a routed expert's width
+    moe_shared_intermediate: int = 0
+    moe_n_group: int = 1            # grouped top-k routing
+    moe_topk_group: int = 1
+    moe_routed_scale: float = 1.0
+    moe_score_func: str = "softmax"  # softmax | sigmoid (others: other families)
+    moe_act: str = ""               # "" = act ("swiglu_oai": GPT-OSS, not ported)
+    moe_grouped_argmax: bool = False  # Pangu-MoE routing, not ported
+    moe_pre_weighting: bool = False   # Llama-4 routing, not ported
+    moe_group_select: str = "sum2"  # grouped top-k group scoring: "sum2" ranks
+    #   groups by the sum of their top-2 scores (sigmoid) or their max
+    #   (softmax) and keeps moe_topk_group groups; "per_group_topk" keeps the
+    #   top moe_topk_group experts inside every group
+    mla: Optional[MLAConfig] = None
+    mla_compressed: bool = False    # latent ("memory") MLA cache: [c_kv | k_pe]
+    #   per token, the up-projections absorbed into q and the output
     cache_dtype: str = "bfloat16"
 
     def resolved_head_dim(self) -> int:
@@ -80,6 +115,19 @@ class KVCache:
     v_scale: Optional[list] = None
 
 
+def cache_dims(cfg: TransformerConfig) -> tuple[int, int, int]:
+    """(kv heads, K width, V width) of a layer's cache.  Expanded MLA caches
+    every head's K (nope + rope dims) and V; the latent one a single shared
+    head [c_kv | k_pe] and a 1-wide V that nothing reads."""
+    if cfg.mla is not None and cfg.mla_compressed:
+        return 1, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim, 1
+    if cfg.mla is not None:
+        return (cfg.num_attention_heads, cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                cfg.mla.v_head_dim)
+    d = cfg.resolved_head_dim()
+    return cfg.num_key_value_heads, d, d
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
                *, device="cpu") -> KVCache:
     from ..device import torch_dtype
@@ -87,18 +135,18 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
     max_len = max_len or cfg.max_length
     quantized = cfg.cache_dtype in QUANTIZED_CACHE_DTYPES
     dtype = torch.int8 if quantized else torch_dtype(cfg.cache_dtype)
-    d = cfg.resolved_head_dim()
-    shape = (batch, max_len, cfg.num_key_value_heads, d)
+    n_kv, dk, dv = cache_dims(cfg)
     n = cfg.num_hidden_layers
 
     def zeros(shp, dt):
         return [torch.zeros(shp, dtype=dt, device=device) for _ in range(n)]
 
+    k = zeros((batch, max_len, n_kv, dk), dtype)
+    v = zeros((batch, max_len, n_kv, dv), dtype)
     if not quantized:
-        return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
-    return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype),
-                   k_scale=zeros(shape[:3], torch.float32),
-                   v_scale=zeros(shape[:3], torch.float32))
+        return KVCache(k=k, v=v)
+    return KVCache(k=k, v=v, k_scale=zeros((batch, max_len, n_kv), torch.float32),
+                   v_scale=zeros((batch, max_len, n_kv), torch.float32))
 
 
 _ACTS = {"silu": F.silu}          # the Llama family's; others come with theirs
@@ -115,6 +163,115 @@ def gated_mlp(cfg: TransformerConfig, p, x):
     u = matmul(x, p["up"])
     h = (_ACTS[cfg.act](g) * u).to(x.dtype)
     return matmul(h, p["down"]).to(x.dtype)
+
+
+# Routing and expert modes of the JAX package's moe_mlp that belong to
+# families not ported yet: they raise, naming the family.
+_OTHER_SCORE_FUNCS = {"softmax_topk": "GPT-OSS", "sparsemixer": "Phi-3.5-MoE"}
+_OTHER_PARAMS = {"gate_linear_bias": "GPT-OSS", "router_scale": "Pangu-MoE",
+                 "shared_gate": "Qwen2-MoE", "small_experts": "GroveMoE"}
+_OTHER_EXPERT_PARAMS = {"gate_b": "GPT-OSS", "up_b": "GPT-OSS", "down_b": "GPT-OSS"}
+
+
+def _not_ported(what: str, family: str):
+    raise NotImplementedError(f"MoE {what} ({family}) is not ported to chatllm_tpu_torch yet")
+
+
+def mlp_dispatch(cfg: TransformerConfig, spec: LayerSpec, p, x, router_x=None):
+    if router_x is not None:
+        _not_ported("pre-gate routing (router_x)", "Megrez2")
+    if spec.is_moe:
+        return moe_mlp(cfg, p, x)
+    return gated_mlp(cfg, p, x)
+
+
+def moe_route(cfg: TransformerConfig, p, xt):
+    """The router of the JAX package's moe_mlp in its softmax and sigmoid
+    modes: scores, the selection-only `gate_bias`, grouped top-k in both
+    `moe_group_select` modes, then the top-k experts and their weights (from
+    the unbiased scores, normalized with + 1e-20 under moe_norm_topk_prob,
+    times moe_routed_scale).  xt: [N, H] -> (topi int64 [N, K], topv f32
+    [N, K]), all on the device."""
+    if cfg.moe_score_func in _OTHER_SCORE_FUNCS:
+        _not_ported(f"score function {cfg.moe_score_func!r}",
+                    _OTHER_SCORE_FUNCS[cfg.moe_score_func])
+    if cfg.moe_grouped_argmax:
+        _not_ported("grouped-argmax routing", "Pangu-MoE")
+    logits = matmul(xt, p["gate"]).float()                            # [N, E]
+    if cfg.moe_score_func == "sigmoid":
+        probs = torch.sigmoid(logits)
+    elif cfg.moe_score_func == "softmax":
+        probs = torch.softmax(logits, dim=-1)
+    else:
+        raise ValueError(f"moe_score_func {cfg.moe_score_func!r}")
+    sel = probs
+    if "gate_bias" in p:
+        sel = probs + p["gate_bias"].float()
+    if cfg.moe_n_group > 1:
+        N, G = sel.shape[0], cfg.moe_n_group
+        gsel = sel.reshape(N, G, -1)
+        if cfg.moe_group_select == "per_group_topk":
+            kth = torch.topk(gsel, cfg.moe_topk_group, dim=-1).values[..., -1:]
+            sel = torch.where(gsel >= kth, gsel, 0.0).reshape(N, -1)
+        else:
+            if cfg.moe_score_func == "sigmoid":
+                gscore = torch.topk(gsel, 2, dim=-1).values.sum(dim=-1)      # [N, G]
+            else:
+                gscore = gsel.amax(dim=-1)
+            gtop = torch.topk(gscore, cfg.moe_topk_group, dim=-1).values
+            gmask = gscore >= gtop[..., -1:]
+            sel = torch.where(gmask[:, :, None], gsel, float("-inf")).reshape(N, -1)
+    # the k largest, the lower index first among equal scores (XLA's top_k)
+    topi = torch.sort(sel, dim=-1, descending=True, stable=True).indices[:, :cfg.moe_top_k]
+    topv = torch.gather(probs, -1, topi)
+    if cfg.moe_norm_topk_prob:
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
+    if cfg.moe_routed_scale != 1.0:
+        topv = topv * cfg.moe_routed_scale
+    return topi, topv
+
+
+def moe_mlp(cfg: TransformerConfig, p, x):
+    """Sparse MoE FFN (chatllm.cpp GenericSparseMLP): router -> top-k experts
+    -> weighted sum, plus the shared expert.  x: [B, T, H]."""
+    for key, family in _OTHER_PARAMS.items():
+        if key in p:
+            _not_ported(f"parameter {key!r}", family)
+    B, T, H = x.shape
+    xt = x.reshape(B * T, H)
+    topi, topv = moe_route(cfg, p, xt)
+    return _moe_combine(cfg, p, xt, topi, topv, x)
+
+
+def _experts_out(cfg: TransformerConfig, ex, xt, topi, topv, n_experts: int):
+    """The selected experts' outputs weighed and summed, as the JAX package
+    computes it: combine weights [N, E] (one-hot rows of topv rounded to the
+    activation dtype) and a dense product over all experts of the stacked
+    weights gate/up [E, H, F] and down [E, F, H].  The products are batched
+    matmuls over the stacks as they lie (x broadcast over E, never a copy or
+    a transpose of the weights); routing stays on the device."""
+    for key, family in _OTHER_EXPERT_PARAMS.items():
+        if key in ex:
+            _not_ported(f"expert parameter {key!r}", family)
+    if cfg.moe_act:
+        _not_ported(f"expert activation {cfg.moe_act!r}", "GPT-OSS")
+    N = xt.shape[0]
+    combine = torch.zeros(N, n_experts, dtype=xt.dtype, device=xt.device)
+    combine.scatter_(1, topi, topv.to(xt.dtype))                       # [N, E]
+    g = torch.matmul(xt, ex["gate"])                                   # [E, N, F]
+    u = torch.matmul(xt, ex["up"])
+    out = torch.matmul(_ACTS[cfg.act](g) * u, ex["down"])              # [E, N, H]
+    return torch.einsum("enh,ne->nh", out, combine)
+
+
+def _moe_combine(cfg: TransformerConfig, p, xt, topi, topv, x):
+    if cfg.moe_pre_weighting:
+        _not_ported("pre-weighting", "Llama-4")
+    B, T, H = x.shape
+    y = _experts_out(cfg, p["experts"], xt, topi, topv, cfg.moe_num_experts)
+    if "shared" in p:
+        y = y + gated_mlp(cfg, p["shared"], xt)
+    return y.reshape(B, T, H).to(x.dtype)
 
 
 def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
@@ -138,14 +295,112 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
     return matmul(out, p["o"]).to(x.dtype)
 
 
+def _mla_query(cfg: TransformerConfig, p, x):
+    """The MLA query [B, T, h * (nope + rope)] in f32: direct, or through the
+    q lora (down projection, RMS norm, up projection)."""
+    if cfg.mla.q_lora_rank > 0:
+        cq = rms_norm(matmul(x, p["d_q"]), p["q_norm"]["w"], eps=cfg.norm_eps)
+        return matmul(cq, p["u_q"])
+    return matmul(x, p["q"])
+
+
+def mla_attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
+                        k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
+    """Multi-head latent attention, expanded ("speed") mode: the kv lora is
+    up-projected to every head's K (nope dims + the shared rope tail) and V,
+    which are cached (chatllm.cpp BaseMLAttention::forward_speed; weights
+    pre-split by the converter).  RoPE rotates the rope tail of q and the
+    shared k_pe, in the config's layout.  K is nope + rope wide and V
+    v_head_dim wide: the caches' widths differ."""
+    if cfg.mla_compressed:
+        return _mla_compressed_block(cfg, spec, p, x, cos, sin, k_cache, v_cache, n_past,
+                                     k_scale, v_scale, kv_len)
+    B, T, _ = x.shape
+    m = cfg.mla
+    h = cfg.num_attention_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q = _mla_query(cfg, p, x).reshape(B, T, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, cos, sin, layout=cfg.rope.layout)
+    kv_lora = matmul(x, p["d_kv"])                                    # [B, T, rank]
+    k_pe = apply_rope(matmul(x, p["k_pe"]).reshape(B, T, 1, dr), cos, sin,
+                      layout=cfg.rope.layout)
+    c = rms_norm(kv_lora, p["kv_norm"]["w"], eps=cfg.norm_eps)
+    k_nope = matmul(c, p["u_k_nope"]).reshape(B, T, h, dn)
+    v = matmul(c, p["u_v"]).reshape(B, T, h, dv)
+    q = torch.cat([q_nope, q_pe], dim=-1).to(x.dtype)
+    k = torch.cat([k_nope, k_pe.expand(B, T, h, dr)], dim=-1).to(x.dtype)
+    update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
+    scale = cfg.attention_scale if cfg.attention_scale > 0 else (dn + dr) ** -0.5
+    out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale, causal=True,
+                               k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
+    return matmul(out.reshape(B, T, h * dv), p["o"]).to(x.dtype)
+
+
+def _mla_compressed_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
+                          k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
+    """Latent-cache MLA (chatllm.cpp "memory" mode, forward_memory) with the
+    up-projections absorbed into the query and the output (p["wk_abs"]
+    [rank, h, nope], p["wv_abs"] [rank, h, dv], made at load): attention
+    runs in the latent space as MQA over cache rows [c | k_pe].
+
+        q_lat  = q_nope . Wk            [B, T, h, rank]
+        scores = [q_lat | q_pe] . cache
+        ctx    = probs . c              [B, T, h, rank]
+        out    = ctx . Wv               [B, T, h, dv]
+
+    The row is written at n_past in place (with a device n_past by an index
+    write, rows past the cache dropped, as update_kv_cache does).  Keys at
+    or past n_past + T weigh exactly 0, so an int n_past reads the written
+    keys only and a device one up to `kv_len`.  As in the JAX package, a q8
+    cache and a per-row n_past raise."""
+    if k_scale is not None:
+        raise ValueError("compressed MLA cache incompatible with q8 cache")
+    if isinstance(n_past, torch.Tensor) and n_past.dim() == 1:
+        raise ValueError("per-slot n_past not supported with the compressed MLA cache; "
+                         "use --mla_cache speed for serving")
+    B, T, _ = x.shape
+    m = cfg.mla
+    h = cfg.num_attention_heads
+    dn, dr, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    q = _mla_query(cfg, p, x).reshape(B, T, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, cos, sin, layout=cfg.rope.layout)
+    c = rms_norm(matmul(x, p["d_kv"]), p["kv_norm"]["w"], eps=cfg.norm_eps)
+    k_pe = apply_rope(matmul(x, p["k_pe"]).reshape(B, T, 1, dr), cos, sin,
+                      layout=cfg.rope.layout)
+    row = torch.cat([c[:, :, None, :], k_pe], dim=-1)                # [B, T, 1, rank + dr]
+    if isinstance(n_past, torch.Tensor):
+        _rows_write(k_cache, row, n_past.reshape(1).expand(B))
+    else:
+        k_cache[:, n_past:n_past + T] = row.to(k_cache.dtype)
+
+    q_lat = torch.einsum("bthd,rhd->bthr", q_nope.float(), p["wk_abs"].float())
+    q_full = torch.cat([q_lat, q_pe.float()], dim=-1)
+    S = _key_bound(k_cache.shape[1], n_past, T, kv_len)
+    cache = k_cache[:, :S, 0, :].float()                              # [B, S, rank + dr]
+    scale = cfg.attention_scale if cfg.attention_scale > 0 else (dn + dr) ** -0.5
+    scores = torch.einsum("bthr,bsr->bhts", q_full, cache) * scale
+    q_pos = n_past + torch.arange(T, device=x.device)[:, None]
+    k_pos = torch.arange(S, device=x.device)[None, :]
+    valid = (k_pos < n_past + T) & (k_pos <= q_pos)
+    probs = torch.softmax(scores + torch.where(valid, 0.0, NEG_INF)[None, None], dim=-1)
+    ctx = torch.einsum("bhts,bsr->bthr", probs, cache[..., :rank])
+    out = torch.einsum("bthr,rhd->bthd", ctx, p["wv_abs"].float())
+    out = out.reshape(B, T, h * m.v_head_dim).to(x.dtype)
+    return matmul(out, p["o"]).to(x.dtype)
+
+
 def decoder_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
                   k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
-    """Pre-norm decoder layer (reference LMBlock1)."""
+    """Pre-norm decoder layer (reference LMBlock1): GQA or MLA attention,
+    dense or MoE FFN."""
+    attn = mla_attention_block if cfg.mla is not None else attention_block
     h = _norm(cfg, x, p["attn_norm"])
-    x = x + attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
-                            k_scale, v_scale, kv_len)
+    x = x + attn(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
+                 k_scale, v_scale, kv_len)
     h = _norm(cfg, x, p["ffn_norm"])
-    return x + gated_mlp(cfg, p["mlp"], h)
+    return x + mlp_dispatch(cfg, spec, p["mlp"], h)
 
 
 def embed_tokens(cfg: TransformerConfig, params, ids):

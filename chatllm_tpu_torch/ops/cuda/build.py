@@ -128,7 +128,7 @@ FLASH = CudaKernel("flash_attention.cu", "flash_attention_launch",
 
 FLASH_DECODE = CudaKernel("flash_decode.cu", "flash_decode_launch",
                           [P, P, P, P, P, P, P, I, P, P,
-                           I, I, I, I, I, I, I, F, I, F, I, I, I, I, P])
+                           I, I, I, I, I, I, I, I, F, I, F, I, I, I, I, P])
 FLASH_DECODE_INT8 = CudaKernel("flash_decode.cu", "flash_decode_int8_launch",
                                [P, P, P, P, P, P, P, I, P, P,
                                 I, I, I, I, I, I, I, F, I, F, I, I, I, P],

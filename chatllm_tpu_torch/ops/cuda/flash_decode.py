@@ -30,6 +30,9 @@ JAX package's: where it takes its batched kernel (lane-aligned head dims,
 or one kv head) CHATLLM_TPU_FLASH_QK=f32|bf16|int8, read at call time,
 default bf16; elsewhere (its per-head kernel) f32.  `block_k` is capped as
 the batched kernel caps it (a K/V tile of at most 1 MB).
+DeepSeek-V2's expanded MLA cache (K 192 wide, V 128, one query head per kv
+head) takes the per-head kernel's f32 dots (MLA_DIMS), with K and V tiles
+of their own widths and the output V wide.
 CHATLLM_TPU_FLASH_GROUP is accepted and ignored: it sets how many heads
 the batched Pallas kernel packs into one block-diagonal q, whose extra
 entries are exact zeros, so it changes no result.
@@ -45,8 +48,10 @@ from .build import FLASH_DECODE, FLASH_DECODE_INT8, num_sms, ptr, stream_ptr
 from .checks import KIND_BF16, KIND_F32, KIND_I8
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)     # head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 128)     # head dims (K = V) the CUDA kernel is instantiated for
+MLA_DIMS = (192, 128)     # ... and MLA's K / V widths, float dots only
 MAX_ROWS = 64             # G * T query rows per kv head the kernel holds (csrc MAX_ROWS)
+MLA_MAX_ROWS = 8          # ... at MLA_DIMS (one query head per kv head, T <= 8)
 TILE_K = 64               # keys per tile of the bf16 / f32 dots (csrc FTK)
 MAX_CLUSTER = 16          # their blocks per (batch row, kv head) at most (csrc MAX_CLUSTER)
 PORTABLE_CLUSTER = 8      # above it the launcher sets the non-portable cluster attribute
@@ -294,15 +299,17 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
                  sliding_window: int = 0, logit_softcap: float = 0.0,
                  k_scale=None, v_scale=None, sinks=None,
                  qk_dtype: str | None = None, block_k: int = 512) -> torch.Tensor:
-    """q: [B, T, Hq, D] (T small); k/v_cache: [B, S, Hkv, D] — int8 when
-    k_scale/v_scale (f32 [B, S, Hkv]) are given, bf16 or f32 otherwise.
+    """q: [B, T, Hq, D] (T small); k_cache: [B, S, Hkv, D], v_cache: [B, S,
+    Hkv, Dv] — int8 when k_scale/v_scale (f32 [B, S, Hkv]) are given, bf16 or
+    f32 otherwise.
     n_past: an int or an int64 [B] tensor of per-row frontiers; sinks: f32
     [Hq] or None; qk_dtype "bfloat16", "float32" or "int8" (module
     docstring), block_k the int8 dots' quantization block before the
-    batched kernel's cap.  Returns [B, T, Hq, D] in q's dtype.
+    batched kernel's cap.  Returns [B, T, Hq, Dv] in q's dtype.
 
-    The CUDA kernel takes bf16 or f32 q, D in HEAD_DIMS, G * T <= MAX_ROWS
-    (64), cache rows 16-byte aligned with unit stride along D (a permuted
+    The CUDA kernel takes bf16 or f32 q, D = Dv in HEAD_DIMS with G * T <=
+    MAX_ROWS (64), or with bf16 or f32 dots (D, Dv) = MLA_DIMS with G * T <=
+    MLA_MAX_ROWS (8), cache rows 16-byte aligned with unit stride along D (a permuted
     [B, Hkv, S, D] cache passes), scales of any strides (so do [B, Hkv, S]
     ones, permuted), and for int8 dots a capped block_k of at most 512."""
     B, T, Hq, D = q.shape
@@ -317,13 +324,15 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
 
     dev = q.device
     G = Hq // Hkv
-    if (tuple(v_cache.shape) != tuple(k_cache.shape) or k_cache.shape[0] != B
-            or Dv != D or Hq % Hkv):
+    if (tuple(v_cache.shape[:3]) != tuple(k_cache.shape[:3]) or k_cache.shape[0] != B
+            or k_cache.shape[-1] != D or Hq % Hkv):
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
-    if D not in HEAD_DIMS or G * T > MAX_ROWS:
-        raise ValueError(f"flash_decode: D={D} (need {HEAD_DIMS}), G*T={G * T} "
-                         f"(at most {MAX_ROWS})")
+    mla = (D, Dv) == MLA_DIMS and qk_dtype != "int8"
+    if not (mla or (D == Dv and D in HEAD_DIMS)) or G * T > (MLA_MAX_ROWS if mla else MAX_ROWS):
+        raise ValueError(f"flash_decode: (D, Dv)=({D}, {Dv}) with {qk_dtype} dots, G*T={G * T} "
+                         f"(need D = Dv in {HEAD_DIMS} with G*T <= {MAX_ROWS}, or "
+                         f"{MLA_DIMS} with float dots and G*T <= {MLA_MAX_ROWS})")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_decode: q {q.dtype}, need bfloat16 or float32")
     kind = _CACHE_KINDS.get(k_cache.dtype)
@@ -354,23 +363,23 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
     else:
         np_scalar = int(n_past)
 
-    o = torch.empty(B, T, Hq, D, dtype=q.dtype, device=dev)
+    o = torch.empty(B, T, Hq, Dv, dtype=q.dtype, device=dev)
     sc_strides = k_scale.stride() + v_scale.stride() if quant else (0,) * 6
     strides = (ctypes.c_long * 18)(*(q.stride()[:3] + k_cache.stride()[:3]
                                      + v_cache.stride()[:3] + o.stride()[:3] + sc_strides))
     head = (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(sinks),
             ptr(np_vec), np_scalar, ptr(o))
-    shape = (ctypes.cast(strides, ctypes.c_void_p), B, T, S, Hq, Hkv, D, int(n_tokens),
-             float(scale), int(sliding_window), float(logit_softcap),
-             KIND_F32 if q.dtype == torch.float32 else KIND_BF16)
+    dims = (ctypes.cast(strides, ctypes.c_void_p), B, T, S, Hq, Hkv, D)
+    rest = (int(n_tokens), float(scale), int(sliding_window), float(logit_softcap),
+            KIND_F32 if q.dtype == torch.float32 else KIND_BF16)
     if qk_dtype != "int8":
-        FLASH_DECODE.launch(*head, *shape, kind, int(qk_dtype == "bfloat16"),
+        FLASH_DECODE.launch(*head, *dims, Dv, *rest, kind, int(qk_dtype == "bfloat16"),
                             decode_geometry(B, Hkv, S, num_sms(dev)), stream_ptr(dev))
         return o
     bk = batched_block_k(block_k, S, Hkv, D, Dv, 1)
     if not 0 < bk <= MAX_BLOCK_K:
         raise ValueError(f"flash_decode: int8 dots over blocks of {bk} keys "
                          f"(1..{MAX_BLOCK_K})")
-    FLASH_DECODE_INT8.launch(*head, *shape, bk, decode_geometry(B, Hkv, S, num_sms(dev)),
+    FLASH_DECODE_INT8.launch(*head, *dims, *rest, bk, decode_geometry(B, Hkv, S, num_sms(dev)),
                              stream_ptr(dev))
     return o

@@ -76,8 +76,9 @@ class StreamHandle:
 class BatchedEngine:
     """Slot scheduler + batched decode for one model on one device.
 
-    Scope: causal full-attention text models (the port's decoder), one
-    SamplerConfig per engine (per-request max_new and seed are honoured)."""
+    Scope: causal full-attention text models (the port's decoder, MLA in its
+    expanded mode), one SamplerConfig per engine (per-request max_new and
+    seed are honoured)."""
 
     def __init__(self, cfg: TransformerConfig, params, *, max_slots: int = 4,
                  max_length: int | None = None, decode_block: int = 8,
@@ -121,6 +122,11 @@ class BatchedEngine:
         if not cfg.causal:
             raise ValueError("BatchedEngine decodes causal models only; serve this "
                              "model single-slot")
+        if cfg.mla_compressed:
+            # the latent MLA cache takes no per-slot n_past, as in the JAX package
+            raise ValueError("BatchedEngine v1 supports dense full-attention models only; "
+                             "unsupported: compressed-MLA cache. Serve this model "
+                             "single-slot (serve/server.py falls back).")
 
     # -- public ------------------------------------------------------------
     def submit(self, ids: list[int], *, max_new: int = -1,

@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              qmm_unpack_diag (five modes)
              against their plain PyTorch versions at the Llama-3-8B shapes,
              and K1-K5 at the Qwen2.5-0.5B shapes too (q8_0 with a bias, head
-             dim 64, 14 query heads over 2 kv heads); K1, K2 and K5 also on
+             dim 64, 14 query heads over 2 kv heads), K4 at DeepSeek-V2-Lite's
+             expanded MLA cache (K 192, V 128, f32 dots), and K1, K2 and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
              on both sides of every tile edge, N that are not multiples of
@@ -110,10 +111,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              launch counts (168 quantized projections per token), its 2-layer
              cuts against the CPU (1e-2 of the logit scale, same argmax), and
              graph_decode at its width.
-  8. cli     write narrow LLAMA3 and Qwen2 GGMMs with the port's writer and
-             chat through `python -m chatllm_tpu_torch.main` twice each
-             (bf16 cache; --cache_dtype q8_0; Qwen2 with ChatML and a tied
-             head), greedy: each pair's transcripts are byte-identical.
+     deepseek_v2_lite  full-width DeepSeek-V2-Lite (27 layers, MLA, 64
+             routed experts + 2 shared, top-6; random zero-centred q4_k
+             projections and 28.8 GB of bf16 expert stacks from a seed,
+             max_length 8192; `deepseek_phase`): the 1000-token prompt and 64
+             greedy tokens over a bf16 cache, uncaptured and replayed (tokens
+             identical, K1 215 launches per replayed step), over a q8 cache
+             (K4 at (192, 128) 27 times per step, one block profiled) and
+             with K4 off; the latent MLA cache (256 tokens, 16 new); 2-layer
+             cuts against the CPU (router scores within 1e-2, at least 0.9
+             of the tokens with the same expert picks and the others on
+             near-ties, then logits within 2e-2 of the logit scale where the
+             picks agree, DSV2_CUT_TOL); a 4-slot q8 server (4 chat
+             requests, 16 tokens each).
+  8. cli     write narrow LLAMA3, Qwen2 and DEEPSEEK_V2_LIGHT GGMMs with the
+             port's writer and chat through `python -m chatllm_tpu_torch.main`
+             twice each (bf16 cache; --cache_dtype q8_0; Qwen2 with ChatML
+             and a tied head; DeepSeek-V2 (q4_k, MoE, MLA at 192 / 128) with
+             --mla_cache speed over a q8 cache of 4096 slots (K4 at (192,
+             128)) and --mla_cache memory), greedy: each pair's transcripts
+             are byte-identical.
   9. e2      `chatllm_tpu_torch.experiments.gemv_probe2.main`, all six
              variants.
  10. e1      `chatllm_tpu_torch.experiments.gemv_probe.main`, all seven
@@ -132,7 +149,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              N 14336, each checked against K2, 2048 chained calls each.
  15. e7      `chatllm_tpu_torch.experiments.bhsd_decode.main`: the 8
              variant/cache combinations of a Llama-3-8B decode step at B 32
-             over 1024 slots, 48 steps eagerly and as a CUDA-graph replay.
+             over 1024 slots, 16 steps (the original's 48 cut to a third)
+             eagerly and as a CUDA-graph replay.
              Phases 9-15 count every kernel's launches exactly.
 Then it prints the kernels line, the card line and, last, the result line.
 Details go to chiprun_out/chip_smoke.json.
@@ -162,10 +180,16 @@ SHAPES_8B = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
              "down": (14336, 4096), "lm_head": (4096, 128256)}
 PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}
 N_LAYERS = 32
+DSV2_LAYERS = 27                   # DeepSeek-V2-Lite
 DECODE_BLOCK = 16                  # InferenceEngine's default decode_block
 
 
+PHASE_STARTS: list = []           # (phase, time) at each "== phase" line
+
+
 def log(msg: str):
+    if msg.startswith("== "):
+        PHASE_STARTS.append((msg[3:].split()[0], time.perf_counter()))
     print(msg, flush=True)
 
 
@@ -285,6 +309,98 @@ def write_qwen2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: in
         wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
         _write_dense_tensors(wr, w, dtype, vocab_pad, hidden, heads, kv_heads, layers, inter,
                              qkv_bias=True, tie=tie)
+    return path
+
+
+# write_deepseek_v2_ggmm's model loaded on the card against the CPU: (weight
+# format, compute dtype, cache dtype, mla_cache, max_len, logits' tolerance
+# relative to the logit scale).  An f32 cache holds to 1e-4; a q8 cache to
+# 1e-2, since an f32-level difference flips int8 roundings of the cache
+# (1.7e-3 on the CPU alone); q4_k weights with bf16 activations to 2e-2, as
+# the other q4_k models (tests/test_torch_deepseek.py::
+# test_tiny_fixture_moves_with_an_f32_level_perturbation).
+DSV2_TINY_CASES = {
+    "f32": ("f32", "float32", "float32", "speed", 512, 1e-4),
+    "f32_q8": ("f32", "float32", "q8_0", "speed", 4096, 1e-2),
+    "f32_latent": ("f32", "float32", "float32", "memory", 512, 1e-4),
+    "q4k": ("q4_k", "bfloat16", "bfloat16", "speed", 512, 2e-2),
+    "q4k_q8": ("q4_k", "bfloat16", "q8_0", "speed", 4096, 2e-2),
+    "q4k_latent": ("q4_k", "bfloat16", "bfloat16", "memory", 512, 2e-2),
+}
+
+
+def write_deepseek_v2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: int = 4,
+                           layers: int = 2, inter: int = 512, moe_inter: int = 256,
+                           experts: int = 8, shared: int = 2, top_k: int = 2,
+                           kv_rank: int = 256, max_len: int = 512, dtype=None, seed: int = 0,
+                           writer_cls=None):
+    """A narrow random-weight DEEPSEEK_V2_LIGHT GGMM in the converter's layout:
+    byte-level vocab plus DeepSeek's begin/end-of-sentence control tokens,
+    layer 0 dense and the rest MoE (`experts` routed, `top_k` a token, softmax
+    scores, `shared` shared experts), MLA at DeepSeek-V2-Lite's head widths
+    (nope 128, rope 64, v 128: a q8 cache of >= 4096 slots sends decode to K4
+    at (192, 128)), and its YaRN rope (factor 40 over 4096, mscale 0.707).
+    Every matrix takes `dtype` (q4_k by default; each width is a multiple of
+    256); norms and the embedding stay f32.  `writer_cls` defaults to the
+    port's GGMMWriter."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.ggmm.writer import GGMMWriter
+    from chatllm_tpu_torch.models.model_types import ModelType
+    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+
+    writer_cls = writer_cls or GGMMWriter
+    dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    nope, rope_d, v_dim = 128, 64, 128
+    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
+    pieces += [(s.encode(), TokenType.CONTROL)
+               for s in ("<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>")]
+    pieces += [(f"<|reserved_{i}|>".encode(), TokenType.CONTROL)
+               for i in range(vocab_pad - len(pieces))]
+    bos, eos = 256, 257
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=None):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def norm(n):
+        return 1.0 + 0.1 * w(n, scale=1.0)
+
+    with open(path, "wb") as f:
+        wr = writer_cls(f, int(ModelType.DEEPSEEK_V2_LIGHT), 1, meta={"model_name": "tiny-dsv2"})
+        # BaseConfig, then n_kv .. v_head_dim (14i) and beta_fast .. routed
+        # scaling (7f), as tools/convert.py writes a V2-Lite file
+        wr.write_config([int(dtype), vocab_pad, hidden, heads, layers, inter, max_len, bos, eos,
+                         -1, -1, heads, 1, kv_rank, moe_inter, 1, 1, experts, shared, 0, top_k,
+                         nope, rope_d, 4096, v_dim], fmt="25i")
+        f.write(struct.pack("<7f", 32.0, 1.0, 40.0, 0.707, 0.707, 10000.0, 1.0))
+        wr._patch_offset(12)
+        wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
+        wr.write_tensor("model.embed_tokens.weight", w(vocab_pad, hidden, scale=1.0),
+                        GGMLType.F32)
+        for i in range(layers):
+            p = f"model.layers.{i}"
+            wr.write_tensor(f"{p}.input_layernorm.weight", norm(hidden), GGMLType.F32)
+            for name, shape in (("q_proj", (heads * (nope + rope_d), hidden)),
+                                ("d_kv_proj", (kv_rank, hidden)),
+                                ("k_pe_proj", (rope_d, hidden)),
+                                ("u_k_nope_proj", (heads * nope, kv_rank)),
+                                ("u_v_proj", (heads * v_dim, kv_rank)),
+                                ("o_proj", (hidden, heads * v_dim))):
+                wr.write_tensor(f"{p}.self_attn.{name}.weight", w(*shape), dtype)
+            wr.write_tensor(f"{p}.self_attn.kv_norm.weight", norm(kv_rank), GGMLType.F32)
+            wr.write_tensor(f"{p}.post_attention_layernorm.weight", norm(hidden), GGMLType.F32)
+            ffns = [("mlp", inter)]
+            if i > 0:
+                wr.write_tensor(f"{p}.mlp.gate.weight", w(experts, hidden), dtype)
+                ffns = [(f"mlp.experts.{j}", moe_inter) for j in range(experts)]
+                ffns.append(("mlp.shared_experts", shared * moe_inter))
+            for pfx, n in ffns:
+                wr.write_tensor(f"{p}.{pfx}.gate_proj.weight", w(n, hidden), dtype)
+                wr.write_tensor(f"{p}.{pfx}.up_proj.weight", w(n, hidden), dtype)
+                wr.write_tensor(f"{p}.{pfx}.down_proj.weight", w(hidden, n), dtype)
+        wr.write_tensor("model.norm.weight", norm(hidden), GGMLType.F32)
+        wr.write_tensor("lm_head.weight", w(vocab_pad, hidden), dtype)
     return path
 
 
@@ -579,6 +695,7 @@ def kernels_phase(dev, timer) -> dict:
     res["quantize_kv"] = quantize_kv_case(dev, gen)
     res["flash_attention"] = flash_cases(dev, timer, gen)
     res["flash_decode"] = decode_cases(dev, timer, gen)
+    res["flash_decode_mla"] = mla_decode_cases(dev, timer, gen)
     res["bw_probe"] = probe_case(dev, timer, gen)
     res.update(gemv_probe_cases(dev, timer, gen))
     res.update(gemv_model_cases(dev, timer, gen))
@@ -850,8 +967,8 @@ def flash_decode_errors(o, q, k, v, n_past, n_tokens: int, *, sinks=None, v_scal
     output against its plain version on the same inputs."""
     from chatllm_tpu_torch.ops.cuda.flash_decode import decode_scores, flash_decode_plain
 
-    B, T, Hq, D = q.shape
-    Hkv = k.shape[2]
+    B, T, Hq, _ = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
     ref = flash_decode_plain(q, k, v, n_past, n_tokens, sinks=sinks, v_scale=v_scale,
                              **kw).float()
     s = decode_scores(q, k, n_past, n_tokens, scale=kw["scale"],
@@ -872,7 +989,7 @@ def flash_decode_errors(o, q, k, v, n_past, n_tokens: int, *, sinks=None, v_scal
     rms = torch.einsum("bhgts,bshd->bthgd", p2, vf.square()).sqrt_()
     del p2, vf
     diff = (o.float() - ref).abs()
-    denom = ref.abs() + 4.0 * rms.reshape(B, T, Hq, D) + 1e-6
+    denom = ref.abs() + 4.0 * rms.reshape(B, T, Hq, Dv) + 1e-6
     return diff.max().item(), (diff / denom).max().item()
 
 
@@ -1247,6 +1364,84 @@ def decode_cases(dev, timer, gen) -> dict:
     return out
 
 
+# K4 at DeepSeek-V2-Lite's expanded MLA cache: K 192 wide (128 nope + 64 rope
+# dims), V 128, 16 kv heads of one query head each; the route takes f32 dots
+# there (the JAX package's per-head kernel).  (B, T, n_past, cache, dots,
+# extra, timed as); Hq = Hkv = 16, S = DECODE_S.
+MLA_HEADS, MLA_DK, MLA_DV = 16, 192, 128
+MLA_DECODE_CASES = [
+    (1, 1, [1000], "int8", "float32", {}, "dsv2_1000"),
+    (1, 1, [8000], "int8", "float32", {}, "dsv2_8000"),
+    (4, 1, [10, 1000, 4095, 8000], "int8", "float32", {}, "dsv2_serve_4"),
+    (1, 1, [0], "int8", "float32", {}, None),             # one live key
+    (1, 1, [63], "int8", "float32", {}, None),            # one whole tile
+    (1, 1, [64], "int8", "float32", {}, None),            # tile + 1
+    (1, 1, [1023], "int8", "float32", {}, None),
+    (1, 1, [8191], "int8", "float32", {}, None),          # a row ending at S
+    (2, 2, [3000, 6000], "int8", "float32", {}, None),
+    (1, 8, [7000], "int8", "float32", {}, None),          # 8 rows, the most
+    (32, 1, [i * 263 % 8192 for i in range(32)], "int8", "float32", {}, None),
+    (1, 1, [5000], "int8", "float32", {"sliding_window": 256, "logit_softcap": 30.0}, None),
+    (2, 1, [700, 5], "bfloat16", "float32", {}, None),
+    (1, 4, [2000], "float32", "float32", {}, None),
+    (1, 1, [3000], "int8", "bfloat16", {}, None),
+    (1, 2, [100], "bfloat16", "bfloat16", {}, None),
+]
+
+
+def mla_decode_cases(dev, timer, gen) -> dict:
+    """K4 at (D, Dv) = (192, 128) over an 8192-slot cache, each case launched
+    twice, bit-identical, against its plain version (DECODE_SCALED_TOL);
+    timed at DeepSeek-V2-Lite's decode shapes beside SDPA over the cache
+    dequantized beforehand (V of width 128) and the bytes bound."""
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+
+    out = {"cases": [], "shapes": {}}
+    H, S = MLA_HEADS, DECODE_S
+    for B, T, n_past, cache, dots, extra, timed in MLA_DECODE_CASES:
+        q = torch.randn(B, T, H, MLA_DK, generator=gen, device=dev).to(getattr(torch, dots))
+        k = torch.randn(B, S, H, MLA_DK, generator=gen, device=dev)
+        v = torch.randn(B, S, H, MLA_DV, generator=gen, device=dev)
+        kw = dict(scale=MLA_DK ** -0.5, qk_dtype=dots,
+                  sliding_window=extra.get("sliding_window", 0),
+                  logit_softcap=extra.get("logit_softcap", 0.0))
+        if cache == "int8":
+            (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+        else:
+            k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
+        npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
+        o = flash_decode(q, k, v, npv, T, **kw)
+        same = torch.equal(flash_decode(q, k, v, npv, T, **kw), o)
+        err, scaled = flash_decode_errors(o, q, k, v, npv, T, **kw)
+        name = f"B={B} T={T} (192, 128) n_past={n_past} {cache} {dots} dots {extra}"
+        log(f"  flash_decode {name}  max_abs_err={err:.3e} scaled={scaled:.2e}")
+        lim = DECODE_SCALED_TOL[dots]
+        if not (o.dtype == q.dtype and tuple(o.shape) == (B, T, H, MLA_DV)
+                and torch.isfinite(o).all() and err <= DECODE_ATOL and scaled <= lim and same):
+            raise AssertionError(f"flash_decode {name}: shape {tuple(o.shape)}, err {err} "
+                                 f"(limit {DECODE_ATOL}), scaled {scaled} (limit {lim}), "
+                                 f"second launch {'bit-identical' if same else 'differs'}")
+        out["cases"].append({"B": B, "T": T, "D": MLA_DK, "Dv": MLA_DV, "n_past": n_past,
+                             "cache": cache, "dots": dots, "extra": str(extra),
+                             "max_abs_err": err, "scaled_err": scaled})
+        if timed:
+            live = [min(n + T, S) for n in n_past]
+            per_key = H * ((MLA_DK + MLA_DV) * k.element_size() + (8 if cache == "int8" else 0))
+            b_ms, b_by = bound(nbytes(q, o) + sum(live) * per_key,
+                               2.0 * (MLA_DK + MLA_DV) * H * T * sum(live), F32_FLOPS)
+            out["shapes"][timed] = {
+                "B": B, "T": T, "S": S, "n_past": n_past, "live_keys": live,
+                "ms": timer(lambda: flash_decode(q, k, v, npv, T, **kw)),
+                "plain_ms": timer(lambda: flash_decode_plain(q, k, v, npv, T, **kw), iters=5),
+                "library_ms": timer(_sdpa_over_dequantized(q, k, v, npv, T, kw["scale"],
+                                                           kw["k_scale"], kw["v_scale"])),
+                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"    timing {out['shapes'][timed]}")
+        del q, k, v, o
+    return out
+
+
 def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_scale=None,
                            head_major: bool = False):
     """The library yardstick of K4: SDPA over the cache dequantized to bf16
@@ -1575,7 +1770,7 @@ def _profile_block(eng, kv, n_past: int) -> dict:
     return {"block_ms": block_ms, "step_ms": block_ms / DECODE_BLOCK,
             "kernel_ms": dev_ms or None,
             "busy_share": dev_ms / block_ms if dev_ms else None,
-            "top_kernels_ms": {k: v for k, v in top}}
+            "top_kernels_ms": {k: v for k, v in top}, "kernels_ms": by_name}
 
 
 def graph_decode_phase(dev, cfg, params, name: str, *, tied: bool = False) -> dict:
@@ -1653,17 +1848,18 @@ def graph_decode_phase(dev, cfg, params, name: str, *, tied: bool = False) -> di
     return res
 
 
+def _to_device(tree, device):
+    """A parameter tree (dicts, tuples, tensors, linears) on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_to_device(v, device) for v in tree)
+    return tree.to(device)
+
+
 def _cut(params, n_layers: int, device) -> dict:
     """The first n_layers of the parameters, on `device`."""
-    head = {"lm_head": params["lm_head"].to(device)} if "lm_head" in params else {}
-    return {"embed": params["embed"].to(device),
-            "final_norm": {"w": params["final_norm"]["w"].to(device)},
-            **head,
-            "layers": tuple({"attn_norm": {"w": L["attn_norm"]["w"].to(device)},
-                             "ffn_norm": {"w": L["ffn_norm"]["w"].to(device)},
-                             "attn": {n: lin.to(device) for n, lin in L["attn"].items()},
-                             "mlp": {n: lin.to(device) for n, lin in L["mlp"].items()}}
-                            for L in params["layers"][:n_layers])}
+    return _to_device(dict(params, layers=params["layers"][:n_layers]), device)
 
 
 def _compare_logits(name: str, g, c, tol: float = 1e-3) -> dict:
@@ -1725,10 +1921,13 @@ def two_layer_phase(dev, cfg, params, tol: float = 1e-3) -> dict:
 SERVE_PROMPT_BYTES = (20, 80, 150, 260, 400, 560, 760, 980)
 
 
-def serve_phase(dev, cfg, params) -> dict:
+def serve_phase(dev, cfg, params, *, model_type=None, tok=None, name="llama3-8b-synthetic",
+                prompt_bytes=SERVE_PROMPT_BYTES, max_new: int = 32) -> dict:
     """Full-width Llama-3-8B (q8 cache, max_length 8192) behind the HTTP
     server with 4 slots: 8 chat requests of ~30 to ~1000 tokens, 32 greedy
-    tokens each, first one at a time, then all at once from 8 threads."""
+    tokens each, first one at a time, then all at once from 8 threads.
+    Another model passes its type, its tokenizer, the prompts' lengths in
+    bytes and the tokens per request."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -1743,14 +1942,16 @@ def serve_phase(dev, cfg, params) -> dict:
     # the tokenizer of a narrow GGMM with Llama-3's vocab size, so that every
     # id the random model emits decodes, to visible text; its weights stay
     # unused
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = write_llama3_ggmm(BUILD_DIR / "smoke_vocab128256.bin", vocab_pad=cfg.vocab_size,
-                             hidden=64, heads=2, kv_heads=1, layers=1, inter=128,
-                             dtype=0, visible_reserved=True)           # GGMLType.F32
-    tok = load_model(str(path), device="cpu").tokenizer
-    model = BaseLLM(int(ModelType.LLAMA3), replace(cfg, cache_dtype="int8"), params, tok, dev)
-    api = ApiServer(model, model_name="llama3-8b-synthetic", max_slots=4, device=dev,
-                    gen_config=GenerationConfig(do_sample=False, max_new_tokens=32))
+    if tok is None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = write_llama3_ggmm(BUILD_DIR / "smoke_vocab128256.bin", vocab_pad=cfg.vocab_size,
+                                 hidden=64, heads=2, kv_heads=1, layers=1, inter=128,
+                                 dtype=0, visible_reserved=True)           # GGMLType.F32
+        tok = load_model(str(path), device="cpu").tokenizer
+    model = BaseLLM(int(model_type or ModelType.LLAMA3), replace(cfg, cache_dtype="int8"),
+                    params, tok, dev)
+    api = ApiServer(model, model_name=name, max_slots=4, device=dev,
+                    gen_config=GenerationConfig(do_sample=False, max_new_tokens=max_new))
     produced = []                 # token ids per request, in submission order
     submit = api.batch.submit
 
@@ -1771,7 +1972,7 @@ def serve_phase(dev, cfg, params) -> dict:
     url = f"http://127.0.0.1:{httpd.server_port}/v1/chat/completions"
     rng = np.random.default_rng(3)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
-    prompts = ["".join(rng.choice(letters, n)) for n in SERVE_PROMPT_BYTES]
+    prompts = ["".join(rng.choice(letters, n)) for n in prompt_bytes]
 
     def request(text, rec):
         body = json.dumps({"messages": [{"role": "user", "content": text}],
@@ -1849,14 +2050,18 @@ def cli_phase() -> dict:
     """Greedy CLI chats, two per model, whose transcripts must be
     byte-identical: a narrow Llama-3 over a bf16 cache, the same with
     `--cache_dtype q8_0` at a 4096-token context (K4 on every decode step),
-    and a narrow Qwen2 (ChatML control tokens, biased q/k/v, tied head,
-    q8_0 weights)."""
+    a narrow Qwen2 (ChatML control tokens, biased q/k/v, tied head, q8_0
+    weights), and a narrow DeepSeek-V2 (q4_k, 8 routed experts + 2 shared,
+    MLA's 192 / 128 head widths, YaRN) at a 4096-token context with
+    `--mla_cache speed --cache_dtype q8_0` (K4 at (192, 128) on every
+    decode step) and `--mla_cache memory` (the latent cache, bf16)."""
     from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = write_llama3_ggmm(BUILD_DIR / "smoke_llama3_q4k.bin")
     path_q8 = write_llama3_ggmm(BUILD_DIR / "smoke_llama3_q4k_4096.bin", max_len=4096)
     path_qwen = write_qwen2_ggmm(BUILD_DIR / "smoke_qwen2_q8_0.bin")
+    path_ds = write_deepseek_v2_ggmm(BUILD_DIR / "smoke_dsv2_q4k_4096.bin", max_len=4096)
     cmd = [sys.executable, "-m", "chatllm_tpu_torch.main", "-p", "Hello from the H100!",
            "-t", "0", "--max_new_tokens", "8"]
 
@@ -1866,7 +2071,11 @@ def cli_phase() -> dict:
     res = {}
     for name, extra in (("transcript", ["-m", str(path)]),
                         ("transcript_q8", ["-m", str(path_q8), "--cache_dtype", "q8_0"]),
-                        ("transcript_qwen2", ["-m", str(path_qwen)])):
+                        ("transcript_qwen2", ["-m", str(path_qwen)]),
+                        ("transcript_dsv2_q8", ["-m", str(path_ds), "--mla_cache", "speed",
+                                                "--cache_dtype", "q8_0"]),
+                        ("transcript_dsv2_latent", ["-m", str(path_ds),
+                                                    "--mla_cache", "memory"])):
         runs = []
         for _ in range(2):
             r = subprocess.run(cmd + extra, cwd=ROOT, capture_output=True, text=True,
@@ -2200,20 +2409,24 @@ def e6_phase(dev) -> dict:
     return res
 
 
+E7_STEPS = 16     # the original's 48 cut to a third: the rates are per step, and
+#                   the plain einsum variants' eager loops took ~3 minutes
+
+
 def e7_phase() -> dict:
-    """The E7 probe's own entry point at B 32, ctx 1024, 48 steps: all 8
-    combinations, each 48-step loop run eagerly 4 times (warm-up, 3 timed)
-    and captured once into a CUDA graph, whose replays go through no
+    """The E7 probe's own entry point at B 32, ctx 1024, E7_STEPS steps: all
+    8 combinations, each loop run eagerly 4 times (warm-up, 3 timed) and
+    captured once into a CUDA graph, whose replays go through no
     wrapper."""
     from chatllm_tpu_torch.experiments import bhsd_decode as e7
     from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
 
     reset_launch_counts()
-    res = e7.main([])
+    res = e7.main([], steps=E7_STEPS)
     gc.collect()
     torch.cuda.empty_cache()
     res["launches"] = got = launch_counts()
-    passes = 5 * e7.STEPS                        # warm-up, 3 eager, capture
+    passes = 5 * E7_STEPS                        # warm-up, 3 eager, capture
     per_step = N_LAYERS * 7 + 1                  # K2 projections + the lm_head
     n_k4 = sum(v == "pallas_bhsd" for _, v in e7.COMBOS)
     want = {"qmm": len(e7.COMBOS) * passes * per_step, "flash_decode": n_k4 * passes * N_LAYERS,
@@ -2432,6 +2645,357 @@ def switch_phase(dev, cfg, params) -> dict:
     return res
 
 
+# ------------------------------------------------------- deepseek_v2_lite
+DSV2_PROMPT, DSV2_NEW = 1000, 64
+DSV2_SERVE_BYTES = (30, 200, 500, 980)          # ~40 to ~1000 prompt tokens
+
+
+def dsv2_step_launches(cfg) -> int:
+    """K1 launches per DeepSeek-V2-Lite decode token: q, d_kv, u_k_nope, u_v
+    and o in every layer (k_pe's and the router's 64 columns take the
+    dequant route), the dense layer's down (its gate and up, 10944 columns,
+    are not multiples of 128: the dequant route), each MoE layer's shared
+    gate, up and down, and the lm_head."""
+    L = cfg.num_hidden_layers
+    moe = sum(cfg.layer_spec(i).is_moe for i in range(L))
+    return 5 * L + (L - moe) + 3 * moe + 1
+
+
+def _dsv2_tokenizer(cfg):
+    """DeepSeek's tokenizer and chat template over a byte-level vocab of the
+    model's size (a narrow GGMM written for its vocab, every reserved id a
+    visible piece)."""
+    from chatllm_tpu_torch.ggmm.reader import GGMMFile
+    from chatllm_tpu_torch.models.base import BaseConfig
+    from chatllm_tpu_torch.models.deepseek import make_deepseek_v1_tokenizer
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = write_llama3_ggmm(BUILD_DIR / f"smoke_vocab{cfg.vocab_size}.bin",
+                             vocab_pad=cfg.vocab_size, hidden=64, heads=2, kv_heads=1,
+                             layers=1, inter=128, dtype=0, visible_reserved=True)
+    gf = GGMMFile.open(str(path))
+    return make_deepseek_v1_tokenizer(gf, BaseConfig.parse(gf)[0])
+
+
+def _step_breakdown(kernels_ms: dict, step_ms: float) -> dict:
+    """A profiled block's kernel time per decode step by kind: K1, K4, the
+    cuBLAS products (the expert products above all) and the rest."""
+    kinds = {"k1": 0.0, "k4": 0.0, "cublas": 0.0, "rest": 0.0}
+    for name, ms in kernels_ms.items():
+        n = name.lower()
+        kind = ("k1" if "qgemv" in n else "k4" if "decode_kernel" in n else
+                "cublas" if any(w in n for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma"))
+                else "rest")
+        kinds[kind] += ms / DECODE_BLOCK
+    return {**{k + "_ms": v for k, v in kinds.items()},
+            **{k + "_share": v / step_ms for k, v in kinds.items()}}
+
+
+# The 2-layer DeepSeek-V2-Lite cut on the card against the CPU, at the
+# positions whose expert picks agree: 2e-2 of the logit scale, the tolerance
+# of a quantized model against the JAX package.  Not 1e-3 as for Llama-3-8B:
+# on the CPU alone, norm weights of 1 + 1e-6 * randn (an f32-level
+# difference) move the cut's logits by ~1e-2 of their scale and flip the
+# picks of near-tied experts (tests/test_torch_deepseek.py::
+# test_two_layer_cut_moves_with_an_f32_level_perturbation).
+DSV2_CUT_TOL = 2e-2
+# The router scores (softmax over 64 experts) of the cut on the card against
+# the CPU's: at most 1e-2 apart (sound runs read 3.2e-3, the CPU perturbation
+# test ~3e-3), and at least 0.9 of the tokens pick the same experts (sound
+# runs read 60 of 64 in prefill, 4 of 4 in the decode step).
+DSV2_SCORE_DIFF_MAX = 1e-2
+DSV2_PICKS_AGREE_MIN = 0.9
+
+
+def _moe_picks(name: str, card, cpu) -> tuple[torch.Tensor, dict]:
+    """The MoE layer's picks on the card against the CPU's, per token: each
+    side's sorted picks [N, K] and router scores [N, E].  The scores may
+    differ by at most DSV2_SCORE_DIFF_MAX, at least DSV2_PICKS_AGREE_MIN of
+    the tokens must pick the same experts, and a pick may differ only
+    between experts whose CPU scores are closer than twice the largest
+    difference of the card's and the CPU's scores (a near-tie that the
+    rounding decides).  Returns the mask of tokens whose picks agree."""
+    (gi, gp), (ci, cp) = card, cpu
+    rows = (gi != ci).any(dim=-1)
+    dp = (gp - cp).abs().max().item()
+    gaps = []
+    for t in torch.nonzero(rows).flatten().tolist():
+        a, b = set(gi[t].tolist()), set(ci[t].tolist())
+        gaps.append(max(min(abs(cp[t, e] - cp[t, e2]).item() for e2 in b - a) for e in a - b))
+    share = 1.0 - rows.float().mean().item()
+    r = {"tokens": int(gi.shape[0]), "picks_differ": int(rows.sum()), "picks_agree_share": share,
+         "max_score_diff": dp, "differing_score_gaps": gaps}
+    log(f"  {name}: expert picks {r}")
+    if dp > DSV2_SCORE_DIFF_MAX or share < DSV2_PICKS_AGREE_MIN:
+        raise AssertionError(f"{name}: router scores differ by {dp} (limit "
+                             f"{DSV2_SCORE_DIFF_MAX}), or only {share} of the tokens pick the "
+                             f"same experts (limit {DSV2_PICKS_AGREE_MIN})")
+    if any(g > 2 * dp for g in gaps):
+        raise AssertionError(f"{name}: a pick differs between experts whose scores are "
+                             f"further apart ({gaps}) than twice the card's and the CPU's "
+                             f"scores differ ({dp})")
+    return ~rows, r
+
+
+def _compare_agreeing(name: str, g, c, agree, tol: float = DSV2_CUT_TOL) -> dict:
+    """Card logits g against the CPU's c ([N, V]) at the rows whose expert
+    picks agree: within `tol` of the logit scale, the same argmax at the
+    last of them (and the share of them with the same argmax)."""
+    g, c = g.float().cpu(), c.float()
+    if g.shape != c.shape or not torch.isfinite(g).all() or not agree.any():
+        raise AssertionError(f"{name}: logits shape {tuple(g.shape)}, not finite, or no row "
+                             "with equal picks")
+    err, rel = rel_err(g[agree], c[agree])
+    last = int(torch.nonzero(agree).max())
+    r = {"rows_compared": int(agree.sum()), "max_abs_err": err, "rel_to_logit_scale": rel,
+         "argmax_equal_last": bool(g[last].argmax() == c[last].argmax()),
+         "argmax_equal_share": float((g[agree].argmax(-1) == c[agree].argmax(-1)).float().mean()),
+         "logit_scale": c.abs().max().item()}
+    log(f"  {name}: {r}")
+    if rel > tol or not r["argmax_equal_last"]:
+        raise AssertionError(f"{name}: logits differ from the CPU run: rel {rel} > {tol}, or "
+                             "the argmax differs")
+    return r
+
+
+def dsv2_two_layer(dev, cfg, params) -> dict:
+    """2-layer cuts of DeepSeek-V2-Lite (layer 0 dense, layer 1 MoE) at full
+    width, the card (kernels) against the CPU (plain versions): a 64-token
+    prefill over a bf16 cache (logits at every position), and one batched
+    decode step of 4 slots at per-row n_past over a q8 cache with random
+    contents (K4 at (192, 128)).  The expert picks first (`_moe_picks`),
+    then the logits where they agree (`_compare_agreeing`)."""
+    import chatllm_tpu_torch.nn.transformer as T
+    from chatllm_tpu_torch.ops.qmm import matmul
+
+    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    p2, p2_cpu = _cut(params, 2, dev), _cut(params, 2, "cpu")
+    rec, route = [], T.moe_route
+
+    def recorded(c, p, xt):
+        topi, topv = route(c, p, xt)
+        scores = torch.softmax(matmul(xt, p["gate"]).float(), dim=-1)
+        rec.append((torch.sort(topi, dim=-1).values.cpu(), scores.cpu()))
+        return topi, topv
+
+    res = {}
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64)))
+    cfg_q8 = replace(cfg2, cache_dtype="int8")
+    gen = torch.Generator().manual_seed(5)
+    caches = [T.init_cache(cfg_q8, 4, 8192, device=d) for d in (dev, "cpu")]
+    for i in range(2):           # random q8 contents, the same on both sides
+        for name in ("k", "v"):
+            q8 = torch.randint(-127, 128, getattr(caches[1], name)[i].shape, generator=gen,
+                               dtype=torch.int32).to(torch.int8)
+            sc = torch.rand(caches[1].k_scale[i].shape, generator=gen) * 0.02 + 1e-3
+            for c in caches:
+                getattr(c, name)[i].copy_(q8)
+                getattr(c, name + "_scale")[i].copy_(sc)
+    toks = torch.tensor([[11], [2024], [77777], [100000]])
+    n_past = torch.tensor([5, 1000, 4095, 8000])
+    T.moe_route = recorded
+    try:
+        with torch.inference_mode():
+            pre = [T.transformer_forward(cfg2, p, ids.to(d), T.init_cache(cfg2, 1, 1024, device=d),
+                                         0)[0][0] for p, d in ((p2, dev), (p2_cpu, "cpu"))]
+            dec = [T.transformer_forward(cfg_q8, p, toks.to(d), c, n_past.to(d))[0][:, 0]
+                   for p, c, d in ((p2, caches[0], dev), (p2_cpu, caches[1], "cpu"))]
+    finally:
+        T.moe_route = route
+    agree, res["prefill_picks"] = _moe_picks("2-layer prefill (64 tokens)", rec[0], rec[1])
+    res["prefill_vs_cpu"] = _compare_agreeing("2-layer prefill card vs cpu", *pre, agree)
+    agree, res["decode_picks"] = _moe_picks("2-layer q8 decode step (4 slots)", rec[2], rec[3])
+    res["batched_decode_vs_cpu"] = _compare_agreeing(
+        "2-layer batched q8 decode step (4 slots) card vs cpu", *dec, agree)
+    return res
+
+
+def deepseek_phase(dev) -> dict:
+    """Full-width DeepSeek-V2-Lite (`deepseek_v2_lite_config`: 27 layers,
+    64 routed experts of which 6 per token plus 2 shared, MLA with the
+    expanded cache, max_length 8192), random zero-centred q4_k projections
+    and bf16 expert stacks from a seed, built on the card:
+      - the chat path (1000-token prompt, 64 greedy tokens) over a bf16
+        cache with the decode blocks uncaptured and replayed from graphs in
+        one call (tokens identical, launches exact per replayed step), then
+        over a q8 cache (K4 at (192, 128) 27 times per step), and over the q8
+        cache with K4 off (CHATLLM_TPU_FLASH_DECODE=0, the einsum route):
+        the share of tokens that agree and the first decode step's logits;
+        one replayed block profiled (busy share, time by kind) and one MoE
+        layer's expert products timed alone;
+      - the latent cache (`mla_cache="memory"`, bf16): a 256-token prompt,
+        16 tokens, against the expanded mode's;
+      - 2-layer cuts (layer 0 dense, layer 1 MoE) on the card against the
+        CPU (`dsv2_two_layer`): a 64-token prefill and a batched q8 decode
+        step (K4 with per-row n_past);
+      - BatchedEngine behind the server, 4 slots over a q8 cache, 4 chat
+        requests of ~40 to ~1000 tokens, 16 tokens each, one at a time then
+        all at once (replies identical; K4 with per-row n_past)."""
+    import os
+
+    import chatllm_tpu_torch.nn.transformer as T
+    from chatllm_tpu_torch.models.deepseek import absorb_mla
+    from chatllm_tpu_torch.models.model_types import ModelType
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params,
+                                                    deepseek_v2_lite_config, param_bytes)
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
+
+    res = {}
+    cfg = deepseek_v2_lite_config(max_length=8192)
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev, centered=True)
+    torch.cuda.synchronize()
+    res["build"] = {"seconds": time.perf_counter() - t0, "param_bytes": param_bytes(params),
+                    "expert_bytes": param_bytes([lay["mlp"].get("experts")
+                                                 for lay in params["layers"]]),
+                    "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    log(f"  built: {res['build']}")
+
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, DSV2_PROMPT).tolist()
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=DSV2_NEW)
+    steps = decode_launches(DSV2_NEW)
+    chat = {}
+    for key, cache, mode, switch in (("bfloat16_eager", "bfloat16", "eager", None),
+                                     ("bfloat16_graph", "bfloat16", "graph", None),
+                                     ("int8_graph", "int8", "graph", None),
+                                     ("int8_k4_off", "int8", "graph", "0")):
+        if switch is not None:
+            os.environ["CHATLLM_TPU_FLASH_DECODE"] = switch
+        try:
+            eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev,
+                                  cuda_graphs=mode == "graph")
+            kv = eng.new_cache(1)
+            if mode == "graph":
+                eng.generate(ids, gcfg, cache=kv)                 # warm: captures
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            perf = PerfInfo()
+            out, kv, n_past = eng.generate(ids, gcfg, perf=perf, cache=kv)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            dec = eng.decoder
+            r = {"tokens": out, "prefill_ms": perf.prompt_ms,
+                 "decode_steps_s": (len(out) - 1) / perf.gen_ms * 1e3,
+                 "graphs": dec.num_graphs(), "capture_ms": dec.capture_ms,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                 "launches": {k: got[k] for k in ("qgemv", "qmm", "flash_attention",
+                                                  "flash_decode", "flash_decode_int8")}}
+            if key in ("bfloat16_graph", "int8_graph"):
+                pb = _profile_block(eng, kv, len(ids) + 48)
+                pb["by_kind"] = _step_breakdown(pb.pop("kernels_ms"), pb["step_ms"])
+                r["profiled_block"] = pb
+        finally:
+            os.environ.pop("CHATLLM_TPU_FLASH_DECODE", None)
+        log(f"  {key}: {r['decode_steps_s']:.2f} decode steps/s, prefill "
+            f"{r['prefill_ms']:.1f} ms, {r['graphs']} graphs in {r['capture_ms']:.0f} ms, "
+            f"peak {r['peak_mem_gib']:.2f} GiB, launches {r['launches']}"
+            + (f"; replayed block {r['profiled_block']}" if "profiled_block" in r else ""))
+        want = {"qgemv": dsv2_step_launches(cfg) * steps + 1,
+                "flash_decode": L * steps if key == "int8_graph" else 0}
+        if len(out) != DSV2_NEW or n_past != len(ids) + len(out) - 1:
+            raise AssertionError(f"deepseek {key}: {len(out)} tokens, n_past {n_past}")
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"deepseek {key}: launches {r['launches']}, expected {want} "
+                                 f"({steps} launched steps)")
+        chat[key] = r
+        del eng, kv
+        torch.cuda.empty_cache()
+    if chat["bfloat16_graph"]["tokens"] != chat["bfloat16_eager"]["tokens"]:
+        raise AssertionError("deepseek: graph tokens differ from the eager loop's")
+    # a copy of one layer's expert stacks would be 1.1 GB more
+    if chat["bfloat16_graph"]["peak_mem_gib"] > chat["bfloat16_eager"]["peak_mem_gib"] + 0.5:
+        raise AssertionError("deepseek: the replayed decode holds more memory than the eager one")
+    chat["graph_over_eager"] = (chat["bfloat16_graph"]["decode_steps_s"]
+                                / chat["bfloat16_eager"]["decode_steps_s"])
+    chat["flash_decode_per_step"] = chat["int8_graph"]["launches"]["flash_decode"] / steps
+    a, b = chat["int8_graph"]["tokens"], chat["int8_k4_off"]["tokens"]
+    chat["k4_off_tokens_equal_share"] = float(np.mean([x == y for x, y in zip(a, b)]))
+
+    # the first decode step's logits after the prompt, K4 on and off
+    c8 = replace(cfg, cache_dtype="int8")
+    eng = InferenceEngine(c8, params, device=dev)
+    first = []
+    with torch.inference_mode():
+        for switch in (None, "0"):
+            if switch is not None:
+                os.environ["CHATLLM_TPU_FLASH_DECODE"] = switch
+            try:
+                reset_launch_counts()
+                last, kv, n_past = eng.prefill(ids, eng.new_cache(1), 0)
+                tok = last.argmax(-1).reshape(1, 1)
+                first.append(T.transformer_forward(c8, params, tok, kv, n_past)[0][0, 0].float())
+                first.append(launch_counts()["flash_decode"])
+            finally:
+                os.environ.pop("CHATLLM_TPU_FLASH_DECODE", None)
+            del kv
+    (on, k4_on), (off, k4_off) = first[:2], first[2:]
+    err, rel = rel_err(off, on)
+    chat["k4_off_first_step"] = {"max_abs_err": err, "rel_to_logit_scale": rel,
+                                 "argmax_equal": bool(on.argmax() == off.argmax()),
+                                 "k4_launches": [k4_on, k4_off]}
+    log(f"  q8 cache, K4 off against on: {chat['k4_off_tokens_equal_share']:.3f} of the tokens "
+        f"equal; first decode step {chat['k4_off_first_step']}")
+    if (k4_on, k4_off) != (L, 0) or not torch.isfinite(on).all():
+        raise AssertionError(f"deepseek first step: K4 launched {k4_on} / {k4_off} times "
+                             f"(expected {L} / 0), or the logits are not finite")
+    del eng
+    res["chat"] = chat
+
+    # the expert products of one MoE layer at one token, alone (L2 flushed)
+    timer = Timer(dev)
+    mlp = params["layers"][1]["mlp"]
+    xt = torch.randn(1, cfg.hidden_size, device=dev).to(torch.bfloat16)
+    topi, topv = T.moe_route(cfg, mlp, xt)
+    ms = timer(lambda: T._experts_out(cfg, mlp["experts"], xt, topi, topv, cfg.moe_num_experts))
+    nb = param_bytes(mlp["experts"])
+    res["expert_products"] = {"ms_per_layer": ms, "bytes_per_layer": nb,
+                              "gb_s": nb / ms / 1e6, "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+                              "ms_per_step": ms * (L - 1)}
+    log(f"  expert products of one MoE layer at one token: {res['expert_products']}")
+    del timer
+    torch.cuda.empty_cache()
+
+    # the latent cache against the expanded one, bf16
+    lat = {}
+    for name, c in (("expanded", cfg), ("latent", replace(cfg, mla_compressed=True))):
+        p = params if name == "expanded" else dict(params, layers=tuple(
+            dict(lay, attn={**lay["attn"], **absorb_mla(lay["attn"], cfg, torch.bfloat16)})
+            for lay in params["layers"]))
+        eng = InferenceEngine(c, p, device=dev)
+        perf = PerfInfo()
+        out = eng.generate(ids[:256], GenerationConfig(do_sample=False, max_new_tokens=16),
+                           perf=perf)[0]
+        lat[name] = {"tokens": out, "prefill_ms": perf.prompt_ms,
+                     "decode_ms": perf.gen_ms, "cache_k_shape": list(eng.new_cache(1).k[0].shape)}
+        del eng, p
+        torch.cuda.empty_cache()
+    lat["tokens_equal_share"] = float(np.mean([x == y for x, y in
+                                               zip(lat["latent"]["tokens"],
+                                                   lat["expanded"]["tokens"])]))
+    log(f"  latent cache against expanded: {lat}")
+    if len(lat["latent"]["tokens"]) != 16:
+        raise AssertionError("deepseek latent: fewer than 16 tokens")
+    res["latent"] = lat
+
+    # 2-layer cuts against the CPU: a 64-token prefill, and one batched
+    # decode step of 4 slots at per-row n_past over a q8 cache (K4)
+    res["two_layer"] = dsv2_two_layer(dev, cfg, params)
+    torch.cuda.empty_cache()
+
+    res["serve"] = serve_phase(dev, cfg, params, model_type=ModelType.DEEPSEEK_V2_LIGHT,
+                               tok=_dsv2_tokenizer(cfg), name="deepseek-v2-lite-synthetic",
+                               prompt_bytes=DSV2_SERVE_BYTES, max_new=16)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------- report
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
@@ -2445,6 +3009,8 @@ KERNEL_META = {
                              "chatllm_tpu/ops/pallas/flash.py:113"),
     "flash_decode": ("chatllm_tpu_torch/csrc/flash_decode.cu",
                      "chatllm_tpu/ops/pallas/flash_decode.py:114"),
+    "flash_decode_mla": ("chatllm_tpu_torch/csrc/flash_decode.cu",
+                         "chatllm_tpu/ops/pallas/flash_decode.py:155"),
     "qmm_decode": ("chatllm_tpu_torch/csrc/qmm_decode.cu",
                    "chatllm_tpu/ops/pallas/qmm_decode.py:150"),
     "bw_probe": ("chatllm_tpu_torch/csrc/bw_probe.cu",
@@ -2488,6 +3054,8 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     call at 4096 x 16384 (E2's shape), stream_read / qgemv_bf16 = one decode
     token of E3 (32 x 7 projections), unpack_gemv = one call of each of its
     four modes at 4096 x 14336, qmm_dma = one pass over 4096 x 14336,
+    flash_decode_mla = one DeepSeek-V2-Lite decode step after the
+    1000-token prompt over a q8 cache (27 layers at (192, 128)),
     flash_decode_int8 = one decode step after the 1000-token prompt (32
     layers), flash_decode_e7 = one E7 decode step over the q8 cache at
     n_past 47 (32 layers), qmm_unpack = one call of each of E6's three
@@ -2496,7 +3064,8 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     bf16-cache chat path (K3 by mode: flash_attention its mode 0 launches
     there, none, since the projections return f32; _f32q its mode 2
     launches there; _f32 its mode 1 launches on the f32-cache engine run),
-    K4 on the q8-cache one (its int8 dots on the
+    K4 on the q8-cache one (at (192, 128) on DeepSeek-V2-Lite's q8-cache
+    chat path, its int8 dots on the
     int8 engine run, and under E7's call site in E7's main), K5 on the
     bench's batched section under CHATLLM_TPU_QMM_V2=1, K6 in the bench,
     E2's two in E2's and E1's mains together, the others in their probe's
@@ -2506,6 +3075,7 @@ def kernels_line(kres: dict, launches: dict) -> dict:
             "flash_attention_f32": {"prefill_1000_f32": N_LAYERS},
             "flash_attention_f32q": {"prefill_1000_f32q": N_LAYERS},
             "flash_decode": {"decode_1000": N_LAYERS},
+            "flash_decode_mla": {"dsv2_1000": DSV2_LAYERS},
             "qmm_decode": _per_token(N_LAYERS, True),
             "bw_probe": {"pass_256mb": 1},
             "gemv_stream": {"4096x16384": 1}, "gemv_vpu": {"4096x16384": 1},
@@ -2708,6 +3278,12 @@ def main() -> int:
         f"{report['qwen2']['graph_decode']['kernel_shares']}")
     torch.cuda.empty_cache()
 
+    log("== deepseek_v2_lite")
+    t0 = time.perf_counter()
+    report["deepseek_v2_lite"] = deepseek_phase(dev)
+    report["deepseek_v2_lite"]["seconds"] = time.perf_counter() - t0
+    log(f"  deepseek_v2_lite phase: {report['deepseek_v2_lite']['seconds']:.1f} s")
+
     log("== cli")
     report["cli"] = cli_phase()
 
@@ -2735,6 +3311,9 @@ def main() -> int:
     log("== e7")
     report["e7"] = e7_phase()
     report["seconds"] = time.perf_counter() - t_start
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    report["phase_s"] = {name: end - t for (name, t), end in zip(PHASE_STARTS, ends)}
+    log(f"  seconds by phase: {report['phase_s']}")
     log(f"== all phases passed in {report['seconds']:.0f} s")
 
     OUT_DIR.mkdir(exist_ok=True)
@@ -2744,6 +3323,8 @@ def main() -> int:
                     flash_attention_f32=report["f32_engine"]["f32_cache"]["flash_modes"][1],
                     flash_attention_f32q=report["llama3_8b"]["flash_modes"][2],
                     flash_decode=report["llama3_8b"]["q8_prompt_1000"]["launches"]["flash_decode"],
+                    flash_decode_mla=report["deepseek_v2_lite"]["chat"]["int8_graph"]["launches"][
+                        "flash_decode"],
                     qmm_decode=report["bench"]["v2"]["launches"]["qmm_decode"],
                     bw_probe=report["bench"]["launches"]["bw_probe"],
                     gemv_stream=report["e2"]["launches"]["gemv_stream"]

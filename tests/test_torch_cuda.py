@@ -4,6 +4,8 @@ kernels have no CPU mode).  On a GPU machine:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -675,3 +677,191 @@ def test_e6_and_e7_mains_at_a_small_size(dev):
                       max_length=512)
     res = e7.main([], b=4, ctx=512, steps=3, cfg=cfg)
     assert len(res) == 8 and all(r["graph_tok_s"] > 0 for r in res.values())
+
+
+MLA_DECODE_CASES = {   # B, T, n_past, cache, qk_dtype over S 4096, 16 heads, K 192 / V 128
+    "q8_t1": (1, 1, [1000], "int8", "float32"),
+    "q8_rows": (4, 1, [10, 1000, 4095, 2000], "int8", "float32"),
+    "q8_t8": (1, 8, [3000], "int8", "float32"),
+    "bf16_cache": (2, 1, [0, 4000], "bfloat16", "float32"),
+    "f32_cache": (1, 2, [64], "float32", "float32"),
+    "bf16_dots": (1, 1, [2047], "int8", "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", list(MLA_DECODE_CASES))
+def test_flash_decode_kernel_at_mla_dims(dev, case):
+    """K4 at DeepSeek-V2's expanded MLA cache, (D, Dv) = (192, 128), against
+    its plain version (chip_smoke.DECODE_SCALED_TOL); output [B, T, 16, 128]."""
+    import chip_smoke
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.build import KERNELS
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode
+
+    B, T, n_past, cache, qk_dtype = MLA_DECODE_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    q = torch.randn(B, T, 16, 192, generator=gen, device=dev).to(getattr(torch, qk_dtype))
+    k = torch.randn(B, 4096, 16, 192, generator=gen, device=dev)
+    v = torch.randn(B, 4096, 16, 128, generator=gen, device=dev)
+    kw = dict(scale=192 ** -0.5, qk_dtype=qk_dtype)
+    if cache == "int8":
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
+    npv = torch.tensor(n_past, dtype=torch.int64, device=dev)
+    before = KERNELS["flash_decode"].launches
+    o = flash_decode(q, k, v, npv, T, **kw)
+    assert KERNELS["flash_decode"].launches == before + 1
+    assert o.dtype == q.dtype and tuple(o.shape) == (B, T, 16, 128)
+    err, scaled = chip_smoke.flash_decode_errors(o, q, k, v, npv, T, **kw)
+    assert err <= chip_smoke.DECODE_ATOL and scaled <= chip_smoke.DECODE_SCALED_TOL[qk_dtype]
+
+
+def test_flash_decode_at_mla_dims_replays_in_a_cuda_graph(dev):
+    """K4 at (192, 128) over a q8 cache with f32 dots, captured: a replay
+    after q and the n_past vector change gives the eager call's bits."""
+    from chatllm_tpu_torch.ops.attention import quantize_kv
+    from chatllm_tpu_torch.ops.cuda.flash_decode import flash_decode
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, S = 2, 8192
+    q = torch.randn(B, 1, 16, 192, generator=gen, device=dev)
+    (k, ks), (v, vs) = (quantize_kv(torch.randn(B, S, 16, d, generator=gen, device=dev))
+                        for d in (192, 128))
+    npv = torch.tensor([1000, 40], dtype=torch.int64, device=dev)
+
+    def refill(i):
+        q.copy_(torch.randn(q.shape, generator=gen, device=dev))
+        npv.copy_(torch.tensor([[5000, 8191], [3, 2048]][i]))
+
+    _replays_as_eager(dev, lambda: flash_decode(q, k, v, npv, 1, scale=192 ** -0.5,
+                                                k_scale=ks, v_scale=vs), refill)
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_moe_decode_step_replays_as_the_eager_step(dev, cache):
+    """A 2-layer cut of DeepSeek-V2-Lite at full width (layer 0 dense, layer
+    1 MoE over 64 experts, random weights) at max_length 8192: one decode
+    step captured in a CUDA graph and replayed gives the eager step's logits
+    and cache bits, and the replay launches K4 once per layer over the q8
+    cache (K1 for the B=1 projections)."""
+    from dataclasses import replace
+
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params,
+                                                    deepseek_v2_lite_config)
+    from chatllm_tpu_torch.nn.transformer import init_cache, transformer_forward
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+
+    cfg = replace(deepseek_v2_lite_config(8192), num_hidden_layers=2, cache_dtype=cache,
+                  layer_specs=deepseek_v2_lite_config().layer_specs[:2])
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev, centered=True)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 300))).to(dev)
+    caches = [init_cache(cfg, 1, device=dev) for _ in range(2)]
+    with torch.inference_mode():
+        for c in caches:
+            transformer_forward(cfg, params, ids, c, 0)
+        tok = torch.tensor([[77]], device=dev)
+        n_past = torch.tensor(300, device=dev)
+        eager = transformer_forward(cfg, params, tok, caches[0], n_past.clone(), kv_len=1024)[0]
+        transformer_forward(cfg, params, tok, caches[1], n_past, kv_len=1024)      # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        reset_launch_counts()
+        with torch.cuda.graph(graph):       # the wrappers count what the graph will launch
+            out = transformer_forward(cfg, params, tok, caches[1], n_past, kv_len=1024)[0]
+        captured = launch_counts()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for a, b in zip(caches[0].k + caches[0].v, caches[1].k + caches[1].v):
+        assert torch.equal(a, b)
+    assert captured["flash_decode"] == (2 if cache == "int8" else 0), captured
+    # q, d_kv, u_k_nope, u_v, o x 2 layers, layer 0's down (its gate / up of
+    # 10944 columns and k_pe and the router take the dequant route), the
+    # shared expert's gate, up, down, the lm_head
+    assert captured["qgemv"] == 5 * 2 + 1 + 3 + 1, captured
+
+
+def _same_params(a, b, where="params"):
+    """Card parameters against the CPU's: the same structure and fields,
+    every tensor on the card with the CPU tensor's dtype, shape and bits."""
+    if isinstance(b, dict):
+        assert set(a) == set(b), where
+        for k in b:
+            _same_params(a[k], b[k], f"{where}.{k}")
+    elif isinstance(b, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_params(x, y, f"{where}[{i}]")
+    elif dataclasses.is_dataclass(b):
+        assert type(a) is type(b), where
+        for f in dataclasses.fields(b):
+            _same_params(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
+    elif isinstance(b, torch.Tensor):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), where
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_q8", "f32_latent", "q4k", "q4k_q8", "q4k_latent"])
+def test_deepseek_v2_loads_on_the_card_as_on_the_cpu(dev, tmp_path, case):
+    """`load_model` of chip_smoke.write_deepseek_v2_ggmm's DEEPSEEK_V2_LIGHT
+    file on the card against the CPU, in each of chip_smoke.DSV2_TINY_CASES
+    (f32 and q4_k weights, both MLA cache modes, f32 / bf16 and q8 caches):
+    the same config and every parameter bit-equal (the expert stacks filled
+    on the card, the latent mode's wk_abs / wv_abs absorbed there); the
+    logits after the prompt and after each of 15 tokens fed to both (the
+    CPU's greedy ones) within the case's tolerance of the logit scale, with
+    the same argmax wherever the CPU's top two logits are further apart
+    than twice it; the card's greedy tokens replayed from CUDA graphs equal
+    to the uncaptured run's, and to the CPU's up to the first step whose top
+    two are that close; over the q8 cache of 4096 slots every decode step
+    launches K4 at (192, 128) once a layer."""
+    import chip_smoke
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.models import RuntimeConfig, load_model
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    fmt, compute, cache, mla_cache, max_len, tol = chip_smoke.DSV2_TINY_CASES[case]
+    path = chip_smoke.write_deepseek_v2_ggmm(tmp_path / "m.bin", max_len=max_len,
+                                             dtype=GGMLType.F32 if fmt == "f32" else None)
+    rt = RuntimeConfig(compute_dtype=compute, cache_dtype=cache, mla_cache=mla_cache)
+    card, cpu = load_model(str(path), rt, device=dev), load_model(str(path), rt, device="cpu")
+    assert card.cfg == cpu.cfg and card.cfg.mla_compressed == (mla_cache == "memory")
+    _same_params(card.params, cpu.params)
+
+    new = 16
+    ids = cpu.tokenizer.encode("Hello from the card")
+    want, rows = [], {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        lg, kv, n = m.engine.prefill(ids, m.engine.new_cache(1), 0)
+        rows[name] = []
+        for i in range(new):
+            rows[name].append(lg[0].float().cpu())
+            if name == "cpu":
+                want.append(int(lg[0].argmax()))
+            if i + 1 < new:
+                lg, kv, n = m.engine.prefill([want[i]], kv, n)
+    c, g = torch.stack(rows["cpu"]), torch.stack(rows["card"])
+    scale = c.abs().amax(-1)
+    assert torch.isfinite(g).all()
+    assert ((g - c).abs().amax(-1) <= tol * scale).all(), ((g - c).abs().amax(-1) / scale)
+    top2 = c.topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * tol * scale
+    assert clear[0] and (g.argmax(-1) == c.argmax(-1))[clear].all()
+
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=new)
+    out, k4 = {}, {}
+    for graphs in (True, False):
+        reset_launch_counts()
+        eng = InferenceEngine(card.cfg, card.params, device=dev, cuda_graphs=graphs)
+        out[graphs] = eng.generate(ids, gcfg)[0]
+        k4[graphs] = launch_counts()["flash_decode"]
+    assert out[True] == out[False] and len(out[True]) == new
+    agree = int(clear.int().cumprod(0).sum())      # the steps before the first close one
+    assert out[True][:agree] == want[:agree], (out[True], want, clear)
+    # a q8 cache: one block of 16 decode steps, K4 once a layer each (the
+    # replayed run also counts its uncaptured warm-up block)
+    steps = chip_smoke.decode_launches(new) * card.cfg.num_hidden_layers if cache == "q8_0" else 0
+    assert (k4[True], k4[False]) == (2 * steps, steps), k4

@@ -218,3 +218,19 @@ def test_int8_share_rule_is_the_kernels():
     wrapper = inspect.getsource(fd.flash_decode)
     assert "decode_geometry(B, Hkv, S, num_sms(dev))" in wrapper
     assert wrapper.count("torch.empty(") == 1 and "torch.zeros" not in wrapper
+
+
+def test_k4_copy_probe_patches_the_kernel():
+    """experiments/k4_copy.py builds its two-pass copy by replacing the float
+    kernel's V chunk inside the one pass over a key row's chunks, which the
+    kernel holds once, with a second pass over V's chunks; without a card
+    its main refuses."""
+    from chatllm_tpu_torch.experiments import k4_copy
+
+    src = SRC.read_text()
+    assert src.count(k4_copy.ONE_PASS) == 1
+    two = src.replace(k4_copy.ONE_PASS, k4_copy.TWO_PASSES)
+    assert two.count("idx < FTK * Gm::KNCH") == two.count("idx < FTK * Gm::VNCH") == 1
+    assert "if (c < Gm::VNCH)" not in two
+    if not torch.cuda.is_available():
+        assert k4_copy.main([]) == 2
