@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, torch_dtype
-from ..ggmm.quants import GGMLType
+from ..ggmm.quants import GGMLType, dequantize, quantize
 from ..ggmm.reader import GGMMFile
 from ..nn.transformer import TransformerConfig
 from ..ops.qtensor import linear_from_ggml
@@ -44,8 +44,14 @@ class RuntimeConfig:
     compute_dtype: str = "bfloat16" # activation dtype
     cache_dtype: str = "bfloat16"   # KV cache dtype
     max_length: int = -1            # context override (-1 = model default)
+    re_quantize: str = ""           # on-the-fly requantization target of the
+                                    # 2-D weights, e.g. "q4_0"/"q4_k"/"q8_0"
     mla_cache: str = "speed"        # MLA cache mode: "speed" (expanded per-head
                                     # K/V) | "memory" (latent cache)
+    additional: dict = field(default_factory=dict)  # --set k v
+    layer_spec: str = ""            # --layer_spec "0:3,1:4": rebuild the stack
+                                    # from half-open source-layer ranges
+                                    # (duplicates share weights)
 
 
 @dataclass
@@ -103,11 +109,18 @@ class ParamBuilder:
         e = self.gf.tensors[wname]
         bname = prefix + ".bias"
         b = self.raw_f32(bname) if self.gf.has_tensor(bname) else None
+        raw, dtype = self.gf.raw_tensor(wname), e.dtype
+        if self.rt.re_quantize and len(e.shape) == 2:
+            target = GGMLType[self.rt.re_quantize.upper()]
+            if target != dtype:
+                # chatllm.cpp read_tensor_data with a target type (src/chat.h:710)
+                w = dequantize(raw, dtype, e.shape)
+                raw, dtype = np.frombuffer(quantize(w, target), np.uint8), target
         dq = None if self.rt.weight_dtype == "auto" else torch_dtype(self.rt.weight_dtype)
-        if dq is None and e.dtype in (GGMLType.F16, GGMLType.F32, GGMLType.BF16):
+        if dq is None and dtype in (GGMLType.F16, GGMLType.F32, GGMLType.BF16):
             dq = self.compute_dtype
-        return linear_from_ggml(self.gf.raw_tensor(wname), e.dtype, e.shape,
-                                bias=b, dequant_to=dq, device=self.device)
+        return linear_from_ggml(raw, dtype, e.shape, bias=b, dequant_to=dq,
+                                device=self.device)
 
     def norm(self, prefix: str) -> dict:
         return {"w": self.array(prefix + ".weight")}
@@ -208,10 +221,45 @@ def load_model(path: str, rt: RuntimeConfig | None = None, device=None) -> BaseL
     if cls is None:
         raise ValueError(f"unsupported model_type 0x{gf.model_type:x} in {path}")
     model = cls.load(gf, rt, dev)
+    if rt.layer_spec:
+        model = _apply_layer_spec(model, rt.layer_spec)
     # Norm eps is the one field the binary config structs don't carry; the
     # GGMM JSON meta holds the original HF config.json.
     hf_cfg = (gf.meta or {}).get("config.json") or {}
     eps = hf_cfg.get("rms_norm_eps")
     if eps is not None and float(eps) != model.cfg.norm_eps:
         model.cfg = replace(model.cfg, norm_eps=float(eps))
+    return model
+
+
+def parse_layer_spec(spec: str, n_layers: int) -> list[int]:
+    """'0:3,1:4' -> [0, 1, 2, 1, 2, 3]; 'all' -> identity; bare ints allowed
+    (chatllm.cpp --layer_spec, src/main.cpp:169-176)."""
+    if spec in ("", "all"):
+        return list(range(n_layers))
+    ids: list[int] = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            a, b = part.split(":")
+            ids.extend(range(int(a), int(b)))
+        else:
+            ids.append(int(part))
+    for i in ids:
+        if not (0 <= i < n_layers):
+            raise ValueError(f"layer_spec index {i} out of range 0..{n_layers - 1}")
+    return ids
+
+
+def _apply_layer_spec(model: BaseLLM, spec: str) -> BaseLLM:
+    """Rebuild the layer stack from source-layer indices.  Duplicated layers
+    alias the same weight tensors (no copies); each stack position still
+    gets its own KV cache slot."""
+    cfg = model.cfg
+    ids = parse_layer_spec(spec, cfg.num_hidden_layers)
+    model.params = dict(model.params, layers=tuple(model.params["layers"][j] for j in ids))
+    specs = tuple(cfg.layer_spec(j) for j in ids) if cfg.layer_specs else ()
+    model.cfg = replace(cfg, num_hidden_layers=len(ids), layer_specs=specs)
     return model

@@ -40,6 +40,14 @@ def _yarn_corr_dim(n_dims: int, n_ctx_orig: int, beta: float, base: float) -> fl
     return n_dims * math.log(n_ctx_orig / (beta * 2 * math.pi)) / (2 * math.log(base))
 
 
+def rope_mscale(cfg: RopeConfig) -> float:
+    """The attention magnitude scale folded into the cos/sin tables."""
+    m = cfg.attn_factor * cfg.mscale_all
+    if cfg.ext_factor != 0.0 and cfg.orig_ctx > 0:
+        m *= 1.0 + 0.1 * math.log(1.0 / cfg.freq_scale)
+    return m
+
+
 _INV_FREQ: dict = {}
 
 
@@ -67,7 +75,6 @@ def precompute_rope_cache(positions: torch.Tensor, cfg: RopeConfig):
     dev = positions.device
     inv_freq = _inv_freq(cfg, dev)
     theta_extrap = positions.float()[..., None] * inv_freq
-    mscale = cfg.attn_factor * cfg.mscale_all
     if cfg.ext_factor != 0.0 and cfg.orig_ctx > 0:
         low = max(0.0, math.floor(_yarn_corr_dim(rot, cfg.orig_ctx, cfg.beta_fast, cfg.freq_base)))
         high = min(rot - 1.0, math.ceil(_yarn_corr_dim(rot, cfg.orig_ctx, cfg.beta_slow, cfg.freq_base)))
@@ -77,9 +84,9 @@ def precompute_rope_cache(positions: torch.Tensor, cfg: RopeConfig):
         ramp_mix = (1.0 - ramp) * cfg.ext_factor
         theta_interp = cfg.freq_scale * theta_extrap
         theta = theta_interp * (1.0 - ramp_mix) + theta_extrap * ramp_mix
-        mscale *= 1.0 + 0.1 * math.log(1.0 / cfg.freq_scale)
     else:
         theta = cfg.freq_scale * theta_extrap
+    mscale = rope_mscale(cfg)
     return torch.cos(theta) * mscale, torch.sin(theta) * mscale
 
 

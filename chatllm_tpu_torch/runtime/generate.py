@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from ..nn.transformer import KVCache, TransformerConfig, init_cache, transformer_forward
+from ..ops.attention import quantize_kv
+from ..ops.rope import apply_rope, precompute_rope_cache, rope_mscale
 from ..ops.sampling import SamplerConfig, penalty_accept, sample_token
 from .decode_graph import BlockDecoder, kv_bucket
 
@@ -140,15 +142,24 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.max_length = max_length if max_length > 0 else cfg.max_length
         self.decode_block = decode_block
+        self.prefill_chunk = 4096       # the CLI's -Os sets 512
         self.decoder = BlockDecoder(cfg, params, self.device, graphs=cuda_graphs)
 
     def new_cache(self, batch: int = 1, max_len: int | None = None) -> KVCache:
         return init_cache(self.cfg, batch, max_len or self.max_length, device=self.device)
 
+    def shift_cache(self, cache: KVCache, shift: int, keep: int, n_past: int) -> KVCache:
+        """Context-extension Shift in place (`shift_cache` below); returns the
+        same cache."""
+        return shift_cache(self.cfg, cache, shift, keep)
+
     @torch.inference_mode()
-    def prefill(self, ids, cache: KVCache, n_past: int, *, chunk: int = 4096):
+    def prefill(self, ids, cache: KVCache, n_past: int, *, chunk: int | None = None):
         """Feed prompt ids ([T] or [B, T]) through the model in chunks.
-        Returns (last-token logits [B, V] f32 on the device, cache, n_past)."""
+        Returns (last-token logits [B, V] f32 on the device, cache, n_past).
+        The chunk defaults to `prefill_chunk`: `generate` passes the
+        config's batch_size, so only `Pipeline.eval_sys_prompt` reads it."""
+        chunk = chunk or self.prefill_chunk
         ids = np.atleast_2d(np.asarray(ids, dtype=np.int64))
         B, T = ids.shape
         cache_len = cache.k[0].shape[1]
@@ -198,22 +209,56 @@ class InferenceEngine:
 
         t0 = time.perf_counter()
         logits, cache, n_past = self.prefill(input_ids, cache, n_past, chunk=gen_cfg.batch_size)
+        st, tok, first = self._first_token(logits, gen_cfg, scfg)
+        if perf:                # `first` was read back: the prefill has ended
+            perf.prompt_tokens += len(input_ids)
+            perf.prompt_ms += (time.perf_counter() - t0) * 1000
+        t1 = time.perf_counter()
+        out, n_past = self._decode(st, tok, first, cache, n_past, scfg, max_new, max_len,
+                                   is_terminator, on_token, should_stop, terminate_seq)
+        if perf:
+            perf.gen_tokens += len(out)
+            perf.gen_ms += (time.perf_counter() - t1) * 1000
+        return out, cache, n_past
+
+    @torch.inference_mode()
+    def generate_from_logits(self, logits, cache: KVCache, n_past: int,
+                             gen_cfg: GenerationConfig, *,
+                             is_terminator: Callable[[int], bool] = lambda t: False,
+                             on_token: Optional[Callable[[int], None]] = None,
+                             should_stop: Callable[[], bool] = lambda: False,
+                             max_new: int = -1, terminate_seq: Optional[list] = None):
+        """Continue decoding from given last-token logits [B, V] (after a
+        prefill the caller ran).  Returns (generated ids, cache, n_past)."""
+        scfg = gen_cfg.sampler_config()
+        max_len = self.max_length if gen_cfg.max_length <= 0 else min(gen_cfg.max_length, self.max_length)
+        if max_new <= 0:
+            max_new = gen_cfg.max_new_tokens if gen_cfg.max_new_tokens > 0 else max_len
+        st, tok, first = self._first_token(logits, gen_cfg, scfg)
+        out, n_past = self._decode(st, tok, first, cache, n_past, scfg, max_new, max_len,
+                                   is_terminator, on_token, should_stop, terminate_seq)
+        return out, cache, n_past
+
+    def _first_token(self, logits, gen_cfg: GenerationConfig, scfg: SamplerConfig):
+        """The decode state for one row, and the first token drawn on the
+        device from the prefill's logits, as a tensor and read back."""
         sampled = scfg.do_sample and scfg.sampling != "greedy"
         st = self.decoder.state(1, window=scfg.penalty_window if sampled else 0, sampled=sampled)
         gen = st.gens[0] if sampled else None
         if sampled:
             gen.manual_seed(gen_cfg.seed or 0)
             st.penalty.reset()
-        # the first token comes from the prefill's logits, on the device
         tok, _ = sample_token(logits[0], scfg, gen, st.penalty)
         if st.penalty is not None:
             penalty_accept(st.penalty, tok)
-        first = int(tok)
-        if perf:
-            perf.prompt_tokens += len(input_ids)
-            perf.prompt_ms += (time.perf_counter() - t0) * 1000
+        return st, tok, int(tok)
 
-        t1 = time.perf_counter()
+    def _decode(self, st, tok, first: int, cache: KVCache, n_past: int,
+                scfg: SamplerConfig, max_new: int, max_len: int, is_terminator,
+                on_token, should_stop, terminate_seq) -> tuple[list, int]:
+        """Decode blocks after the first token (`tok` on the device, `first`
+        on the host) until a terminator, `max_new` tokens, the context's end or
+        `should_stop()`."""
         out: list[int] = []
         emit = _Emitter(on_token, terminate_seq)
         done = is_terminator(first)
@@ -241,7 +286,58 @@ class InferenceEngine:
             # steps past `steps` were speculative: n_past counts only the
             # consumed ones, so the next block (or prefill) overwrites them
         emit.flush(out)
-        if perf:
-            perf.gen_tokens += len(out)
-            perf.gen_ms += (time.perf_counter() - t1) * 1000
-        return out, cache, n_past
+        return out, n_past
+
+
+@torch.inference_mode()
+def shift_cache(cfg: TransformerConfig, cache: KVCache, shift: int, keep: int) -> KVCache:
+    """Context-extension Shift, in place (the JAX package's
+    `InferenceEngine.shift_cache`): rows below `keep` stay, row p >= keep
+    takes row min(p + shift, S - 1), V moves verbatim and the moved keys of
+    a rope layer are re-rotated by -shift positions (cos and sin divided by
+    the attention mscale, which the stored keys already carry).  Over a q8
+    cache the moved keys are dequantized in f32, rotated and requantized;
+    the kept rows keep their scales.
+
+    The result is written into the cache's own tensors (gather, then copy),
+    so the decoder's CUDA graphs, keyed by the cache's storage, replay on it.
+    Returns the same cache."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "Shift extending over an MLA cache: the reference re-rotates the first "
+            f"rot_dim ({cfg.rope.resolved_rot_dim()}) channels of a cached key, but an "
+            f"MLA key row keeps its rope part (k_pe) in the last {cfg.mla.qk_rope_head_dim} "
+            "channels; use --extending restart or none")
+    quant = cache.k_scale is not None
+    if cfg.rope is not None:
+        # moved keys carry rope for their old position: rotate by -shift
+        delta = torch.full((1, 1), -shift, dtype=torch.int64, device=cache.k[0].device)
+        cos, sin = precompute_rope_cache(delta, cfg.rope)
+        m = rope_mscale(cfg.rope)
+        if m != 1.0:
+            m = cos.new_full((), m)           # a true division, as on the CPU
+            cos, sin = cos / m, sin / m
+    for i in range(len(cache.k)):
+        k, v = cache.k[i], cache.v[i]
+        S = k.shape[1]
+        if keep >= S:
+            continue
+        src = torch.clamp(torch.arange(keep, S, device=k.device) + shift, max=S - 1)
+        k_new = k.index_select(1, src)
+        v[:, keep:].copy_(v.index_select(1, src))
+        ks = None
+        if quant:
+            ks = cache.k_scale[i].index_select(1, src)
+            cache.v_scale[i][:, keep:].copy_(cache.v_scale[i].index_select(1, src))
+        if cfg.layer_spec(i % cfg.num_hidden_layers).use_rope and cfg.rope is not None:
+            kf = k_new.float() * ks[..., None] if quant else k_new
+            k_rot = apply_rope(kf, cos, sin, layout=cfg.rope.layout,
+                               rot_dim=cfg.rope.resolved_rot_dim())
+            if quant:
+                k_new, ks = quantize_kv(k_rot)
+            else:
+                k_new = k_rot.to(k.dtype)
+        k[:, keep:].copy_(k_new)
+        if quant:
+            cache.k_scale[i][:, keep:].copy_(ks)
+    return cache

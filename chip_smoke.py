@@ -105,6 +105,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              B = 8 through BatchedEngine (K4 32 times per batched step, warm-up
              and replayed, or never), CHATLLM_TPU_FLASH=0 on the 1000-token
              prefill (no K3).
+     pipeline  the chat Pipeline on the same weights (Llama-3's NORMAL rope, a
+             byte-level Llama-3 chat tokenizer of the model's vocab, 4096
+             slots; `pipeline_phase`): a ~200-token system prompt
+             pre-evaluated, six ~1000-token turns of 64 greedy tokens over a
+             q8 cache with Shift extending (two Shifts, each in place and held
+             against the port's shift on the CPU over a copy of the cache: V,
+             its scales and the kept rows bit-equal, int8 keys at most one
+             step apart in at most 1e-5 of the entries, k scales within 1e-6
+             relative; no turn
+             captures a graph for a bucket captured before; K1 225 and K4 32
+             launches per decode step; the system prompt's rows bit-equal
+             after every turn), a session saved after turn 2 and loaded into
+             a fresh Pipeline whose turn 3 has the same greedy ids; four turns
+             over a bf16 cache with Restart (K3 mode 2 in every prefill, the
+             prefill after the overflow starting at the system prompt's end)
+             and its session; a 2-layer cut of the Shift chat against the CPU
+             at each Shift (the next turn's prefill and first decode step over
+             the shifted cache within 1e-3 of the logit scale, same argmax),
+             run first, its CPU side in a worker thread during the rest.
   7. qwen2   full-width Qwen2.5-0.5B (24 layers, vocab 151936, random q8_0
              weights with non-zero q/k/v biases, tied lm_head, max_length
              8192) through InferenceEngine over bf16 and q8 caches with exact
@@ -130,7 +149,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              and a tied head; DeepSeek-V2 (q4_k, MoE, MLA at 192 / 128) with
              --mla_cache speed over a q8 cache of 4096 slots (K4 at (192,
              128)) and --mla_cache memory), greedy: each pair's transcripts
-             are byte-identical.
+             are byte-identical.  Then the chat pipeline's flags on the
+             narrow Llama-3 (`cli_pipeline_jobs`): --test of seven turns with
+             --extending shift -l 256 -s --cache_dtype q8_0 --re_quantize q8_0
+             --layer_spec 0:2,1:2; the same with -i over the first six turns
+             on stdin and --save_session (replies equal to --test's); twice
+             --load_session with the seventh turn (byte-identical, the reply
+             equal to --test's seventh); a sampled chat (-t 0.8 -k 40 -q 0.9
+             --seed 7 --repeat_penalty 1.1 --penalty_window 64 --format
+             completion) and one with --sampling tfs --tfs_z 0.9, each twice
+             and byte-identical; --tokenize against the tokenizer in process.
+             The 19 calls run four processes at a time (`_run_cli`; the two
+             --load_session calls after the rest).
   9. e2      `chatllm_tpu_torch.experiments.gemv_probe2.main`, all six
              variants.
  10. e1      `chatllm_tpu_torch.experiments.gemv_probe.main`, all seven
@@ -149,7 +179,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              N 14336, each checked against K2, 2048 chained calls each.
  15. e7      `chatllm_tpu_torch.experiments.bhsd_decode.main`: the 8
              variant/cache combinations of a Llama-3-8B decode step at B 32
-             over 1024 slots, 16 steps (the original's 48 cut to a third)
+             over 1024 slots, 8 steps (the original's 48 cut to a sixth)
              eagerly and as a CUDA-graph replay.
              Phases 9-15 count every kernel's launches exactly.
 Then it prints the kernels line, the card line and, last, the result line.
@@ -163,6 +193,7 @@ import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -1917,6 +1948,447 @@ def two_layer_phase(dev, cfg, params, tol: float = 1e-3) -> dict:
     return res
 
 
+# ----------------------------------------------------------- pipeline phase
+PIPE_MAX_LEN = 4096                # q8 decode over >= 4096 slots takes K4
+PIPE_SYS_BYTES = 190               # ~200 tokens with the template's
+PIPE_TURN_BYTES = 990              # ~1000 tokens a user turn
+PIPE_TURNS = 6                     # Shift fires at turns 4 and 6
+PIPE_NEW = 64
+SHIFT_SCALE_TOL = 1e-6             # k scales, card shift against the CPU's
+SHIFT_OFF_SHARE = 1e-5             # int8 keys one step from the CPU shift's
+
+
+def _llama3_tokenizer(cfg):
+    """Llama-3's tokenizer and chat template over a byte-level vocab of the
+    model's size (a narrow GGMM written for its vocab, every reserved id a
+    visible piece)."""
+    from chatllm_tpu_torch.ggmm.reader import GGMMFile
+    from chatllm_tpu_torch.models.base import BaseConfig
+    from chatllm_tpu_torch.models.llama import make_llama3_tokenizer
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = write_llama3_ggmm(BUILD_DIR / f"smoke_llama3_vocab{cfg.vocab_size}.bin",
+                             vocab_pad=cfg.vocab_size, hidden=64, heads=2, kv_heads=1,
+                             layers=1, inter=128, dtype=0, visible_reserved=True)
+    gf = GGMMFile.open(str(path))
+    return make_llama3_tokenizer(gf, BaseConfig.parse(gf)[0])
+
+
+def _pipe_texts(seed: int = 0) -> tuple[str, list]:
+    """The system prompt and the user turns: lowercase words, one token a
+    byte under the byte-level vocab."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        words, size = [], 0
+        while size < n:
+            w = "".join(chr(97 + c) for c in rng.integers(0, 26, int(rng.integers(2, 9))))
+            words.append(w)
+            size += len(w) + 1
+        return " ".join(words)[:n]
+    return text(PIPE_SYS_BYTES), [text(PIPE_TURN_BYTES) for _ in range(PIPE_TURNS)]
+
+
+class _Tokens:
+    """A streamer that keeps the streamed ids."""
+    tokenizer = None
+
+    def __init__(self):
+        self.ids = []
+
+    def put(self, ids):
+        self.ids.extend(int(t) for t in ids)
+
+    def end(self):
+        pass
+
+
+def _pipe_model(cfg, params, tok, dev):
+    """A chat model (BaseLLM) over the given parameters and tokenizer, its
+    engine holding PIPE_MAX_LEN slots."""
+    from chatllm_tpu_torch.models.base import BaseLLM
+    from chatllm_tpu_torch.models.model_types import ModelType
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine
+
+    m = BaseLLM(ModelType.LLAMA3, cfg, params, tok, torch.device(dev))
+    m._engine = InferenceEngine(cfg, params, device=dev, max_length=PIPE_MAX_LEN)
+    return m
+
+
+def _cache_tensors(c) -> list:
+    return [*c.k, *c.v, *(c.k_scale or ()), *(c.v_scale or ())]
+
+
+def _cache_ptrs(c) -> list:
+    return [t.data_ptr() for t in _cache_tensors(c)]
+
+
+def _cache_copy(c, device):
+    """A copy of cache `c` on `device`."""
+    from chatllm_tpu_torch.nn.transformer import KVCache
+
+    def cp(ts):
+        return None if ts is None else [t.to(device, copy=True) for t in ts]
+    return KVCache(k=cp(c.k), v=cp(c.v), k_scale=cp(c.k_scale), v_scale=cp(c.v_scale))
+
+
+def shift_vs_cpu(card, cpu, keep: int) -> dict:
+    """The card's shifted cache against the port's shift run on the CPU over
+    a copy of the same cache: V, the scales of V and the kept rows
+    bit-equal; k int8 values at most one step apart (a requantization that
+    rounds a tie apart: the two devices' cos/sin and products may differ in
+    the last bit), counted, in at most SHIFT_OFF_SHARE of the entries (full
+    width reads 7.2e-7 to 7.5e-7: ties are rare, a biased or tie-blind
+    requantization moves far more); k scales within SHIFT_SCALE_TOL
+    relative."""
+    off, n, scale_rel = 0, 0, 0.0
+    for i in range(len(cpu.k)):
+        for name in ("v", "v_scale"):
+            if not torch.equal(getattr(card, name)[i].cpu(), getattr(cpu, name)[i]):
+                raise AssertionError(f"shift: layer {i} {name} differs from the CPU shift")
+        kg, kc = card.k[i].cpu(), cpu.k[i]
+        if not torch.equal(kg[:, :keep], kc[:, :keep]):
+            raise AssertionError(f"shift: layer {i} kept rows differ")
+        d = (kg.int() - kc.int()).abs()
+        if d.max().item() > 1:
+            raise AssertionError(f"shift: layer {i} int8 keys {d.max().item()} steps apart")
+        off += int((d > 0).sum())
+        n += d.numel()
+        sg, sc = card.k_scale[i].cpu(), cpu.k_scale[i]
+        rel = ((sg - sc).abs() / sc.abs().clamp_min(1e-30)).max().item()
+        scale_rel = max(scale_rel, rel)
+    if scale_rel > SHIFT_SCALE_TOL:
+        raise AssertionError(f"shift: k scales {scale_rel} relative from the CPU's")
+    if off > SHIFT_OFF_SHARE * n:
+        raise AssertionError(f"shift: {off} of {n} int8 keys one step from the CPU shift's, "
+                             f"above the share {SHIFT_OFF_SHARE}")
+    return {"int8_off_by_one": off, "int8_entries": n, "off_by_one_share": off / n,
+            "k_scale_max_rel": scale_rel}
+
+
+def _pipe_run(dev, model, method, sys_prompt, turns, *, save_after=None, on_shift=None,
+              on_prefill=None, check_launches=True):
+    """Chat `turns` through a Pipeline over `model` with its system prompt
+    pre-evaluated; per turn: the reply's ids, n_past, decode steps/s, the
+    graphs it captured (none for a bucket captured before), and, with
+    `check_launches`, K1 (225) and K4 (32, q8 cache) launches per decode
+    step, warm-up and replayed, counted apart from the prefill's.  Shifts go
+    through `on_shift(cache, shift, keep, n_past, run)` when given."""
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig
+    from chatllm_tpu_torch.runtime.pipeline import ExtendingMethod, Pipeline
+
+    eng, dec = model.engine, model.engine.decoder
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    q8 = cfg.cache_dtype == "int8"
+    pipe = Pipeline(model, extending=ExtendingMethod(method))
+    pipe.gen_config = GenerationConfig(do_sample=False, max_new_tokens=PIPE_NEW)
+    model.tokenizer.sys_prompt = sys_prompt
+    pipe.eval_sys_prompt()
+    n0 = pipe.initial_n_past
+    sys_rows = [t[:, :n0].clone() for t in _cache_tensors(pipe._cache)]
+    res = {"initial_n_past": n0, "turns": [], "shifts": [], "prefills": []}
+    pre = {"k1": 0, "k4": 0, "modes": 0}
+    prefill = eng.prefill
+
+    def counted_prefill(ids, cache, n_past, **kw):
+        b, m = launch_counts(), MODE_LAUNCHES[2]
+        out = prefill(ids, cache, n_past, **kw)
+        a = launch_counts()
+        pre["k1"] += a["qgemv"] - b["qgemv"]
+        pre["k4"] += a["flash_decode"] - b["flash_decode"]
+        pre["modes"] += MODE_LAUNCHES[2] - m
+        res["prefills"].append({"tokens": len(ids), "n_past": n_past})
+        if on_prefill is not None:
+            on_prefill(ids, n_past, out)
+        return out
+
+    shift_impl = eng.shift_cache
+
+    def shifted(cache, shift, keep, n_past):
+        ev = {"turn": len(res["turns"]), "shift": shift, "keep": keep, "n_past_before": n_past,
+              "n_past_after": n_past - shift}
+        ptrs = _cache_ptrs(cache)
+        out = on_shift(cache, shift, keep, n_past, ev, shift_impl) if on_shift else \
+            shift_impl(cache, shift, keep, n_past)
+        if out is not cache or _cache_ptrs(cache) != ptrs:
+            raise AssertionError("the shift did not write the cache in place")
+        res["shifts"].append(ev)
+        return out
+
+    eng.prefill, eng.shift_cache = counted_prefill, shifted
+    try:
+        for ti, text in enumerate(turns):
+            buckets = {k[2] for k in dec._graphs}
+            graphs, warm, rep = dec.num_graphs(), dec.eager_steps, dec.replayed_steps
+            pre.update(k1=0, k4=0, modes=0)
+            before, perf0 = launch_counts(), (model.perf.gen_ms, model.perf.gen_tokens)
+            toks = _Tokens()
+            torch.cuda.synchronize()
+            pipe.chat(text, toks)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            steps = (dec.eager_steps - warm) + (dec.replayed_steps - rep)
+            new = [k[2] for k in list(dec._graphs)[graphs:]]
+            gen_ms = model.perf.gen_ms - perf0[0]
+            t = {"reply_ids": toks.ids, "n_past": pipe.n_past, "decode_steps": steps,
+                 "replayed_steps": dec.replayed_steps - rep,
+                 "decode_steps_s": (len(toks.ids) - 1) / gen_ms * 1e3 if gen_ms else None,
+                 "captured_buckets": new, "k3_mode2_in_prefill": pre["modes"],
+                 "k1_decode": after["qgemv"] - before["qgemv"] - pre["k1"],
+                 "k4_decode": after["flash_decode"] - before["flash_decode"] - pre["k4"]}
+            res["turns"].append(t)
+            if not all(torch.equal(t_[:, :n0], r_) for t_, r_ in
+                       zip(_cache_tensors(pipe._cache), sys_rows)):
+                raise AssertionError(f"turn {ti}: the system prompt's cache rows changed")
+            if any(b in buckets for b in new):
+                raise AssertionError(f"turn {ti}: captured a graph for a bucket captured "
+                                     f"before ({new} over {sorted(buckets)})")
+            if check_launches:
+                want_k1, want_k4 = (7 * L + 1) * steps, (L * steps if q8 else 0)
+                if (t["k1_decode"], t["k4_decode"]) != (want_k1, want_k4) or pre["k4"]:
+                    raise AssertionError(f"turn {ti}: K1 {t['k1_decode']} / K4 {t['k4_decode']}"
+                                         f" decode launches, expected {want_k1} / {want_k4} "
+                                         f"({steps} steps; K4 in the prefill {pre['k4']})")
+            if save_after is not None and ti == save_after[0]:
+                t0 = time.perf_counter()
+                pipe.save_session(save_after[1])
+                res["session_save_ms"] = (time.perf_counter() - t0) * 1e3
+                res["session_bytes"] = Path(save_after[1]).stat().st_size
+    finally:
+        del eng.prefill, eng.shift_cache
+    res["graphs"], res["capture_ms"] = dec.num_graphs(), dec.capture_ms
+    res["pipe"] = pipe
+    return res
+
+
+def _session_continue(dev, model, method, path, turn_text, want_ids) -> dict:
+    """A fresh Pipeline loads the session and runs one turn: its greedy ids
+    must equal the uninterrupted pipeline's; the captures of the new cache
+    are counted and timed."""
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig
+    from chatllm_tpu_torch.runtime.pipeline import ExtendingMethod, Pipeline
+
+    dec = model.engine.decoder
+    pipe = Pipeline(model, extending=ExtendingMethod(method))
+    pipe.gen_config = GenerationConfig(do_sample=False, max_new_tokens=PIPE_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.load_session(path)
+    torch.cuda.synchronize()
+    r = {"load_ms": (time.perf_counter() - t0) * 1e3, "n_past": pipe.n_past}
+    graphs, cap = dec.num_graphs(), dec.capture_ms
+    toks = _Tokens()
+    pipe.chat(turn_text, toks)
+    torch.cuda.synchronize()
+    r.update(captures=dec.num_graphs() - graphs, capture_ms=dec.capture_ms - cap,
+             tokens_equal=toks.ids == want_ids, n_past_after=pipe.n_past)
+    if toks.ids != want_ids:
+        raise AssertionError(f"{method} session: the loaded pipeline's turn differs:\n"
+                             f"{toks.ids}\n{want_ids}")
+    del pipe
+    return r
+
+
+def _smi_clocks() -> str:
+    """The card's SM and memory clocks, temperature and power draw now."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+                           "power.draw", "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def pipeline_phase(dev, cfg, params, card: str) -> dict:
+    """The chat Pipeline at full Llama-3-8B width (the llama3_8b phase's
+    random q4_k weights, Llama-3's NORMAL rope layout, a byte-level Llama-3
+    chat tokenizer of the model's vocab, PIPE_MAX_LEN slots): a ~200-token
+    system prompt pre-evaluated, then ~1000-token turns of 64 greedy tokens.
+      - q8 cache, Shift: at least two Shifts, each in place (every cache
+        tensor's data_ptr kept), timed and held against the port's shift run
+        on the CPU over a copy of the cache taken just before it
+        (`shift_vs_cpu`); no turn captures a graph for a bucket captured
+        before; K1 225 and K4 32 launches per decode step in every turn;
+      - a session saved after turn 2 and loaded into a fresh Pipeline, whose
+        turn 3 has the uninterrupted pipeline's greedy ids;
+      - bf16 cache, Restart, four turns: K3's mode 2 in each ~1000-token
+        prefill; after the overflow the prefill starts at initial_n_past and
+        the system prompt's rows are bit-equal to before; its session too;
+      - a 2-layer cut of the same Shift chat against the CPU: at each
+        Shift the CPU takes the card's cache as it was just before, shifts
+        it, prefills the next turn and takes one decode step on the card's
+        token; the logits of both (the first steps that read the shifted
+        cache) within 1e-3 of the logit scale, argmax equal.  The cut runs
+        first; its CPU side runs in a worker thread during the full-width
+        runs and is compared after them.  `spans_s` gives the seconds of
+        each part."""
+    from chatllm_tpu_torch.ops.rope import ROPE_NORMAL
+    from chatllm_tpu_torch.nn.transformer import transformer_forward
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine, shift_cache
+
+    t_phase = time.perf_counter()
+    spans = {}                     # seconds of each part, for the phase's budget
+    mark = [t_phase]
+
+    def span(name):
+        now = time.perf_counter()
+        spans[name] = spans.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+    cfg = replace(cfg, max_length=PIPE_MAX_LEN, rope=replace(cfg.rope, layout=ROPE_NORMAL))
+    tok = _llama3_tokenizer(cfg)
+    sys_prompt, turns = _pipe_texts()
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
+
+    out_dir = BUILD_DIR            # sessions of hundreds of MB: kept out of OUT_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {"card": card, "smi_start": _smi_clocks()}
+    span("setup")
+
+    # ---- a 2-layer cut of the Shift chat against the CPU: the card side
+    # first; the CPU side (~35 s of plain versions on the host) runs in a
+    # worker thread while the full-width runs below keep the card busy, and
+    # is compared after them
+    cfg2 = replace(cfg, cache_dtype="int8", num_hidden_layers=2)
+    p2, p2_cpu = _cut(params, 2, dev), _cut(params, 2, "cpu")
+    model2 = _pipe_model(cfg2, p2, tok, dev)
+    cpu_eng = InferenceEngine(cfg2, p2_cpu, device="cpu", max_length=PIPE_MAX_LEN)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))  # host cores left for the card's dispatch
+    worker = ThreadPoolExecutor(1)
+    pending, cuts = {}, []
+
+    def keep_snapshot(cache, shift, keep, n_past, ev, impl):
+        pending.update(snap=_cache_copy(cache, "cpu"), shift=shift, keep=keep)
+        return impl(cache, shift, keep, n_past)
+
+    @torch.inference_mode()
+    def cpu_side(ids, n_past, snap, shift, keep, tok_):
+        snap = shift_cache(cfg2, snap, shift, keep)
+        lc, snap, n_cpu = cpu_eng.prefill(ids, snap, n_past)
+        return lc, transformer_forward(cfg2, p2_cpu, tok_, snap, n_cpu)[0][:, -1]
+
+    def compare_after_shift(ids, n_past, out):
+        if not pending:
+            return
+        logits, cache, n_end = out
+        tok_ = logits.argmax(-1).reshape(1, 1)
+        kv_card = _cache_copy(cache, dev)       # the card's step runs on a copy
+        with torch.inference_mode():
+            step_card = transformer_forward(cfg2, p2, tok_, kv_card, n_end)[0][:, -1]
+        cuts.append((logits.float().cpu(), step_card.float().cpu(),
+                     worker.submit(cpu_side, ids, n_past, pending["snap"], pending["shift"],
+                                   pending["keep"], tok_.cpu())))
+        pending.clear()
+
+    r2 = _pipe_run(dev, model2, "shift", sys_prompt, turns, on_shift=keep_snapshot,
+                   on_prefill=compare_after_shift, check_launches=False)
+    r2.pop("pipe")
+    if len(cuts) < 2:
+        raise AssertionError(f"2-layer cut: {len(cuts)} Shifts compared, expected >= 2")
+    del model2, p2
+    torch.cuda.empty_cache()
+    span("cut_card")
+
+    # ---- q8 cache, Shift, at full width
+    cfg_q8 = replace(cfg, cache_dtype="int8")
+    model = _pipe_model(cfg_q8, params, tok, dev)
+    span("setup")
+
+    def check_shift(cache, shift, keep, n_past, ev, impl):
+        span("q8_turns")
+        snap = _cache_copy(cache, "cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = impl(cache, shift, keep, n_past)
+        torch.cuda.synchronize()
+        ev["shift_ms"] = (time.perf_counter() - t0) * 1e3
+        ev.update(shift_vs_cpu(cache, shift_cache(cfg_q8, snap, shift, keep), keep))
+        span("q8_cpu_shift_check")
+        log(f"  q8 Shift at turn {ev['turn']}: n_past {n_past} -> {n_past - shift} (keep "
+            f"{keep}), {ev['shift_ms']:.2f} ms; vs the CPU shift: "
+            f"{ev['int8_off_by_one']} of {ev['int8_entries']} int8 keys one step apart, "
+            f"k scales within {ev['k_scale_max_rel']:.2e}")
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sess_q8 = str(out_dir / "smoke_q8.session")
+    r = _pipe_run(dev, model, "shift", sys_prompt, turns, save_after=(1, sess_q8),
+                  on_shift=check_shift)
+    r["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    span("q8_turns")
+    pipe = r.pop("pipe")        # alive over the load: the new cache gets new storage
+    if len(r["shifts"]) < 2:
+        raise AssertionError(f"q8 Shift pipeline: {len(r['shifts'])} Shifts, expected >= 2")
+    for t in r["turns"]:
+        log(f"  q8 turn: n_past {t['n_past']}, {len(t['reply_ids'])} tokens, "
+            f"{t['decode_steps_s']:.2f} decode steps/s, captured {t['captured_buckets']}")
+    log(f"  q8 Shift pipeline: {r['graphs']} graphs captured in {r['capture_ms']:.0f} ms, "
+        f"peak {r['peak_mem_gib']:.2f} GiB; session after turn 2: {r['session_bytes']} "
+        f"bytes saved in {r['session_save_ms']:.1f} ms")
+    r["session"] = _session_continue(dev, model, "shift", sess_q8, turns[2],
+                                     r["turns"][2]["reply_ids"])
+    log(f"  q8 session: loaded in {r['session']['load_ms']:.1f} ms, turn 3 equal; "
+        f"{r['session']['captures']} captures in {r['session']['capture_ms']:.0f} ms after "
+        "the load")
+    res["q8_shift"] = r
+    Path(sess_q8).unlink()
+    del model, pipe
+    torch.cuda.empty_cache()
+    span("q8_session")
+
+    # ---- bf16 cache, Restart, four turns
+    cfg_bf = replace(cfg, cache_dtype="bfloat16")
+    model = _pipe_model(cfg_bf, params, tok, dev)
+    sess_bf = str(out_dir / "smoke_bf16.session")
+    r = _pipe_run(dev, model, "restart", sys_prompt, turns[:4], save_after=(1, sess_bf))
+    span("bf16_turns")
+    pipe = r.pop("pipe")
+    n0 = r["initial_n_past"]
+    starts = [p["n_past"] for p in r["prefills"]]
+    restarts = [i for i, (a, b) in enumerate(zip(starts, starts[1:])) if b < a]
+    if not restarts or starts[restarts[0] + 1] != n0:
+        raise AssertionError(f"Restart: prefill starts {starts}, initial n_past {n0}")
+    for t in r["turns"]:
+        if t["k3_mode2_in_prefill"] < cfg.num_hidden_layers:
+            raise AssertionError(f"Restart: K3 mode 2 launched {t['k3_mode2_in_prefill']} "
+                                 "times in a ~1000-token prefill")
+    r["restart_prefill_starts"] = starts
+    log(f"  bf16 Restart pipeline: prefills start at {starts} (initial {n0}), K3 mode 2 "
+        f"{[t['k3_mode2_in_prefill'] for t in r['turns']]} a turn, {r['graphs']} graphs in "
+        f"{r['capture_ms']:.0f} ms")
+    r["session"] = _session_continue(dev, model, "restart", sess_bf, turns[2],
+                                     r["turns"][2]["reply_ids"])
+    log(f"  bf16 session: {r['session_bytes']} bytes, saved in {r['session_save_ms']:.1f} ms, "
+        f"loaded in {r['session']['load_ms']:.1f} ms, turn 3 equal; "
+        f"{r['session']['captures']} captures in {r['session']['capture_ms']:.0f} ms")
+    res["bf16_restart"] = r
+    Path(sess_bf).unlink()
+    del model, pipe
+    torch.cuda.empty_cache()
+    span("bf16_session")
+
+    # ---- the 2-layer cut's CPU side, against the card's logits
+    compared = []
+    for i, (logits, step_card, fut) in enumerate(cuts):
+        lc, step_cpu = fut.result()
+        compared.append({"prefill": _compare_logits(f"2-layer Shift {i} prefill card vs cpu",
+                                                    logits, lc),
+                         "decode_step": _compare_logits(f"2-layer Shift {i} first decode "
+                                                        "step card vs cpu", step_card,
+                                                        step_cpu)})
+    worker.shutdown()
+    torch.set_num_threads(threads)
+    res["two_layer_cut"] = {"shifts": r2["shifts"], "compared": compared}
+    span("cut_cpu_wait")
+    res["seconds"], res["spans_s"] = time.perf_counter() - t_phase, spans
+    res["smi_end"] = _smi_clocks()
+    log(f"  card at the phase's start / end: {res['smi_start']} / {res['smi_end']}")
+    log(f"  pipeline phase: {res['seconds']:.1f} s on {card}; seconds by part "
+        f"{ {k: round(v, 2) for k, v in spans.items()} }")
+    return res
+
+
 # ------------------------------------------------------------- serve phase
 SERVE_PROMPT_BYTES = (20, 80, 150, 260, 400, 560, 760, 980)
 
@@ -2046,6 +2518,41 @@ def serve_phase(dev, cfg, params, *, model_type=None, tok=None, name="llama3-8b-
 
 
 # --------------------------------------------------------------- cli phase
+CLI_WORKERS = 4                    # CLI processes at a time, on 8 host cores
+CLI_SYS = "You are a terse assistant on an H100."
+CLI_TURNS = 7                      # Shift fires several times in 256 slots
+
+
+def _run_cli(jobs: dict) -> dict:
+    """Run `python -m chatllm_tpu_torch.main` once per job (name -> (argv,
+    stdin or None)), CLI_WORKERS processes at a time; returns name ->
+    stdout.  The jobs are independent, so running them side by side only
+    moves the perf lines, which no check compares."""
+    def one(item):
+        name, (args, stdin) = item
+        r = subprocess.run([sys.executable, "-m", "chatllm_tpu_torch.main", *args], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300, input=stdin)
+        if r.returncode != 0:
+            raise AssertionError(f"cli {name} {args} exit {r.returncode}:\n{r.stdout}\n"
+                                 f"{r.stderr}")
+        return name, r.stdout
+
+    with ThreadPoolExecutor(CLI_WORKERS) as pool:
+        return dict(pool.map(one, jobs.items()))
+
+
+def _chat_lines(s: str) -> list:
+    """A transcript without its two perf lines."""
+    return [ln for ln in s.splitlines() if "eval time:" not in ln]
+
+
+def _replies(out: str) -> list:
+    """The A.I. replies of a --test or -i transcript, in order."""
+    out = out[:out.index("prompt eval time")]
+    segs = [s.split("A.I. > ", 1)[1] for s in out.split("You  > ")[1:] if "A.I. > " in s]
+    return [s[:-1] if s.endswith("\n") else s for s in segs]
+
+
 def cli_phase() -> dict:
     """Greedy CLI chats, two per model, whose transcripts must be
     byte-identical: a narrow Llama-3 over a bf16 cache, the same with
@@ -2054,43 +2561,124 @@ def cli_phase() -> dict:
     weights), and a narrow DeepSeek-V2 (q4_k, 8 routed experts + 2 shared,
     MLA's 192 / 128 head widths, YaRN) at a 4096-token context with
     `--mla_cache speed --cache_dtype q8_0` (K4 at (192, 128) on every
-    decode step) and `--mla_cache memory` (the latent cache, bf16)."""
+    decode step) and `--mla_cache memory` (the latent cache, bf16); then the
+    chat pipeline's flags (`cli_pipeline_jobs`).  Every call but the two
+    that load a session runs in one batch of `_run_cli`."""
     from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
 
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = write_llama3_ggmm(BUILD_DIR / "smoke_llama3_q4k.bin")
     path_q8 = write_llama3_ggmm(BUILD_DIR / "smoke_llama3_q4k_4096.bin", max_len=4096)
     path_qwen = write_qwen2_ggmm(BUILD_DIR / "smoke_qwen2_q8_0.bin")
     path_ds = write_deepseek_v2_ggmm(BUILD_DIR / "smoke_dsv2_q4k_4096.bin", max_len=4096)
-    cmd = [sys.executable, "-m", "chatllm_tpu_torch.main", "-p", "Hello from the H100!",
-           "-t", "0", "--max_new_tokens", "8"]
-
-    def chat(s):
-        return [ln for ln in s.splitlines() if "eval time:" not in ln]
-
+    chat = ["-p", "Hello from the H100!", "-t", "0", "--max_new_tokens", "8"]
+    models = (("transcript", ["-m", str(path)]),
+              ("transcript_q8", ["-m", str(path_q8), "--cache_dtype", "q8_0"]),
+              ("transcript_qwen2", ["-m", str(path_qwen)]),
+              ("transcript_dsv2_q8", ["-m", str(path_ds), "--mla_cache", "speed",
+                                      "--cache_dtype", "q8_0"]),
+              ("transcript_dsv2_latent", ["-m", str(path_ds), "--mla_cache", "memory"]))
+    jobs = {(name, i): (chat + extra, None) for name, extra in models for i in range(2)}
+    pipe_jobs, check_pipe = cli_pipeline_jobs(path)
+    outs = _run_cli({**jobs, **pipe_jobs})
     res = {}
-    for name, extra in (("transcript", ["-m", str(path)]),
-                        ("transcript_q8", ["-m", str(path_q8), "--cache_dtype", "q8_0"]),
-                        ("transcript_qwen2", ["-m", str(path_qwen)]),
-                        ("transcript_dsv2_q8", ["-m", str(path_ds), "--mla_cache", "speed",
-                                                "--cache_dtype", "q8_0"]),
-                        ("transcript_dsv2_latent", ["-m", str(path_ds),
-                                                    "--mla_cache", "memory"])):
-        runs = []
-        for _ in range(2):
-            r = subprocess.run(cmd + extra, cwd=ROOT, capture_output=True, text=True,
-                               timeout=300)
-            if r.returncode != 0:
-                raise AssertionError(f"cli exit {r.returncode}:\n{r.stdout}\n{r.stderr}")
-            runs.append(r.stdout)
+    for name, _ in models:
+        runs = [outs[(name, i)] for i in range(2)]
         log(f"  {name}:\n" + runs[0].rstrip())
         for s in runs:
             if sum("eval time:" in ln for ln in s.splitlines()) != 2:
                 raise AssertionError(f"perf lines missing:\n{s}")
-        if chat(runs[0]) != chat(runs[1]):
+        if _chat_lines(runs[0]) != _chat_lines(runs[1]):
             raise AssertionError(f"greedy transcripts differ:\n{runs[0]}\n---\n{runs[1]}")
         res[name] = runs[0]
+    res["pipeline_flags"] = check_pipe(outs)
+    res["calls"] = len(jobs) + len(pipe_jobs) + 2
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  cli phase: {res['calls']} calls, {CLI_WORKERS} at a time, in {res['seconds']:.1f} s")
     return res
+
+
+def cli_pipeline_jobs(path):
+    """The chat pipeline's CLI flags on the narrow q4_k Llama-3: the jobs of
+    seven calls for `_run_cli`, and the function that checks their outputs
+    after running the two calls that need one of them:
+      - `--test` of seven turns with `--extending shift -l 256 -s ... --cache_dtype
+        q8_0 --re_quantize q8_0 --layer_spec 0:2,1:2` (the reference);
+      - the same flags with `-i`, the first six turns on stdin, and
+        `--save_session`: its six replies equal the reference's;
+      - `--load_session` of that file with the seventh turn as `-p`, twice:
+        byte-identical transcripts, the reply equal to the reference's
+        seventh;
+      - a sampled chat (`-t 0.8 -k 40 -q 0.9 --seed 7 --repeat_penalty 1.1
+        --penalty_window 64 --format completion`) and one with `--sampling
+        tfs --tfs_z 0.9`, each twice: byte-identical transcripts;
+      - `--tokenize`: the ids the port's tokenizer gives in this process."""
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
+
+    rng = np.random.default_rng(7)
+    turns = [f"turn {i}: " + " ".join("".join(chr(97 + c) for c in rng.integers(0, 26, 5))
+                                      for _ in range(12)) for i in range(CLI_TURNS)]
+    test_file = BUILD_DIR / "smoke_turns.txt"
+    test_file.write_text("\n".join(turns) + "\n", encoding="utf-8")
+    sess = BUILD_DIR / "smoke_cli.session"
+    sess.unlink(missing_ok=True)
+    m = ["-m", str(path)]
+    chat_flags = m + ["-t", "0", "--max_new_tokens", "8", "--extending", "shift", "-l", "256",
+                      "-s", CLI_SYS, "--cache_dtype", "q8_0", "--re_quantize", "q8_0",
+                      "--layer_spec", "0:2,1:2"]
+    sampled = m + ["-p", "Hello from the H100!", "--max_new_tokens", "16", "--seed", "7",
+                   "-t", "0.8"]
+    samplings = (("top_p", ["-k", "40", "-q", "0.9", "--repeat_penalty", "1.1",
+                            "--penalty_window", "64", "--format", "completion"]),
+                 ("tfs", ["--sampling", "tfs", "--tfs_z", "0.9"]))
+    text = "Tokenize this, H100: 1 2 3 ok?"
+    jobs = {"test": (chat_flags + ["--test", str(test_file)], None),
+            "interactive": (chat_flags + ["-i", "--save_session", str(sess)],
+                            "\n".join(turns[:-1]) + "\n"),
+            "tokenize": (m + ["-p", text, "--tokenize"], None)}
+    jobs.update({(name, i): (sampled + extra, None) for name, extra in samplings
+                 for i in range(2)})
+
+    def check(outs: dict) -> dict:
+        res = {}
+        ref = _replies(outs["test"])
+        res["session_bytes"] = sess.stat().st_size
+        if len(ref) != CLI_TURNS or _replies(outs["interactive"]) != ref[:-1]:
+            raise AssertionError(f"-i replies differ from --test's:\n"
+                                 f"{_replies(outs['interactive'])}\n{ref}")
+        loads = _run_cli({i: (chat_flags + ["--load_session", str(sess), "-p", turns[-1]], None)
+                          for i in range(2)})
+        loads = [loads[0], loads[1]]
+        if _chat_lines(loads[0]) != _chat_lines(loads[1]):
+            raise AssertionError(f"--load_session transcripts differ:\n{loads[0]}\n{loads[1]}")
+        if _replies(loads[0]) != ref[-1:]:
+            raise AssertionError(f"the loaded session's reply {_replies(loads[0])} is not the "
+                                 f"uninterrupted run's {ref[-1:]}")
+        res.update(test_replies=ref, load_transcript=loads[0])
+        log(f"  pipeline flags: --test of {CLI_TURNS} turns with Shift = -i of "
+            f"{CLI_TURNS - 1} + --save_session ({res['session_bytes']} bytes) + "
+            f"--load_session; reply 7: {ref[-1]!r}")
+        for name, _ in samplings:
+            runs = [_chat_lines(outs[(name, i)]) for i in range(2)]
+            if runs[0] != runs[1]:
+                raise AssertionError(f"sampled ({name}) transcripts differ with one seed:\n"
+                                     f"{runs}")
+            res[f"sampled_{name}"] = runs[0]
+            log(f"  sampled {name}, seed 7, twice: {runs[0][1]!r}")
+        from chatllm_tpu_torch.ggmm.reader import GGMMFile
+        from chatllm_tpu_torch.models.base import BaseConfig
+        from chatllm_tpu_torch.models.llama import make_llama3_tokenizer
+
+        got = outs["tokenize"].strip()
+        gf = GGMMFile.open(str(path))
+        want = str(make_llama3_tokenizer(gf, BaseConfig.parse(gf)[0]).encode(text))
+        if got != want:
+            raise AssertionError(f"--tokenize printed {got}, expected {want}")
+        res["tokenize"] = got
+        return res
+
+    return jobs, check
 
 
 # -------------------------------------------------------------- bench phase
@@ -2409,8 +2997,9 @@ def e6_phase(dev) -> dict:
     return res
 
 
-E7_STEPS = 16     # the original's 48 cut to a third: the rates are per step, and
-#                   the plain einsum variants' eager loops took ~3 minutes
+E7_STEPS = 8      # the original's 48 cut to a sixth: the rates are per step, and
+#                   the plain einsum variants' eager loops took ~3 minutes (16
+#                   steps ~58 s; halved again to make room for the pipeline phase)
 
 
 def e7_phase() -> dict:
@@ -3265,6 +3854,10 @@ def main() -> int:
 
     log("== switches")
     report["switches"] = switch_phase(dev, cfg, params)
+    torch.cuda.empty_cache()
+
+    log("== pipeline")
+    report["pipeline"] = pipeline_phase(dev, cfg, params, smi)
     del params
     gc.collect()              # the server's objects held the params in cycles
     torch.cuda.empty_cache()

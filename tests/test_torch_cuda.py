@@ -865,3 +865,112 @@ def test_deepseek_v2_loads_on_the_card_as_on_the_cpu(dev, tmp_path, case):
     # replayed run also counts its uncaptured warm-up block)
     steps = chip_smoke.decode_launches(new) * card.cfg.num_hidden_layers if cache == "q8_0" else 0
     assert (k4[True], k4[False]) == (2 * steps, steps), k4
+
+
+# ------------------------------------------------- the chat pipeline's pieces
+def _tiny_cfg(tmp_path, kind: str):
+    """The config of a narrow GGMM: Llama-3.1 (NORMAL rope with the llama3
+    frequency factors) or Qwen2 (NEOX)."""
+    import chip_smoke
+    from chatllm_tpu_torch.models import RuntimeConfig, load_model
+
+    if kind == "llama31_normal":
+        path = chip_smoke.write_llama3_ggmm(tmp_path / "l.bin", rope_scaling=(8192, 8.0, 1.0, 4.0))
+    else:
+        path = chip_smoke.write_qwen2_ggmm(tmp_path / "q.bin")
+    cfg = load_model(str(path), RuntimeConfig(), device="cpu").cfg
+    assert (cfg.rope.layout, cfg.rope.freq_factors is not None) == \
+        (("normal", True) if kind == "llama31_normal" else ("neox", False))
+    return cfg
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["llama31_normal", "qwen2_neox"])
+def test_shift_cache_card_matches_cpu(dev, tmp_path, kind, cache):
+    """shift_cache on the card against the CPU on the same cache contents,
+    in place: V, the kept rows and V's scales bit-equal; K within 1e-6 of
+    its scale (f32), one bf16 ulp (bf16), or one int8 step in at most 1e-3
+    of the entries with scales within 1e-6 relative (q8)."""
+    from chatllm_tpu_torch.nn.transformer import init_cache
+    from chatllm_tpu_torch.runtime.generate import shift_cache
+
+    cfg = dataclasses.replace(_tiny_cfg(tmp_path, kind), cache_dtype=cache)
+    S, n_past, keep = 1024, 1000, 37
+    shift = (n_past - keep) // 2
+    gen = torch.Generator().manual_seed(3)
+    cpu = init_cache(cfg, 1, S)
+    for t in [*cpu.k, *cpu.v]:
+        if cache == "int8":
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, dtype=torch.int32))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen))
+    for t in [*(cpu.k_scale or ()), *(cpu.v_scale or ())]:
+        t.copy_(torch.rand(t.shape, generator=gen) * 0.02 + 1e-3)
+    card = init_cache(cfg, 1, S, device=dev)
+    planes = lambda c: [*c.k, *c.v, *(c.k_scale or ()), *(c.v_scale or ())]  # noqa: E731
+    for d, s in zip(planes(card), planes(cpu)):
+        d.copy_(s)
+    ptrs = [t.data_ptr() for t in planes(card)]
+    assert shift_cache(cfg, card, shift, keep) is card
+    torch.cuda.synchronize()
+    assert ptrs == [t.data_ptr() for t in planes(card)]
+    shift_cache(cfg, cpu, shift, keep)
+    for i in range(len(cpu.k)):
+        assert torch.equal(card.v[i].cpu(), cpu.v[i])
+        kg, kc = card.k[i].cpu(), cpu.k[i]
+        assert torch.equal(kg[:, :keep], kc[:, :keep])
+        if cache == "float32":
+            torch.testing.assert_close(kg, kc, rtol=1e-6, atol=1e-6 * kc.abs().max().item())
+        elif cache == "bfloat16":
+            d = (kg.view(torch.int16).int() - kc.view(torch.int16).int()).abs()
+            assert d.max().item() <= 1
+        else:
+            d = (kg.int() - kc.int()).abs()
+            assert d.max().item() <= 1 and (d > 0).float().mean().item() <= 1e-3
+            assert torch.equal(card.v_scale[i].cpu(), cpu.v_scale[i])
+            torch.testing.assert_close(card.k_scale[i].cpu(), cpu.k_scale[i], rtol=1e-6,
+                                       atol=0)
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+def test_session_crosses_card_and_cpu(dev, tmp_path, cache):
+    """A session written on the card loads bit-equal on the CPU, and one
+    written on the CPU loads bit-equal on the card."""
+    import chip_smoke
+    from chatllm_tpu_torch.models import RuntimeConfig, load_model
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig
+    from chatllm_tpu_torch.runtime.pipeline import ExtendingMethod, Pipeline
+
+    path = chip_smoke.write_llama3_ggmm(tmp_path / "m.bin")
+    rt = RuntimeConfig(cache_dtype=cache, max_length=256)
+    models = {"card": load_model(str(path), rt, device=dev),
+              "cpu": load_model(str(path), rt, device="cpu")}
+    for src, dst in (("card", "cpu"), ("cpu", "card")):
+        pipe = Pipeline(models[src], extending=ExtendingMethod.SHIFT)
+        pipe.gen_config = GenerationConfig(do_sample=False, max_new_tokens=8)
+        models[src].tokenizer.sys_prompt = "You are terse."
+        pipe.eval_sys_prompt()
+        for turn in ("Hello there.", "Tell me more about the sea, please."):
+            pipe.chat(turn)
+        f = str(tmp_path / f"{src}.session")
+        pipe.save_session(f)
+        other = Pipeline(models[dst], extending=ExtendingMethod.SHIFT)
+        other.load_session(f)
+        assert (other.n_past, other.initial_n_past) == (pipe.n_past, pipe.initial_n_past)
+        a, b = pipe._cache, other._cache
+        n = pipe.n_past
+        for x, y in zip([*a.k, *a.v, *(a.k_scale or ())], [*b.k, *b.v, *(b.k_scale or ())]):
+            assert x.dtype == y.dtype and torch.equal(x[:, :n].cpu(), y[:, :n].cpu())
+
+
+@pytest.mark.parametrize("target", ["q8_0", "q4_k"])
+def test_re_quantize_loads_on_the_card_as_on_the_cpu(dev, tmp_path, target):
+    import chip_smoke
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.models import RuntimeConfig, load_model
+
+    src = GGMLType.F32 if target == "q4_k" else None       # f32 -> q4_k, q4_k -> q8_0
+    path = chip_smoke.write_llama3_ggmm(tmp_path / "m.bin", dtype=src)
+    rt = RuntimeConfig(re_quantize=target)
+    _same_params(load_model(str(path), rt, device=dev).params,
+                 load_model(str(path), rt, device="cpu").params)
