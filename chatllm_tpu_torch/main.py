@@ -7,8 +7,9 @@ flags, spellings, `Args` fields and defaults, and the same transcripts).
 
 Runs on the card; `--device cpu` runs on the CPU instead.  A flag whose
 module the port does not have yet (RAG, beam search, TTS, the logit lens,
-multimedia tags, multi-host, the HLO dump, model downloads) exits with a
-message that names the module (UNPORTED).
+multi-host, the HLO dump, model downloads) exits with a message that names
+the module (UNPORTED); so does a `{{video:...}}` or `{{audio:...}}` tag of
+`--multimedia_file_tags` (the port's models take images only).
 """
 from __future__ import annotations
 
@@ -115,9 +116,6 @@ UNPORTED = (
      "ROADMAP.md section 1, M17"),
     (("lens_layers", "lens_fn"), "--lens", "tools/lens.py (logit lens)",
      "ROADMAP.md section 1, M18"),
-    (("multimedia_file_tags",), "--multimedia_file_tags",
-     "the multimodal towers (chat_image / chat_video / chat_audio)",
-     "ROADMAP.md section 1, item 3 and M17"),
     (("dump_dot",), "--dump_dot", "the compiled-graph dump (the JAX package dumps XLA HLO)",
      "ROADMAP.md section 1, M18"),
     (("show_devices",), "--show_devices", "parallel/mesh.py", "ROADMAP.md section 1, M19"),
@@ -442,6 +440,28 @@ def main(argv=None) -> int:
     if a.tokenize:
         print(model.tokenizer.encode(a.prompt))
         return 0
+
+    if a.multimedia_file_tags:
+        # {{image:/path}} prompt tags (chatllm.cpp main.cpp:260-262): a tagged
+        # prompt goes through the model's one-shot multimodal chat
+        import re
+
+        o, c = (re.escape(t) for t in a.multimedia_file_tags)
+        m = re.search(o + r"(image|video|audio):(.+?)" + c, a.prompt)
+        if m is not None:
+            kind, path = m.group(1), m.group(2)
+            question = (a.prompt[:m.start()] + a.prompt[m.end():]).strip()
+            fn = {"image": "chat_image", "video": "chat_video", "audio": "chat_audio"}[kind]
+            if not hasattr(model, fn):
+                raise SystemExit(
+                    f"chatllm_tpu_torch: --multimedia_file_tags: model has no {fn}() (the "
+                    "port has no video or audio tower yet and takes images through "
+                    "InternVL only: ROADMAP.md section 1, M17)")
+            print(f"You  > {a.prompt}")
+            print("A.I. > ", end="", flush=True)
+            getattr(model, fn)(path, question, pipe.gen_config, streamer)
+            print()
+            return 0
 
     if a.load_session:
         pipe.load_session(a.load_session)

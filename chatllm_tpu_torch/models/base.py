@@ -123,7 +123,11 @@ class ParamBuilder:
                                 device=self.device)
 
     def norm(self, prefix: str) -> dict:
-        return {"w": self.array(prefix + ".weight")}
+        """`{prefix}.weight` (+ `.bias`, LayerNorm's) in f32."""
+        p = {"w": self.array(prefix + ".weight")}
+        if self.gf.has_tensor(prefix + ".bias"):
+            p["b"] = self.array(prefix + ".bias")
+        return p
 
 
 def load_llama_family_params(pb: ParamBuilder, n_layers: int, *,

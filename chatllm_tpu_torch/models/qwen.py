@@ -1,11 +1,15 @@
-"""Qwen2 family (counterpart of the JAX package's `models/qwen.py`: QWEN2,
-QWEN2TIE and the models that share their loader).
+"""Qwen2 and Qwen3 families (counterpart of the JAX package's
+`models/qwen.py`: QWEN2, QWEN2TIE and the models that share their loader;
+QWEN3, the dense models).
 
 Qwen uses the NeoX (half-split) rope lane layout: the converter does not
-permute q/k.  q/k/v carry a bias; the lm_head is tied to the embedding when
-the file holds no `lm_head.weight`.
+permute q/k.  Qwen2's q/k/v carry a bias, and its lm_head is tied to the
+embedding when the file holds no `lm_head.weight`.  Qwen3 has no biases, a
+per-head RMS norm of q and k before RoPE, and a tie flag in its config.
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 from ..ops.rope import ROPE_NEOX
 from ..runtime.chat import ChatMLEncoder, ChatTokenizer
@@ -58,4 +62,44 @@ class Qwen2(BaseLLM):
         tok = make_qwen_tokenizer(gf, base)
         pb = ParamBuilder(gf, rt, device)
         params = load_llama_family_params(pb, base.num_hidden_layers, tie_lm_head=tie)
+        return cls(gf.model_type, cfg, params, tok, device)
+
+
+@register_model(ModelType.QWEN3, ModelType.DEEPSEEK_R1_DISTILL_QWEN3)
+class Qwen3(BaseLLM):
+    # chatllm.cpp models/qwen.h:746-760 v3 Config: BaseConfig +
+    # {num_key_value_heads, head_dim, rope_theta:f, yarn_factor:f, yarn_orig,
+    # decoder_sparse_step, moe_intermediate_size, num_experts_per_tok,
+    # num_experts, norm_topk_prob, tie_word_embeddings, layer_is_sparse[128]}
+    EXTRA_FMT = "2iff" + "i" * 6 + "i" + "128i"
+
+    @classmethod
+    def load(cls, gf, rt: RuntimeConfig, device):
+        if gf.model_type == int(ModelType.DEEPSEEK_R1_DISTILL_QWEN3):
+            raise NotImplementedError(
+                "DEEPSEEK_R1_DISTILL_QWEN3 (the DeepSeek-R1 tokenizer and template over "
+                "Qwen3) is not ported to chatllm_tpu_torch yet (ROADMAP.md section 1, M12)")
+        base, extra = BaseConfig.parse(gf, cls.EXTRA_FMT)
+        (n_kv, head_dim, rope_theta, yarn_factor, yarn_orig,
+         _sparse_step, _moe_inter, _n_active, n_experts, _norm_topk, tie_flag) = extra[:11]
+        if n_experts > 0 and any(extra[11:11 + base.num_hidden_layers]):
+            raise NotImplementedError(
+                "Qwen3-MoE (sparse layers) is not ported to chatllm_tpu_torch yet "
+                "(ROADMAP.md section 1, item 2 and M12)")
+        tie = bool(tie_flag)
+        cfg = build_dense_config(
+            base, num_key_value_heads=n_kv, head_dim=head_dim, rope_theta=rope_theta,
+            rope_layout=ROPE_NEOX, tie_lm_head=tie, norm_eps=1e-6,
+            max_length=rt.max_length, cache_dtype=rt.cache_dtype)
+        cfg = replace(cfg, qk_norm="rmsnorm")
+        if yarn_factor > 0 and yarn_orig > 0:
+            cfg = replace(cfg, rope=replace(cfg.rope, freq_scale=1.0 / yarn_factor,
+                                            ext_factor=1.0, orig_ctx=yarn_orig))
+        tok = make_qwen_tokenizer(gf, base)
+        pb = ParamBuilder(gf, rt, device)
+        params = load_llama_family_params(pb, base.num_hidden_layers, tie_lm_head=tie)
+        for i, layer in enumerate(params["layers"]):
+            pfx = f"model.layers.{i}.self_attn"
+            layer["attn"]["q_norm"] = pb.norm(f"{pfx}.q_norm")
+            layer["attn"]["k_norm"] = pb.norm(f"{pfx}.k_norm")
         return cls(gf.model_type, cfg, params, tok, device)

@@ -124,8 +124,11 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
 
     def attention():
         if cfg.mla is None:
-            return {"q": lin(H, qo, cfg.qkv_bias), "k": lin(H, kvo, cfg.qkv_bias),
+            attn = {"q": lin(H, qo, cfg.qkv_bias), "k": lin(H, kvo, cfg.qkv_bias),
                     "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H)}
+            if cfg.qk_norm == "rmsnorm":          # Qwen3's per-head q/k norms
+                attn.update(q_norm=ones(d), k_norm=ones(d))
+            return attn
         m, h = cfg.mla, cfg.num_attention_heads
         attn = {"q": lin(H, h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
                 "d_kv": lin(H, m.kv_lora_rank), "k_pe": lin(H, m.qk_rope_head_dim),
@@ -216,6 +219,69 @@ def deepseek_v2_lite_config(max_length: int = 8192, *,
         mla=MLAConfig(q_lora_rank=0, kv_lora_rank=512, qk_nope_head_dim=128,
                       qk_rope_head_dim=64, v_head_dim=128),
         mla_compressed=mla_cache == "memory")
+
+
+def internvl3_5_8b_config(max_length: int = 8192) -> TransformerConfig:
+    """InternVL3.5-8B's LLM, Qwen3-8B as published (Hugging Face
+    `OpenGVLab/InternVL3_5-8B`, config.json `llm_config`): vocab_size 151936,
+    hidden_size 4096, num_hidden_layers 36, num_attention_heads 32,
+    num_key_value_heads 8, head_dim 128, intermediate_size 12288, rope_theta
+    1e6, rms_norm_eps 1e-6, tie_word_embeddings false; per-head RMS q/k
+    norms.  Only max_length is cut."""
+    return TransformerConfig(
+        vocab_size=151936, hidden_size=4096, num_hidden_layers=36,
+        num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+        intermediate_size=12288, max_length=max_length,
+        rope=RopeConfig(head_dim=128, freq_base=1000000.0, layout=ROPE_NEOX),
+        norm_eps=1e-6, qk_norm="rmsnorm")
+
+
+def internvit_300m_config():
+    """InternVL3.5-8B's tower, InternViT-300M-448px-V2_5 (the same config.json,
+    `vision_config`): hidden_size 1024, num_hidden_layers 24,
+    num_attention_heads 16, intermediate_size 4096, patch_size 14,
+    image_size 448, layer_norm_eps 1e-6, qkv_bias true, exact GELU, a class
+    token and layer scales."""
+    from .internvl import internvit_config
+
+    return internvit_config(hidden=1024, layers=24, heads=16, inter=4096, patch=14,
+                            image_size=448, eps=1e-6)
+
+
+def build_synthetic_vision(vcfg, lm_hidden: int, *, downsample_ratio: float = 0.5,
+                           dtype=torch.bfloat16, ls_scale: float = 0.1, seed: int = 0,
+                           device="cpu") -> dict:
+    """A seeded InternViT tower and projector in the loader's layout: the
+    patch weight [p, p, 3, hidden], class token, position table, norms,
+    biases and layer scales in f32; the linears dense in `dtype` with f32
+    biases.  Weights are N(0, 1 / fan-in), biases and embeddings N(0,
+    0.02²), LayerNorm weights 1 and biases 0, every layer scale `ls_scale`,
+    so that the residual stream stays O(1) over the tower's depth."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Hv, F = vcfg.hidden_size, vcfg.intermediate_size
+    fac = int(round(1 / downsample_ratio))
+    Hp = Hv * fac * fac
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    def lin(i, o):
+        return DenseLinear(w=randn(i, o, scale=i ** -0.5).to(dtype), bias=randn(o, scale=0.02))
+
+    def ln(n):
+        return {"w": torch.ones(n, device=device), "b": torch.zeros(n, device=device)}
+
+    p, n_pos = vcfg.patch_size, vcfg.grid ** 2 + 1
+    layers = tuple({"norm1": ln(Hv), "attn": {k: lin(Hv, Hv) for k in ("q", "k", "v", "o")},
+                    "norm2": ln(Hv), "mlp": {"fc0": lin(Hv, F), "fc1": lin(F, Hv)},
+                    "ls1": torch.full((Hv,), ls_scale, device=device),
+                    "ls2": torch.full((Hv,), ls_scale, device=device)}
+                   for _ in range(vcfg.num_hidden_layers))
+    return {"embed": {"proj_w": randn(p, p, 3, Hv, scale=(p * p * 3) ** -0.5),
+                      "proj_b": randn(Hv, scale=0.02), "cls": randn(1, Hv, scale=0.02),
+                      "pos": randn(n_pos, Hv, scale=0.02)},
+            "projector": {"ln": ln(Hp), "fc0": lin(Hp, lm_hidden), "fc1": lin(lm_hidden, lm_hidden)},
+            "layers": layers}
 
 
 def tiny_config(*, vocab=512, hidden=128, layers=2, heads=4, kv_heads=2,

@@ -63,6 +63,8 @@ class TransformerConfig:
     rms_norm_offset: float = 0.0
     rope: RopeConfig = None
     qkv_bias: bool = False
+    qk_norm: str = "none"                   # "rmsnorm": per-head RMS norm of q and k
+    #                                         before RoPE (Qwen3); other modes raise
     tie_lm_head: bool = False
     attention_scale: float = -1.0           # -1 = 1/sqrt(head_dim)
     causal: bool = True
@@ -274,6 +276,13 @@ def _moe_combine(cfg: TransformerConfig, p, xt, topi, topv, x):
     return y.reshape(B, T, H).to(x.dtype)
 
 
+# qk-norm modes of the JAX package's attention_block whose families are not
+# ported yet: they raise, naming the family
+_OTHER_QK_NORMS = {"rmsnorm_full": "OLMo2", "layernorm": "Persimmon",
+                   "rmsnorm_halves": "NeoChat", "rmsnorm_post": "Hunyuan",
+                   "l2norm_post": "Llama-4"}
+
+
 def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
                     k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
     B, T, _ = x.shape
@@ -282,6 +291,14 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
     q = matmul(x, p["q"]).reshape(B, T, hq, d)
     k = matmul(x, p["k"]).reshape(B, T, hkv, d)
     v = matmul(x, p["v"]).reshape(B, T, hkv, d)
+    if cfg.qk_norm == "rmsnorm":
+        # per-head RMS norm over head_dim (chatllm.cpp QKNormedAttention)
+        q = rms_norm(q, p["q_norm"]["w"], eps=cfg.norm_eps, offset=cfg.rms_norm_offset)
+        k = rms_norm(k, p["k_norm"]["w"], eps=cfg.norm_eps, offset=cfg.rms_norm_offset)
+    elif cfg.qk_norm != "none":
+        raise NotImplementedError(
+            f"qk_norm {cfg.qk_norm!r} ({_OTHER_QK_NORMS.get(cfg.qk_norm, 'unknown family')}) "
+            "is not ported to chatllm_tpu_torch yet")
     if spec.use_rope:
         rc = cfg.rope
         q = apply_rope(q, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
@@ -414,19 +431,25 @@ def lm_logits(cfg: TransformerConfig, params, x):
     return matmul(x, params["lm_head"])
 
 
-def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor,
+def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor | None,
                         cache: KVCache, n_past, *, last_index: int | None = None,
-                        kv_len: int | None = None):
+                        kv_len: int | None = None, input_embeds: torch.Tensor | None = None):
     """ids: [B, T] int64 -> (logits [B, T|1, V] f32, cache updated in place).
 
     `last_index` slices the hidden state at one position before the lm_head
     (bucketed prefill: the last real token sits at n_valid - 1 inside the
     right-padded chunk), so the vocab projection runs on one row.  With a
     tensor `n_past`, `kv_len` bounds the keys attention reads (None: the
-    whole cache)."""
-    B, T = ids.shape
-    x = embed_tokens(cfg, params, ids)
-    steps = torch.arange(T, device=ids.device)
+    whole cache).  `input_embeds` [B, T, H] replaces the token lookup
+    (multimodal prompts splice projected media embeddings between the text
+    embeddings); positions stay n_past + arange(T)."""
+    if input_embeds is not None:
+        x = input_embeds
+        B, T = x.shape[:2]
+    else:
+        B, T = ids.shape
+        x = embed_tokens(cfg, params, ids)
+    steps = torch.arange(T, device=x.device)
     if isinstance(n_past, torch.Tensor) and n_past.dim() == 1:   # per-slot offsets [B]
         positions = n_past[:, None] + steps[None, :]
     else:

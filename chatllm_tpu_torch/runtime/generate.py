@@ -185,6 +185,40 @@ class InferenceEngine:
         return logits, cache, n_past
 
     @torch.inference_mode()
+    def prefill_embeds(self, embeds: torch.Tensor, cache: KVCache, n_past: int, *,
+                       positions=None, extra_residuals=None, ple_ids=None):
+        """Prefill from given input embeddings [1, T, H] (multimodal prompts
+        with spliced media embeddings).  Returns (last-token logits [1, V]
+        f32, cache, n_past).  A prompt longer than the room left is fed in
+        chunks of that room; a chunk is zero-padded to its bucket and the
+        lm_head runs on its last real row.  Explicit positions (M-RoPE),
+        DeepStack residuals and per-layer-embedding ids belong to models not
+        ported yet: they raise, naming them."""
+        for arg, what in ((positions, "explicit positions (Qwen-VL's M-RoPE)"),
+                          (extra_residuals, "extra_residuals (Qwen3-VL's DeepStack)"),
+                          (ple_ids, "ple_ids (Gemma4's per-layer embeddings)")):
+            if arg is not None:
+                raise NotImplementedError(f"prefill_embeds: {what} are not ported to "
+                                          "chatllm_tpu_torch yet (ROADMAP.md section 1, M17)")
+        T = embeds.shape[1]
+        room = max(1, cache.k[0].shape[1] - n_past)
+        if T > room:
+            logits, done = None, 0
+            while done < T:
+                n = min(room, T - done)
+                logits, cache, n_past = self.prefill_embeds(embeds[:, done:done + n], cache,
+                                                            n_past)
+                done += n
+            return logits, cache, n_past
+        tpad = _fit_bucket(T, room, hi=max(16, self.max_length))
+        x = embeds.to(self.device)
+        if tpad != T:
+            x = torch.nn.functional.pad(x, (0, 0, 0, tpad - T))
+        logits, cache = transformer_forward(self.cfg, self.params, None, cache, n_past,
+                                            last_index=T - 1, input_embeds=x)
+        return logits[:, 0, :], cache, n_past + T
+
+    @torch.inference_mode()
     def generate(
         self,
         input_ids: list[int],

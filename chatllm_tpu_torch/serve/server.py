@@ -204,12 +204,82 @@ class ApiServer:
                 media.append(("image", b64))
         return media
 
+    @staticmethod
+    def _decode_media_ref(ref: str, kind: str) -> bytes:
+        """A data: URI, a file:// path or bare base64 -> the media's bytes;
+        http(s) URLs are not fetched."""
+        import base64
+        import binascii
+
+        if ref.startswith("data:"):
+            _head, sep, b64 = ref.partition(",")
+            if not sep:
+                raise _BadRequest("malformed data: URI")
+            try:
+                return base64.b64decode(b64)
+            except (binascii.Error, ValueError) as e:
+                raise _BadRequest(f"bad base64 in data URI: {e}")
+        if ref.startswith("file://"):
+            try:
+                with open(ref[7:], "rb") as f:
+                    return f.read()
+            except OSError as e:
+                raise _BadRequest(f"cannot read {ref}: {e}")
+        if ref.startswith("http://") or ref.startswith("https://"):
+            raise _BadRequest("remote media URLs are not fetched; send a data: URI, "
+                              "file:// path, or base64")
+        try:        # bare base64 (ollama images)
+            return base64.b64decode(ref, validate=True)
+        except (binascii.Error, ValueError):
+            raise _BadRequest(f"unrecognized media reference for {kind}")
+
+    def _media_chat(self, messages, media, gen_config, on_chunk=None) -> str:
+        """Route a chat-with-media request through the model's one-shot
+        multimodal path (chat_image; chat_audio / chat_video on models that
+        have them): the newest media piece and the last user message's text."""
+        import os
+        import tempfile
+
+        kind, ref = media[-1]
+        fn_name = {"image": "chat_image", "audio": "chat_audio", "video": "chat_video"}[kind]
+        fn = getattr(self.model, fn_name, None)
+        if fn is None:
+            raise _BadRequest(f"model cannot accept {kind} input")
+        text = ""
+        for m in reversed(messages):
+            if m.get("role") == "user":
+                c = m.get("content", "") or ""
+                if isinstance(c, list):
+                    c = "".join(p.get("text", "") for p in c if isinstance(p, dict))
+                text = c
+                break
+        data = self._decode_media_ref(ref, kind)
+        f = tempfile.NamedTemporaryFile(
+            suffix={"image": ".png", "audio": ".wav", "video": ".mp4"}[kind], delete=False)
+        f.write(data)
+        f.close()
+        streamer = None
+        if on_chunk is not None:
+            from ..runtime.streamer import CallbackStreamer
+
+            streamer = CallbackStreamer(self.model.tokenizer,
+                                        on_chunk=lambda first, c: on_chunk(c))
+        try:
+            with self.lock:
+                return fn(f.name, text, gen_config, streamer)
+        finally:
+            try:
+                os.unlink(f.name)
+            except OSError:
+                pass
+
     def chat(self, messages: list[dict], gen_config, on_chunk=None) -> str:
         """Run one chat request on a fresh pipeline (stateless server)."""
         media = self._extract_media(messages)
         if media:
-            raise _BadRequest(f"{media[-1][0]} input: multimodal input is not ported "
-                              "to this server yet; send text content only")
+            # media requests bypass the batched text engine: the tower's
+            # embeddings need the single-slot one-shot path
+            return self._media_chat(messages, media, gen_config, on_chunk)
         if self.batch is not None:
             return self._run_batched(self._encode_chat(messages), gen_config,
                                      on_chunk)

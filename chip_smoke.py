@@ -17,7 +17,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              against their plain PyTorch versions at the Llama-3-8B shapes,
              and K1-K5 at the Qwen2.5-0.5B shapes too (q8_0 with a bias, head
              dim 64, 14 query heads over 2 kv heads), K4 at DeepSeek-V2-Lite's
-             expanded MLA cache (K 192, V 128, f32 dots), and K1, K2 and K5 also on
+             expanded MLA cache (K 192, V 128, f32 dots), K1, K3 (mode 2) and
+             K4 at InternVL3.5-8B's Qwen3-8B shapes (FFN 12288, lm_head N
+             151936, the 3424-token image prefill, a q8 decode step at n_past
+             3440), and K1, K2 and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
              on both sides of every tile edge, N that are not multiples of
@@ -143,6 +146,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              near-ties, then logits within 2e-2 of the logit scale where the
              picks agree, DSV2_CUT_TOL); a 4-slot q8 server (4 chat
              requests, 16 tokens each).
+     internvl  full-width InternVL3.5-8B (`internvl_phase`: a Qwen3-8B LLM of
+             36 layers with per-head q/k norms, random q4_k projections, and
+             the 24-layer InternViT-300M tower and projector in bf16, from
+             seeds, max_length 8192) through `InternVL.chat_image` on seeded
+             2000 x 1500 PNGs (12 tiles + a thumbnail, 3328 image tokens):
+             preprocessing, tower, projector and spliced prefill timed; a
+             second image on the same engine over a bf16 cache and over a q8
+             one captures nothing, K3 36 launches in mode 2 per image
+             prefill, K4 36 per q8 decode step, K1 253 per step; an OpenAI
+             image_url request with a data URI answers as chat_image does;
+             2-layer cuts of the tower and of the LLM over the spliced
+             embeddings against the CPU.
   8. cli     write narrow LLAMA3, Qwen2 and DEEPSEEK_V2_LIGHT GGMMs with the
              port's writer and chat through `python -m chatllm_tpu_torch.main`
              twice each (bf16 cache; --cache_dtype q8_0; Qwen2 with ChatML
@@ -159,7 +174,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              --seed 7 --repeat_penalty 1.1 --penalty_window 64 --format
              completion) and one with --sampling tfs --tfs_z 0.9, each twice
              and byte-identical; --tokenize against the tokenizer in process.
-             The 19 calls run four processes at a time (`_run_cli`; the two
+             A narrow INTERN_VL GGMM (q4_k Qwen3 behind a 2-layer InternViT)
+             asked about a 120 x 90 PNG through --multimedia_file_tags on the
+             card and with --device cpu: byte-identical transcripts.
+             The 21 calls run four processes at a time (`_run_cli`; the two
              --load_session calls after the rest).
   9. e2      `chatllm_tpu_torch.experiments.gemv_probe2.main`, all six
              variants.
@@ -340,6 +358,126 @@ def write_qwen2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: in
         wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
         _write_dense_tensors(wr, w, dtype, vocab_pad, hidden, heads, kv_heads, layers, inter,
                              qkv_bias=True, tie=tie)
+    return path
+
+
+def write_internvl_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: int = 4,
+                        kv_heads: int = 2, head_dim: int = 64, layers: int = 2,
+                        inter: int = 512, max_len: int = 4096, dtype=None, seed: int = 0,
+                        writer_cls=None, rope_theta: float = 1000000.0, vis_hidden: int = 64,
+                        vis_layers: int = 2, vis_heads: int = 2, vis_inter: int = 128,
+                        patch: int = 14, image_size: int = 56, tower: bool = True,
+                        yarn: tuple = (-1.0, -1), tie: bool = False, experts: int = -1,
+                        model_type=None):
+    """A narrow random-weight INTERN_VL GGMM: a Qwen3 LLM (chatllm.cpp
+    models/qwen.h v3 Config: BaseConfig + n_kv, head_dim, rope_theta,
+    yarn_factor, six ints, the tie flag and layer_is_sparse[128]; per-head
+    q/k norms, an untied lm_head) behind an InternViT tower and projector
+    under the converter's names (f16 linears, f32 norms, biases, layer
+    scales and embeddings), with `config.json`'s vision_config and
+    downsample_ratio in the meta.  Byte-level vocab plus ChatML's control
+    tokens and `<img>` / `</img>`.  `dtype` (the LLM's linears) defaults to
+    q4_k.  `tower=False` writes the Qwen3 LLM alone as a QWEN3 file (or as
+    `model_type`); `yarn` is (yarn_factor, yarn_orig); `tie` sets the tie
+    flag and writes no lm_head; `experts` > 0 marks every layer sparse (a
+    Qwen3-MoE header over dense tensors)."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.ggmm.writer import GGMMWriter
+    from chatllm_tpu_torch.models.model_types import ModelType
+    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+
+    writer_cls = writer_cls or GGMMWriter
+    dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
+    pieces += [(s.encode(), TokenType.CONTROL)
+               for s in ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<img>", "</img>")]
+    pieces += [(f"<|extra_{i}|>".encode(), TokenType.NORMAL)
+               for i in range(vocab_pad - len(pieces))]
+    eot = 256
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=None):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    meta = {"model_name": "tiny-internvl",
+            "config.json": {"vision_config": {
+                "hidden_size": vis_hidden, "num_hidden_layers": vis_layers,
+                "num_attention_heads": vis_heads, "intermediate_size": vis_inter,
+                "patch_size": patch, "image_size": image_size, "layer_norm_eps": 1e-6},
+                "downsample_ratio": 0.5, "use_thumbnail": True}}
+    if not tower:
+        meta = {"model_name": "tiny-qwen3"}
+    with open(path, "wb") as f:
+        mtype = model_type or (ModelType.INTERN_VL if tower else ModelType.QWEN3)
+        wr = writer_cls(f, int(mtype), 1, meta=meta)
+        wr.write_config([int(dtype), vocab_pad, hidden, heads, layers, inter, max_len,
+                         eot, eot, eot, -1, kv_heads, head_dim], fmt="13i")
+        f.write(struct.pack("<ff", rope_theta, yarn[0]))       # rope_theta, yarn_factor
+        # yarn_orig, decoder_sparse_step, moe_intermediate_size,
+        # num_experts_per_tok, num_experts, norm_topk_prob
+        f.write(struct.pack("<6i", yarn[1], 0, -1, 2 if experts > 0 else -1, experts, 0))
+        f.write(struct.pack("<i", int(tie)))                   # tie_word_embeddings
+        f.write(struct.pack("<128i", *([int(experts > 0)] * 128)))  # layer_is_sparse
+        wr._patch_offset(12)
+        wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
+        wr.write_tensor("model.embed_tokens.weight", w(vocab_pad, hidden, scale=1.0),
+                        GGMLType.F32)
+        for i in range(layers):
+            p = f"model.layers.{i}"
+            wr.write_tensor(f"{p}.input_layernorm.weight", 1.0 + 0.1 * w(hidden, scale=1.0),
+                            GGMLType.F32)
+            for name, n_out in (("q", heads * head_dim), ("k", kv_heads * head_dim),
+                                ("v", kv_heads * head_dim)):
+                wr.write_tensor(f"{p}.self_attn.{name}_proj.weight", w(n_out, hidden), dtype)
+            wr.write_tensor(f"{p}.self_attn.o_proj.weight", w(hidden, heads * head_dim), dtype)
+            for name in ("q_norm", "k_norm"):
+                wr.write_tensor(f"{p}.self_attn.{name}.weight",
+                                1.0 + 0.1 * w(head_dim, scale=1.0), GGMLType.F32)
+            wr.write_tensor(f"{p}.post_attention_layernorm.weight",
+                            1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
+            wr.write_tensor(f"{p}.mlp.gate_proj.weight", w(inter, hidden), dtype)
+            wr.write_tensor(f"{p}.mlp.up_proj.weight", w(inter, hidden), dtype)
+            wr.write_tensor(f"{p}.mlp.down_proj.weight", w(hidden, inter), dtype)
+        wr.write_tensor("model.norm.weight", 1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
+        if not tie:
+            wr.write_tensor("lm_head.weight", w(vocab_pad, hidden), dtype)
+        if not tower:
+            return path
+
+        def small(name, *shape, scale=0.02):
+            wr.write_tensor(name, w(*shape, scale=scale), GGMLType.F32)
+
+        small("visual.embeddings.class_embedding", vis_hidden)
+        small("visual.embeddings.patch_embedding.weight", vis_hidden, 3, patch, patch,
+              scale=(3 * patch * patch) ** -0.5)
+        small("visual.embeddings.patch_embedding.bias", vis_hidden)
+        small("visual.embeddings.position_embedding", 1, (image_size // patch) ** 2 + 1,
+              vis_hidden)
+        lins = [("self_attn.q_proj", vis_hidden, vis_hidden),
+                ("self_attn.k_proj", vis_hidden, vis_hidden),
+                ("self_attn.v_proj", vis_hidden, vis_hidden),
+                ("self_attn.o_proj", vis_hidden, vis_hidden),
+                ("mlp.fc1", vis_inter, vis_hidden), ("mlp.fc2", vis_hidden, vis_inter)]
+        for i in range(vis_layers):
+            p = f"visual.layers.{i}"
+            for name, n_out, n_in in lins:
+                wr.write_tensor(f"{p}.{name}.weight", w(n_out, n_in), GGMLType.F16)
+                small(f"{p}.{name}.bias", n_out)
+            for name in ("norm1", "norm2"):
+                wr.write_tensor(f"{p}.{name}.weight", 1.0 + 0.1 * w(vis_hidden, scale=1.0),
+                                GGMLType.F32)
+                small(f"{p}.{name}.bias", vis_hidden)
+            small(f"{p}.ls1", vis_hidden, scale=0.1)
+            small(f"{p}.ls2", vis_hidden, scale=0.1)
+        hp = vis_hidden * 4                                    # pixel shuffle at 0.5
+        wr.write_tensor("vision_projector.0.weight", 1.0 + 0.1 * w(hp, scale=1.0),
+                        GGMLType.F32)
+        small("vision_projector.0.bias", hp)
+        wr.write_tensor("vision_projector.1.weight", w(hidden, hp), GGMLType.F16)
+        small("vision_projector.1.bias", hidden)
+        wr.write_tensor("vision_projector.3.weight", w(hidden, hidden), GGMLType.F16)
+        small("vision_projector.3.bias", hidden)
     return path
 
 
@@ -673,6 +811,9 @@ K5_ROWS = 8          # K5 is timed at the rows of the bench's batched section
 SHAPES_QWEN = {"q_o": (896, 896), "k_v": (896, 128), "gate_up": (896, 4864),
                "down": (4864, 896)}
 QWEN_LAYERS = 24
+# InternVL3.5-8B's LLM (Qwen3-8B): FFN 12288, lm_head N 151936
+SHAPES_IVL = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 12288),
+              "down": (12288, 4096), "lm_head": (4096, 151936)}
 
 
 def kernels_phase(dev, timer) -> dict:
@@ -722,6 +863,15 @@ def kernels_phase(dev, timer) -> dict:
         lin = replace(quant_weight("q8_0", K, N, gen, dev),
                       bias=torch.randn(N, generator=gen, device=dev))
         run(lin, "q8+b", sname, True, "qwen_shapes")
+    # InternVL3.5-8B's Qwen3-8B: K1 timed at its q4_k projections
+    res["qgemv"]["ivl_shapes"] = {}
+    for sname, (K, N) in SHAPES_IVL.items():
+        lin = quant_weight("q4_k", K, N, gen, dev)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, "q4_k")
+        res["qgemv"]["ivl_shapes"][sname] = _time_matmul(
+            timer, qgemv, qgemv_plain, x, lin, y, dequant_weight(lin, torch.bfloat16), F32_FLOPS)
+        del lin
     coverage_cases(dev, gen, res)
     res["quantize_kv"] = quantize_kv_case(dev, gen)
     res["flash_attention"] = flash_cases(dev, timer, gen)
@@ -1128,6 +1278,9 @@ def flash_cases(dev, timer, gen) -> dict:
         # row grid; a window with a softcap and padded rows
         (L3, 1000, 8192, 37, 1000, 0, 0.0, None),
         (L3, 1024, 4096, 500, 1000, 300, 30.0, None),
+        # InternVL3.5-8B's image prefill: the 3424-token spliced prompt in its
+        # 4096-row bucket (timed in mode 2, the chat path's)
+        (L3, 4096, 8192, 0, IVL_PROMPT_TOKENS, 0, 0.0, "ivl_prefill"),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the clusters of each f32 kernel the card holds at once, which the
@@ -1176,7 +1329,7 @@ def flash_cases(dev, timer, gen) -> dict:
                                  "n_past": n_past, "n_tokens": n_tok, "window": win,
                                  "softcap": cap, "splits": splits, "max_abs_err": err,
                                  "scaled_err": scaled, "second_launch_same": same})
-            if timed:
+            if timed and (mode == 2 or not timed.startswith("ivl_")):
                 # visible (query, key) pairs: causal rows; padded rows see all keys
                 qpos = n_past + np.arange(T)
                 pairs = int(np.minimum(qpos + 1, kv_len).sum())
@@ -1240,6 +1393,8 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 1, 32, 8, 128, [1000], "int8", "bfloat16", {}, "decode_1000"),
     (1, 1, 32, 8, 128, [8000], "int8", "bfloat16", {}, "decode_8000"),
     (4, 1, 32, 8, 128, [10, 1000, 4095, 8000], "int8", "bfloat16", {}, "serve_4"),
+    # InternVL3.5-8B's q8 decode after the 3424-token image prompt
+    (1, 1, 32, 8, 128, [3440], "int8", "bfloat16", {}, "ivl_decode_3440"),
     (2, 2, 32, 8, 128, [3000, 6000], "int8", "bfloat16", {}, None),
     (1, 1, 32, 8, 128, [5000], "int8", "bfloat16",
      {"sliding_window": 256, "logit_softcap": 30.0}, None),
@@ -2561,8 +2716,10 @@ def cli_phase() -> dict:
     weights), and a narrow DeepSeek-V2 (q4_k, 8 routed experts + 2 shared,
     MLA's 192 / 128 head widths, YaRN) at a 4096-token context with
     `--mla_cache speed --cache_dtype q8_0` (K4 at (192, 128) on every
-    decode step) and `--mla_cache memory` (the latent cache, bf16); then the
-    chat pipeline's flags (`cli_pipeline_jobs`).  Every call but the two
+    decode step) and `--mla_cache memory` (the latent cache, bf16); a narrow
+    InternVL asked about a PNG through `--multimedia_file_tags` on the card
+    and on the CPU (`--device cpu`), whose transcripts must be equal; then
+    the chat pipeline's flags (`cli_pipeline_jobs`).  Every call but the two
     that load a session runs in one batch of `_run_cli`."""
     from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
 
@@ -2580,9 +2737,25 @@ def cli_phase() -> dict:
                                       "--cache_dtype", "q8_0"]),
               ("transcript_dsv2_latent", ["-m", str(path_ds), "--mla_cache", "memory"]))
     jobs = {(name, i): (chat + extra, None) for name, extra in models for i in range(2)}
+    # a narrow InternVL (q4_k Qwen3 behind a 2-layer InternViT) asked about a
+    # 120 x 90 PNG through --multimedia_file_tags, on the card and on the CPU
+    # (f32 activations: the two runs' logits differ at the f32 level only)
+    path_ivl = write_internvl_ggmm(BUILD_DIR / "smoke_internvl_q4k.bin")
+    png = write_png(BUILD_DIR / "smoke_internvl_120x90.png", ivl_image(5, (90, 120)))
+    ivl = ["-m", str(path_ivl), "--multimedia_file_tags", "{{", "}}", "-p",
+           f"What is in this picture? {{{{image:{png}}}}}", "-t", "0", "--max_new_tokens", "8",
+           "--compute_dtype", "f32"]
+    jobs.update({("transcript_internvl", "card"): (ivl, None),
+                 ("transcript_internvl", "cpu"): (ivl + ["--device", "cpu"], None)})
     pipe_jobs, check_pipe = cli_pipeline_jobs(path)
     outs = _run_cli({**jobs, **pipe_jobs})
     res = {}
+    card, cpu = outs[("transcript_internvl", "card")], outs[("transcript_internvl", "cpu")]
+    log("  transcript_internvl:\n" + card.rstrip())
+    if card != cpu or "A.I. > " not in card:
+        raise AssertionError(f"the InternVL image transcript differs between the card and the "
+                             f"CPU:\n{card}\n---\n{cpu}")
+    res["transcript_internvl"] = card
     for name, _ in models:
         runs = [outs[(name, i)] for i in range(2)]
         log(f"  {name}:\n" + runs[0].rstrip())
@@ -3586,6 +3759,310 @@ def deepseek_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------- report
+# ---------------------------------------------------------- internvl phase
+IVL_IMAGE_HW = (1500, 2000)        # a 4:3 photo: a 4 x 3 grid, 12 tiles + thumbnail
+IVL_TILES = 13
+IVL_NEW = 32
+IVL_QUESTION = "Describe this image in one sentence."
+# the spliced prompt: the system prompt and ChatML's opening (45 ids), 13 x
+# 256 image tokens, `</img>`, the question and the assistant's opening (51)
+IVL_PROMPT_TOKENS = 3424
+IVL_STEP_K1 = 36 * 7 + 1           # K1 launches per decode step (36 layers x 7 + lm_head)
+# 2-layer tower cut, card vs CPU, of the output scale: about 4x the first
+# readings (1.15e-4 after the tower, 2.04e-3 after the projector, whose fc1
+# takes bf16 input: one-ulp roundings of it move the output)
+IVL_TOWER_TOL = {"tower": 5e-4, "projector": 1e-2}
+IVL_CUT_TOL = 1e-3                 # 2-layer LLM cut over the spliced embeddings
+IVL_CUT_SLOTS = 4096               # its cache: the 3424-token prompt in one 4096 bucket
+
+
+def write_png(path, img: np.ndarray):
+    """An 8-bit RGB PNG of img [H, W, 3], every row under filter type 0."""
+    import zlib
+
+    h, w, _ = img.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = img.reshape(h, 3 * w)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n"
+                           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                           + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                           + chunk(b"IEND", b""))
+    return path
+
+
+def ivl_image(seed: int, hw=IVL_IMAGE_HW) -> np.ndarray:
+    """A seeded uint8 photo-sized image: a smooth colour field plus noise."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([np.sin(xx / (w / rng.uniform(2, 9)) + c) * np.cos(yy / (h / rng.uniform(2, 9)))
+                     for c in rng.uniform(0, 6.3, 3)], axis=-1)
+    img = 127.5 + 100 * base + rng.normal(0, 12, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _ivl_tokenizer(cfg):
+    """Qwen's tokenizer and ChatML template over a byte-level vocab of the
+    model's size with `<img>` / `</img>` (a narrow INTERN_VL GGMM written
+    for its vocab; its weights stay unused)."""
+    from chatllm_tpu_torch.models.base import load_model
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = write_internvl_ggmm(BUILD_DIR / f"smoke_internvl_vocab{cfg.vocab_size}.bin",
+                               vocab_pad=cfg.vocab_size, hidden=64, heads=2, kv_heads=1,
+                               head_dim=32, layers=1, inter=128, dtype=0, vis_layers=1)
+    return load_model(str(path), device="cpu").tokenizer
+
+
+class _TimedTokens(_Tokens):
+    """A streamer that keeps the streamed ids and when each arrived."""
+
+    def __init__(self):
+        super().__init__()
+        self.times = []
+
+    def put(self, ids):
+        super().put(ids)
+        self.times.extend(time.perf_counter() for _ in ids)
+
+
+def internvl_phase(dev) -> dict:
+    """Full-width InternVL3.5-8B (`internvl3_5_8b_config`: Qwen3-8B, 36 layers,
+    random q4_k projections from seed 0; `internvit_300m_config`: the 24-layer
+    InternViT tower and the projector in bf16 from seed 1), max_length 8192,
+    through `InternVL.chat_image` on two seeded 2000 x 1500 PNGs (12 tiles and
+    a thumbnail, 3328 image tokens, a 3424-token spliced prompt):
+      - a bf16 cache: a warm-up chat on image 0 (its decode graphs
+        captured); then, on image 1, preprocessing, the tower, the projector
+        and the spliced prefill timed one by one (the functions chat_image
+        calls), and the whole call on the same engine, counted: no capture and
+        no warm-up step, every decode block replayed, K3 36 launches in mode
+        2 (the 4096-row prefill bucket in one call) and none in mode 0, K1 253
+        per replayed step plus the prefill's lm_head row;
+      - one OpenAI request to the server with image 0 as a data URI: its
+        reply equals chat_image's, and it captures nothing;
+      - a q8 cache likewise: K4 36 launches per replayed step;
+      - 2-layer cuts against the CPU on the same weights: the tower and
+        projector on one tile (IVL_TOWER_TOL of the output scale) and the
+        LLM's prefill over the spliced embeddings (IVL_CUT_TOL of the logit
+        scale, same argmax), whose CPU side runs in a worker thread."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from chatllm_tpu_torch.models.internvl import InternVL, project
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params,
+                                                     build_synthetic_vision,
+                                                     internvit_300m_config,
+                                                     internvl3_5_8b_config, param_bytes)
+    from chatllm_tpu_torch.nn.vit import vit_forward
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR, launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+    from chatllm_tpu_torch.runtime.vision import internvl_tiles, load_image
+    from chatllm_tpu_torch.serve.server import ApiServer, _make_handler
+
+    t_phase = time.perf_counter()
+    cfg = internvl3_5_8b_config(max_length=8192)
+    vcfg = internvit_300m_config()
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
+    vp = build_synthetic_vision(vcfg, cfg.hidden_size, seed=1, device=dev)
+    model = InternVL.from_parts(cfg, params, _ivl_tokenizer(cfg), vcfg, vp, dev)
+    pngs = [write_png(BUILD_DIR / f"smoke_internvl_{i}.png", ivl_image(i)) for i in range(2)]
+    res = {"llm_gib": param_bytes(params) / 2 ** 30, "vision_gib": param_bytes(vp) / 2 ** 30,
+           "setup_s": time.perf_counter() - t_phase}
+    log(f"  InternVL3.5-8B built: LLM {res['llm_gib']:.2f} GiB, tower and projector "
+        f"{res['vision_gib']:.2f} GiB, in {res['setup_s']:.1f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    g = GenerationConfig(do_sample=False, max_new_tokens=IVL_NEW)
+    want_steps = decode_launches(IVL_NEW)
+
+    def chat(png, name, counted: bool) -> dict:
+        dec = model.engine.decoder
+        was = (dec.num_graphs(), dec.eager_steps, dec.replayed_steps)
+        if counted:
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            reset_mode_launches()
+        st = _TimedTokens()
+        t0 = time.perf_counter()
+        reply = model.chat_image(str(png), IVL_QUESTION, g, st)
+        torch.cuda.synchronize()
+        r = {"reply": reply, "tokens": len(st.ids), "wall_ms": (time.perf_counter() - t0) * 1e3,
+             "first_token_ms": (st.times[0] - t0) * 1e3,
+             "decode_steps_s": (len(st.ids) - 1) / (st.times[-1] - st.times[0]),
+             "graphs": dec.num_graphs(), "new_graphs": dec.num_graphs() - was[0],
+             "warmup_steps": dec.eager_steps - was[1],
+             "replayed_steps": dec.replayed_steps - was[2], "capture_ms": dec.capture_ms}
+        if counted:
+            r.update(launches=launch_counts(), flash_modes=dict(MODE_LAUNCHES),
+                     peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        log(f"  {name}: {r}")
+        if len(st.ids) != IVL_NEW or not reply:
+            raise AssertionError(f"{name}: {len(st.ids)} tokens, reply {reply!r}")
+        if counted and (r["new_graphs"] or r["warmup_steps"] or r["replayed_steps"] != want_steps):
+            raise AssertionError(f"{name}: a second image captured {r['new_graphs']} graphs, "
+                                 f"warmed {r['warmup_steps']} steps, replayed "
+                                 f"{r['replayed_steps']} (expected {want_steps})")
+        if counted and r["launches"]["qgemv"] != IVL_STEP_K1 * want_steps + 1:
+            raise AssertionError(f"{name}: K1 launched {r['launches']['qgemv']} times, expected "
+                                 f"{IVL_STEP_K1 * want_steps + 1}")
+        return r
+
+    # ---- bf16 cache: warm on image 0, then image 1 counted
+    eng = InferenceEngine(cfg, params, device=dev)
+    model._engine = eng
+    res["bf16_warm"] = chat(pngs[0], "bf16 cache, image 0 (captures)", False)
+    # ---- the parts of chat_image on image 1, one by one, warm (the card's
+    # libraries loaded by the chat above), the prefill into the kept cache
+    with torch.inference_mode():
+        img, load_ms = timed(lambda: load_image(pngs[1]))
+        (tiles, grid), tile_ms = timed(lambda: internvl_tiles(
+            img, image_size=vcfg.image_size, max_num=12, use_thumbnail=True,
+            mean=model.image_mean, std=model.image_std))
+        x, tower_ms = timed(lambda: vit_forward(vcfg, vp, torch.as_tensor(tiles, device=dev)))
+        media, proj_ms = timed(lambda: project(vcfg, vp, x, model.downsample_ratio,
+                                               torch.bfloat16))
+        embeds = model.splice(media, *model.image_prompt(IVL_QUESTION))
+        (logits, _, n_past), prefill_ms = timed(
+            lambda: eng.prefill_embeds(embeds, model.image_cache(), 0))
+        first = int(logits.argmax())
+    parts = {"decode_png_ms": load_ms, "tiles_ms": tile_ms, "tower_ms": tower_ms,
+             "projector_ms": proj_ms, "prefill_ms": prefill_ms, "first_token": first,
+             "tiles": int(tiles.shape[0]), "grid": list(grid),
+             "image_tokens": int(media.shape[0]), "prompt_tokens": int(embeds.shape[1])}
+    res["parts"] = parts
+    log(f"  parts of chat_image (image 1): {parts}")
+    if (tuple(tiles.shape) != (IVL_TILES, 448, 448, 3) or tuple(grid) != (4, 3)
+            or tuple(media.shape) != (IVL_TILES * 256, cfg.hidden_size)
+            or not torch.isfinite(media).all() or embeds.shape[1] != IVL_PROMPT_TOKENS
+            or n_past != IVL_PROMPT_TOKENS or not torch.isfinite(logits).all()):
+        raise AssertionError(f"InternVL parts: tiles {tuple(tiles.shape)}, grid {grid}, media "
+                             f"{tuple(media.shape)}, prompt {embeds.shape[1]}, n_past {n_past}")
+
+    # ---- the 2-layer LLM cut: its CPU side in a worker thread from here on
+    cfg2 = replace(cfg, num_hidden_layers=2)
+    p2_cpu, emb_cpu = _cut(params, 2, "cpu"), embeds.cpu()
+
+    def cpu_cut():
+        with torch.inference_mode():
+            e = InferenceEngine(cfg2, p2_cpu, device="cpu")
+            return e.prefill_embeds(emb_cpu, e.new_cache(1, IVL_CUT_SLOTS), 0)[0]
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))    # host cores left for the card's dispatch
+    worker = ThreadPoolExecutor(1)
+    cut_future = worker.submit(cpu_cut)
+    del x, media, embeds
+
+    r = res["bf16"] = chat(pngs[1], "bf16 cache, image 1 (counted)", True)
+    if r["flash_modes"][2] != cfg.num_hidden_layers or r["flash_modes"][0] != 0:
+        raise AssertionError(f"bf16 image prefill: K3 by mode {r['flash_modes']}, expected "
+                             f"{cfg.num_hidden_layers} in mode 2 and none in mode 0")
+    if r["launches"]["flash_decode"] != 0:
+        raise AssertionError("bf16 cache: K4 launched")
+
+    # ---- the server: one image_url request (image 0) on the same engine
+    api = ApiServer(model, model_name="internvl3.5-8b-synthetic", max_slots=1, device=dev,
+                    gen_config=g)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(api))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    uri = "data:image/png;base64," + base64.b64encode(Path(pngs[0]).read_bytes()).decode()
+    body = json.dumps({"messages": [{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": uri}},
+        {"type": "text", "text": IVL_QUESTION}]}]}).encode()
+    graphs = model.engine.decoder.num_graphs()
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_port}/v1/chat/completions",
+                                 body, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        served = json.loads(resp.read())["choices"][0]["message"]["content"]
+    httpd.shutdown()
+    httpd.server_close()
+    res["serve"] = {"reply": served, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "request_bytes": len(body),
+                    "new_graphs": model.engine.decoder.num_graphs() - graphs}
+    log(f"  server image_url request: {res['serve']}")
+    if served != res["bf16_warm"]["reply"] or res["serve"]["new_graphs"]:
+        raise AssertionError(f"server reply {served!r} differs from chat_image's "
+                             f"{res['bf16_warm']['reply']!r}, or it captured graphs")
+    del api
+    model._engine = model._image_cache = None
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- q8 cache: K4 on every decode step
+    model._engine = InferenceEngine(replace(cfg, cache_dtype="int8"), params, device=dev)
+    res["q8_warm"] = chat(pngs[0], "q8 cache, image 0 (captures)", False)
+    r = res["q8"] = chat(pngs[1], "q8 cache, image 1 (counted)", True)
+    if r["launches"]["flash_decode"] != cfg.num_hidden_layers * want_steps:
+        raise AssertionError(f"q8 cache: K4 launched {r['launches']['flash_decode']} times, "
+                             f"expected {cfg.num_hidden_layers * want_steps}")
+    model._engine = model._image_cache = None
+    torch.cuda.empty_cache()
+
+    # ---- 2-layer cuts against the CPU
+    vcfg2 = replace(vcfg, num_hidden_layers=2)
+    vp2 = dict(vp, layers=vp["layers"][:2])
+    with torch.inference_mode():
+        tile = torch.as_tensor(tiles[:1])
+        outs = []
+        for d in (dev, "cpu"):
+            p = vp2 if d == dev else _to_device(vp2, "cpu")
+            h = vit_forward(vcfg2, p, tile.to(d))
+            outs.append((h, project(vcfg2, p, h, model.downsample_ratio, torch.bfloat16)))
+    cut = {}
+    for i, what in enumerate(("tower", "projector")):
+        gpu, cpu = outs[0][i].float().cpu(), outs[1][i].float()
+        err, rel = rel_err(gpu, cpu)
+        cut[what] = {"max_abs_err": err, "rel_to_scale": rel, "scale": cpu.abs().max().item()}
+        if not (torch.isfinite(gpu).all() and rel <= IVL_TOWER_TOL[what]):
+            raise AssertionError(f"2-layer {what} cut: {rel} of the output scale > "
+                                 f"{IVL_TOWER_TOL[what]}")
+    res["tower_cut_vs_cpu"] = cut
+    log(f"  2-layer tower + projector on one tile, card vs cpu: {cut}")
+    with torch.inference_mode():
+        e = InferenceEngine(cfg2, _cut(params, 2, dev), device=dev)
+        emb = emb_cpu.to(dev)
+        card = e.prefill_embeds(emb, e.new_cache(1, IVL_CUT_SLOTS), 0)[0]
+        del e, emb
+    res["llm_cut_vs_cpu"] = _compare_logits("2-layer LLM prefill over the spliced embeddings "
+                                            "card vs cpu", card, cut_future.result(),
+                                            IVL_CUT_TOL)
+    worker.shutdown()
+    torch.set_num_threads(threads)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  internvl phase: {res['seconds']:.1f} s")
+    return res
+
+
+def ivl_totals(kres: dict) -> dict:
+    """K1, K3 and K4 summed over one unit of InternVL3.5-8B's path at its
+    shapes: a decode token (36 x 7 projections + the lm_head), the image
+    prefill (36 launches of K3 mode 2 over the 4096-row bucket) and a q8
+    decode step (36 launches of K4)."""
+    units = {"qgemv": (kres["qgemv"]["ivl_shapes"], _per_token(36, True)),
+             "flash_attention_f32q": (kres["flash_attention"]["shapes"], {"ivl_prefill_f32q": 36}),
+             "flash_decode": (kres["flash_decode"]["shapes"], {"ivl_decode_3440": 36})}
+    return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for name, (shapes, mult) in units.items()}
+
+
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
               "chatllm_tpu/ops/pallas/gemv_kernel.py:161"),
@@ -3876,6 +4353,15 @@ def main() -> int:
     report["deepseek_v2_lite"] = deepseek_phase(dev)
     report["deepseek_v2_lite"]["seconds"] = time.perf_counter() - t0
     log(f"  deepseek_v2_lite phase: {report['deepseek_v2_lite']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== internvl")
+    report["internvl"] = internvl_phase(dev)
+    report["internvl"]["kernel_totals"] = ivl_totals(report["kernels"])
+    log(f"  InternVL3.5-8B totals per unit of its path: {report['internvl']['kernel_totals']}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("== cli")
     report["cli"] = cli_phase()

@@ -974,3 +974,58 @@ def test_re_quantize_loads_on_the_card_as_on_the_cpu(dev, tmp_path, target):
     rt = RuntimeConfig(re_quantize=target)
     _same_params(load_model(str(path), rt, device=dev).params,
                  load_model(str(path), rt, device="cpu").params)
+
+
+# --------------------------------------------------------------- InternVL
+def _ivl_pair(tmp_path, dev, **rt):
+    """The narrow INTERN_VL file (q4_k Qwen3 behind a 2-layer InternViT)
+    loaded on the card and on the CPU."""
+    import chip_smoke
+    from chatllm_tpu_torch.models import RuntimeConfig, load_model
+
+    path = str(chip_smoke.write_internvl_ggmm(tmp_path / "ivl.bin"))
+    return (load_model(path, RuntimeConfig(**rt), device=dev),
+            load_model(path, RuntimeConfig(**rt), device="cpu"))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_internvl_tower_and_encode_images_on_the_card(dev, tmp_path, compute):
+    """The tower (the unfolded patch product in f32, never TF32) and the
+    projector on the card against the CPU: the tower within 1e-5 of its
+    output scale in f32, 1e-3 with bf16 linears; the projected embeddings
+    within 1e-5 / 1e-2 (fc1 takes bf16 input with a bf16 embedding)."""
+    from chatllm_tpu_torch.nn.vit import vit_forward
+
+    card, cpu = _ivl_pair(tmp_path, dev, compute_dtype=compute)
+    tiles = np.random.default_rng(0).standard_normal((3, 56, 56, 3)).astype(np.float32)
+    tol = (1e-5, 1e-5) if compute == "float32" else (1e-3, 1e-2)
+    with torch.inference_mode():
+        h = vit_forward(card.vis_cfg, card.vis_params, torch.from_numpy(tiles).to(dev))
+        h_ref = vit_forward(cpu.vis_cfg, cpu.vis_params, torch.from_numpy(tiles))
+        e, e_ref = card.encode_images(tiles), cpu.encode_images(tiles)
+    for got, ref, t in ((h, h_ref, tol[0]), (e, e_ref, tol[1])):
+        got = got.float().cpu()
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= t * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_internvl_chat_image_replays_its_decode_graphs(dev, tmp_path, cache):
+    """Two images on one model: the second captures no graph and runs no
+    warm-up step, every decode block replays, and its reply equals an
+    uncaptured run's on the same weights."""
+    import chip_smoke
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    card, _ = _ivl_pair(tmp_path, dev, cache_dtype=cache)
+    pngs = [chip_smoke.write_png(tmp_path / f"{i}.png", chip_smoke.ivl_image(i, (90, 120)))
+            for i in range(2)]
+    g = GenerationConfig(do_sample=False, max_new_tokens=20)
+    card.chat_image(str(pngs[0]), "What is it?", g)
+    dec = card.engine.decoder
+    was = (dec.num_graphs(), dec.eager_steps, dec.replayed_steps)
+    got = card.chat_image(str(pngs[1]), "What is it?", g)
+    assert (dec.num_graphs(), dec.eager_steps) == was[:2]
+    assert dec.replayed_steps - was[2] == chip_smoke.decode_launches(20)
+    card._engine = InferenceEngine(card.cfg, card.params, device=dev, cuda_graphs=False)
+    assert card.chat_image(str(pngs[1]), "What is it?", g) == got

@@ -7,15 +7,17 @@ against the int routes at the KV bucket edges; the device-side penalty ring
 against JAX `penalty_accept`; and a chi-square test of the sampled draw.
 
 The JAX engine's consumed tokens do not depend on its block (a block's
-steps past the budget are speculative), so its reference runs at its
-default block of 16, except where `should_stop` ends the run after one
-block, which it runs at the port's block."""
+steps past the budget are speculative), so its reference runs at block 1,
+one compiled decode block for every scenario: where `should_stop` ends the
+port's run after one block of b steps, the reference stops after b blocks
+of one step."""
 import numpy as np
 import pytest
 import scipy.stats
 import torch
 
 import conftest  # noqa: F401
+import torch_one_thread  # noqa: F401  (one intra-op thread: see its docstring)
 
 import chip_smoke
 import chatllm_tpu.models as jm
@@ -57,27 +59,34 @@ def models(tmp_path_factory):
 
 
 _JAX_RUNS: dict = {}
+_JAX_ENGINES: dict = {}
 
 
-def _jax_run(models, name, cache, scenario, block):
-    key = (name, cache, scenario, block)
+def _jax_run(models, name, cache, scenario, stop_after=1):
+    """The JAX engine's run of a scenario at block 1, once per module (one
+    engine per model and cache, so its compiled functions serve every
+    run)."""
+    key = (name, cache, scenario, stop_after)
     if key not in _JAX_RUNS:
-        j = models[name, cache][0]
-        _JAX_RUNS[key] = _generate(JEngine(j.cfg, j.params, decode_block=block), JGen,
-                                   scenario, models, name, cache)
+        if (name, cache) not in _JAX_ENGINES:
+            j = models[name, cache][0]
+            _JAX_ENGINES[name, cache] = JEngine(j.cfg, j.params, decode_block=1)
+        _JAX_RUNS[key] = _generate(_JAX_ENGINES[name, cache], JGen, scenario, models, name,
+                                   cache, stop_after)
     return _JAX_RUNS[key]
 
 
 def _terminator(models, name, cache):
     """A token the plain greedy run first emits mid-block (index k >= 5,
     k % 4 != 0), and k."""
-    out = _jax_run(models, name, cache, "plain", 16)[0]
+    out = _jax_run(models, name, cache, "plain")[0]
     k = next(i for i in range(5, len(out)) if i % 4 and out[i] not in out[:i])
     return out[k], k
 
 
-def _generate(eng, gen_cls, scenario, models, name, cache):
-    """Run one scenario; returns (tokens, n_past, cache, should_stop calls)."""
+def _generate(eng, gen_cls, scenario, models, name, cache, stop_after=1):
+    """Run one scenario; returns (tokens, n_past, cache, should_stop calls).
+    `should_stop` lets `stop_after` blocks run."""
     calls = []
     kw, ids, max_new = {}, PROMPT, 16
     if scenario == "max_new_11":
@@ -91,7 +100,7 @@ def _generate(eng, gen_cls, scenario, models, name, cache):
         kw["completion_limit"] = 5
     elif scenario == "should_stop_after_one_block":
         max_new = 40
-        kw["should_stop"] = lambda: bool(calls.append(1)) or len(calls) > 1
+        kw["should_stop"] = lambda: bool(calls.append(1)) or len(calls) > stop_after
     out, c, n = eng.generate(ids, gen_cls(do_sample=False, max_new_tokens=max_new), **kw)
     return out, n, c, len(calls)
 
@@ -104,8 +113,8 @@ def test_greedy_tokens_and_n_past_match_the_jax_engine(models, name, cache, scen
     p = models[name, cache][1]
     eng = TEngine(p.cfg, p.params, decode_block=block, device="cpu")
     pout, pn, pcache, calls = _generate(eng, TGen, scenario, models, name, cache)
-    jblock = block if scenario == "should_stop_after_one_block" else 16
-    jout, jn, _, _ = _jax_run(models, name, cache, scenario, jblock)
+    jout, jn, _, _ = _jax_run(models, name, cache, scenario,
+                              block if scenario == "should_stop_after_one_block" else 1)
     assert pout == jout and pn == jn
     if scenario == "max_new_11":
         assert len(pout) == 11 and pn == len(PROMPT) + 10
@@ -126,20 +135,32 @@ def test_greedy_tokens_and_n_past_match_the_jax_engine(models, name, cache, scen
         assert calls == 2 and len(pout) == 1 + block
 
 
+@pytest.fixture(scope="module")
+def q8_k4(tmp_path_factory):
+    """A q8 cache of 4096 slots: the file in the port and the JAX engine's
+    greedy run of it (its flash_decode in interpret mode under its TPU
+    routing), made once for every block."""
+    import chatllm_tpu.ops.attention as jatt
+
+    path = chip_smoke.write_llama3_ggmm(tmp_path_factory.mktemp("q8") / "q8.bin",
+                                        dtype=GGMLType.F32, writer_cls=GGMMWriter, max_len=4096,
+                                        seed=11)
+    rt = dict(compute_dtype="float32", cache_dtype="int8")
+    j = jm.load_model(str(path), jm.RuntimeConfig(**rt))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jatt, "_flash_decode_enabled", lambda: True)
+        jout, _, jn = j.engine.generate(PROMPT, JGen(do_sample=False, max_new_tokens=11))
+    return tm.load_model(str(path), tm.RuntimeConfig(**rt), device="cpu"), jout, jn
+
+
 @pytest.mark.parametrize("block", BLOCKS)
-def test_q8_cache_k4_route_matches_the_jax_engine(tmp_path, monkeypatch, block):
+def test_q8_cache_k4_route_matches_the_jax_engine(q8_k4, block):
     """A q8 cache of 4096 slots: every decode step takes K4 on both sides
     (the port's plain version, fed the device n_past; the JAX package's
     flash_decode in interpret mode under its TPU routing)."""
-    import chatllm_tpu.ops.attention as jatt
     from chatllm_tpu_torch.ops import qmm as tqmm
 
-    monkeypatch.setattr(jatt, "_flash_decode_enabled", lambda: True)
-    path = chip_smoke.write_llama3_ggmm(tmp_path / "q8.bin", dtype=GGMLType.F32,
-                                        writer_cls=GGMMWriter, max_len=4096, seed=11)
-    rt = dict(compute_dtype="float32", cache_dtype="int8")
-    j = jm.load_model(str(path), jm.RuntimeConfig(**rt))
-    p = tm.load_model(str(path), tm.RuntimeConfig(**rt), device="cpu")
+    p, jout, jn = q8_k4
     tqmm.reset_kernel_dispatch_stats()
     eng = TEngine(p.cfg, p.params, decode_block=block, device="cpu")
     pout, _, pn = eng.generate(PROMPT, TGen(do_sample=False, max_new_tokens=11))
@@ -147,7 +168,6 @@ def test_q8_cache_k4_route_matches_the_jax_engine(tmp_path, monkeypatch, block):
     # blocks of b steps, each step one K4 call per layer
     b = min(block, 11)
     assert tqmm.kernel_dispatch_stats()["flash_decode:q8kv"] == 2 * -(-10 // b) * b
-    jout, _, jn = j.engine.generate(PROMPT, JGen(do_sample=False, max_new_tokens=11))
     assert len(pout) == 11 and pout == jout and pn == jn
 
 

@@ -15,12 +15,15 @@ import torch
 import chatllm_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "chatllm_tpu", "experiments")
+# PIL too: the card's machine has none (runtime/vision.py decodes and resizes
+# images with numpy and the standard library)
+FORBIDDEN = ("jax", "jaxlib", "flax", "chatllm_tpu", "experiments", "PIL")
 NEW_MODULES = ("bench", "experiments", "experiments.gemv_probe2", "models.qwen",
                "ops.cuda.bw_probe", "ops.cuda.qmm_decode", "experiments.gemv_probe",
                "experiments.gemv_model_bench", "experiments.gemv_unpack",
                "experiments.qmm_m32", "experiments.timing",
-               "experiments.qmm_unpack_variants", "experiments.bhsd_decode")
+               "experiments.qmm_unpack_variants", "experiments.bhsd_decode",
+               "nn.vit", "models.internvl", "runtime.vision")
 
 
 def _port_modules():
@@ -85,6 +88,25 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(cfg, build_synthetic_params(cfg))
     assert load_model(str(path), device="cpu").device.type == "cpu"
+
+
+def test_internvl_entry_points_default_to_the_card(tmp_path):
+    """An InternVL file loads on the card unless the CPU is asked for, and
+    the CLI's image route resolves the card first."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid here")
+    import chip_smoke
+    from chatllm_tpu_torch.main import main
+    from chatllm_tpu_torch.models import load_model
+
+    path = chip_smoke.write_internvl_ggmm(tmp_path / "ivl.bin", layers=1, vis_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model(str(path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["-m", str(path), "--multimedia_file_tags", "{{", "}}", "-p",
+              "{{image:x.png}} hi"])
+    model = load_model(str(path), device="cpu")
+    assert model.device.type == "cpu" and model.vis_params["embed"]["pos"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("probe", ["qmm_unpack_variants", "bhsd_decode"])

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import conftest  # noqa: F401
+import torch_one_thread  # noqa: F401  (one intra-op thread: see its docstring)
 
 import jax.numpy as jnp
 
@@ -83,11 +84,19 @@ def paths(tmp_path_factory):
     return {k: write(k, d / f"{k}.bin") for k in ("llama3", "llama31", "qwen2", "llama3_q4k")}
 
 
+_JAX_ENGINES: dict = {}
+
+
 def load_pair(path, **rt):
-    """The same file in both packages (f32 activations unless given)."""
+    """The same file in both packages (f32 activations unless given).  Every
+    JAX load of one file with the same options gets the engine of the first,
+    so that its compiled prefill buckets and decode blocks serve every test
+    of the module; the engine holds the same parameters' values and keeps no
+    state between its calls."""
     rt = {"compute_dtype": "float32", **rt}
-    return (jm.load_model(path, jm.RuntimeConfig(**rt)),
-            tm.load_model(path, tm.RuntimeConfig(**rt), device="cpu"))
+    j = jm.load_model(path, jm.RuntimeConfig(**rt))
+    j._engine = _JAX_ENGINES.setdefault((path, tuple(sorted(rt.items()))), j.engine)
+    return j, tm.load_model(path, tm.RuntimeConfig(**rt), device="cpu")
 
 
 # ------------------------------------------------------------------- rope

@@ -147,21 +147,20 @@ def test_infill_without_fim_tokens_is_a_client_error(servers):
 
 def test_unported_routes_fail_as_in_jax(servers):
     """/v1/embeddings and /v1/rerank without such a model: the JAX server's
-    500; media content parts: a 400 (multimodal input is not ported)."""
+    500; a media content part to a text-only model: the JAX server's 400
+    (images reach models with a `chat_image`, tests/test_torch_internvl.py)."""
     urls, _ = servers
+    part = {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}
     for route, body in (("/v1/embeddings", {"input": "x"}),
-                        ("/v1/rerank", {"query": "q", "documents": ["a"]})):
+                        ("/v1/rerank", {"query": "q", "documents": ["a"]}),
+                        ("/v1/chat/completions",
+                         {"messages": [{"role": "user", "content": [part]}]})):
         codes = []
-        for name in ("jax", "port"):
+        for name in ("jax", "port", "port4"):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(urls[name] + route, body)
             codes.append((e.value.code, json.loads(e.value.read())["error"]["message"]))
-        assert codes[0] == codes[1]
-    part = {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(urls["port4"] + "/v1/chat/completions",
-              {"messages": [{"role": "user", "content": [part]}]})
-    assert e.value.code == 400 and "not ported" in json.loads(e.value.read())["error"]["message"]
+        assert codes[0] == codes[1] == codes[2], codes
 
 
 def test_concurrent_chats_match_single_slot(servers):
