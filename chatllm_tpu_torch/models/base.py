@@ -131,9 +131,11 @@ class ParamBuilder:
 
 
 def load_llama_family_params(pb: ParamBuilder, n_layers: int, *,
-                             tie_lm_head: bool = False) -> dict:
+                             tie_lm_head: bool = False, sparse=(), n_experts: int = 0,
+                             shared: str = "") -> dict:
     """Weight map shared by the llama-like families (converter weight names:
-    chatllm.cpp convert.py LlamaConverter:1604)."""
+    chatllm.cpp convert.py LlamaConverter:1604).  Layers marked in `sparse`
+    take the MoE FFN of `load_moe_mlp` instead of the dense one."""
     params = {
         "embed": pb.embedding("model.embed_tokens.weight"),
         "final_norm": pb.norm("model.norm"),
@@ -141,6 +143,12 @@ def load_llama_family_params(pb: ParamBuilder, n_layers: int, *,
     }
     for i in range(n_layers):
         pfx = f"model.layers.{i}"
+        if i < len(sparse) and sparse[i]:
+            mlp = load_moe_mlp(pb, f"{pfx}.mlp", n_experts, shared)
+        else:
+            mlp = {"gate": pb.linear(f"{pfx}.mlp.gate_proj"),
+                   "up": pb.linear(f"{pfx}.mlp.up_proj"),
+                   "down": pb.linear(f"{pfx}.mlp.down_proj")}
         params["layers"].append({
             "attn_norm": pb.norm(f"{pfx}.input_layernorm"),
             "attn": {
@@ -150,16 +158,23 @@ def load_llama_family_params(pb: ParamBuilder, n_layers: int, *,
                 "o": pb.linear(f"{pfx}.self_attn.o_proj"),
             },
             "ffn_norm": pb.norm(f"{pfx}.post_attention_layernorm"),
-            "mlp": {
-                "gate": pb.linear(f"{pfx}.mlp.gate_proj"),
-                "up": pb.linear(f"{pfx}.mlp.up_proj"),
-                "down": pb.linear(f"{pfx}.mlp.down_proj"),
-            },
+            "mlp": mlp,
         })
     params["layers"] = tuple(params["layers"])
     if not tie_lm_head:
         params["lm_head"] = pb.linear("lm_head")
     return params
+
+
+def load_moe_mlp(pb: ParamBuilder, pfx: str, n_experts: int, shared: str = "") -> dict:
+    """A sparse FFN `{pfx}`: the router `gate`, the stacked experts and, when
+    `shared` names its container (`shared_experts`, `shared_expert`), the
+    shared expert."""
+    mlp = {"gate": pb.linear(f"{pfx}.gate"),
+           "experts": load_moe_experts(pb, pfx, n_experts)}
+    if shared:
+        mlp["shared"] = {k: pb.linear(f"{pfx}.{shared}.{k}_proj") for k in ("gate", "up", "down")}
+    return mlp
 
 
 def load_moe_experts(pb: ParamBuilder, pfx: str, n_experts: int,

@@ -1,12 +1,14 @@
-"""DeepSeek-V2 family (counterpart of the JAX package's `models/deepseek.py`:
-DEEPSEEK_V2_LIGHT and DEEPSEEK_V2): multi-head latent attention, grouped
-MoE with shared experts, YaRN rope, and the DeepSeek v1 tokenizer and chat
-template that the whole family shares.
+"""DeepSeek family (counterpart of the JAX package's `models/deepseek.py`:
+DEEPSEEK, the dense v1; DEEPSEEK_V1_MoE; DEEPSEEK_V2_LIGHT and DEEPSEEK_V2;
+DEEPSEEK_V3, MOONLIGHT and DEEPSEEK_V3_LIGHT): multi-head latent attention,
+grouped MoE with shared experts (V3: sigmoid scores with a selection-only
+bias), YaRN rope, and the DeepSeek v1 tokenizer and chat template that the
+whole family shares.
 
 On-disk note: the converter splits the kv projections (d_kv, k_pe,
 u_k_nope, u_v) and re-lays the rope dims of q and k_pe pairwise, so RoPE
 takes the interleaved ("normal") layout and the weights load unmodified.
-DeepSeek V1, V1-MoE, V3 and Coder are not ported yet.
+DeepSeek Coder and the GigaChat reuse of V1-MoE are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,13 +16,17 @@ import math
 
 import torch
 
+from dataclasses import replace
+
 from ..nn.transformer import LayerSpec, MLAConfig, TransformerConfig
 from ..ops.qmm import dequant_weight
 from ..ops.qtensor import DenseLinear
 from ..ops.rope import ROPE_NORMAL, RopeConfig
 from ..runtime.chat import ChatTokenizer, HistoryEncoder
 from ..tokenizer.processor import BPEProcessor2
-from .base import BaseConfig, BaseLLM, ParamBuilder, RuntimeConfig, load_moe_experts, register_model
+from .base import (BaseConfig, BaseLLM, ParamBuilder, RuntimeConfig, load_llama_family_params,
+                   load_moe_mlp, register_model)
+from .llama import build_dense_config
 from .model_types import ModelType
 
 
@@ -71,6 +77,50 @@ def make_deepseek_v1_tokenizer(gf, base: BaseConfig) -> ChatTokenizer:
     return tok
 
 
+@register_model(ModelType.DEEPSEEK)
+class DeepSeekV1(BaseLLM):
+    """The dense DeepSeek v1: a Llama-family block under the plain BaseConfig
+    (chatllm.cpp models/deepseek.h:9-11)."""
+
+    @classmethod
+    def load(cls, gf, rt: RuntimeConfig, device):
+        base, _ = BaseConfig.parse(gf)
+        cfg = build_dense_config(base, max_length=rt.max_length, norm_eps=1e-6,
+                                 cache_dtype=rt.cache_dtype)
+        tok = make_deepseek_v1_tokenizer(gf, base)
+        pb = ParamBuilder(gf, rt, device)
+        params = load_llama_family_params(pb, base.num_hidden_layers)
+        return cls(gf.model_type, cfg, params, tok, device)
+
+
+@register_model(ModelType.DEEPSEEK_V1_MoE)
+class DeepSeekV1MoE(BaseLLM):
+    # v1 config + {n_kv, first_k_dense, moe_inter, moe_layer_freq, n_routed,
+    # n_shared, norm_topk, n_active} + rope_theta (chatllm.cpp
+    # models/deepseek.h:83-95): softmax top-k with shared experts on the
+    # layers from first_k_dense on, every moe_layer_freq-th
+    EXTRA_FMT = "8if"
+
+    @classmethod
+    def load(cls, gf, rt: RuntimeConfig, device):
+        base, extra = BaseConfig.parse(gf, cls.EXTRA_FMT)
+        (n_kv, first_k_dense, moe_inter, moe_freq, n_routed, _n_shared,
+         norm_topk, n_active, rope_theta) = extra
+        n_layers = base.num_hidden_layers
+        sparse = [i >= first_k_dense and i % max(moe_freq, 1) == 0 for i in range(n_layers)]
+        cfg = build_dense_config(base, num_key_value_heads=n_kv, rope_theta=rope_theta,
+                                 norm_eps=1e-6, max_length=rt.max_length,
+                                 cache_dtype=rt.cache_dtype)
+        cfg = replace(cfg, layer_specs=tuple(LayerSpec(is_moe=s) for s in sparse),
+                      moe_num_experts=n_routed, moe_top_k=n_active,
+                      moe_norm_topk_prob=bool(norm_topk), moe_intermediate_size=moe_inter)
+        tok = make_deepseek_v1_tokenizer(gf, base)
+        pb = ParamBuilder(gf, rt, device)
+        params = load_llama_family_params(pb, n_layers, sparse=sparse, n_experts=n_routed,
+                                          shared="shared_experts")
+        return cls(gf.model_type, cfg, params, tok, device)
+
+
 def yarn_get_mscale(scale: float, mscale: float) -> float:
     """chatllm.cpp models/deepseek.h:329."""
     if scale <= 1.0:
@@ -117,10 +167,16 @@ class DeepSeekV2(BaseLLM):
     # [+ 2i q_lora_rank, topk_group for non-light files]
     EXTRA_FMT = "14i7f"
     SCORE_FUNC = "softmax"
+    HAS_GATE_BIAS = False
+    # "light" files carry no q_lora_rank / topk_group: V2-Lite and the
+    # v3_light-derived types (the V3 converter writes the two ints only when
+    # q_lora_rank is set; chatllm.cpp deepseek.h:513, moonshot.cpp:524).
+    # KIMI_VL joins them with its model (M17).
+    LIGHT = (ModelType.DEEPSEEK_V2_LIGHT, ModelType.DEEPSEEK_V3_LIGHT, ModelType.MOONLIGHT)
 
     @classmethod
     def load(cls, gf, rt: RuntimeConfig, device):
-        light = gf.model_type == int(ModelType.DEEPSEEK_V2_LIGHT)
+        light = gf.model_type in [int(t) for t in cls.LIGHT]
         base, extra = BaseConfig.parse(gf, cls.EXTRA_FMT + ("" if light else "2i"))
         (_n_kv, first_k_dense, kv_lora_rank, moe_inter, moe_freq, n_group,
          n_routed, _n_shared, norm_topk, n_active, qk_nope, qk_rope,
@@ -175,12 +231,10 @@ class DeepSeekV2(BaseLLM):
             else:
                 attn["q"] = pb.linear(f"{pfx}.self_attn.q_proj")
             if is_moe(i):
-                shared = f"{pfx}.mlp.shared_experts"
-                mlp = {"gate": pb.linear(f"{pfx}.mlp.gate"),
-                       "experts": load_moe_experts(pb, f"{pfx}.mlp", n_routed),
-                       "shared": {"gate": pb.linear(f"{shared}.gate_proj"),
-                                  "up": pb.linear(f"{shared}.up_proj"),
-                                  "down": pb.linear(f"{shared}.down_proj")}}
+                mlp = load_moe_mlp(pb, f"{pfx}.mlp", n_routed, "shared_experts")
+                if cls.HAS_GATE_BIAS:
+                    # V3's e_score_correction_bias: selects, does not weigh
+                    mlp["gate_bias"] = pb.array(f"{pfx}.mlp.gate.e_score_correction_bias")
             else:
                 mlp = {"gate": pb.linear(f"{pfx}.mlp.gate_proj"),
                        "up": pb.linear(f"{pfx}.mlp.up_proj"),
@@ -191,3 +245,11 @@ class DeepSeekV2(BaseLLM):
                                      "mlp": mlp})
         params["layers"] = tuple(params["layers"])
         return cls(gf.model_type, cfg, params, tok, device)
+
+
+@register_model(ModelType.DEEPSEEK_V3, ModelType.MOONLIGHT, ModelType.DEEPSEEK_V3_LIGHT)
+class DeepSeekV3(DeepSeekV2):
+    """DeepSeek-V3 and Moonlight: V2's MLA layout with sigmoid scores and the
+    selection-only e_score_correction_bias (chatllm.cpp convert.py:8127)."""
+    SCORE_FUNC = "sigmoid"
+    HAS_GATE_BIAS = True

@@ -1,5 +1,5 @@
 """Llama-3 family (counterpart of the JAX package's `models/llama.py`,
-LLAMA3 and LLAMA3_1).
+LLAMA3, LLAMA3_1, LLAMA3_2 and DEEPSEEK_R1_DISTILL_LLAMA).
 
 On-disk note: the converter permutes q/k projection rows into ggml's
 interleaved rope layout, so RoPE uses the interleaved ("normal") layout and
@@ -166,3 +166,41 @@ class Llama31(BaseLLM):
         pb = ParamBuilder(gf, rt, device)
         params = load_llama_family_params(pb, base.num_hidden_layers)
         return cls(gf.model_type, cfg, params, tok, device)
+
+
+@register_model(ModelType.LLAMA3_2)
+class Llama32(BaseLLM):
+    # v3_1 fields + tie_word_embeddings (chatllm.cpp models/llama.h:211-214)
+    EXTRA_FMT = "ififffi"
+
+    @classmethod
+    def make_tokenizer(cls, gf, base):
+        return make_llama3_tokenizer(gf, base)
+
+    @classmethod
+    def load(cls, gf, rt: RuntimeConfig, device):
+        base, extra = BaseConfig.parse(gf, cls.EXTRA_FMT)
+        n_kv, rope_theta, orig_ctx, factor, low_f, high_f, tie_flag = extra
+        rot = base.hidden_size // base.num_attention_heads
+        ff = _llama31_factors(rot, rope_theta, factor, low_f, high_f, orig_ctx)
+        tie = bool(tie_flag) or not gf.has_tensor("lm_head.weight")
+        cfg = build_dense_config(base, num_key_value_heads=n_kv,
+                                 rope_theta=rope_theta, freq_factors=ff,
+                                 tie_lm_head=tie, max_length=rt.max_length,
+                                 cache_dtype=rt.cache_dtype)
+        tok = cls.make_tokenizer(gf, base)
+        pb = ParamBuilder(gf, rt, device)
+        params = load_llama_family_params(pb, base.num_hidden_layers, tie_lm_head=tie)
+        return cls(gf.model_type, cfg, params, tok, device)
+
+
+@register_model(ModelType.DEEPSEEK_R1_DISTILL_LLAMA)
+class DSR1DistillLlama(Llama32):
+    """DeepSeek-R1-Distill-Llama: the Llama-3.2 config with the DeepSeek-R1
+    tokenizer and chat template (chatllm.cpp llama.cpp ds_r1_distill:611-700)."""
+
+    @classmethod
+    def make_tokenizer(cls, gf, base):
+        from .qwen import make_ds_r1_tokenizer
+
+        return make_ds_r1_tokenizer(gf, base, llama=True)

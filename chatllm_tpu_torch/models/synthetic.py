@@ -101,7 +101,8 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     `cfg.moe_intermediate_size`, stacked
     dense in the compute dtype as the loader stacks them (random: N(0,
     1 / fan-in), drawn on the device), and a shared expert of width
-    cfg.moe_shared_intermediate.  `centered`: see synth_linear."""
+    cfg.moe_shared_intermediate when it is not 0.  `centered`: see
+    synth_linear."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H = cfg.hidden_size
     d = cfg.resolved_head_dim()
@@ -145,10 +146,12 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
         if not spec.is_moe:
             return {"gate": lin(H, F), "up": lin(H, F), "down": lin(F, H)}
         E, Fe, Fs = cfg.moe_num_experts, cfg.moe_intermediate_size, cfg.moe_shared_intermediate
-        return {"gate": lin(H, E),
-                "experts": {"gate": stack(E, H, Fe), "up": stack(E, H, Fe),
-                            "down": stack(E, Fe, H)},
-                "shared": {"gate": lin(H, Fs), "up": lin(H, Fs), "down": lin(Fs, H)}}
+        mlp = {"gate": lin(H, E),
+               "experts": {"gate": stack(E, H, Fe), "up": stack(E, H, Fe),
+                           "down": stack(E, Fe, H)}}
+        if Fs:
+            mlp["shared"] = {"gate": lin(H, Fs), "up": lin(H, Fs), "down": lin(Fs, H)}
+        return mlp
 
     if zeros:
         embed = torch.zeros(cfg.vocab_size, H, dtype=compute_dtype, device=device)
@@ -234,6 +237,28 @@ def internvl3_5_8b_config(max_length: int = 8192) -> TransformerConfig:
         intermediate_size=12288, max_length=max_length,
         rope=RopeConfig(head_dim=128, freq_base=1000000.0, layout=ROPE_NEOX),
         norm_eps=1e-6, qk_norm="rmsnorm")
+
+
+def qwen3_30b_a3b_config(max_length: int = 8192) -> TransformerConfig:
+    """Qwen3-30B-A3B as published (Hugging Face `Qwen/Qwen3-30B-A3B`,
+    config.json): vocab_size 151936, hidden_size 2048, num_hidden_layers 48,
+    every layer sparse (decoder_sparse_step 1, no mlp_only_layers),
+    num_attention_heads 32, num_key_value_heads 4, head_dim 128, num_experts
+    128, num_experts_per_tok 8, moe_intermediate_size 768, norm_topk_prob
+    true, no shared expert, rope_theta 1e6, rms_norm_eps 1e-6,
+    tie_word_embeddings false; per-head RMS q/k norms.  Only max_length is
+    cut.  (intermediate_size 6144 is the dense FFN's, which no layer has.)"""
+    from ..nn.transformer import LayerSpec
+
+    return TransformerConfig(
+        vocab_size=151936, hidden_size=2048, num_hidden_layers=48,
+        num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+        intermediate_size=6144, max_length=max_length,
+        rope=RopeConfig(head_dim=128, freq_base=1000000.0, layout=ROPE_NEOX),
+        norm_eps=1e-6, qk_norm="rmsnorm",
+        layer_specs=tuple(LayerSpec(is_moe=True) for _ in range(48)),
+        moe_num_experts=128, moe_top_k=8, moe_norm_topk_prob=True,
+        moe_intermediate_size=768, moe_score_func="softmax")
 
 
 def internvit_300m_config():

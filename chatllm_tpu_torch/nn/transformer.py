@@ -171,7 +171,7 @@ def gated_mlp(cfg: TransformerConfig, p, x):
 # families not ported yet: they raise, naming the family.
 _OTHER_SCORE_FUNCS = {"softmax_topk": "GPT-OSS", "sparsemixer": "Phi-3.5-MoE"}
 _OTHER_PARAMS = {"gate_linear_bias": "GPT-OSS", "router_scale": "Pangu-MoE",
-                 "shared_gate": "Qwen2-MoE", "small_experts": "GroveMoE"}
+                 "small_experts": "GroveMoE"}
 _OTHER_EXPERT_PARAMS = {"gate_b": "GPT-OSS", "up_b": "GPT-OSS", "down_b": "GPT-OSS"}
 
 
@@ -272,7 +272,12 @@ def _moe_combine(cfg: TransformerConfig, p, xt, topi, topv, x):
     B, T, H = x.shape
     y = _experts_out(cfg, p["experts"], xt, topi, topv, cfg.moe_num_experts)
     if "shared" in p:
-        y = y + gated_mlp(cfg, p["shared"], xt)
+        sh = gated_mlp(cfg, p["shared"], xt)
+        if "shared_gate" in p:
+            # the sigmoid-gated shared expert (Qwen2-MoE's shared_expert_gate)
+            gate = torch.sigmoid(matmul(xt, p["shared_gate"]).float())
+            sh = (sh.float() * gate).to(sh.dtype)
+        y = y + sh
     return y.reshape(B, T, H).to(x.dtype)
 
 

@@ -20,7 +20,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              expanded MLA cache (K 192, V 128, f32 dots), K1, K3 (mode 2) and
              K4 at InternVL3.5-8B's Qwen3-8B shapes (FFN 12288, lm_head N
              151936, the 3424-token image prefill, a q8 decode step at n_past
-             3440), and K1, K2 and K5 also on
+             3440), K1 and K2 at Qwen3-30B-A3B's projections (K 2048, its
+             128-column router, lm_head N 151936; K2 at the server's 2
+             rows), K3 (mode 2 timed) at its 512- and 2048-token chunks and
+             K4 over a q8 cache at its GQA group of 8 (32 query heads over
+             4 kv heads: 8 and 16 rows per kv head, B 1 and 2), and K1, K2
+             and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
              on both sides of every tile edge, N that are not multiples of
@@ -158,6 +163,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              image_url request with a data URI answers as chat_image does;
              2-layer cuts of the tower and of the LLM over the spliced
              embeddings against the CPU.
+     qwen3_30b_a3b  full-width, full-depth Qwen3-30B-A3B (`qwen3_a3b_phase`:
+             48 MoE layers of 128 experts, top-8, no shared expert, 32 query
+             heads over 4 kv heads, random zero-centred q4_k projections and
+             57.98 GB of bf16 expert stacks from a seed, max_length 8192;
+             every earlier phase's model freed first): prefill of 512 and
+             2048 tokens (K3 mode 2, 48 launches a chunk), the 1000-token
+             prompt and 64 greedy tokens over bf16 and q8 caches, eager and
+             replayed (tokens identical; K1 241 and, over q8, K4 48 launches
+             per step), peak memory, one q8 block profiled, one MoE layer's
+             expert products timed; 2-layer cuts against the CPU (router
+             scores, picks and logits with DeepSeek-V2-Lite's bounds); a
+             2-slot q8 server (two requests, concurrent replies equal to
+             sequential ones; K2 and K4 launched).
+     families  a narrow GGMM of every model type that runs on blocks
+             already on the card (FAMILIES: LLAMA3_2, the DeepSeek-R1
+             distills over Llama, Qwen2 and Qwen3, Qwen3-MoE, Qwen2-MoE,
+             DeepSeek V1 and V1-MoE, DeepSeek-V3, Moonlight, V3-Light) in f32
+             and q4_k, loaded on the card and the CPU (`families_phase`):
+             config and weights bit-equal, logits within 1e-4 (f32) or 2e-2
+             (q4_k) of the CPU's; the narrow Qwen3-MoE chats through `main.py
+             --test` on the card and the CPU with equal transcripts.
   8. cli     write narrow LLAMA3, Qwen2 and DEEPSEEK_V2_LIGHT GGMMs with the
              port's writer and chat through `python -m chatllm_tpu_torch.main`
              twice each (bf16 cache; --cache_dtype q8_0; Qwen2 with ChatML
@@ -258,17 +284,12 @@ def write_llama3_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: i
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.ggmm.writer import GGMMWriter
     from chatllm_tpu_torch.models.model_types import ModelType
-    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+    from chatllm_tpu_torch.tokenizer.processor import TokenType
 
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
-    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
-    specials = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
-                "<|end_header_id|>", "<|eot_id|>"]
-    pieces += [(s.encode(), TokenType.CONTROL) for s in specials]
-    reserved = TokenType.NORMAL if visible_reserved else TokenType.CONTROL
-    pieces += [(f"<|reserved_{i}|>".encode(), reserved)
-               for i in range(vocab_pad - len(pieces))]
+    pieces = _byte_pieces(LLAMA3_SPECIALS, vocab_pad,
+                          pad_type=TokenType.NORMAL if visible_reserved else None)
     bos, eos = 256, 257
     rng = np.random.default_rng(seed)
 
@@ -286,16 +307,17 @@ def write_llama3_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: i
             orig_ctx, factor, low_f, high_f = rope_scaling
             f.write(struct.pack("<ifff", orig_ctx, factor, low_f, high_f))
         wr._patch_offset(12)
-        wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
+        wr.write_vocab_bpe(pieces, [])
         _write_dense_tensors(wr, w, dtype, vocab_pad, hidden, heads, kv_heads, layers, inter)
     return path
 
 
 def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_heads: int,
                          layers: int, inter: int, *, qkv_bias: bool = False,
-                         tie: bool = False):
+                         tie: bool = False, sparse=(), **moe):
     """The llama-family tensors of a narrow model, drawn from `w`; norm
-    weights, biases and the embedding stay f32, as the converter leaves them."""
+    weights, biases and the embedding stay f32, as the converter leaves them.
+    Layers marked in `sparse` take `_write_moe_ffn(**moe)` for their FFN."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
 
     d = hidden // heads
@@ -312,12 +334,60 @@ def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_h
         wr.write_tensor(f"{p}.self_attn.o_proj.weight", w(hidden, heads * d), dtype)
         wr.write_tensor(f"{p}.post_attention_layernorm.weight",
                         1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
-        wr.write_tensor(f"{p}.mlp.gate_proj.weight", w(inter, hidden), dtype)
-        wr.write_tensor(f"{p}.mlp.up_proj.weight", w(inter, hidden), dtype)
-        wr.write_tensor(f"{p}.mlp.down_proj.weight", w(hidden, inter), dtype)
+        if i < len(sparse) and sparse[i]:
+            _write_moe_ffn(wr, w, dtype, f"{p}.mlp", hidden, **moe)
+        else:
+            _write_ffn(wr, w, dtype, f"{p}.mlp", hidden, inter)
     wr.write_tensor("model.norm.weight", 1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
     if not tie:
         wr.write_tensor("lm_head.weight", w(vocab, hidden), dtype)
+
+
+def _write_ffn(wr, w, dtype, pfx: str, hidden: int, inter: int):
+    wr.write_tensor(f"{pfx}.gate_proj.weight", w(inter, hidden), dtype)
+    wr.write_tensor(f"{pfx}.up_proj.weight", w(inter, hidden), dtype)
+    wr.write_tensor(f"{pfx}.down_proj.weight", w(hidden, inter), dtype)
+
+
+def _write_moe_ffn(wr, w, dtype, pfx: str, hidden: int, *, experts: int, moe_inter: int,
+                   shared: str = "", shared_inter: int = 0, shared_gate: bool = False,
+                   gate_bias: bool = False):
+    """A sparse FFN under the converter's names: the router `{pfx}.gate`
+    [experts, hidden], `experts` routed experts of width `moe_inter`, and, when
+    `shared` names its container, a shared expert of width `shared_inter`
+    (`shared_gate`: Qwen2-MoE's [1, hidden] sigmoid gate of it); `gate_bias`
+    writes V3's f32 e_score_correction_bias."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+
+    wr.write_tensor(f"{pfx}.gate.weight", w(experts, hidden), dtype)
+    if gate_bias:
+        wr.write_tensor(f"{pfx}.gate.e_score_correction_bias", w(experts, scale=0.05),
+                        GGMLType.F32)
+    for j in range(experts):
+        _write_ffn(wr, w, dtype, f"{pfx}.experts.{j}", hidden, moe_inter)
+    if shared:
+        _write_ffn(wr, w, dtype, f"{pfx}.{shared}", hidden, shared_inter)
+    if shared_gate:
+        wr.write_tensor(f"{pfx}.shared_expert_gate.weight", w(1, hidden), dtype)
+
+
+def _byte_pieces(specials, vocab_pad: int, pad: str = "<|reserved_{}|>", pad_type=None):
+    """Byte-level vocab (every byte a token, no merges), `specials` as control
+    tokens, padded to `vocab_pad` entries."""
+    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+
+    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
+    pieces += [(t.encode(), TokenType.CONTROL) for t in specials]
+    pad_type = TokenType.CONTROL if pad_type is None else pad_type
+    pieces += [(pad.format(i).encode(), pad_type) for i in range(vocab_pad - len(pieces))]
+    return [(p, int(t)) for p, t in pieces]
+
+
+# The DeepSeek-R1 distills' special pieces (full-width bars, U+2581 for spaces)
+R1_SPECIALS = ("<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>", "<｜User｜>", "<｜Assistant｜>")
+CHATML_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                   "<|end_header_id|>", "<|eot_id|>")
 
 
 def write_qwen2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: int = 4,
@@ -331,15 +401,11 @@ def write_qwen2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: in
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.ggmm.writer import GGMMWriter
     from chatllm_tpu_torch.models.model_types import ModelType
-    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+    from chatllm_tpu_torch.tokenizer.processor import TokenType
 
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q8_0 if dtype is None else GGMLType(int(dtype))
-    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
-    pieces += [(s.encode(), TokenType.CONTROL)
-               for s in ("<|endoftext|>", "<|im_start|>", "<|im_end|>")]
-    pieces += [(f"<|extra_{i}|>".encode(), TokenType.NORMAL)
-               for i in range(vocab_pad - len(pieces))]
+    pieces = _byte_pieces(CHATML_SPECIALS, vocab_pad, "<|extra_{}|>", TokenType.NORMAL)
     eot = 256
     rng = np.random.default_rng(seed)
 
@@ -355,7 +421,7 @@ def write_qwen2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: in
                          eot, eot, eot, -1, kv_heads, max_len], fmt="13i")
         f.write(struct.pack("<f", rope_theta))
         wr._patch_offset(12)
-        wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
+        wr.write_vocab_bpe(pieces, [])
         _write_dense_tensors(wr, w, dtype, vocab_pad, hidden, heads, kv_heads, layers, inter,
                              qkv_bias=True, tie=tie)
     return path
@@ -368,7 +434,7 @@ def write_internvl_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads:
                         vis_layers: int = 2, vis_heads: int = 2, vis_inter: int = 128,
                         patch: int = 14, image_size: int = 56, tower: bool = True,
                         yarn: tuple = (-1.0, -1), tie: bool = False, experts: int = -1,
-                        model_type=None):
+                        sparse=None, model_type=None, r1_vocab: bool = False):
     """A narrow random-weight INTERN_VL GGMM: a Qwen3 LLM (chatllm.cpp
     models/qwen.h v3 Config: BaseConfig + n_kv, head_dim, rope_theta,
     yarn_factor, six ints, the tie flag and layer_is_sparse[128]; per-head
@@ -379,22 +445,22 @@ def write_internvl_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads:
     tokens and `<img>` / `</img>`.  `dtype` (the LLM's linears) defaults to
     q4_k.  `tower=False` writes the Qwen3 LLM alone as a QWEN3 file (or as
     `model_type`); `yarn` is (yarn_factor, yarn_orig); `tie` sets the tie
-    flag and writes no lm_head; `experts` > 0 marks every layer sparse (a
-    Qwen3-MoE header over dense tensors)."""
+    flag and writes no lm_head; `experts` > 0 writes a Qwen3-MoE LLM whose
+    layers marked in `sparse` (every layer by default) route 2 of `experts`
+    experts of width 128 (softmax, norm_topk_prob, no shared expert);
+    `r1_vocab` swaps ChatML's tokens for the DeepSeek-R1 distills' pieces."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.ggmm.writer import GGMMWriter
     from chatllm_tpu_torch.models.model_types import ModelType
-    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+    from chatllm_tpu_torch.tokenizer.processor import TokenType
 
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
-    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
-    pieces += [(s.encode(), TokenType.CONTROL)
-               for s in ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<img>", "</img>")]
-    pieces += [(f"<|extra_{i}|>".encode(), TokenType.NORMAL)
-               for i in range(vocab_pad - len(pieces))]
+    specials = R1_SPECIALS if r1_vocab else CHATML_SPECIALS + ("<img>", "</img>")
+    pieces = _byte_pieces(specials, vocab_pad, "<|extra_{}|>", TokenType.NORMAL)
     eot = 256
     rng = np.random.default_rng(seed)
+    sparse = [experts > 0 and (sparse is None or bool(sparse[i])) for i in range(layers)]
 
     def w(*shape, scale=None):
         scale = shape[-1] ** -0.5 if scale is None else scale
@@ -416,11 +482,13 @@ def write_internvl_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads:
         f.write(struct.pack("<ff", rope_theta, yarn[0]))       # rope_theta, yarn_factor
         # yarn_orig, decoder_sparse_step, moe_intermediate_size,
         # num_experts_per_tok, num_experts, norm_topk_prob
-        f.write(struct.pack("<6i", yarn[1], 0, -1, 2 if experts > 0 else -1, experts, 0))
+        moe = experts > 0
+        f.write(struct.pack("<6i", yarn[1], int(moe), 128 if moe else -1, 2 if moe else -1,
+                            experts, int(moe)))
         f.write(struct.pack("<i", int(tie)))                   # tie_word_embeddings
-        f.write(struct.pack("<128i", *([int(experts > 0)] * 128)))  # layer_is_sparse
+        f.write(struct.pack("<128i", *(list(map(int, sparse)) + [0] * (128 - layers))))
         wr._patch_offset(12)
-        wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
+        wr.write_vocab_bpe(pieces, [])
         wr.write_tensor("model.embed_tokens.weight", w(vocab_pad, hidden, scale=1.0),
                         GGMLType.F32)
         for i in range(layers):
@@ -436,9 +504,10 @@ def write_internvl_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads:
                                 1.0 + 0.1 * w(head_dim, scale=1.0), GGMLType.F32)
             wr.write_tensor(f"{p}.post_attention_layernorm.weight",
                             1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
-            wr.write_tensor(f"{p}.mlp.gate_proj.weight", w(inter, hidden), dtype)
-            wr.write_tensor(f"{p}.mlp.up_proj.weight", w(inter, hidden), dtype)
-            wr.write_tensor(f"{p}.mlp.down_proj.weight", w(hidden, inter), dtype)
+            if sparse[i]:
+                _write_moe_ffn(wr, w, dtype, f"{p}.mlp", hidden, experts=experts, moe_inter=128)
+            else:
+                _write_ffn(wr, w, dtype, f"{p}.mlp", hidden, inter)
         wr.write_tensor("model.norm.weight", 1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
         if not tie:
             wr.write_tensor("lm_head.weight", w(vocab_pad, hidden), dtype)
@@ -502,7 +571,9 @@ def write_deepseek_v2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, hea
                            layers: int = 2, inter: int = 512, moe_inter: int = 256,
                            experts: int = 8, shared: int = 2, top_k: int = 2,
                            kv_rank: int = 256, max_len: int = 512, dtype=None, seed: int = 0,
-                           writer_cls=None):
+                           writer_cls=None, model_type=None, q_lora_rank: int = 0,
+                           n_group: int = 1, topk_group: int = 1, norm_topk: bool = False,
+                           routed_scale: float = 1.0):
     """A narrow random-weight DEEPSEEK_V2_LIGHT GGMM in the converter's layout:
     byte-level vocab plus DeepSeek's begin/end-of-sentence control tokens,
     layer 0 dense and the rest MoE (`experts` routed, `top_k` a token, softmax
@@ -511,20 +582,24 @@ def write_deepseek_v2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, hea
     at (192, 128)), and its YaRN rope (factor 40 over 4096, mscale 0.707).
     Every matrix takes `dtype` (q4_k by default; each width is a multiple of
     256); norms and the embedding stay f32.  `writer_cls` defaults to the
-    port's GGMMWriter."""
+    port's GGMMWriter.  `model_type` writes another type of the layout:
+    DEEPSEEK_V3, MOONLIGHT and DEEPSEEK_V3_LIGHT add each MoE layer's f32
+    e_score_correction_bias; the non-light types (DEEPSEEK_V2, DEEPSEEK_V3)
+    add q_lora_rank and topk_group to the header, and `q_lora_rank` > 0
+    writes the low-rank q projections (d_q, q_norm, u_q) for q_proj."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.ggmm.writer import GGMMWriter
     from chatllm_tpu_torch.models.model_types import ModelType
-    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
 
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    mtype = ModelType(int(model_type or ModelType.DEEPSEEK_V2_LIGHT))
+    light = mtype in (ModelType.DEEPSEEK_V2_LIGHT, ModelType.DEEPSEEK_V3_LIGHT,
+                      ModelType.MOONLIGHT)
+    gate_bias = mtype in (ModelType.DEEPSEEK_V3, ModelType.DEEPSEEK_V3_LIGHT,
+                          ModelType.MOONLIGHT)
     nope, rope_d, v_dim = 128, 64, 128
-    pieces = [(byte_level_encode(bytes([b])), TokenType.NORMAL) for b in range(256)]
-    pieces += [(s.encode(), TokenType.CONTROL)
-               for s in ("<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>")]
-    pieces += [(f"<|reserved_{i}|>".encode(), TokenType.CONTROL)
-               for i in range(vocab_pad - len(pieces))]
+    pieces = _byte_pieces(("<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>"), vocab_pad)
     bos, eos = 256, 257
     rng = np.random.default_rng(seed)
 
@@ -536,41 +611,131 @@ def write_deepseek_v2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, hea
         return 1.0 + 0.1 * w(n, scale=1.0)
 
     with open(path, "wb") as f:
-        wr = writer_cls(f, int(ModelType.DEEPSEEK_V2_LIGHT), 1, meta={"model_name": "tiny-dsv2"})
+        wr = writer_cls(f, int(mtype), 1, meta={"model_name": "tiny-dsv2"})
         # BaseConfig, then n_kv .. v_head_dim (14i) and beta_fast .. routed
         # scaling (7f), as tools/convert.py writes a V2-Lite file
         wr.write_config([int(dtype), vocab_pad, hidden, heads, layers, inter, max_len, bos, eos,
-                         -1, -1, heads, 1, kv_rank, moe_inter, 1, 1, experts, shared, 0, top_k,
-                         nope, rope_d, 4096, v_dim], fmt="25i")
-        f.write(struct.pack("<7f", 32.0, 1.0, 40.0, 0.707, 0.707, 10000.0, 1.0))
+                         -1, -1, heads, 1, kv_rank, moe_inter, 1, n_group, experts, shared,
+                         int(norm_topk), top_k, nope, rope_d, 4096, v_dim], fmt="25i")
+        f.write(struct.pack("<7f", 32.0, 1.0, 40.0, 0.707, 0.707, 10000.0, routed_scale))
+        if not light:
+            f.write(struct.pack("<2i", q_lora_rank, topk_group))
         wr._patch_offset(12)
-        wr.write_vocab_bpe([(p, int(t)) for p, t in pieces], [])
+        wr.write_vocab_bpe(pieces, [])
         wr.write_tensor("model.embed_tokens.weight", w(vocab_pad, hidden, scale=1.0),
                         GGMLType.F32)
         for i in range(layers):
             p = f"model.layers.{i}"
             wr.write_tensor(f"{p}.input_layernorm.weight", norm(hidden), GGMLType.F32)
-            for name, shape in (("q_proj", (heads * (nope + rope_d), hidden)),
-                                ("d_kv_proj", (kv_rank, hidden)),
-                                ("k_pe_proj", (rope_d, hidden)),
-                                ("u_k_nope_proj", (heads * nope, kv_rank)),
-                                ("u_v_proj", (heads * v_dim, kv_rank)),
-                                ("o_proj", (hidden, heads * v_dim))):
+            q = ((("d_q_proj", (q_lora_rank, hidden)),
+                  ("u_q_proj", (heads * (nope + rope_d), q_lora_rank))) if q_lora_rank > 0
+                 else (("q_proj", (heads * (nope + rope_d), hidden)),))
+            for name, shape in q + (("d_kv_proj", (kv_rank, hidden)),
+                                    ("k_pe_proj", (rope_d, hidden)),
+                                    ("u_k_nope_proj", (heads * nope, kv_rank)),
+                                    ("u_v_proj", (heads * v_dim, kv_rank)),
+                                    ("o_proj", (hidden, heads * v_dim))):
                 wr.write_tensor(f"{p}.self_attn.{name}.weight", w(*shape), dtype)
+            if q_lora_rank > 0:
+                wr.write_tensor(f"{p}.self_attn.q_norm.weight", norm(q_lora_rank), GGMLType.F32)
             wr.write_tensor(f"{p}.self_attn.kv_norm.weight", norm(kv_rank), GGMLType.F32)
             wr.write_tensor(f"{p}.post_attention_layernorm.weight", norm(hidden), GGMLType.F32)
-            ffns = [("mlp", inter)]
             if i > 0:
-                wr.write_tensor(f"{p}.mlp.gate.weight", w(experts, hidden), dtype)
-                ffns = [(f"mlp.experts.{j}", moe_inter) for j in range(experts)]
-                ffns.append(("mlp.shared_experts", shared * moe_inter))
-            for pfx, n in ffns:
-                wr.write_tensor(f"{p}.{pfx}.gate_proj.weight", w(n, hidden), dtype)
-                wr.write_tensor(f"{p}.{pfx}.up_proj.weight", w(n, hidden), dtype)
-                wr.write_tensor(f"{p}.{pfx}.down_proj.weight", w(hidden, n), dtype)
+                _write_moe_ffn(wr, w, dtype, f"{p}.mlp", hidden, experts=experts,
+                               moe_inter=moe_inter, shared="shared_experts",
+                               shared_inter=shared * moe_inter, gate_bias=gate_bias)
+            else:
+                _write_ffn(wr, w, dtype, f"{p}.mlp", hidden, inter)
         wr.write_tensor("model.norm.weight", norm(hidden), GGMLType.F32)
         wr.write_tensor("lm_head.weight", w(vocab_pad, hidden), dtype)
     return path
+
+
+def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cls=None,
+                      tie: bool = False):
+    """A narrow random-weight GGMM of one of FAMILIES' model types, in the
+    converter's layout: byte-level vocab of 384 plus the family's control
+    tokens, hidden 256, 4 heads of 64 (over 2 kv heads but for DeepSeek v1),
+    2 layers, FFN 512, 8 experts of 256 with top-2 (Qwen3-MoE's: the
+    writer's), every matrix in `dtype` (q4_k by default), norms, biases and
+    the embedding f32.  `tie` sets LLAMA3_2's and the R1 distills' tie flag
+    and writes no lm_head."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.ggmm.writer import GGMMWriter
+    from chatllm_tpu_torch.models.model_types import ModelType
+
+    mtype = ModelType[FAMILIES[family][0]]
+    kw = dict(dtype=dtype, seed=seed, writer_cls=writer_cls, **FAMILIES[family][1])
+    if family in ("qwen3_moe", "ds_r1_qwen3"):
+        return write_internvl_ggmm(path, tower=False, model_type=mtype, tie=tie, max_len=512,
+                                   **kw)
+    if family in ("deepseek_v3", "moonlight", "deepseek_v3_light"):
+        return write_deepseek_v2_ggmm(path, model_type=mtype, **kw)
+    writer_cls = writer_cls or GGMMWriter
+    dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=None):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    vocab, hidden, heads, layers, inter, max_len = 384, 256, 4, 2, 512, 512
+    experts, top_k, moe_inter = 8, 2, 256
+    specials = (R1_SPECIALS if family.startswith("ds_r1") else
+                CHATML_SPECIALS if family.startswith("qwen") else
+                R1_SPECIALS[:2] if family.startswith("deepseek") else LLAMA3_SPECIALS)
+    n_kv = heads if family == "deepseek" else 2
+    base = [int(dtype), vocab, hidden, heads, layers, inter, max_len, 256, 257, -1, -1]
+    tensors = dict(qkv_bias=family in ("ds_r1_qwen", "qwen2_moe"), tie=tie)
+    with open(path, "wb") as f:
+        wr = writer_cls(f, int(mtype), 1, meta={"model_name": f"tiny-{family}"})
+        if family in ("llama3_2", "ds_r1_llama"):
+            # v3_1 (n_kv, rope_theta, rope scaling) + tie_word_embeddings
+            wr.write_config(base + [n_kv], fmt="12i")
+            f.write(struct.pack("<fifffi", 500000.0, 8192, 32.0, 1.0, 4.0, int(tie)))
+        elif family == "ds_r1_qwen":
+            # Qwen2's (n_kv, sliding_window, rope_theta) + the tie flag
+            wr.write_config(base + [n_kv, max_len], fmt="13i")
+            f.write(struct.pack("<fi", 1000000.0, int(tie)))
+        elif family == "qwen2_moe":
+            # n_kv, moe_inter, shared_inter, sliding_window, n_active,
+            # n_experts, norm_topk, rope_theta
+            wr.write_config(base + [n_kv, moe_inter, 2 * moe_inter, max_len, top_k, experts, 0],
+                            fmt="18i")
+            f.write(struct.pack("<f", 1000000.0))
+            tensors.update(sparse=[True] * layers, experts=experts, moe_inter=moe_inter,
+                           shared="shared_expert", shared_inter=2 * moe_inter, shared_gate=True)
+        elif family == "deepseek":
+            wr.write_config(base, fmt="11i")
+        else:                                   # deepseek_v1_moe: layer 0 dense
+            # n_kv, first_k_dense, moe_inter, moe_layer_freq, n_routed,
+            # n_shared, norm_topk, n_active, rope_theta
+            wr.write_config(base + [n_kv, 1, moe_inter, 1, experts, 2, 1, top_k], fmt="19i")
+            f.write(struct.pack("<f", 10000.0))
+            tensors.update(sparse=[i >= 1 for i in range(layers)], experts=experts,
+                           moe_inter=moe_inter, shared="shared_experts",
+                           shared_inter=2 * moe_inter)
+        wr._patch_offset(12)
+        wr.write_vocab_bpe(_byte_pieces(specials, vocab), [])
+        _write_dense_tensors(wr, w, dtype, vocab, hidden, heads, n_kv, layers, inter, **tensors)
+    return path
+
+
+# The families of write_family_ggmm: name -> (model type, writer options)
+FAMILIES = {
+    "llama3_2": ("LLAMA3_2", {}),
+    "ds_r1_llama": ("DEEPSEEK_R1_DISTILL_LLAMA", {}),
+    "ds_r1_qwen": ("DEEPSEEK_R1_DISTILL_QWEN", {}),
+    "ds_r1_qwen3": ("DEEPSEEK_R1_DISTILL_QWEN3", dict(r1_vocab=True, experts=-1)),
+    "qwen3_moe": ("QWEN3", dict(sparse=(True, False))),     # a sparse and a dense layer
+    "qwen2_moe": ("QWEN2MoE", {}),
+    "deepseek": ("DEEPSEEK", {}),
+    "deepseek_v1_moe": ("DEEPSEEK_V1_MoE", {}),
+    "deepseek_v3": ("DEEPSEEK_V3", dict(q_lora_rank=256, n_group=4, topk_group=2,
+                                        norm_topk=True, routed_scale=2.5)),
+    "moonlight": ("MOONLIGHT", dict(norm_topk=True)),
+    "deepseek_v3_light": ("DEEPSEEK_V3_LIGHT", dict(norm_topk=True)),
+}
 
 
 # ---------------------------------------------------------------- timing
@@ -814,6 +979,13 @@ QWEN_LAYERS = 24
 # InternVL3.5-8B's LLM (Qwen3-8B): FFN 12288, lm_head N 151936
 SHAPES_IVL = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 12288),
               "down": (12288, 4096), "lm_head": (4096, 151936)}
+# Qwen3-30B-A3B's quantized projections (K, N) per layer and decode token:
+# q, k and v, o, the router (stored quantized), and the lm_head once
+SHAPES_A3B = {"q": (2048, 4096), "k_v": (2048, 512), "o": (4096, 2048),
+              "router": (2048, 128), "lm_head": (2048, 151936)}
+PER_LAYER_A3B = {"q": 1, "k_v": 2, "o": 1, "router": 1}
+A3B_LAYERS = 48
+A3B_ROWS = 2                       # K2's rows in the A3B server's batched steps (2 slots)
 
 
 def kernels_phase(dev, timer) -> dict:
@@ -872,6 +1044,23 @@ def kernels_phase(dev, timer) -> dict:
         res["qgemv"]["ivl_shapes"][sname] = _time_matmul(
             timer, qgemv, qgemv_plain, x, lin, y, dequant_weight(lin, torch.bfloat16), F32_FLOPS)
         del lin
+    # Qwen3-30B-A3B (K 2048, a 128-column router): K1 and K2 at 2 and 8 rows
+    # checked, K1 and K2 at the server's 2 rows timed
+    res["qgemv"]["a3b_shapes"], res["qmm"]["a3b_shapes"] = {}, {}
+    for sname, (K, N) in SHAPES_A3B.items():
+        lin = quant_weight("q4_k", K, N, gen, dev)
+        w_bf16 = dequant_weight(lin, torch.bfloat16)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, "q4_k")
+        res["qgemv"]["a3b_shapes"][sname] = _time_matmul(
+            timer, qgemv, qgemv_plain, x, lin, y, w_bf16, F32_FLOPS)
+        for B in (A3B_ROWS, 8):
+            xb = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+            yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, "q4_k")
+            if B == A3B_ROWS:
+                res["qmm"]["a3b_shapes"][sname] = _time_matmul(
+                    timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
+        del lin, w_bf16
     coverage_cases(dev, gen, res)
     res["quantize_kv"] = quantize_kv_case(dev, gen)
     res["flash_attention"] = flash_cases(dev, timer, gen)
@@ -1244,6 +1433,7 @@ def flash_cases(dev, timer, gen) -> dict:
                                                   last_splits, prefill_geometry)
 
     L3, QW = (32, 8, 128), (14, 2, 64)     # Llama-3-8B; Qwen2.5-0.5B (7 heads per kv head)
+    A3 = (32, 4, 128)                      # Qwen3-30B-A3B: 8 query heads per kv head
     cases = [  # (heads, T, S, n_past, n_tokens, window, softcap, timed as)
         (L3, 128, 1024, 0, 128, 0, 0.0, None),
         (L3, 512, 8192, 1000, 512, 0, 0.0, None),
@@ -1281,6 +1471,11 @@ def flash_cases(dev, timer, gen) -> dict:
         # InternVL3.5-8B's image prefill: the 3424-token spliced prompt in its
         # 4096-row bucket (timed in mode 2, the chat path's)
         (L3, 4096, 8192, 0, IVL_PROMPT_TOKENS, 0, 0.0, "ivl_prefill"),
+        # Qwen3-30B-A3B's prefill chunks of 512 and 2048 tokens (timed in mode
+        # 2, the chat path's), and a chunk after a prompt, off the row grid
+        (A3, 512, 8192, 0, 512, 0, 0.0, "a3b_prefill_512"),
+        (A3, 2048, 8192, 0, 2048, 0, 0.0, "a3b_prefill_2048"),
+        (A3, 512, 8192, 1001, 500, 0, 0.0, None),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the clusters of each f32 kernel the card holds at once, which the
@@ -1329,7 +1524,7 @@ def flash_cases(dev, timer, gen) -> dict:
                                  "n_past": n_past, "n_tokens": n_tok, "window": win,
                                  "softcap": cap, "splits": splits, "max_abs_err": err,
                                  "scaled_err": scaled, "second_launch_same": same})
-            if timed and (mode == 2 or not timed.startswith("ivl_")):
+            if timed and (mode == 2 or not timed.startswith(("ivl_", "a3b_"))):
                 # visible (query, key) pairs: causal rows; padded rows see all keys
                 qpos = n_past + np.arange(T)
                 pairs = int(np.minimum(qpos + 1, kv_len).sum())
@@ -1410,6 +1605,12 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 8, 14, 2, 64, [1000], "bfloat16", "float32", {}, None),   # Qwen, G*T = 56
     (2, 8, 32, 8, 128, [500, 3000], "bfloat16", "bfloat16", {}, None),
     (1, 8, 32, 4, 128, [7000], "int8", "bfloat16", {}, None),     # G*T = 64
+    # Qwen3-30B-A3B: 32 query heads over 4 kv heads (G 8), 8 and 16 rows per
+    # kv head; at B 2 the A3B server's 2-slot step
+    (1, 1, 32, 4, 128, [1000], "int8", "bfloat16", {}, "a3b_decode_1000"),
+    (1, 2, 32, 4, 128, [3000], "int8", "bfloat16", {}, None),
+    (2, 1, 32, 4, 128, [1000, 7000], "int8", "bfloat16", {}, "a3b_serve_2"),
+    (2, 2, 32, 4, 128, [40, 8000], "int8", "bfloat16", {}, None),
 ]
 
 # The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
@@ -2549,12 +2750,12 @@ SERVE_PROMPT_BYTES = (20, 80, 150, 260, 400, 560, 760, 980)
 
 
 def serve_phase(dev, cfg, params, *, model_type=None, tok=None, name="llama3-8b-synthetic",
-                prompt_bytes=SERVE_PROMPT_BYTES, max_new: int = 32) -> dict:
+                prompt_bytes=SERVE_PROMPT_BYTES, max_new: int = 32, slots: int = 4) -> dict:
     """Full-width Llama-3-8B (q8 cache, max_length 8192) behind the HTTP
     server with 4 slots: 8 chat requests of ~30 to ~1000 tokens, 32 greedy
     tokens each, first one at a time, then all at once from 8 threads.
     Another model passes its type, its tokenizer, the prompts' lengths in
-    bytes and the tokens per request."""
+    bytes, the tokens per request and the slots."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -2577,7 +2778,7 @@ def serve_phase(dev, cfg, params, *, model_type=None, tok=None, name="llama3-8b-
         tok = load_model(str(path), device="cpu").tokenizer
     model = BaseLLM(int(model_type or ModelType.LLAMA3), replace(cfg, cache_dtype="int8"),
                     params, tok, dev)
-    api = ApiServer(model, model_name=name, max_slots=4, device=dev,
+    api = ApiServer(model, model_name=name, max_slots=slots, device=dev,
                     gen_config=GenerationConfig(do_sample=False, max_new_tokens=max_new))
     produced = []                 # token ids per request, in submission order
     submit = api.batch.submit
@@ -3521,56 +3722,101 @@ def _compare_agreeing(name: str, g, c, agree, tol: float = DSV2_CUT_TOL) -> dict
     return r
 
 
-def dsv2_two_layer(dev, cfg, params) -> dict:
+def dsv2_two_layer(dev, cfg, params, slots: int = 4) -> dict:
     """2-layer cuts of DeepSeek-V2-Lite (layer 0 dense, layer 1 MoE) at full
     width, the card (kernels) against the CPU (plain versions): a 64-token
     prefill over a bf16 cache (logits at every position), and one batched
-    decode step of 4 slots at per-row n_past over a q8 cache with random
-    contents (K4 at (192, 128)).  The expert picks first (`_moe_picks`),
-    then the logits where they agree (`_compare_agreeing`)."""
+    decode step of `slots` slots at per-row n_past over a q8 cache with
+    random contents (K4 at (192, 128)).  The expert picks first
+    (`_moe_picks`, every MoE layer's), then the logits where the picks of
+    every layer agree (`_compare_agreeing`).  The CPU runs first; where the
+    card's own picks differ from its (near-ties, which `_moe_picks` checks),
+    the card goes on with the CPU's picks, weighed by its own scores: a flip
+    decided by rounding in one layer would otherwise reach every later token
+    through the next layer's attention.  Another MoE model (Qwen3-30B-A3B:
+    both layers MoE) takes the same cuts; the CPU side is a copy of the two
+    layers on the host."""
     import chatllm_tpu_torch.nn.transformer as T
     from chatllm_tpu_torch.ops.qmm import matmul
 
     cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
     p2, p2_cpu = _cut(params, 2, dev), _cut(params, 2, "cpu")
-    rec, route = [], T.moe_route
+    rec, route = {"cpu": [], "card": []}, T.moe_route
 
     def recorded(c, p, xt):
         topi, topv = route(c, p, xt)
         scores = torch.softmax(matmul(xt, p["gate"]).float(), dim=-1)
-        rec.append((torch.sort(topi, dim=-1).values.cpu(), scores.cpu()))
+        side = "cpu" if xt.device.type == "cpu" else "card"
+        rec[side].append((torch.sort(topi, dim=-1).values.cpu(), scores.cpu()))
+        if side == "card":      # go on with the CPU's picks (softmax scores)
+            topi = rec["cpu"][len(rec["card"]) - 1][0].to(xt.device)
+            topv = torch.gather(scores, -1, topi)
+            if c.moe_norm_topk_prob:
+                topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
+            topv = topv * c.moe_routed_scale
         return topi, topv
 
     res = {}
     ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64)))
     cfg_q8 = replace(cfg2, cache_dtype="int8")
     gen = torch.Generator().manual_seed(5)
-    caches = [T.init_cache(cfg_q8, 4, 8192, device=d) for d in (dev, "cpu")]
+    caches = {d: T.init_cache(cfg_q8, slots, 8192, device=d) for d in ("cpu", dev)}
     for i in range(2):           # random q8 contents, the same on both sides
         for name in ("k", "v"):
-            q8 = torch.randint(-127, 128, getattr(caches[1], name)[i].shape, generator=gen,
+            q8 = torch.randint(-127, 128, getattr(caches["cpu"], name)[i].shape, generator=gen,
                                dtype=torch.int32).to(torch.int8)
-            sc = torch.rand(caches[1].k_scale[i].shape, generator=gen) * 0.02 + 1e-3
-            for c in caches:
+            sc = torch.rand(caches["cpu"].k_scale[i].shape, generator=gen) * 0.02 + 1e-3
+            for c in caches.values():
                 getattr(c, name)[i].copy_(q8)
                 getattr(c, name + "_scale")[i].copy_(sc)
-    toks = torch.tensor([[11], [2024], [77777], [100000]])
-    n_past = torch.tensor([5, 1000, 4095, 8000])
+    toks = torch.tensor([[11], [2024], [77777], [100000]])[:slots] % cfg.vocab_size
+    n_past = torch.tensor([5, 1000, 4095, 8000])[-slots:]
     T.moe_route = recorded
+    logits = {}
     try:
         with torch.inference_mode():
-            pre = [T.transformer_forward(cfg2, p, ids.to(d), T.init_cache(cfg2, 1, 1024, device=d),
-                                         0)[0][0] for p, d in ((p2, dev), (p2_cpu, "cpu"))]
-            dec = [T.transformer_forward(cfg_q8, p, toks.to(d), c, n_past.to(d))[0][:, 0]
-                   for p, c, d in ((p2, caches[0], dev), (p2_cpu, caches[1], "cpu"))]
+            for p, d in ((p2_cpu, "cpu"), (p2, dev)):
+                pre = T.transformer_forward(cfg2, p, ids.to(d),
+                                            T.init_cache(cfg2, 1, 1024, device=d), 0)[0][0]
+                dec = T.transformer_forward(cfg_q8, p, toks.to(d), caches[d],
+                                            n_past.to(d))[0][:, 0]
+                logits[str(d)] = (pre, dec)
     finally:
         T.moe_route = route
-    agree, res["prefill_picks"] = _moe_picks("2-layer prefill (64 tokens)", rec[0], rec[1])
-    res["prefill_vs_cpu"] = _compare_agreeing("2-layer prefill card vs cpu", *pre, agree)
-    agree, res["decode_picks"] = _moe_picks("2-layer q8 decode step (4 slots)", rec[2], rec[3])
-    res["batched_decode_vs_cpu"] = _compare_agreeing(
-        "2-layer batched q8 decode step (4 slots) card vs cpu", *dec, agree)
+    n_moe = sum(s.is_moe for s in cfg2.layer_specs)
+    for run, part in enumerate(("prefill", "decode")):
+        what = "prefill (64 tokens)" if part == "prefill" else f"q8 decode step ({slots} slots)"
+        agree = torch.ones(logits["cpu"][run].shape[0], dtype=torch.bool)
+        res[part + "_picks"] = []
+        for i in range(run * n_moe, (run + 1) * n_moe):
+            a, pr = _moe_picks(f"2-layer {what}, MoE layer {i % n_moe}", rec["card"][i],
+                               rec["cpu"][i])
+            agree &= a
+            res[part + "_picks"].append(pr)
+        key = "prefill_vs_cpu" if part == "prefill" else "batched_decode_vs_cpu"
+        res[key] = _compare_agreeing(f"2-layer {what} card vs cpu", logits[str(dev)][run],
+                                     logits["cpu"][run], agree)
     return res
+
+
+def expert_products(dev, cfg, mlp, n_moe: int) -> dict:
+    """The expert products of one MoE layer (`mlp`) at one token, alone, L2
+    flushed: ms, the stacks' bytes, GB/s, the read bound, and the ms of a
+    decode step's `n_moe` layers."""
+    import chatllm_tpu_torch.nn.transformer as T
+    from chatllm_tpu_torch.models.synthetic import param_bytes
+
+    timer = Timer(dev)
+    xt = torch.randn(1, cfg.hidden_size, device=dev).to(torch.bfloat16)
+    topi, topv = T.moe_route(cfg, mlp, xt)
+    ms = timer(lambda: T._experts_out(cfg, mlp["experts"], xt, topi, topv, cfg.moe_num_experts))
+    nb = param_bytes(mlp["experts"])
+    r = {"ms_per_layer": ms, "bytes_per_layer": nb, "gb_s": nb / ms / 1e6,
+         "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "ms_per_step": ms * n_moe}
+    log(f"  expert products of one MoE layer at one token: {r}")
+    del timer
+    torch.cuda.empty_cache()
+    return r
 
 
 def deepseek_phase(dev) -> dict:
@@ -3708,19 +3954,7 @@ def deepseek_phase(dev) -> dict:
     del eng
     res["chat"] = chat
 
-    # the expert products of one MoE layer at one token, alone (L2 flushed)
-    timer = Timer(dev)
-    mlp = params["layers"][1]["mlp"]
-    xt = torch.randn(1, cfg.hidden_size, device=dev).to(torch.bfloat16)
-    topi, topv = T.moe_route(cfg, mlp, xt)
-    ms = timer(lambda: T._experts_out(cfg, mlp["experts"], xt, topi, topv, cfg.moe_num_experts))
-    nb = param_bytes(mlp["experts"])
-    res["expert_products"] = {"ms_per_layer": ms, "bytes_per_layer": nb,
-                              "gb_s": nb / ms / 1e6, "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
-                              "ms_per_step": ms * (L - 1)}
-    log(f"  expert products of one MoE layer at one token: {res['expert_products']}")
-    del timer
-    torch.cuda.empty_cache()
+    res["expert_products"] = expert_products(dev, cfg, params["layers"][1]["mlp"], L - 1)
 
     # the latent cache against the expanded one, bf16
     lat = {}
@@ -3755,6 +3989,299 @@ def deepseek_phase(dev) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------ qwen3_30b_a3b phase
+A3B_PROMPT, A3B_NEW = 1000, 64
+A3B_PREFILL = (512, 2048)           # the prefill chunks timed
+A3B_SERVE_BYTES = (200, 980)        # two chat requests, ~200 and ~1000 tokens
+
+
+def a3b_step_launches(cfg) -> int:
+    """K1 launches per Qwen3-30B-A3B decode token: q, k, v, o and the router
+    (2048 -> 128, stored quantized) in every layer, and the lm_head.  The
+    expert products are cuBLAS's dense bf16 products over all 128 stacks, as
+    the JAX package's einsum."""
+    return 5 * cfg.num_hidden_layers + 1
+
+
+def qwen3_a3b_phase(dev) -> dict:
+    """Full-width, full-depth Qwen3-30B-A3B (`qwen3_30b_a3b_config`: 48 MoE
+    layers of 128 experts, 8 a token, no shared expert; 32 query heads over 4
+    kv heads of 128, max_length 8192), random zero-centred q4_k projections
+    and bf16 expert stacks from a seed (58.0 GB), built on the card:
+      - prefill of 512 and 2048 tokens over a bf16 cache (K3 mode 2, 48
+        launches a chunk), timed warm;
+      - the 1000-token prompt and 64 greedy tokens over a bf16 and a q8
+        cache, each uncaptured and replayed from CUDA graphs (tokens
+        identical; K1 241 launches and, over q8, K4 48 per replayed step);
+        one replayed q8 block profiled; one MoE layer's expert products
+        timed alone;
+      - 2-layer cuts against the CPU (`dsv2_two_layer` over both MoE layers,
+        the CPU side from two layers copied to the host, never a second copy
+        of the stacks on the card): a 64-token prefill and a q8 decode step
+        of 2 slots (K4 at G 8, 16 rows): router scores within
+        DSV2_SCORE_DIFF_MAX, at least DSV2_PICKS_AGREE_MIN of the tokens with
+        the CPU's picks, logits within DSV2_CUT_TOL where they agree;
+      - the server with 2 slots over a q8 cache: two chat requests one at a
+        time and then at once, replies identical (K2 and K4 launched)."""
+    from chatllm_tpu_torch.models.model_types import ModelType
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, param_bytes,
+                                                    qwen3_30b_a3b_config)
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
+
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    if held > 2.0:
+        raise AssertionError(f"qwen3_30b_a3b: {held:.2f} GiB of earlier phases still held")
+    res = {"held_before_gib": held}
+    cfg = qwen3_30b_a3b_config(max_length=8192)
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev, centered=True)
+    torch.cuda.synchronize()
+    res["build"] = {"seconds": time.perf_counter() - t0, "param_bytes": param_bytes(params),
+                    "expert_bytes": param_bytes([lay["mlp"]["experts"]
+                                                 for lay in params["layers"]]),
+                    "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    log(f"  built: {res['build']}")
+
+    # prefill chunks over a bf16 cache: K3's mode 2, L launches a chunk
+    rng = np.random.default_rng(0)
+    eng = InferenceEngine(cfg, params, device=dev)
+    pre = {}
+    with torch.inference_mode():
+        for n in A3B_PREFILL:
+            ids = rng.integers(0, cfg.vocab_size, n).tolist()
+            kv = eng.new_cache(1)
+            eng.prefill(ids, kv, 0)                               # warm
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            reset_mode_launches()
+            t0 = time.perf_counter()
+            logits = eng.prefill(ids, kv, 0)[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = launch_counts()
+            f32q = MODE_LAUNCHES[2]
+            pre[n] = {"ms": ms, "flash_attention_f32q": f32q, "qgemv": got["qgemv"]}
+            log(f"  prefill {n} tokens: {ms:.1f} ms, K3 mode 2 {f32q} launches, K1 "
+                f"{got['qgemv']}")
+            if f32q != L or got["flash_attention"] != L or not torch.isfinite(logits).all():
+                raise AssertionError(f"a3b prefill {n}: K3 launched {got['flash_attention']} "
+                                     f"times ({f32q} in mode 2), expected {L}")
+            del kv
+    res["prefill"] = pre
+    del eng
+
+    ids = rng.integers(0, cfg.vocab_size, A3B_PROMPT).tolist()
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=A3B_NEW)
+    steps = decode_launches(A3B_NEW)
+    chat = {}
+    for key, cache, graphs in (("bfloat16_eager", "bfloat16", False),
+                               ("bfloat16_graph", "bfloat16", True),
+                               ("int8_eager", "int8", False), ("int8_graph", "int8", True)):
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev,
+                              cuda_graphs=graphs)
+        kv = eng.new_cache(1)
+        if graphs:
+            eng.generate(ids, gcfg, cache=kv)                     # warm: captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        perf = PerfInfo()
+        out, kv, n_past = eng.generate(ids, gcfg, perf=perf, cache=kv)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        dec = eng.decoder
+        r = {"tokens": out, "prefill_ms": perf.prompt_ms,
+             "decode_steps_s": (len(out) - 1) / perf.gen_ms * 1e3,
+             "graphs": dec.num_graphs(), "capture_ms": dec.capture_ms,
+             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+             "launches": {k: got[k] for k in ("qgemv", "qmm", "flash_attention",
+                                              "flash_decode")}}
+        if key == "int8_graph":
+            pb = _profile_block(eng, kv, len(ids) + 48)
+            pb["by_kind"] = _step_breakdown(pb.pop("kernels_ms"), pb["step_ms"])
+            r["profiled_block"] = pb
+        log(f"  {key}: {r['decode_steps_s']:.2f} decode steps/s, prefill "
+            f"{r['prefill_ms']:.1f} ms, {r['graphs']} graphs in {r['capture_ms']:.0f} ms, "
+            f"peak {r['peak_mem_gib']:.2f} GiB, launches {r['launches']}"
+            + (f"; replayed block {r['profiled_block']}" if "profiled_block" in r else ""))
+        # the prompt takes K3 over the bf16 cache (a q8 one: the chunked
+        # einsum), each decode step K4 over the q8 cache
+        want = {"qgemv": a3b_step_launches(cfg) * steps + 1,
+                "flash_attention": L if cache == "bfloat16" else 0,
+                "flash_decode": L * steps if cache == "int8" else 0}
+        if len(out) != A3B_NEW or n_past != len(ids) + len(out) - 1:
+            raise AssertionError(f"a3b {key}: {len(out)} tokens, n_past {n_past}")
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"a3b {key}: launches {r['launches']}, expected {want} "
+                                 f"({steps} launched steps)")
+        chat[key] = r
+        del eng, kv
+        torch.cuda.empty_cache()
+    for c in ("bfloat16", "int8"):
+        if chat[c + "_graph"]["tokens"] != chat[c + "_eager"]["tokens"]:
+            raise AssertionError(f"a3b {c}: graph tokens differ from the eager loop's")
+    chat["per_step"] = {"qgemv": a3b_step_launches(cfg), "flash_decode_q8": L,
+                        "flash_attention_f32q_per_chunk": L}
+    res["chat"] = chat
+
+    res["expert_products"] = expert_products(dev, cfg, params["layers"][0]["mlp"], L)
+
+    res["two_layer"] = dsv2_two_layer(dev, cfg, params, slots=2)
+    torch.cuda.empty_cache()
+
+    res["serve"] = serve_phase(dev, cfg, params, model_type=ModelType.QWEN3,
+                               tok=_ivl_tokenizer(cfg), name="qwen3-30b-a3b-synthetic",
+                               prompt_bytes=A3B_SERVE_BYTES, max_new=16, slots=2)
+    res["peak_mem_gib"] = max([res["build"]["peak_mem_gib"], res["serve"]["peak_mem_gib"]]
+                              + [chat[k]["peak_mem_gib"] for k in chat if k != "per_step"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- families phase
+FAMILY_PROMPT = 32                 # prompt tokens of the families' card-vs-CPU logits
+# at least this share of the prompt's tokens must pick the CPU's experts in
+# every MoE layer of a narrow q4_k model (bf16 activations: a near-tie of 8
+# experts may flip); the logits are compared where the picks agree
+FAMILY_PICKS_AGREE_MIN = 0.75
+FAMILY_TOL = {"f32": 1e-4, "q4_k": 2e-2}
+
+
+def same_params(a, b, where="params"):
+    """Card parameters `a` against the CPU's `b`: the same structure and
+    fields, every tensor on the card with the CPU tensor's dtype, shape and
+    bits."""
+    same = True
+    if isinstance(b, dict):
+        same = set(a) == set(b)
+        for k in b if same else ():
+            same_params(a[k], b[k], f"{where}.{k}")
+    elif isinstance(b, (tuple, list)):
+        same = type(a) is type(b) and len(a) == len(b)
+        for i, (x, y) in enumerate(zip(a, b) if same else ()):
+            same_params(x, y, f"{where}[{i}]")
+    elif hasattr(b, "__dataclass_fields__"):
+        same = type(a) is type(b)
+        for f in b.__dataclass_fields__ if same else ():
+            same_params(getattr(a, f), getattr(b, f), f"{where}.{f}")
+    elif isinstance(b, torch.Tensor):
+        same = a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    else:
+        same = a == b
+    if not same:
+        raise AssertionError(f"{where}: the card's parameters differ from the CPU's")
+
+
+def _family_logits(model, ids) -> tuple:
+    """The prompt's logits at every position, the next token's logits (one
+    decode step fed the prompt's greedy token) and each MoE layer's sorted
+    picks [N, K] over the prompt, in order."""
+    from chatllm_tpu_torch.nn import transformer as T
+
+    picks, route = [], T.moe_route
+
+    def recorded(c, p, xt):
+        topi, topv = route(c, p, xt)
+        picks.append(torch.sort(topi, dim=-1).values.cpu())
+        return topi, topv
+
+    eng = model.engine
+    T.moe_route = recorded
+    try:
+        with torch.inference_mode():
+            kv = eng.new_cache(1)
+            full = model.forward_logits(ids, cache=kv)[0][0].float().cpu()
+            n_moe = len(picks)
+            tok = torch.tensor([[int(full[-1].argmax())]], device=model.device)
+            step = T.transformer_forward(model.cfg, model.params, tok, kv, len(ids))[0]
+    finally:
+        T.moe_route = route
+    return full, step[0, 0].float().cpu(), picks[:n_moe]
+
+
+def families_phase(dev) -> dict:
+    """Every model type this port registers over blocks already on the card
+    (FAMILIES: LLAMA3_2, the three DeepSeek-R1 distills, Qwen3-MoE with a
+    sparse and a dense layer, Qwen2-MoE's gated shared expert, DeepSeek V1
+    and V1-MoE, DeepSeek-V3 with a low-rank q and grouped sigmoid routing,
+    Moonlight, V3-Light), written narrow by `write_family_ggmm` in f32 and
+    in q4_k and loaded on the card and on the CPU: the same config and every
+    parameter bit-equal; the logits of a 32-token prompt at every position
+    and of one decode step within FAMILY_TOL of the CPU's logit scale (q4_k:
+    at the positions whose expert picks agree, at least
+    FAMILY_PICKS_AGREE_MIN of them), the same argmax wherever the CPU's top
+    two are further apart than twice the tolerance.  Then the narrow
+    Qwen3-MoE chats two turns through `main.py --test` on the card and on
+    the CPU (f32 activations and cache): equal transcripts."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.models import RuntimeConfig, load_model
+    from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR, launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = {}
+    ids = np.random.default_rng(2).integers(0, 380, FAMILY_PROMPT).tolist()
+    reset_launch_counts()
+    for fam in FAMILIES:
+        for fmt, tol in FAMILY_TOL.items():
+            path = write_family_ggmm(BUILD_DIR / f"smoke_{fam}_{fmt}.bin", fam,
+                                     dtype=GGMLType.F32 if fmt == "f32" else None)
+            compute = "float32" if fmt == "f32" else "bfloat16"
+            rt = RuntimeConfig(compute_dtype=compute, cache_dtype=compute)
+            card = load_model(str(path), rt, device=dev)
+            cpu = load_model(str(path), rt, device="cpu")
+            if card.cfg != cpu.cfg or type(card) is not type(cpu):
+                raise AssertionError(f"{fam} {fmt}: the card's config differs from the CPU's")
+            same_params(card.params, cpu.params)
+            (gf, gs, gp), (cf, cs, cp) = _family_logits(card, ids), _family_logits(cpu, ids)
+            agree = torch.ones(len(ids), dtype=torch.bool)
+            for a, b in zip(gp, cp):
+                agree &= (a == b).all(dim=-1)
+            g, c = torch.cat([gf[agree], gs[None]]), torch.cat([cf[agree], cs[None]])
+            scale = c.abs().amax(-1)
+            rel = ((g - c).abs().amax(-1) / scale).max().item()
+            top2 = c.topk(2, dim=-1).values
+            clear = top2[:, 0] - top2[:, 1] > 2 * tol * scale
+            same_argmax = bool((g.argmax(-1) == c.argmax(-1))[clear].all())
+            r = {"model": type(card).__name__, "moe_layers": len(cp),
+                 "picks_agree_share": agree.float().mean().item(), "rel_to_logit_scale": rel,
+                 "argmax_equal_where_clear": same_argmax, "clear_rows": int(clear.sum())}
+            log(f"  {fam} {fmt}: {r}")
+            if (agree.float().mean() < FAMILY_PICKS_AGREE_MIN or (fmt == "f32" and not agree.all())
+                    or rel > tol or not same_argmax or not torch.isfinite(g).all()):
+                raise AssertionError(f"{fam} {fmt}: the card's logits differ from the CPU's "
+                                     f"({r}; tolerance {tol})")
+            res[f"{fam}_{fmt}"] = r
+            del card, cpu
+    res["launches"] = launch_counts()
+    for k in ("qgemv", "qmm"):
+        if res["launches"][k] <= 0:
+            raise AssertionError(f"families: kernel {k} was not launched")
+
+    # the narrow Qwen3-MoE chats through the CLI on the card and on the CPU
+    path = write_family_ggmm(BUILD_DIR / "smoke_qwen3_moe_f32_cli.bin", "qwen3_moe",
+                             dtype=GGMLType.F32, seed=4)
+    turns = BUILD_DIR / "smoke_qwen3_moe_turns.txt"
+    turns.write_text("Hello from the H100!\nAnd once more, with feeling.\n")
+    argv = ["-m", str(path), "--test", str(turns), "-t", "0", "--max_new_tokens", "12",
+            "--compute_dtype", "f32", "--cache_dtype", "f32"]
+    outs = _run_cli({"card": (argv, None), "cpu": (argv + ["--device", "cpu"], None)})
+    log("  qwen3_moe --test transcript:\n" + outs["card"].rstrip())
+    if _chat_lines(outs["card"]) != _chat_lines(outs["cpu"]) or len(_replies(outs["card"])) != 2:
+        raise AssertionError(f"the Qwen3-MoE --test transcript differs between the card and "
+                             f"the CPU:\n{outs['card']}\n---\n{outs['cpu']}")
+    res["transcript_qwen3_moe"] = outs["card"]
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  families phase: {len(FAMILIES)} model types in f32 and q4_k, {res['seconds']:.1f} s")
     return res
 
 
@@ -4063,6 +4590,25 @@ def ivl_totals(kres: dict) -> dict:
             for name, (shapes, mult) in units.items()}
 
 
+def a3b_totals(kres: dict) -> dict:
+    """K1, K2, K3 and K4 summed over one unit of Qwen3-30B-A3B's path at its
+    shapes: a decode token (48 x 5 projections + the lm_head), a 2-row
+    batched step (K2, the lm_head included), a 512- and a 2048-token
+    prefill chunk (48 launches of K3 mode 2 each) and a q8 decode step after
+    1000 tokens (48 launches of K4)."""
+    tok = {**{k: A3B_LAYERS * v for k, v in PER_LAYER_A3B.items()}, "lm_head": 1}
+    units = {"qgemv": (kres["qgemv"]["a3b_shapes"], tok),
+             "qmm": (kres["qmm"]["a3b_shapes"], tok),
+             "flash_attention_f32q_512": (kres["flash_attention"]["shapes"],
+                                          {"a3b_prefill_512_f32q": A3B_LAYERS}),
+             "flash_attention_f32q_2048": (kres["flash_attention"]["shapes"],
+                                           {"a3b_prefill_2048_f32q": A3B_LAYERS}),
+             "flash_decode": (kres["flash_decode"]["shapes"], {"a3b_decode_1000": A3B_LAYERS})}
+    return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for name, (shapes, mult) in units.items()}
+
+
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
               "chatllm_tpu/ops/pallas/gemv_kernel.py:161"),
@@ -4360,6 +4906,19 @@ def main() -> int:
     report["internvl"] = internvl_phase(dev)
     report["internvl"]["kernel_totals"] = ivl_totals(report["kernels"])
     log(f"  InternVL3.5-8B totals per unit of its path: {report['internvl']['kernel_totals']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== qwen3_30b_a3b")
+    report["qwen3_30b_a3b"] = qwen3_a3b_phase(dev)
+    report["qwen3_30b_a3b"]["kernel_totals"] = a3b_totals(report["kernels"])
+    log(f"  Qwen3-30B-A3B totals per unit of its path: "
+        f"{report['qwen3_30b_a3b']['kernel_totals']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== families")
+    report["families"] = families_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
 

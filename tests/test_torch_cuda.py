@@ -133,6 +133,66 @@ def test_flash_attention_f32_model_heads(dev, heads, D, T, n_past, n_tok, window
         assert got == want
 
 
+@pytest.mark.parametrize("T,n_past,n_tok", [(512, 0, 512), (2048, 0, 2048), (512, 1001, 500),
+                                             (128, 8064, 128)])
+@pytest.mark.parametrize("qdt,kvdt", [("bfloat16", "bfloat16"), ("float32", "float32"),
+                                      ("float32", "bfloat16")])
+def test_flash_attention_at_qwen3_a3b_heads(dev, T, n_past, n_tok, qdt, kvdt):
+    """K3 in its three modes at Qwen3-30B-A3B's heads (32 query heads over 4
+    kv heads of 128: a GQA group of 8) over an 8192-slot cache: its prefill
+    chunks of 512 and 2048 tokens, a chunk after a prompt off the row grid,
+    and a chunk at the cache's end."""
+    _flash_case(dev, T, 8192, n_past, n_tok, 0, 0.0, 128, getattr(torch, qdt),
+                getattr(torch, kvdt), heads=(32, 4))
+
+
+def test_moe_route_and_experts_at_qwen3_a3b_width(dev):
+    """One Qwen3-30B-A3B MoE layer (hidden 2048, 128 experts of 768, top-8,
+    normalized softmax weights, no shared expert; a zero-centred q4_k router
+    and bf16 stacks) on the card against the CPU: 32 prefill rows (the
+    router through K2) and 4 single rows (through K1).  Router scores within
+    1e-2, at least 0.9 of the rows pick the CPU's experts, and where they
+    agree the weights within 1e-2 and the output within 2e-2 of its scale."""
+    from dataclasses import replace
+
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, qwen3_30b_a3b_config
+    from chatllm_tpu_torch.nn import transformer as T
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.qmm import matmul
+
+    cfg = replace(qwen3_30b_a3b_config(), num_hidden_layers=1,
+                  layer_specs=qwen3_30b_a3b_config().layer_specs[:1])
+    p = build_synthetic_params(cfg, "q4k", zeros=False, seed=3, device=dev,
+                               centered=True)["layers"][0]["mlp"]
+    p_cpu = {"gate": p["gate"].to("cpu"), "experts": {k: v.cpu() for k, v in
+                                                      p["experts"].items()}}
+    assert set(p) == {"gate", "experts"} and tuple(p["experts"]["down"].shape) == (128, 768, 2048)
+    gen = torch.Generator().manual_seed(0)
+    for rows, kern in ((32, "qmm"), (1, "qgemv"), (1, "qgemv"), (1, "qgemv"), (1, "qgemv")):
+        x = torch.randn(1, rows, 2048, generator=gen).to(torch.bfloat16)
+        reset_launch_counts()
+        with torch.inference_mode():
+            gi, gv = T.moe_route(cfg, p, x[0].to(dev))
+            g_out = T.moe_mlp(cfg, p, x.to(dev))
+            torch.cuda.synchronize()
+            launched = launch_counts()[kern]
+            ci, cv = T.moe_route(cfg, p_cpu, x[0])
+            c_out = T.moe_mlp(cfg, p_cpu, x)
+            gs = torch.softmax(matmul(x[0].to(dev), p["gate"]).float(), -1).cpu()
+            cs = torch.softmax(matmul(x[0], p_cpu["gate"]).float(), -1)
+        assert launched == 2      # the router in moe_route and in moe_mlp
+        assert (gs - cs).abs().max() <= 1e-2
+        gi, ci = gi.cpu(), ci
+        agree = (torch.sort(gi, -1).values == torch.sort(ci, -1).values).all(-1)
+        assert agree.float().mean() >= 0.9, agree
+        order_g, order_c = torch.argsort(gi, -1), torch.argsort(ci, -1)
+        wg = torch.gather(gv.cpu(), -1, order_g)[agree]
+        wc = torch.gather(cv, -1, order_c)[agree]
+        assert (wg - wc).abs().max() <= 1e-2 and torch.allclose(wc.sum(-1), torch.ones(1))
+        go, co = g_out[0].float().cpu()[agree], c_out[0].float()[agree]
+        assert torch.isfinite(go).all() and (go - co).abs().max() <= 2e-2 * co.abs().max()
+
+
 # card vs CPU logits, relative to the logit scale: the quantized matmuls
 # take bf16 inputs in both modes, so summation-order differences flip some
 # bf16 roundings of activations and compound over the layers
@@ -171,6 +231,12 @@ FLASH_DECODE_CASES = {   # B, T, Hq, Hkv, D, S, n_past, cache, extra
     "bf16_cache": (1, 1, 32, 8, 128, 4096, [3000], "bfloat16", {}),
     "f32_cache": (1, 2, 8, 4, 64, 1024, [600], "float32", {}),
     "uneven_rows": (1, 4, 6, 2, 64, 1024, [900], "int8", {}),
+    # Qwen3-30B-A3B's heads: 32 query heads over 4 kv heads (G 8), 8 and 16
+    # rows per kv head, one and two streams
+    "a3b_t1": (1, 1, 32, 4, 128, 8192, [1000], "int8", {}),
+    "a3b_t2": (1, 2, 32, 4, 128, 8192, [3000], "int8", {}),
+    "a3b_b2": (2, 1, 32, 4, 128, 8192, [1000, 7000], "int8", {}),
+    "a3b_b2_t2": (2, 2, 32, 4, 128, 8192, [40, 8000], "int8", {}),
 }
 
 
@@ -782,27 +848,6 @@ def test_moe_decode_step_replays_as_the_eager_step(dev, cache):
     assert captured["qgemv"] == 5 * 2 + 1 + 3 + 1, captured
 
 
-def _same_params(a, b, where="params"):
-    """Card parameters against the CPU's: the same structure and fields,
-    every tensor on the card with the CPU tensor's dtype, shape and bits."""
-    if isinstance(b, dict):
-        assert set(a) == set(b), where
-        for k in b:
-            _same_params(a[k], b[k], f"{where}.{k}")
-    elif isinstance(b, (tuple, list)):
-        assert type(a) is type(b) and len(a) == len(b), where
-        for i, (x, y) in enumerate(zip(a, b)):
-            _same_params(x, y, f"{where}[{i}]")
-    elif dataclasses.is_dataclass(b):
-        assert type(a) is type(b), where
-        for f in dataclasses.fields(b):
-            _same_params(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
-    elif isinstance(b, torch.Tensor):
-        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), where
-    else:
-        assert a == b, where
-
-
 @pytest.mark.parametrize("case", ["f32", "f32_q8", "f32_latent", "q4k", "q4k_q8", "q4k_latent"])
 def test_deepseek_v2_loads_on_the_card_as_on_the_cpu(dev, tmp_path, case):
     """`load_model` of chip_smoke.write_deepseek_v2_ggmm's DEEPSEEK_V2_LIGHT
@@ -829,7 +874,7 @@ def test_deepseek_v2_loads_on_the_card_as_on_the_cpu(dev, tmp_path, case):
     rt = RuntimeConfig(compute_dtype=compute, cache_dtype=cache, mla_cache=mla_cache)
     card, cpu = load_model(str(path), rt, device=dev), load_model(str(path), rt, device="cpu")
     assert card.cfg == cpu.cfg and card.cfg.mla_compressed == (mla_cache == "memory")
-    _same_params(card.params, cpu.params)
+    chip_smoke.same_params(card.params, cpu.params)
 
     new = 16
     ids = cpu.tokenizer.encode("Hello from the card")
@@ -972,8 +1017,8 @@ def test_re_quantize_loads_on_the_card_as_on_the_cpu(dev, tmp_path, target):
     src = GGMLType.F32 if target == "q4_k" else None       # f32 -> q4_k, q4_k -> q8_0
     path = chip_smoke.write_llama3_ggmm(tmp_path / "m.bin", dtype=src)
     rt = RuntimeConfig(re_quantize=target)
-    _same_params(load_model(str(path), rt, device=dev).params,
-                 load_model(str(path), rt, device="cpu").params)
+    chip_smoke.same_params(load_model(str(path), rt, device=dev).params,
+                           load_model(str(path), rt, device="cpu").params)
 
 
 # --------------------------------------------------------------- InternVL

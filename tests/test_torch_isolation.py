@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chatllm_tpu_torch
+import chip_smoke
 
 ROOT = Path(__file__).resolve().parents[1]
 # PIL too: the card's machine has none (runtime/vision.py decodes and resizes
@@ -23,7 +24,8 @@ NEW_MODULES = ("bench", "experiments", "experiments.gemv_probe2", "models.qwen",
                "experiments.gemv_model_bench", "experiments.gemv_unpack",
                "experiments.qmm_m32", "experiments.timing",
                "experiments.qmm_unpack_variants", "experiments.bhsd_decode",
-               "nn.vit", "models.internvl", "runtime.vision")
+               "nn.vit", "models.internvl", "runtime.vision", "models.llama",
+               "models.deepseek", "models.synthetic")
 
 
 def _port_modules():
@@ -107,6 +109,20 @@ def test_internvl_entry_points_default_to_the_card(tmp_path):
               "{{image:x.png}} hi"])
     model = load_model(str(path), device="cpu")
     assert model.device.type == "cpu" and model.vis_params["embed"]["pos"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("family", list(chip_smoke.FAMILIES))
+def test_family_entry_points_default_to_the_card(tmp_path, family):
+    """Each family's GGMM, written by chip_smoke's writer (the port's), loads
+    on the card unless the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid here")
+    from chatllm_tpu_torch.models import load_model
+
+    path = chip_smoke.write_family_ggmm(tmp_path / "m.bin", family)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model(str(path))
+    assert load_model(str(path), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("probe", ["qmm_unpack_variants", "bhsd_decode"])

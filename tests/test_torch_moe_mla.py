@@ -3,6 +3,9 @@ package, on the CPU, from the same seeded numpy inputs (f32 throughout):
 
   - `moe_mlp` in every ported routing mode: the expert picks equal, the
     outputs within 1e-5 of their scale; the modes of other families raise;
+  - `_moe_combine` on the same picks without a shared expert (Qwen3-MoE),
+    with one (DeepSeek) and with Qwen2-MoE's sigmoid-gated one, in f32
+    (1e-5) and bf16 (2^-7 of the output scale);
   - `mla_attention_block` (expanded cache) and `_mla_compressed_block`
     (latent cache), prefill then decode, with a scalar and a per-row
     n_past: outputs within 1e-5 of their scale, caches within 1e-6 (q8
@@ -142,10 +145,43 @@ OTHER_MODES = {
     "swiglu_oai": ("cfg", dict(moe_act="swiglu_oai"), "GPT-OSS"),
     "router_scale": ("param", "router_scale", "Pangu-MoE"),
     "gate_linear_bias": ("param", "gate_linear_bias", "GPT-OSS"),
-    "shared_gate": ("param", "shared_gate", "Qwen2-MoE"),
     "small_experts": ("param", "small_experts", "GroveMoE"),
     "gate_b": ("expert", "gate_b", "GPT-OSS"),
 }
+
+
+# shared expert of _moe_combine: None (Qwen3-MoE), plain (DeepSeek), gated
+# by a sigmoid of x @ shared_gate (Qwen2-MoE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared", ["none", "plain", "gated"])
+def test_moe_combine_matches_the_jax_package(shared, dtype):
+    rng = np.random.default_rng(21)
+    jcfg, tcfg = _configs(moe_num_experts=E, moe_top_k=3)
+    jp, tp = _moe_params(rng)
+    if shared == "none":
+        del jp["shared"], tp["shared"]
+    elif shared == "gated":
+        jp["shared_gate"], tp["shared_gate"] = _dense(rng, H, 1, 0.5)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    for k in ("gate", "up", "down"):
+        jp["experts"][k] = jp["experts"][k].astype(jdt)
+        tp["experts"][k] = tp["experts"][k].to(tdt)
+    x = rng.standard_normal((2, 5, H)).astype(np.float32)
+    topi = np.stack([rng.permutation(E)[:3] for _ in range(10)])
+    topv = rng.random((10, 3)).astype(np.float32)
+    jx, tx = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+    want = np.asarray(jt._moe_combine(jcfg, jp, jx.reshape(10, H), jnp.asarray(topi),
+                                      jnp.asarray(topv), jx).astype(jnp.float32))
+    got = tt._moe_combine(tcfg, tp, tx.reshape(10, H), torch.from_numpy(topi),
+                          torch.from_numpy(topv), tx)
+    assert got.dtype == tdt
+    assert _rel(got.float().numpy(), want) <= (TOL if dtype == "float32" else 2.0 ** -7)
+    if shared == "gated":      # the gate moves the output
+        del tp["shared_gate"]
+        other = tt._moe_combine(tcfg, tp, tx.reshape(10, H), torch.from_numpy(topi),
+                                torch.from_numpy(topv), tx)
+        assert _rel(other.float().numpy(), want) > 1e-2
 
 
 @pytest.mark.parametrize("mode", list(OTHER_MODES))

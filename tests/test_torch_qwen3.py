@@ -11,8 +11,9 @@ heads of 64 over 2 kv heads, 2 layers):
     bound of the other q4_k model tests: bf16 rounding flips compound over
     the layers), over bf16, f32 and q8 caches, a tied head too; the greedy
     tokens of each are identical;
-  - the other qk-norm modes, Qwen3-MoE and the DeepSeek-R1 distill raise,
-    naming their families."""
+  - the other qk-norm modes raise, naming their families (Qwen3-MoE and
+    the DeepSeek-R1 distill load: tests/test_torch_qwen3_moe.py,
+    tests/test_torch_families.py)."""
 import dataclasses
 
 import numpy as np
@@ -26,7 +27,6 @@ import chip_smoke
 import chatllm_tpu.models as jm
 from chatllm_tpu.ggmm.quants import GGMLType
 from chatllm_tpu.ggmm.writer import GGMMWriter
-from chatllm_tpu.models.model_types import ModelType as JModelType
 from chatllm_tpu.runtime.generate import GenerationConfig as JGen
 import chatllm_tpu_torch.models as tm
 from chatllm_tpu_torch.nn.transformer import (LayerSpec, attention_block, init_cache,
@@ -160,14 +160,3 @@ def test_qk_norm_moves_the_logits(files):
         for l in t.params["layers"]))
     other = transformer_forward(t.cfg, params, ids, init_cache(t.cfg, 1, 8), 0)[0]
     assert not torch.allclose(base, other)
-
-
-@pytest.mark.parametrize("what", ["moe", "distill"])
-def test_unported_qwen3_variants_raise(tmp_path, what):
-    kw = (dict(experts=8) if what == "moe"
-          else dict(model_type=JModelType.DEEPSEEK_R1_DISTILL_QWEN3))
-    path = chip_smoke.write_internvl_ggmm(tmp_path / "m.bin", tower=False, layers=1,
-                                          dtype=GGMLType.F32, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="Qwen3-MoE" if what == "moe" else "DEEPSEEK_R1_DISTILL_QWEN3"):
-        tm.load_model(str(path), device="cpu")
