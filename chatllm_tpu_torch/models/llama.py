@@ -1,5 +1,6 @@
-"""Llama-3 family (counterpart of the JAX package's `models/llama.py`,
-LLAMA3, LLAMA3_1, LLAMA3_2 and DEEPSEEK_R1_DISTILL_LLAMA).
+"""Llama family (counterpart of the JAX package's `models/llama.py`, LLAMA2,
+LLAMA3, LLAMA3_1, LLAMA3_2 and DEEPSEEK_R1_DISTILL_LLAMA, and of CODELLAMA
+from its `models/aliases.py`).
 
 On-disk note: the converter permutes q/k projection rows into ggml's
 interleaved rope layout, so RoPE uses the interleaved ("normal") layout and
@@ -9,10 +10,10 @@ from __future__ import annotations
 
 import math
 
-from ..nn.transformer import TransformerConfig
+from ..nn.transformer import LayerSpec, TransformerConfig
 from ..ops.rope import ROPE_NORMAL, RopeConfig
 from ..runtime.chat import ChatTokenizer, HistoryEncoder
-from ..tokenizer.processor import BPEProcessor2
+from ..tokenizer.processor import BPEProcessor1, BPEProcessor2
 from .base import (BaseConfig, BaseLLM, ParamBuilder, RuntimeConfig,
                    load_llama_family_params, register_model)
 from .model_types import ModelType
@@ -20,6 +21,39 @@ from .model_types import ModelType
 LLAMA3_REGEX = [
     r"(?:'[sS]|'[tT]|'[rR][eE]|'[vV][eE]|'[mM]|'[lL][lL]|'[dD])|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+",
 ]
+
+DEFAULT_V2_SYS_PROMPT = (
+    "You are a helpful, respectful and honest assistant. Always answer as "
+    "helpfully as possible, while being safe.  Your answers should not include"
+    " any harmful, unethical, racist, sexist, toxic, dangerous, or illegal "
+    "content. Please ensure that your responses are socially unbiased and "
+    "positive in nature.\n\nIf a question does not make any sense, or is not "
+    "factually coherent, explain why instead of answering something not "
+    "correct. If you don't know the answer to a question, please don't share "
+    "false information.")
+
+
+class Llama2Encoder(HistoryEncoder):
+    """[INST] ... [/INST] template (chatllm.cpp models/llama.cpp:53-85)."""
+
+    def append_sys_prompt(self, ids):
+        tok = self.tokenizer
+        if tok.sys_prompt:
+            ids.append(tok.bos_token_id)
+            ids.extend(tok.encode(f"<<SYS>>\n{tok.sys_prompt}\n<</SYS>>\n\n"))
+
+    def append_user(self, round_idx, user, ids):
+        tok = self.tokenizer
+        ids.append(tok.bos_token_id)
+        ids.extend(tok.encode(f"[INST] {user}[/INST] "))
+
+    def append_ai(self, round_idx, ai, ids):
+        tok = self.tokenizer
+        ids.extend(tok.encode(ai))
+        ids.append(tok.eos_token_id)
+
+    def append_ai_opening(self, round_idx, ids):
+        pass
 
 
 class Llama3Encoder(HistoryEncoder):
@@ -70,6 +104,16 @@ class Llama3Encoder(HistoryEncoder):
         self._content(content, ids)
 
 
+def make_llama2_tokenizer(gf, base: BaseConfig) -> ChatTokenizer:
+    tp = BPEProcessor1()
+    tp.load(gf.tokenizer_reader(), base.vocab_size)
+    tok = ChatTokenizer(tp, Llama2Encoder(), sys_prompt=DEFAULT_V2_SYS_PROMPT)
+    tok.bos_token_id = base.bos_token_id
+    tok.eos_token_id = base.eos_token_id
+    tok.pad_token_id = tp.piece_to_id("<pad>")
+    return tok
+
+
 def make_llama3_tokenizer(gf, base: BaseConfig) -> ChatTokenizer:
     tp = BPEProcessor2(LLAMA3_REGEX)
     tp.load(gf.tokenizer_reader(), base.vocab_size)
@@ -110,10 +154,17 @@ def build_dense_config(base: BaseConfig, *, num_key_value_heads=None,
                        rope_theta=10000.0, rope_layout=ROPE_NORMAL,
                        head_dim=-1, tie_lm_head=False, norm_eps=1e-5,
                        freq_factors=None, qkv_bias=False, max_length=-1,
-                       cache_dtype="bfloat16") -> TransformerConfig:
+                       sliding_window=0, cache_dtype="bfloat16") -> TransformerConfig:
+    """The llama-family config; `sliding_window` > 0 gives every layer that
+    window (Mistral), whose cache is then a ring when window + SWA_EXTRA is
+    shorter than the context (nn/transformer.py)."""
     rope = RopeConfig(
         head_dim=(head_dim if head_dim > 0 else base.hidden_size // base.num_attention_heads),
         freq_base=rope_theta, layout=rope_layout, freq_factors=freq_factors)
+    specs = ()
+    if sliding_window > 0:
+        specs = tuple(LayerSpec(sliding_window=sliding_window)
+                      for _ in range(base.num_hidden_layers))
     return TransformerConfig(
         vocab_size=base.vocab_size,
         hidden_size=base.hidden_size,
@@ -127,8 +178,33 @@ def build_dense_config(base: BaseConfig, *, num_key_value_heads=None,
         rope=rope,
         qkv_bias=qkv_bias,
         tie_lm_head=tie_lm_head,
+        layer_specs=specs,
         cache_dtype=cache_dtype,
     )
+
+
+@register_model(ModelType.LLAMA2)
+class Llama2(BaseLLM):
+    EXTRA_FMT = ""      # the BaseConfig alone: rope theta 10000, kv heads = heads
+
+    @classmethod
+    def load(cls, gf, rt: RuntimeConfig, device):
+        base, extra = BaseConfig.parse(gf, cls.EXTRA_FMT)
+        cfg = build_dense_config(base, rope_theta=extra[0] if extra else 10000.0,
+                                 max_length=rt.max_length, cache_dtype=rt.cache_dtype)
+        tok = make_llama2_tokenizer(gf, base)
+        pb = ParamBuilder(gf, rt, device)
+        params = load_llama_family_params(pb, base.num_hidden_layers)
+        return cls(gf.model_type, cfg, params, tok, device)
+
+
+@register_model(ModelType.CODELLAMA)
+class CodeLlama(Llama2):
+    """Llama-2 with the file's rope theta (CodeLlama's 1e6; chatllm.cpp
+    models/codellama.h:5-8): the JAX package's CODELLAMA loader is
+    `models/aliases.py::CodeLlama`, whose registration replaces the one in
+    its `models/llama.py`."""
+    EXTRA_FMT = "f"
 
 
 @register_model(ModelType.LLAMA3, ModelType.LLAMA3_GROQ_TOOL)

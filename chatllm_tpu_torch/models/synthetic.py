@@ -12,7 +12,7 @@ import torch
 
 from ..nn.transformer import TransformerConfig
 from ..ops.qtensor import DenseLinear, QuantLinear
-from ..ops.rope import ROPE_NEOX, RopeConfig
+from ..ops.rope import ROPE_NEOX, ROPE_NORMAL, RopeConfig
 
 
 def _randint(gen, lo, hi, shape, dtype, device):
@@ -176,6 +176,27 @@ def llama3_8b_config(max_length: int = 8192) -> TransformerConfig:
         intermediate_size=14336, max_length=max_length,
         rope=RopeConfig(head_dim=128, freq_base=500000.0, layout=ROPE_NEOX),
         norm_eps=1e-5,
+    )
+
+
+def mistral_7b_config(max_length: int = 8192) -> TransformerConfig:
+    """Mistral-7B as published (Hugging Face `mistralai/Mistral-7B-v0.1`,
+    config.json): vocab_size 32000, hidden_size 4096, num_hidden_layers 32,
+    num_attention_heads 32, num_key_value_heads 8 (head_dim 128),
+    intermediate_size 14336, sliding_window 4096 on every layer, rope_theta
+    10000, max_position_embeddings 32768, tie_word_embeddings false; RMS eps
+    1e-6 and the interleaved rope layout, as the MISTRAL loader builds them
+    (models/mistral.py).  Only max_length is cut: at 8192 every layer's
+    cache is a ring of 4096 + SWA_EXTRA = 4608 slots; at 4608 or less the
+    same model takes the dense windowed route."""
+    from ..nn.transformer import LayerSpec
+
+    return TransformerConfig(
+        vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8,
+        intermediate_size=14336, max_length=max_length,
+        rope=RopeConfig(head_dim=128, freq_base=10000.0, layout=ROPE_NORMAL),
+        norm_eps=1e-6, layer_specs=tuple(LayerSpec(sliding_window=4096) for _ in range(32)),
     )
 
 

@@ -1,8 +1,8 @@
 """Decoder-only transformer core, main-path subset of the JAX package's
 `nn/transformer.py`: config, KV cache, pre-norm decoder layer (separate
 q/k/v projections, RoPE, GQA attention, SwiGLU MLP), the DeepSeek family's
-multi-head latent attention (both cache modes) and sparse MoE FFN, and the
-model forward.
+multi-head latent attention (both cache modes) and sparse MoE FFN, the
+sliding-window ring cache, and the model forward.
 
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
 "final_norm" {"w"}, "layers" (a tuple of per-layer dicts) and "lm_head";
@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import (NEG_INF, _key_bound, _rows_write, attention_with_cache,
-                             update_kv_cache)
+                             quantize_kv, update_kv_cache)
 from ..ops.norm import rms_norm
 from ..ops.qmm import dot_f32, matmul
 from ..ops.rope import RopeConfig, apply_rope, precompute_rope_cache
@@ -30,8 +30,9 @@ from ..ops.rope import RopeConfig, apply_rope, precompute_rope_cache
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """Static per-layer variation: full-attention rope layers, dense or MoE
-    FFN (the JAX package's other fields come with their ports)."""
+    """Static per-layer variation: rope layers with full or sliding-window
+    attention, dense or MoE FFN (the JAX package's other fields come with
+    their ports)."""
     sliding_window: int = 0        # 0 = full attention
     use_rope: bool = True
     is_moe: bool = False           # sparse MoE FFN (moe_mlp) instead of the dense one
@@ -102,10 +103,21 @@ class TransformerConfig:
 
 QUANTIZED_CACHE_DTYPES = ("int8", "q8_0", "q8")
 
+# Ring headroom of sliding-window layers (chatllm.cpp allocates
+# sliding_window_len + extra_len, default 512, src/layers.h:1973): a layer of
+# window w holds min(max_len, w + SWA_EXTRA) slots.  Without it, a prefill
+# chunk written into a ring of exactly w slots would overwrite keys that its
+# own earlier queries still see; the engines cap prefill chunks of such
+# models to SWA_EXTRA tokens (runtime/generate.py, runtime/batching.py), so a
+# chunk never does.  Read at call time, as the JAX package reads it.
+SWA_EXTRA = 512
+
 
 @dataclass
 class KVCache:
-    """Per-layer K/V tensors, [n_layers][B, S, H_kv, D], written in place.
+    """Per-layer K/V tensors, [n_layers][B, S_layer, H_kv, D], written in
+    place.  A sliding-window layer shorter than the model's context is a
+    ring (`is_ring`): position p lives in slot p mod S_layer.
 
     Quantized mode (`--cache_dtype q8_0`): k/v are int8 with per-(token,
     head) f32 scales in k_scale/v_scale [n_layers][B, S, H_kv]; attention
@@ -130,6 +142,20 @@ def cache_dims(cfg: TransformerConfig) -> tuple[int, int, int]:
     return cfg.num_key_value_heads, d, d
 
 
+def layer_slots(spec: LayerSpec, max_len: int) -> int:
+    """Slots of a layer's cache: `max_len`, or a sliding-window layer's
+    window + SWA_EXTRA when that is shorter."""
+    if spec.sliding_window <= 0:
+        return max_len
+    return min(max_len, spec.sliding_window + SWA_EXTRA)
+
+
+def is_ring(cfg: TransformerConfig, spec: LayerSpec, slots: int) -> bool:
+    """A sliding-window layer whose cache is shorter than the model's
+    context: ring-written, as in the JAX package's attention_block."""
+    return spec.sliding_window > 0 and slots < cfg.max_length
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
                *, device="cpu") -> KVCache:
     from ..device import torch_dtype
@@ -138,17 +164,15 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
     quantized = cfg.cache_dtype in QUANTIZED_CACHE_DTYPES
     dtype = torch.int8 if quantized else torch_dtype(cfg.cache_dtype)
     n_kv, dk, dv = cache_dims(cfg)
-    n = cfg.num_hidden_layers
+    slots = [layer_slots(cfg.layer_spec(i), max_len) for i in range(cfg.num_hidden_layers)]
 
-    def zeros(shp, dt):
-        return [torch.zeros(shp, dtype=dt, device=device) for _ in range(n)]
+    def zeros(width, dt):
+        return [torch.zeros((batch, s, n_kv, *width), dtype=dt, device=device) for s in slots]
 
-    k = zeros((batch, max_len, n_kv, dk), dtype)
-    v = zeros((batch, max_len, n_kv, dv), dtype)
+    k, v = zeros((dk,), dtype), zeros((dv,), dtype)
     if not quantized:
         return KVCache(k=k, v=v)
-    return KVCache(k=k, v=v, k_scale=zeros((batch, max_len, n_kv), torch.float32),
-                   v_scale=zeros((batch, max_len, n_kv), torch.float32))
+    return KVCache(k=k, v=v, k_scale=zeros((), torch.float32), v_scale=zeros((), torch.float32))
 
 
 _ACTS = {"silu": F.silu}          # the Llama family's; others come with theirs
@@ -308,13 +332,93 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
         rc = cfg.rope
         q = apply_rope(q, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
         k = apply_rope(k, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
-    update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
     scale = cfg.attention_scale if cfg.attention_scale > 0 else d ** -0.5
-    out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale,
-                               causal=cfg.causal, sliding_window=spec.sliding_window,
-                               k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
+    if is_ring(cfg, spec, k_cache.shape[1]):
+        # ring cache (chatllm.cpp's partial cache, src/layers.h:1973): every
+        # offset form writes modulo the ring, and the whole ring is read
+        ring_write(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
+        out = _ring_attention(cfg, spec, q, k_cache, v_cache, n_past, T, scale,
+                              k_scale, v_scale, sinks=p.get("sinks"))
+    else:
+        if "sinks" in p:
+            raise NotImplementedError("attention sinks outside a ring layer (GPT-OSS) are not "
+                                      "ported to chatllm_tpu_torch yet (ROADMAP.md section 1, "
+                                      "item 4)")
+        update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
+        out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale,
+                                   causal=cfg.causal, sliding_window=spec.sliding_window,
+                                   k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
     out = out.reshape(B, T, hq * d)
     return matmul(out, p["o"]).to(x.dtype)
+
+
+def _offsets(n_past, B: int, device) -> torch.Tensor:
+    """Each row's offset as an int64 [B] tensor on `device` (from an int, a
+    0-d or a [B] tensor; a device one is never read back)."""
+    if isinstance(n_past, torch.Tensor):
+        return n_past.reshape(-1).expand(B)
+    return torch.full((B,), n_past, dtype=torch.int64, device=device)
+
+
+def ring_write(k_cache, v_cache, k, v, n_past, k_scale=None, v_scale=None):
+    """Write new K/V ([B, T, H, D]) into a ring at positions n_past + t
+    modulo its S slots, in place (and their scales, for a q8 cache): the JAX
+    package's `jnp.mod(n_past + t, S)` scatter.  Unlike update_kv_cache no
+    row is dropped: a decode block's speculative steps past the frontier
+    wrap too, onto slots whose keys have left every window (the SWA_EXTRA
+    headroom).  `n_past` is an int, a 0-d or an int64 [B] tensor."""
+    B, T = k.shape[:2]
+    S = k_cache.shape[1]
+    dev = k_cache.device
+    if k_scale is not None:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, T)
+    pos = (_offsets(n_past, B, dev)[:, None] + torch.arange(T, device=dev)) % S     # [B, T]
+    k_cache[b_idx, pos] = k.to(k_cache.dtype)
+    v_cache[b_idx, pos] = v.to(v_cache.dtype)
+    if k_scale is not None:
+        k_scale[b_idx, pos] = ks
+        v_scale[b_idx, pos] = vs
+
+
+def _ring_attention(cfg: TransformerConfig, spec: LayerSpec, q, k_cache, v_cache, n_past,
+                    T: int, scale: float, k_scale=None, v_scale=None, sinks=None):
+    """Attention over a ring of S slots (the JAX package's _ring_attention):
+    each slot's absolute position is rebuilt from its index and the row's
+    n_past + T (the latest write to slot j, -1 while unwritten), and masks
+    the causal window; keys carry their absolute-position rope.  Scores and
+    values in f32 over the whole ring; the q8 scales fold into the scores
+    and probabilities.  `sinks` (one logit per query head) joins the softmax
+    denominator.  Everything is computed on the device, so a captured decode
+    block replays with the positions of its device n_past."""
+    B, _, hq, d = q.shape
+    S, hkv = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    npv = _offsets(n_past, B, dev)[:, None]                               # [B, 1]
+    slot = torch.arange(S, device=dev)[None, :]                          # [1, S]
+    k_pos = slot + torch.div(npv + T - 1 - slot, S, rounding_mode="floor") * S
+    k_pos = torch.where(k_pos < 0, -1, k_pos)[:, None, :]                # [B, 1, S]
+    q_pos = (npv + torch.arange(T, device=dev)[None, :])[..., None]      # [B, T, 1]
+    valid = (k_pos >= 0) & (k_pos <= q_pos)
+    if spec.sliding_window > 0:
+        valid = valid & (k_pos > q_pos - spec.sliding_window)
+    mask = torch.where(valid, 0.0, NEG_INF)                              # [B, T, S]
+    qg = q.reshape(B, T, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k_cache.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
+    scores = scores + mask[:, None, None]
+    if sinks is not None:
+        sk = sinks.float().reshape(1, hkv, hq // hkv, 1, 1).expand(*scores.shape[:-1], 1)
+        all_scores = torch.cat([scores, sk], dim=-1)
+        e = torch.exp(all_scores - all_scores.amax(dim=-1, keepdim=True))
+        p = e[..., :-1] / e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.transpose(1, 2)[:, :, None, None, :]
+    out = torch.einsum("bhgts,bshd->bthgd", p, v_cache.float())
+    return out.reshape(B, T, hq, d).to(q.dtype)
 
 
 def _mla_query(cfg: TransformerConfig, p, x):
@@ -445,9 +549,10 @@ def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor | None
     (bucketed prefill: the last real token sits at n_valid - 1 inside the
     right-padded chunk), so the vocab projection runs on one row.  With a
     tensor `n_past`, `kv_len` bounds the keys attention reads (None: the
-    whole cache).  `input_embeds` [B, T, H] replaces the token lookup
-    (multimodal prompts splice projected media embeddings between the text
-    embeddings); positions stay n_past + arange(T)."""
+    whole cache); ring layers are always read whole.  `input_embeds`
+    [B, T, H] replaces the token lookup (multimodal prompts splice projected
+    media embeddings between the text embeddings); positions stay
+    n_past + arange(T)."""
     if input_embeds is not None:
         x = input_embeds
         B, T = x.shape[:2]

@@ -3,13 +3,17 @@ batched KV cache (counterpart of the JAX package's `runtime/batching.py`).
 
   - every slot has its own causal frontier: a per-slot `n_past` int64 [B]
     tensor on the device drives per-row RoPE positions, per-row cache
-    writes (rows past capacity are dropped) and per-row attention masks
+    writes (rows past capacity are dropped; a sliding-window ring wraps
+    them, nn/transformer.py::ring_write) and per-row attention masks
     (ops/attention.py: K4 over a q8 cache, `_batched_npast_attention`
-    otherwise);
+    otherwise; a ring rebuilds each row's key positions from its own
+    n_past, `_ring_attention`);
   - prefill runs slot by slot between decode blocks: the new prompt goes
     through a B=1 forward against a [slot:slot+1] view of each layer's
     cache, so it is written in place and running streams are never
-    re-padded or interrupted;
+    re-padded or interrupted; with ring layers a chunk is at most SWA_EXTRA
+    tokens (runtime/generate.py::swa_chunk_cap), bucket padding included,
+    so its writes never wrap onto keys a query of the chunk still sees;
   - decode runs `decode_block` batched steps on the device and reads the
     block's tokens back once (the JAX package scans the block on the
     device): the scheduler writes each slot's token, n_past and whether it
@@ -23,7 +27,7 @@ batched KV cache (counterpart of the JAX package's `runtime/batching.py`).
     slot's token from that slot's `torch.Generator` (seeded by its
     request, registered with every graph) with that slot's penalty ring.
 
-The SWA ring cache and the device mesh of the JAX engine are not ported.
+The device mesh of the JAX engine is not ported.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import torch
 from ..nn.transformer import KVCache, TransformerConfig, init_cache, transformer_forward
 from ..ops.sampling import PenaltyState, SamplerConfig, penalty_accept, sample_token
 from .decode_graph import BlockDecoder
-from .generate import _fit_bucket
+from .generate import _fit_bucket, swa_chunk_cap
 
 PREFILL_CHUNK = 1024
 
@@ -76,9 +80,9 @@ class StreamHandle:
 class BatchedEngine:
     """Slot scheduler + batched decode for one model on one device.
 
-    Scope: causal full-attention text models (the port's decoder, MLA in its
-    expanded mode), one SamplerConfig per engine (per-request max_new and
-    seed are honoured)."""
+    Scope: causal text models with full attention or sliding-window rings
+    (the port's decoder, MLA in its expanded mode), one SamplerConfig per
+    engine (per-request max_new and seed are honoured)."""
 
     def __init__(self, cfg: TransformerConfig, params, *, max_slots: int = 4,
                  max_length: int | None = None, decode_block: int = 8,
@@ -94,6 +98,7 @@ class BatchedEngine:
         self.decode_block = decode_block
         self.scfg = scfg or SamplerConfig()
         self.sampled = self.scfg.do_sample and self.scfg.sampling != "greedy"
+        self._chunk_cap = swa_chunk_cap(cfg, self.max_length)
         B, dev = max_slots, self.device
         self.cache = init_cache(cfg, B, self.max_length, device=dev)
         self.n_past = np.zeros(B, np.int64)
@@ -186,9 +191,10 @@ class BatchedEngine:
             row.k_scale = [t[slot:slot + 1] for t in self.cache.k_scale]
             row.v_scale = [t[slot:slot + 1] for t in self.cache.v_scale]
         n_past, logits = 0, None
+        chunk = min(PREFILL_CHUNK, self._chunk_cap or PREFILL_CHUNK)
         while n_past < T:
-            n = min(PREFILL_CHUNK, T - n_past)
-            tpad = _fit_bucket(n, self.max_length - n_past, hi=PREFILL_CHUNK)
+            n = min(chunk, T - n_past)
+            tpad = _fit_bucket(n, self.max_length - n_past, hi=chunk)
             n = min(n, tpad)
             buf = np.zeros((1, tpad), np.int64)
             buf[:, :n] = ids[:, n_past:n_past + n]

@@ -13,6 +13,11 @@ cache (counterpart of the JAX package's `runtime/generate.py`).
     context are speculative (their cache writes past the cache are dropped,
     the others are overwritten by the next block), terminators are checked
     on the host after each block, and `should_stop()` between blocks.
+  - Sliding-window models keep their windowed layers in rings of window +
+    SWA_EXTRA slots (nn/transformer.py) when that is shorter than the
+    context: prefill chunks are then capped to SWA_EXTRA tokens, rings do not
+    bound the room a prompt has (only full-attention layers do), and ring
+    layers are read whole by every decode block.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..nn.transformer import KVCache, TransformerConfig, init_cache, transformer_forward
+from ..nn import transformer as tr
+from ..nn.transformer import (KVCache, TransformerConfig, init_cache, is_ring,
+                              transformer_forward)
 from ..ops.attention import quantize_kv
 from ..ops.rope import apply_rope, precompute_rope_cache, rope_mscale
 from ..ops.sampling import SamplerConfig, penalty_accept, sample_token
@@ -96,6 +103,19 @@ def _fit_bucket(n: int, room: int, hi: int) -> int:
     return b if b <= room else room
 
 
+def swa_chunk_cap(cfg: TransformerConfig, max_length: int) -> int:
+    """The prefill chunk cap of a model with ring layers: SWA_EXTRA when a
+    layer's window + SWA_EXTRA is shorter than `max_length` (its ring then
+    wraps), else 0 (no cap).  A chunk of at most SWA_EXTRA tokens, bucket
+    padding included, overwrites only keys that have left every window of
+    its queries."""
+    for i in range(cfg.num_hidden_layers):
+        w = cfg.layer_spec(i).sliding_window
+        if 0 < w and w + tr.SWA_EXTRA < max_length:
+            return tr.SWA_EXTRA
+    return 0
+
+
 class _Emitter:
     """Streams accepted tokens while supporting multi-token terminator
     sequences: the last len(seq)-1 tokens are held back until they can no
@@ -143,15 +163,36 @@ class InferenceEngine:
         self.max_length = max_length if max_length > 0 else cfg.max_length
         self.decode_block = decode_block
         self.prefill_chunk = 4096       # the CLI's -Os sets 512
+        self._chunk_cap = swa_chunk_cap(cfg, cfg.max_length)
         self.decoder = BlockDecoder(cfg, params, self.device, graphs=cuda_graphs)
 
     def new_cache(self, batch: int = 1, max_len: int | None = None) -> KVCache:
         return init_cache(self.cfg, batch, max_len or self.max_length, device=self.device)
 
+    def _dense_slots(self, cache: KVCache) -> Optional[int]:
+        """The smallest full-attention layer's slots, None when every layer is
+        a ring."""
+        sizes = [t.shape[1] for i, t in enumerate(cache.k)
+                 if not is_ring(self.cfg, self.cfg.layer_spec(i), t.shape[1])]
+        return min(sizes) if sizes else None
+
+    def _write_capacity(self, cache: KVCache) -> int:
+        """Positions a prompt may fill: the smallest full-attention layer's
+        slots.  Rings wrap and do not bound it."""
+        dense = self._dense_slots(cache)
+        return self.max_length if dense is None else dense
+
+    def decode_kv_len(self, cache: KVCache, end: int) -> Optional[int]:
+        """The KV bucket of a decode block whose last step sees keys below
+        `end` (runtime/decode_graph.py::kv_bucket over the full-attention
+        layers); None when every layer is a ring, which is read whole."""
+        dense = self._dense_slots(cache)
+        return None if dense is None else kv_bucket(end, dense)
+
     def shift_cache(self, cache: KVCache, shift: int, keep: int, n_past: int) -> KVCache:
         """Context-extension Shift in place (`shift_cache` below); returns the
         same cache."""
-        return shift_cache(self.cfg, cache, shift, keep)
+        return shift_cache(self.cfg, cache, shift, keep, n_past=n_past)
 
     @torch.inference_mode()
     def prefill(self, ids, cache: KVCache, n_past: int, *, chunk: int | None = None):
@@ -160,9 +201,11 @@ class InferenceEngine:
         The chunk defaults to `prefill_chunk`: `generate` passes the
         config's batch_size, so only `Pipeline.eval_sys_prompt` reads it."""
         chunk = chunk or self.prefill_chunk
+        if self._chunk_cap:
+            chunk = min(chunk, self._chunk_cap)
         ids = np.atleast_2d(np.asarray(ids, dtype=np.int64))
         B, T = ids.shape
-        cache_len = cache.k[0].shape[1]
+        cache_len = self._write_capacity(cache)
         if n_past + T > cache_len:
             # keep the most recent tokens that fit (callers normally truncate
             # upstream via encode_history; this is the last-resort guard)
@@ -189,11 +232,11 @@ class InferenceEngine:
                        positions=None, extra_residuals=None, ple_ids=None):
         """Prefill from given input embeddings [1, T, H] (multimodal prompts
         with spliced media embeddings).  Returns (last-token logits [1, V]
-        f32, cache, n_past).  A prompt longer than the room left is fed in
-        chunks of that room; a chunk is zero-padded to its bucket and the
-        lm_head runs on its last real row.  Explicit positions (M-RoPE),
-        DeepStack residuals and per-layer-embedding ids belong to models not
-        ported yet: they raise, naming them."""
+        f32, cache, n_past).  A prompt longer than the room left (or than the
+        ring chunk cap) is fed in chunks of that size; a chunk is zero-padded
+        to its bucket and the lm_head runs on its last real row.  Explicit
+        positions (M-RoPE), DeepStack residuals and per-layer-embedding ids
+        belong to models not ported yet: they raise, naming them."""
         for arg, what in ((positions, "explicit positions (Qwen-VL's M-RoPE)"),
                           (extra_residuals, "extra_residuals (Qwen3-VL's DeepStack)"),
                           (ple_ids, "ple_ids (Gemma4's per-layer embeddings)")):
@@ -201,11 +244,12 @@ class InferenceEngine:
                 raise NotImplementedError(f"prefill_embeds: {what} are not ported to "
                                           "chatllm_tpu_torch yet (ROADMAP.md section 1, M17)")
         T = embeds.shape[1]
-        room = max(1, cache.k[0].shape[1] - n_past)
-        if T > room:
+        room = max(1, self._write_capacity(cache) - n_past)
+        cap = min(self._chunk_cap or T, room)
+        if T > cap:
             logits, done = None, 0
             while done < T:
-                n = min(room, T - done)
+                n = min(cap, T - done)
                 logits, cache, n_past = self.prefill_embeds(embeds[:, done:done + n], cache,
                                                             n_past)
                 done += n
@@ -302,11 +346,10 @@ class InferenceEngine:
         block = max(1, min(self.decode_block, max_new))
         st.tok.copy_(tok.reshape(1, 1))
         st.n_past.fill_(n_past)
-        cache_len = cache.k[0].shape[1]
         while not done and len(out) < max_new and n_past + 1 < max_len and not should_stop():
             steps = min(block, max_new - len(out), max_len - 1 - n_past)
             toks = self.decoder.run(st, cache, scfg, block,
-                                    kv_bucket(n_past + block, cache_len))
+                                    self.decode_kv_len(cache, n_past + block))
             toks = toks[:, 0].cpu().tolist()            # one read-back per block
             for t in toks[:steps]:
                 n_past += 1
@@ -324,7 +367,8 @@ class InferenceEngine:
 
 
 @torch.inference_mode()
-def shift_cache(cfg: TransformerConfig, cache: KVCache, shift: int, keep: int) -> KVCache:
+def shift_cache(cfg: TransformerConfig, cache: KVCache, shift: int, keep: int,
+                n_past: Optional[int] = None) -> KVCache:
     """Context-extension Shift, in place (the JAX package's
     `InferenceEngine.shift_cache`): rows below `keep` stay, row p >= keep
     takes row min(p + shift, S - 1), V moves verbatim and the moved keys of
@@ -335,7 +379,20 @@ def shift_cache(cfg: TransformerConfig, cache: KVCache, shift: int, keep: int) -
 
     The result is written into the cache's own tensors (gather, then copy),
     so the decoder's CUDA graphs, keyed by the cache's storage, replay on it.
-    Returns the same cache."""
+    Returns the same cache.
+
+    A ring that has wrapped (`n_past` past its slots, or unknown) is refused:
+    its slots no longer hold positions in order, and the JAX package's
+    slot-by-slot move leaves the kept slots and the clamped tail holding the
+    wrong positions (ROADMAP.md section 3, "Shift over a ring").  A ring that
+    has not wrapped is shifted as a full-attention cache, as there."""
+    for i, k in enumerate(cache.k):
+        S = k.shape[1]
+        if is_ring(cfg, cfg.layer_spec(i), S) and (n_past is None or n_past > S):
+            raise NotImplementedError(
+                f"Shift extending over a wrapped sliding-window ring (layer {i}: {S} slots, "
+                f"n_past {n_past}): the slots no longer hold positions in order; use "
+                "--extending restart or none")
     if cfg.mla is not None:
         raise NotImplementedError(
             "Shift extending over an MLA cache: the reference re-rotates the first "

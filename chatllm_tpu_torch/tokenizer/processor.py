@@ -1,18 +1,19 @@
-"""Byte-exact byte-level BPE tokenizer (pure Python).
+"""Byte-exact BPE tokenizers (pure Python).
 
-Copy of `BPEProcessor2` and the vocab machinery it needs from the JAX
-package's tokenizer, with two changes that keep it free of packages outside
-the standard library:
+Copy of `BPEProcessor1` (SentencePiece-score merges: Llama-2, Mistral),
+`BPEProcessor2` (byte-level BPE with merge ranks) and the vocab machinery
+they need from the JAX package's tokenizer, with two changes that keep it
+free of packages outside the standard library:
 
-  - the merge runs in Python only (no native merge engine);
+  - the merges run in Python only (no native merge engine);
   - the pre-split regexes use `re` instead of the `regex` package.  `re` has
     no `\\p{..}` classes and its `\\s` also matches U+001C..U+001F, so
     `compile_unicode_regex` rewrites `\\p{X}` into explicit code-point
     ranges built from `unicodedata`, and `\\s`/`\\S` into the Unicode
     White_Space set that `regex` uses.
 
-Parity anchors: chatllm.cpp src/tokenizer.cpp (llm_bpe_tokenizer:492,
-load_vocab_list:330, Processor::Encode:225).
+Parity anchors: chatllm.cpp src/tokenizer.cpp (llama_sp_tokenizer:54,
+llm_bpe_tokenizer:492, load_vocab_list:330, Processor::Encode:225).
 """
 from __future__ import annotations
 
@@ -412,6 +413,78 @@ class Processor:
         for rec_id, rec in enumerate(self.vocab.id_to_token):
             if rec.type != TokenType.NORMAL:
                 self.vocab.special_tokens[rec_id] = rec.tok
+
+
+class BPEProcessor1(Processor):
+    """SentencePiece-score BPE (chatllm.cpp llama_sp_tokenizer parity): the
+    text's utf-8 characters are merged pairwise, highest vocab score first
+    (ties: the leftmost pair), while the merged bytes are a vocab piece.  A
+    piece left over outside the vocab falls back to its bytes, token
+    `byte + 3` each (llama.cpp's convention: ids 3..258 are <0x00>..<0xFF>).
+    No pre-processor: spaces are plain bytes, as the converter writes the
+    pieces' U+2581 as " "."""
+
+    def load(self, reader, n_vocab: int) -> int:
+        start = reader.off
+        self.piece_size = load_vocab_list(self.vocab, reader, True, False, 0)
+        del self.vocab.id_to_token[self.piece_size :]
+        return reader.off - start
+
+    def _do_encode(self, text: bytes, ids: list[int]):
+        if not text:
+            return
+        v = self.vocab
+        # symbols: (start, length) over the bytes, a linked list via prev / nxt
+        lens = utf8_char_lengths(text)
+        n = len(lens)
+        start = []
+        off = 0
+        for ln in lens:
+            start.append(off)
+            off += ln
+        length = lens[:]
+        prev = list(range(-1, n - 1))
+        nxt = [i + 1 if start[i] + length[i] < len(text) else -1 for i in range(n)]
+
+        heap: list[tuple[float, int, int, int, int]] = []
+        counter = 0
+
+        def try_add_bigram(left: int, right: int):
+            nonlocal counter
+            if left == -1 or right == -1:
+                return
+            cand = text[start[left] : start[right] + length[right]]
+            tid = v.token_to_id.get(cand)
+            if tid is None or tid >= len(v.id_to_token):
+                return
+            # a max-heap on the score; ties: the smaller left index
+            heapq.heappush(heap, (-v.id_to_token[tid].score, left, counter, right, len(cand)))
+            counter += 1
+
+        for i in range(1, n):
+            try_add_bigram(i - 1, i)
+
+        while heap:
+            _, left, _, right, size = heapq.heappop(heap)
+            if length[left] == 0 or length[right] == 0 or length[left] + length[right] != size:
+                continue
+            length[left] += length[right]
+            length[right] = 0
+            nxt[left] = nxt[right]
+            if nxt[right] >= 0:
+                prev[nxt[right]] = left
+            try_add_bigram(prev[left], left)
+            try_add_bigram(left, nxt[left])
+
+        i = 0
+        while i != -1:
+            piece = text[start[i] : start[i] + length[i]]
+            tid = v.token_to_id.get(piece)
+            if tid is None:
+                ids.extend(b + 3 for b in piece)
+            else:
+                ids.append(tid)
+            i = nxt[i]
 
 
 class BPEProcessor2(Processor):

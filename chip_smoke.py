@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              expanded MLA cache (K 192, V 128, f32 dots), K1, K3 (mode 2) and
              K4 at InternVL3.5-8B's Qwen3-8B shapes (FFN 12288, lm_head N
              151936, the 3424-token image prefill, a q8 decode step at n_past
-             3440), K1 and K2 at Qwen3-30B-A3B's projections (K 2048, its
+             3440), K1 (timed) and K2 at Mistral-7B's 32000-column lm_head,
+             K3 (mode 2 timed) at its dense windowed route's prefill chunks
+             and K4 at its q8 decode step (window 4096 in a 4608-slot cache),
+             K1 and K2 at Qwen3-30B-A3B's projections (K 2048, its
              128-column router, lm_head N 151936; K2 at the server's 2
              rows), K3 (mode 2 timed) at its 512- and 2048-token chunks and
              K4 over a q8 cache at its GQA group of 8 (32 query heads over
@@ -138,13 +141,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              launch counts (168 quantized projections per token), its 2-layer
              cuts against the CPU (1e-2 of the logit scale, same argmax), and
              graph_decode at its width.
-     deepseek_v2_lite  full-width DeepSeek-V2-Lite (27 layers, MLA, 64
+     deepseek_v2_lite  full-width DeepSeek-V2-Lite cut to DSV2_DEPTH = 10 of
+             its 27 layers (MLA, 64
              routed experts + 2 shared, top-6; random zero-centred q4_k
-             projections and 28.8 GB of bf16 expert stacks from a seed,
+             projections and bf16 expert stacks from a seed,
              max_length 8192; `deepseek_phase`): the 1000-token prompt and 64
              greedy tokens over a bf16 cache, uncaptured and replayed (tokens
-             identical, K1 215 launches per replayed step), over a q8 cache
-             (K4 at (192, 128) 27 times per step, one block profiled) and
+             identical, K1 8 L - 1 launches per replayed step), over a q8 cache
+             (K4 at (192, 128) once per layer and step, one block profiled) and
              with K4 off; the latent MLA cache (256 tokens, 16 new); 2-layer
              cuts against the CPU (router scores within 1e-2, at least 0.9
              of the tokens with the same expert picks and the others on
@@ -163,27 +167,53 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              image_url request with a data URI answers as chat_image does;
              2-layer cuts of the tower and of the LLM over the spliced
              embeddings against the CPU.
-     qwen3_30b_a3b  full-width, full-depth Qwen3-30B-A3B (`qwen3_a3b_phase`:
-             48 MoE layers of 128 experts, top-8, no shared expert, 32 query
+     qwen3_30b_a3b  full-width Qwen3-30B-A3B cut to A3B_DEPTH = 16 of its 48
+             MoE layers (`qwen3_a3b_phase`:
+             128 experts, top-8, no shared expert, 32 query
              heads over 4 kv heads, random zero-centred q4_k projections and
-             57.98 GB of bf16 expert stacks from a seed, max_length 8192;
+             bf16 expert stacks from a seed, max_length 8192;
              every earlier phase's model freed first): prefill of 512 and
-             2048 tokens (K3 mode 2, 48 launches a chunk), the 1000-token
+             2048 tokens (K3 mode 2, one launch a layer and chunk), the 1000-token
              prompt and 64 greedy tokens over bf16 and q8 caches, eager and
-             replayed (tokens identical; K1 241 and, over q8, K4 48 launches
+             replayed (tokens identical; K1 5 L + 1 and, over q8, K4 L launches
              per step), peak memory, one q8 block profiled, one MoE layer's
              expert products timed; 2-layer cuts against the CPU (router
              scores, picks and logits with DeepSeek-V2-Lite's bounds); a
              2-slot q8 server (two requests, concurrent replies equal to
              sequential ones; K2 and K4 launched).
+     mistral_7b  full-width, full-depth Mistral-7B (`mistral_phase`: 32
+             layers of sliding window 4096, vocab 32000, random q4_k weights
+             from seed 0).  The ring route (max_length 8192: 32 rings of
+             4096 + SWA_EXTRA = 4608 slots) over bf16 and q8 caches: a
+             4480-token prompt in chunks of 512 and 512 greedy tokens, so
+             decode crosses the wrap, replayed from one CUDA graph (K1 225
+             launches per launched step and one per prefill chunk, no K3,
+             no K4), one block past the wrap profiled, the uncaptured loop's
+             first 192 tokens equal to the replayed ones.  The dense windowed
+             route (max_length 4608, no ring): the prompt's bf16 prefill (K3
+             mode 2 with window 4096, 64 launches; its last logits within 2e-2
+             of the ring route's), a q8 decode from n_past 4480 (K4 with
+             window 4096 on every layer of every launched step).  The
+             server's BatchedEngine, 2 slots over q8 rings: two staggered
+             requests of 4560 and 4590 tokens, 64 greedy tokens each, wrapping
+             at different ring phases, each equal to the single-stream
+             engine's tokens (K2 225 launches per batched step).  A 2-layer
+             cut against the CPU over 4720 positions and 2 decode steps
+             across the wrap, bf16 (1e-3 of the logit scale) and q8 rings
+             (4e-3; layer 0's int8 entries at most one step from the CPU's).
+             Params and peak device memory printed.
      families  a narrow GGMM of every model type that runs on blocks
              already on the card (FAMILIES: LLAMA3_2, the DeepSeek-R1
              distills over Llama, Qwen2 and Qwen3, Qwen3-MoE, Qwen2-MoE,
-             DeepSeek V1 and V1-MoE, DeepSeek-V3, Moonlight, V3-Light) in f32
-             and q4_k, loaded on the card and the CPU (`families_phase`):
-             config and weights bit-equal, logits within 1e-4 (f32) or 2e-2
-             (q4_k) of the CPU's; the narrow Qwen3-MoE chats through `main.py
-             --test` on the card and the CPU with equal transcripts.
+             DeepSeek V1 and V1-MoE, DeepSeek-V3, Moonlight, V3-Light,
+             Llama-2, CodeLlama, Mistral and Mixtral over rings of 576 slots
+             that their 640-token prompt wraps, Mistral2 with 128-wide heads)
+             in f32 and q4_k, loaded on the card and the CPU
+             (`families_phase`): config and weights bit-equal, logits within
+             1e-4 (f32) or 2e-2 (q4_k) of the CPU's; the narrow Qwen3-MoE and
+             each of the five new families chat through `main.py --test` on
+             the card and the CPU with equal transcripts (the ring families'
+             turns wrap their rings).
   8. cli     write narrow LLAMA3, Qwen2 and DEEPSEEK_V2_LIGHT GGMMs with the
              port's writer and chat through `python -m chatllm_tpu_torch.main`
              twice each (bf16 cache; --cache_dtype q8_0; Qwen2 with ChatML
@@ -203,7 +233,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              A narrow INTERN_VL GGMM (q4_k Qwen3 behind a 2-layer InternViT)
              asked about a 120 x 90 PNG through --multimedia_file_tags on the
              card and with --device cpu: byte-identical transcripts.
-             The 21 calls run four processes at a time (`_run_cli`; the two
+             The 21 calls run six processes at a time (`_run_cli`; the two
              --load_session calls after the rest).
   9. e2      `chatllm_tpu_torch.experiments.gemv_probe2.main`, all six
              variants.
@@ -256,6 +286,11 @@ SHAPES_8B = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
 PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}
 N_LAYERS = 32
 DSV2_LAYERS = 27                   # DeepSeek-V2-Lite
+# The depth the DeepSeek-V2-Lite and Qwen3-30B-A3B phases run at, cut from 27
+# and 48 so that the whole script stays inside its time with the mistral_7b
+# phase (PERF.md section 4); widths stay as published
+DSV2_DEPTH = 10                    # the dense layer 0 and 9 MoE layers
+A3B_DEPTH = 16
 DECODE_BLOCK = 16                  # InferenceEngine's default decode_block
 
 
@@ -264,7 +299,10 @@ PHASE_STARTS: list = []           # (phase, time) at each "== phase" line
 
 def log(msg: str):
     if msg.startswith("== "):
-        PHASE_STARTS.append((msg[3:].split()[0], time.perf_counter()))
+        now = time.perf_counter()
+        if PHASE_STARTS:
+            msg += f"  (at {now - PHASE_STARTS[0][1]:.1f} s)"
+        PHASE_STARTS.append((msg[3:].split()[0], now))
     print(msg, flush=True)
 
 
@@ -314,13 +352,15 @@ def write_llama3_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: i
 
 def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_heads: int,
                          layers: int, inter: int, *, qkv_bias: bool = False,
-                         tie: bool = False, sparse=(), **moe):
+                         tie: bool = False, sparse=(), head_dim: int = 0, moe_pfx: str = "mlp",
+                         **moe):
     """The llama-family tensors of a narrow model, drawn from `w`; norm
     weights, biases and the embedding stay f32, as the converter leaves them.
-    Layers marked in `sparse` take `_write_moe_ffn(**moe)` for their FFN."""
+    Layers marked in `sparse` take `_write_moe_ffn(**moe)` for their FFN,
+    under `{layer}.{moe_pfx}`.  `head_dim` defaults to hidden / heads."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
 
-    d = hidden // heads
+    d = head_dim or hidden // heads
     wr.write_tensor("model.embed_tokens.weight", w(vocab, hidden, scale=1.0), GGMLType.F32)
     for i in range(layers):
         p = f"model.layers.{i}"
@@ -335,7 +375,7 @@ def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_h
         wr.write_tensor(f"{p}.post_attention_layernorm.weight",
                         1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
         if i < len(sparse) and sparse[i]:
-            _write_moe_ffn(wr, w, dtype, f"{p}.mlp", hidden, **moe)
+            _write_moe_ffn(wr, w, dtype, f"{p}.{moe_pfx}", hidden, **moe)
         else:
             _write_ffn(wr, w, dtype, f"{p}.mlp", hidden, inter)
     wr.write_tensor("model.norm.weight", 1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
@@ -343,20 +383,26 @@ def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_h
         wr.write_tensor("lm_head.weight", w(vocab, hidden), dtype)
 
 
-def _write_ffn(wr, w, dtype, pfx: str, hidden: int, inter: int):
-    wr.write_tensor(f"{pfx}.gate_proj.weight", w(inter, hidden), dtype)
-    wr.write_tensor(f"{pfx}.up_proj.weight", w(inter, hidden), dtype)
-    wr.write_tensor(f"{pfx}.down_proj.weight", w(hidden, inter), dtype)
+FFN_NAMES = ("gate_proj", "up_proj", "down_proj")
+MIXTRAL_FFN_NAMES = ("w1", "w3", "w2")     # Mixtral's experts: gate, up, down
+
+
+def _write_ffn(wr, w, dtype, pfx: str, hidden: int, inter: int, names=FFN_NAMES):
+    gate, up, down = names
+    wr.write_tensor(f"{pfx}.{gate}.weight", w(inter, hidden), dtype)
+    wr.write_tensor(f"{pfx}.{up}.weight", w(inter, hidden), dtype)
+    wr.write_tensor(f"{pfx}.{down}.weight", w(hidden, inter), dtype)
 
 
 def _write_moe_ffn(wr, w, dtype, pfx: str, hidden: int, *, experts: int, moe_inter: int,
                    shared: str = "", shared_inter: int = 0, shared_gate: bool = False,
-                   gate_bias: bool = False):
+                   gate_bias: bool = False, names=FFN_NAMES):
     """A sparse FFN under the converter's names: the router `{pfx}.gate`
-    [experts, hidden], `experts` routed experts of width `moe_inter`, and, when
-    `shared` names its container, a shared expert of width `shared_inter`
-    (`shared_gate`: Qwen2-MoE's [1, hidden] sigmoid gate of it); `gate_bias`
-    writes V3's f32 e_score_correction_bias."""
+    [experts, hidden], `experts` routed experts of width `moe_inter` (their
+    gate / up / down matrices named by `names`), and, when `shared` names its
+    container, a shared expert of width `shared_inter` (`shared_gate`:
+    Qwen2-MoE's [1, hidden] sigmoid gate of it); `gate_bias` writes V3's f32
+    e_score_correction_bias."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
 
     wr.write_tensor(f"{pfx}.gate.weight", w(experts, hidden), dtype)
@@ -364,7 +410,7 @@ def _write_moe_ffn(wr, w, dtype, pfx: str, hidden: int, *, experts: int, moe_int
         wr.write_tensor(f"{pfx}.gate.e_score_correction_bias", w(experts, scale=0.05),
                         GGMLType.F32)
     for j in range(experts):
-        _write_ffn(wr, w, dtype, f"{pfx}.experts.{j}", hidden, moe_inter)
+        _write_ffn(wr, w, dtype, f"{pfx}.experts.{j}", hidden, moe_inter, names)
     if shared:
         _write_ffn(wr, w, dtype, f"{pfx}.{shared}", hidden, shared_inter)
     if shared_gate:
@@ -381,6 +427,31 @@ def _byte_pieces(specials, vocab_pad: int, pad: str = "<|reserved_{}|>", pad_typ
     pad_type = TokenType.CONTROL if pad_type is None else pad_type
     pieces += [(pad.format(i).encode(), pad_type) for i in range(vocab_pad - len(pieces))]
     return [(p, int(t)) for p, t in pieces]
+
+
+# SentencePiece-score pieces of the narrow Llama-2 / Mistral vocabs (after the
+# converter's layout: <unk>, <s>, </s>, the 256 byte pieces as raw bytes at
+# ids 3-258, then these pieces, scored in this order), chosen so that English
+# text merges into multi-byte pieces and CJK text meets both in-vocab pieces
+# and byte fallback
+SP_PIECES = (" t", "he", " the", "in", " a", "er", "on", " s", "re", "at", "en", "is", " o",
+             "it", "an", "or", "es", " w", "ed", " c", "ing", " b", " f", "ou", " m", " p",
+             "ar", " d", "al", "le", " h", " in", " to", " of", " and", "ll", "as", "ic",
+             " is", "om", " th", "lo", "llo", " he", " hello", "wor", "ld", " world", "[I", "NS",
+             "IN", "ST", "INST", "[INST]", " [/", "INST]", "ch", "ly", " be", " H", "!\n",
+             "中", "文", "中文", " 中", "µ", "ö", "20", "24", "2024", "  ", "   ", "\n\n")
+
+
+def _sp_pieces(vocab_pad: int) -> list:
+    """(piece bytes, score) of a narrow SentencePiece-score vocab of
+    `vocab_pad` entries: <unk> as the converter writes it, empty <s> and </s>
+    (control pieces), the byte pieces, SP_PIECES at falling scores, then
+    unreachable <extra_i> pieces."""
+    pieces = [(" ⁇ ".encode(), 0.0), (b"", 0.0), (b"", 0.0)]
+    pieces += [(bytes([b]), 0.0) for b in range(256)]
+    pieces += [(t.encode(), -float(i)) for i, t in enumerate(SP_PIECES)]
+    pieces += [(f"<extra_{i}>".encode(), -1e4) for i in range(vocab_pad - len(pieces))]
+    return pieces
 
 
 # The DeepSeek-R1 distills' special pieces (full-width bars, U+2581 for spaces)
@@ -651,15 +722,28 @@ def write_deepseek_v2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, hea
     return path
 
 
+SP_FAMILIES = ("llama2", "codellama", "mistral", "mixtral")   # BPEProcessor1 vocabs
+RING_FAMILIES = ("mistral", "mixtral")
+FAMILY_WINDOW = 64
+FAMILY_RING_CTX = 1024
+FAMILY_RING_PROMPT = 640           # wraps a ring of 64 + SWA_EXTRA = 576 slots
+MISTRAL2_HEAD_DIM = 128
+MISTRAL2_SPECIALS = ("<unk>", "<s>", "</s>", "[INST]", "[/INST]")
+
+
 def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cls=None,
-                      tie: bool = False):
+                      tie: bool = False, window: int = FAMILY_WINDOW):
     """A narrow random-weight GGMM of one of FAMILIES' model types, in the
     converter's layout: byte-level vocab of 384 plus the family's control
-    tokens, hidden 256, 4 heads of 64 (over 2 kv heads but for DeepSeek v1),
-    2 layers, FFN 512, 8 experts of 256 with top-2 (Qwen3-MoE's: the
-    writer's), every matrix in `dtype` (q4_k by default), norms, biases and
-    the embedding f32.  `tie` sets LLAMA3_2's and the R1 distills' tie flag
-    and writes no lm_head."""
+    tokens (Llama-2, CodeLlama, Mistral and Mixtral: the SentencePiece-score
+    vocab of `_sp_pieces`), hidden 256, 4 heads of 64 (over 2 kv heads but
+    for DeepSeek v1, Llama-2 and CodeLlama; Mistral2: heads of 128, wider
+    than hidden / heads), 2 layers, FFN 512, 8 experts of 256 with top-2
+    (Qwen3-MoE's: the writer's), every matrix in `dtype` (q4_k by default),
+    norms, biases and the embedding f32.  `tie` sets LLAMA3_2's and the R1
+    distills' tie flag and writes no lm_head.  Mistral and Mixtral attend
+    over a `window` of 64 in a context of 1024: rings of 64 + SWA_EXTRA =
+    576 slots that a prompt of FAMILY_RING_PROMPT tokens wraps."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.ggmm.writer import GGMMWriter
     from chatllm_tpu_torch.models.model_types import ModelType
@@ -681,15 +765,38 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
 
     vocab, hidden, heads, layers, inter, max_len = 384, 256, 4, 2, 512, 512
     experts, top_k, moe_inter = 8, 2, 256
+    sp = family in SP_FAMILIES
+    if family in RING_FAMILIES:
+        max_len = FAMILY_RING_CTX
     specials = (R1_SPECIALS if family.startswith("ds_r1") else
                 CHATML_SPECIALS if family.startswith("qwen") else
-                R1_SPECIALS[:2] if family.startswith("deepseek") else LLAMA3_SPECIALS)
-    n_kv = heads if family == "deepseek" else 2
-    base = [int(dtype), vocab, hidden, heads, layers, inter, max_len, 256, 257, -1, -1]
+                R1_SPECIALS[:2] if family.startswith("deepseek") else
+                MISTRAL2_SPECIALS if family == "mistral2" else LLAMA3_SPECIALS)
+    n_kv = heads if family in ("deepseek", "llama2", "codellama") else 2
+    bos, eos = (1, 2) if sp else (256, 257)
+    base = [int(dtype), vocab, hidden, heads, layers, inter, max_len, bos, eos, -1, -1]
     tensors = dict(qkv_bias=family in ("ds_r1_qwen", "qwen2_moe"), tie=tie)
     with open(path, "wb") as f:
         wr = writer_cls(f, int(mtype), 1, meta={"model_name": f"tiny-{family}"})
-        if family in ("llama3_2", "ds_r1_llama"):
+        if family in ("llama2", "codellama"):
+            wr.write_config(base, fmt="11i")
+            if family == "codellama":
+                f.write(struct.pack("<f", 1000000.0))          # rope_theta
+        elif family in ("mistral", "mixtral"):
+            # n_kv, sliding_window, rope_theta (+ Mixtral's n_active, n_experts)
+            wr.write_config(base + [n_kv, window], fmt="13i")
+            if family == "mistral":
+                f.write(struct.pack("<f", 10000.0))
+            else:
+                f.write(struct.pack("<f2i", 1000000.0, top_k, experts))
+                tensors.update(sparse=[True] * layers, experts=experts, moe_inter=moe_inter,
+                               moe_pfx="block_sparse_moe", names=MIXTRAL_FFN_NAMES)
+        elif family == "mistral2":
+            # n_kv, head_dim, sliding_window (none: Mistral-Nemo's), rope_theta
+            wr.write_config(base + [n_kv, MISTRAL2_HEAD_DIM, -1], fmt="14i")
+            f.write(struct.pack("<f", 1000000.0))
+            tensors.update(head_dim=MISTRAL2_HEAD_DIM)
+        elif family in ("llama3_2", "ds_r1_llama"):
             # v3_1 (n_kv, rope_theta, rope scaling) + tie_word_embeddings
             wr.write_config(base + [n_kv], fmt="12i")
             f.write(struct.pack("<fifffi", 500000.0, 8192, 32.0, 1.0, 4.0, int(tie)))
@@ -716,7 +823,10 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
                            moe_inter=moe_inter, shared="shared_experts",
                            shared_inter=2 * moe_inter)
         wr._patch_offset(12)
-        wr.write_vocab_bpe(_byte_pieces(specials, vocab), [])
+        if sp:
+            wr.write_vocab_sp(_sp_pieces(vocab))
+        else:
+            wr.write_vocab_bpe(_byte_pieces(specials, vocab), [])
         _write_dense_tensors(wr, w, dtype, vocab, hidden, heads, n_kv, layers, inter, **tensors)
     return path
 
@@ -727,7 +837,7 @@ FAMILIES = {
     "ds_r1_llama": ("DEEPSEEK_R1_DISTILL_LLAMA", {}),
     "ds_r1_qwen": ("DEEPSEEK_R1_DISTILL_QWEN", {}),
     "ds_r1_qwen3": ("DEEPSEEK_R1_DISTILL_QWEN3", dict(r1_vocab=True, experts=-1)),
-    "qwen3_moe": ("QWEN3", dict(sparse=(True, False))),     # a sparse and a dense layer
+    "qwen3_moe": ("QWEN3", dict(experts=8, sparse=(True, False))),   # a sparse and a dense layer
     "qwen2_moe": ("QWEN2MoE", {}),
     "deepseek": ("DEEPSEEK", {}),
     "deepseek_v1_moe": ("DEEPSEEK_V1_MoE", {}),
@@ -735,6 +845,11 @@ FAMILIES = {
                                         norm_topk=True, routed_scale=2.5)),
     "moonlight": ("MOONLIGHT", dict(norm_topk=True)),
     "deepseek_v3_light": ("DEEPSEEK_V3_LIGHT", dict(norm_topk=True)),
+    "llama2": ("LLAMA2", {}),
+    "codellama": ("CODELLAMA", {}),
+    "mistral": ("MISTRAL", {}),
+    "mixtral": ("MIXTRAL", {}),
+    "mistral2": ("MISTRAL2", {}),
 }
 
 
@@ -986,6 +1101,8 @@ SHAPES_A3B = {"q": (2048, 4096), "k_v": (2048, 512), "o": (4096, 2048),
 PER_LAYER_A3B = {"q": 1, "k_v": 2, "o": 1, "router": 1}
 A3B_LAYERS = 48
 A3B_ROWS = 2                       # K2's rows in the A3B server's batched steps (2 slots)
+MISTRAL_LM_HEAD = (4096, 32000)    # Mistral-7B's lm_head (K, N); its other projections are
+#                                    Llama-3-8B's
 
 
 def kernels_phase(dev, timer) -> dict:
@@ -1061,6 +1178,23 @@ def kernels_phase(dev, timer) -> dict:
                 res["qmm"]["a3b_shapes"][sname] = _time_matmul(
                     timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
         del lin, w_bf16
+    # Mistral-7B: Llama-3-8B's projections but a 32000-column lm_head (a
+    # multiple of 128, not of 256 or 512): K1 timed, K2 checked at 2-64 rows
+    # and timed at the ring server's 2
+    res["qgemv"]["mistral_shapes"], res["qmm"]["mistral_shapes"] = {}, {}
+    lin = quant_weight("q4_k", *MISTRAL_LM_HEAD, gen, dev)
+    w_bf16 = dequant_weight(lin, torch.bfloat16)
+    x = torch.randn(1, MISTRAL_LM_HEAD[0], generator=gen, device=dev).to(torch.bfloat16)
+    y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, "q4_k")
+    res["qgemv"]["mistral_shapes"]["lm_head"] = _time_matmul(
+        timer, qgemv, qgemv_plain, x, lin, y, w_bf16, F32_FLOPS)
+    for B in (2, 8, 37, 64):
+        xb = torch.randn(B, MISTRAL_LM_HEAD[0], generator=gen, device=dev).to(torch.bfloat16)
+        yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, "q4_k")
+        if B == 2:
+            res["qmm"]["mistral_shapes"]["lm_head"] = _time_matmul(
+                timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
+    del lin, w_bf16
     coverage_cases(dev, gen, res)
     res["quantize_kv"] = quantize_kv_case(dev, gen)
     res["flash_attention"] = flash_cases(dev, timer, gen)
@@ -1476,6 +1610,11 @@ def flash_cases(dev, timer, gen) -> dict:
         (A3, 512, 8192, 0, 512, 0, 0.0, "a3b_prefill_512"),
         (A3, 2048, 8192, 0, 2048, 0, 0.0, "a3b_prefill_2048"),
         (A3, 512, 8192, 1001, 500, 0, 0.0, None),
+        # Mistral-7B's dense windowed route (max_length 4608, window 4096):
+        # the 4400-token prompt's 4096-row chunk and its 304-token tail in a
+        # 512-row bucket past the window (timed in mode 2, the chat path's)
+        (L3, 4096, 4608, 0, 4096, 4096, 0.0, "mistral_prefill_4096"),
+        (L3, 512, 4608, 4096, 304, 4096, 0.0, "mistral_prefill_tail"),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the clusters of each f32 kernel the card holds at once, which the
@@ -1524,10 +1663,12 @@ def flash_cases(dev, timer, gen) -> dict:
                                  "n_past": n_past, "n_tokens": n_tok, "window": win,
                                  "softcap": cap, "splits": splits, "max_abs_err": err,
                                  "scaled_err": scaled, "second_launch_same": same})
-            if timed and (mode == 2 or not timed.startswith(("ivl_", "a3b_"))):
-                # visible (query, key) pairs: causal rows; padded rows see all keys
+            if timed and (mode == 2 or not timed.startswith(("ivl_", "a3b_", "mistral_"))):
+                # visible (query, key) pairs: causal rows inside the window;
+                # padded rows see all keys
                 qpos = n_past + np.arange(T)
-                pairs = int(np.minimum(qpos + 1, kv_len).sum())
+                lo = np.maximum(qpos - win + 1, 0) if win else 0
+                pairs = int((np.minimum(qpos + 1, kv_len) - lo).sum())
                 peak = BF16_TC_FLOPS if mode == 0 else F32_FLOPS
                 nb = nbytes(q, o) + 2 * kv_len * Hkv * D * k.element_size()
                 flops = 4.0 * D * Hq * pairs
@@ -1539,12 +1680,15 @@ def flash_cases(dev, timer, gen) -> dict:
                 qp = torch.arange(T, device=dev)[:, None] + n_past
                 kp = torch.arange(S, device=dev)[None, :]
                 mask = (kp < kv_len) & (kp <= qp)
+                if win:
+                    mask = mask & (kp > qp - win)
                 sdpa = torch.nn.functional.scaled_dot_product_attention
-                # K3's function in one library call at n_past 0: the live keys
-                # only, is_causal's top-left alignment (row i sees keys j <= i;
-                # the padding rows past kv_len see them all)
+                # K3's function in one library call at n_past 0 without a
+                # window: the live keys only, is_causal's top-left alignment
+                # (row i sees keys j <= i; the padding rows past kv_len see
+                # them all)
                 causal_ms = None
-                if n_past == 0:
+                if n_past == 0 and not win:
                     kc = kt[:, :, :kv_len]
                     vc = vt[:, :, :kv_len]
                     lib = sdpa(qt, kc, vc, is_causal=True, scale=kw["scale"]).transpose(1, 2)
@@ -1611,6 +1755,10 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 2, 32, 4, 128, [3000], "int8", "bfloat16", {}, None),
     (2, 1, 32, 4, 128, [1000, 7000], "int8", "bfloat16", {}, "a3b_serve_2"),
     (2, 2, 32, 4, 128, [40, 8000], "int8", "bfloat16", {}, None),
+    # Mistral-7B's dense windowed route: a q8 decode step past the window
+    # 4096 in a 4608-slot cache (extra "S": the cache's slots)
+    (1, 1, 32, 8, 128, [4500], "int8", "bfloat16", {"sliding_window": 4096, "S": 4608},
+     "mistral_decode_4500"),
 ]
 
 # The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
@@ -1704,7 +1852,7 @@ def decode_cases(dev, timer, gen) -> dict:
 
     out = {"cases": [], "shapes": {}}
     for B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed in DECODE_CASES + DECODE_EDGE_CASES:
-        S = DECODE_S
+        S = extra.get("S", DECODE_S)
         # bf16 dots take the model's bf16 query; f32 dots an f32 one
         q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(getattr(torch, dots))
         k = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
@@ -1734,7 +1882,9 @@ def decode_cases(dev, timer, gen) -> dict:
                              "cache": cache, "dots": dots, "extra": str(extra),
                              "max_abs_err": err, "scaled_err": scaled})
         if timed:
-            live = [min(n + T, S) for n in n_past]
+            # the keys a row's queries see: past the window's start when there is one
+            win = kw["sliding_window"]
+            live = [min(n + T, S) - (max(0, n - win + 1) if win else 0) for n in n_past]
             per_key = Hkv * (2 * D * k.element_size() + (8 if cache == "int8" else 0))
             b_ms, b_by = bound(nbytes(q, o) + sum(live) * per_key,
                                4.0 * D * Hq * T * sum(live),
@@ -1744,7 +1894,8 @@ def decode_cases(dev, timer, gen) -> dict:
                 "ms": timer(lambda: flash_decode(q, k, v, npv, T, **kw)),
                 "plain_ms": timer(lambda: flash_decode_plain(q, k, v, npv, T, **kw), iters=5),
                 "library_ms": timer(_sdpa_over_dequantized(q, k, v, npv, T, kw["scale"],
-                                                           kw["k_scale"], kw["v_scale"])),
+                                                           kw["k_scale"], kw["v_scale"],
+                                                           window=win)),
                 "bound_ms": b_ms, "bound_by": b_by}
             log(f"    timing {out['shapes'][timed]}")
         del q, k, v, o
@@ -1830,9 +1981,10 @@ def mla_decode_cases(dev, timer, gen) -> dict:
 
 
 def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_scale=None,
-                           head_major: bool = False):
+                           head_major: bool = False, window: int = 0):
     """The library yardstick of K4: SDPA over the cache dequantized to bf16
-    beforehand, causal mask by position (returns a zero-argument call)."""
+    beforehand, causal mask by position, inside the `window` when one is
+    given (returns a zero-argument call)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, _, Hq, _ = q.shape
     if k_scale is not None:
@@ -1845,7 +1997,10 @@ def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_s
     qt = q.transpose(1, 2).to(kt.dtype)
     S = kt.shape[2]
     qp = npv[:, None, None, None] + torch.arange(T, device=q.device)[None, None, :, None]
-    mask = torch.arange(S, device=q.device)[None, None, None, :] <= qp
+    kp = torch.arange(S, device=q.device)[None, None, None, :]
+    mask = kp <= qp
+    if window:
+        mask = mask & (kp > qp - window)
     return lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale)
 
 
@@ -2116,12 +2271,11 @@ def _profile_block(eng, kv, n_past: int) -> dict:
     torch.profiler: the kernels' device time by name, and their sum over
     the block's time on the card (the device's busy share; None when the
     profiler sees no device time)."""
-    from chatllm_tpu_torch.runtime.decode_graph import kv_bucket
     from chatllm_tpu_torch.runtime.generate import GenerationConfig
 
     scfg = GenerationConfig(do_sample=False).sampler_config()    # the engine's key
     dec, st = eng.decoder, eng.decoder.state(1)
-    kv_len = kv_bucket(n_past + DECODE_BLOCK, kv.k[0].shape[1])
+    kv_len = eng.decode_kv_len(kv, n_past + DECODE_BLOCK)
 
     def block():
         st.n_past.fill_(n_past)
@@ -2874,7 +3028,7 @@ def serve_phase(dev, cfg, params, *, model_type=None, tok=None, name="llama3-8b-
 
 
 # --------------------------------------------------------------- cli phase
-CLI_WORKERS = 4                    # CLI processes at a time, on 8 host cores
+CLI_WORKERS = 6                    # CLI processes at a time, on 8 host cores
 CLI_SYS = "You are a terse assistant on an H100."
 CLI_TURNS = 7                      # Shift fires several times in 256 slots
 
@@ -3820,14 +3974,15 @@ def expert_products(dev, cfg, mlp, n_moe: int) -> dict:
 
 
 def deepseek_phase(dev) -> dict:
-    """Full-width DeepSeek-V2-Lite (`deepseek_v2_lite_config`: 27 layers,
-    64 routed experts of which 6 per token plus 2 shared, MLA with the
-    expanded cache, max_length 8192), random zero-centred q4_k projections
-    and bf16 expert stacks from a seed, built on the card:
+    """Full-width DeepSeek-V2-Lite (`deepseek_v2_lite_config`, its depth cut
+    to DSV2_DEPTH of 27 layers: 64 routed experts of which 6 per token plus
+    2 shared, MLA with the expanded cache, max_length 8192), random
+    zero-centred q4_k projections and bf16 expert stacks from a seed, built
+    on the card:
       - the chat path (1000-token prompt, 64 greedy tokens) over a bf16
         cache with the decode blocks uncaptured and replayed from graphs in
         one call (tokens identical, launches exact per replayed step), then
-        over a q8 cache (K4 at (192, 128) 27 times per step), and over the q8
+        over a q8 cache (K4 at (192, 128) once per layer and step), and over the q8
         cache with K4 off (CHATLLM_TPU_FLASH_DECODE=0, the einsum route):
         the share of tokens that agree and the first decode step's logits;
         one replayed block profiled (busy share, time by kind) and one MoE
@@ -3852,6 +4007,7 @@ def deepseek_phase(dev) -> dict:
 
     res = {}
     cfg = deepseek_v2_lite_config(max_length=8192)
+    cfg = replace(cfg, num_hidden_layers=DSV2_DEPTH, layer_specs=cfg.layer_specs[:DSV2_DEPTH])
     L = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4007,15 +4163,16 @@ def a3b_step_launches(cfg) -> int:
 
 
 def qwen3_a3b_phase(dev) -> dict:
-    """Full-width, full-depth Qwen3-30B-A3B (`qwen3_30b_a3b_config`: 48 MoE
-    layers of 128 experts, 8 a token, no shared expert; 32 query heads over 4
-    kv heads of 128, max_length 8192), random zero-centred q4_k projections
-    and bf16 expert stacks from a seed (58.0 GB), built on the card:
-      - prefill of 512 and 2048 tokens over a bf16 cache (K3 mode 2, 48
-        launches a chunk), timed warm;
+    """Full-width Qwen3-30B-A3B (`qwen3_30b_a3b_config`, its depth cut to
+    A3B_DEPTH of 48 MoE layers: 128 experts, 8 a token, no shared expert; 32
+    query heads over 4 kv heads of 128, max_length 8192), random
+    zero-centred q4_k projections and bf16 expert stacks from a seed, built
+    on the card:
+      - prefill of 512 and 2048 tokens over a bf16 cache (K3 mode 2, one
+        launch a layer and chunk), timed warm;
       - the 1000-token prompt and 64 greedy tokens over a bf16 and a q8
         cache, each uncaptured and replayed from CUDA graphs (tokens
-        identical; K1 241 launches and, over q8, K4 48 per replayed step);
+        identical; K1 5 L + 1 launches and, over q8, K4 L per replayed step);
         one replayed q8 block profiled; one MoE layer's expert products
         timed alone;
       - 2-layer cuts against the CPU (`dsv2_two_layer` over both MoE layers,
@@ -4038,6 +4195,7 @@ def qwen3_a3b_phase(dev) -> dict:
         raise AssertionError(f"qwen3_30b_a3b: {held:.2f} GiB of earlier phases still held")
     res = {"held_before_gib": held}
     cfg = qwen3_30b_a3b_config(max_length=8192)
+    cfg = replace(cfg, num_hidden_layers=A3B_DEPTH, layer_specs=cfg.layer_specs[:A3B_DEPTH])
     L = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4154,6 +4312,19 @@ FAMILY_PROMPT = 32                 # prompt tokens of the families' card-vs-CPU 
 # experts may flip); the logits are compared where the picks agree
 FAMILY_PICKS_AGREE_MIN = 0.75
 FAMILY_TOL = {"f32": 1e-4, "q4_k": 2e-2}
+FAMILY_CHATS = ("llama2", "codellama", "mistral", "mixtral", "mistral2")   # --test chats too
+
+
+def family_turns(fam: str) -> list:
+    """Two user turns for a family's `--test` chat: short ones, or for the
+    ring families ~400 bytes each, so that the chat wraps their 576-slot
+    rings inside the 1024-token context."""
+    if fam not in RING_FAMILIES:
+        return ["Hello from the H100!", "And once more, with feeling."]
+    words = ("the", "hello", "world", "in", "a", "ring", "of", "keys", "is", "at", "2024",
+             "and", "on", "window", "to", "wrap", "中文", "µ")
+    rng = np.random.default_rng(len(fam))
+    return [" ".join(rng.choice(words, 160)).capitalize() + "." for _ in range(2)]
 
 
 def same_params(a, b, where="params"):
@@ -4181,10 +4352,26 @@ def same_params(a, b, where="params"):
         raise AssertionError(f"{where}: the card's parameters differ from the CPU's")
 
 
+def row_logit_errors(g, c, tol: float) -> dict:
+    """Card logits g [N, V] against the CPU's c, row by row: the largest
+    error over its row's logit scale, and whether the argmax is the CPU's
+    wherever the CPU's top two are further apart than twice `tol` of that
+    scale (random weights leave near-ties that f32-level differences flip)."""
+    scale = c.abs().amax(-1)
+    top2 = c.topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * tol * scale
+    same = g.argmax(-1) == c.argmax(-1)
+    return {"rel_to_logit_scale": ((g - c).abs().amax(-1) / scale).max().item(),
+            "max_abs_err": (g - c).abs().max().item(), "clear_rows": int(clear.sum()),
+            "argmax_equal_share": same.float().mean().item(),
+            "argmax_equal_where_clear": bool(same[clear].all())}
+
+
 def _family_logits(model, ids) -> tuple:
     """The prompt's logits at every position, the next token's logits (one
     decode step fed the prompt's greedy token) and each MoE layer's sorted
-    picks [N, K] over the prompt, in order."""
+    picks [N, K] over the prompt, in order.  A model with rings takes the
+    prompt in chunks of its engine's cap (SWA_EXTRA), as its engine does."""
     from chatllm_tpu_torch.nn import transformer as T
 
     picks, route = [], T.moe_route
@@ -4195,17 +4382,20 @@ def _family_logits(model, ids) -> tuple:
         return topi, topv
 
     eng = model.engine
+    chunk = eng._chunk_cap or len(ids)
     T.moe_route = recorded
     try:
         with torch.inference_mode():
             kv = eng.new_cache(1)
-            full = model.forward_logits(ids, cache=kv)[0][0].float().cpu()
+            full = torch.cat([model.forward_logits(ids[n:n + chunk], n, cache=kv)[0][0]
+                              .float().cpu() for n in range(0, len(ids), chunk)])
             n_moe = len(picks)
             tok = torch.tensor([[int(full[-1].argmax())]], device=model.device)
             step = T.transformer_forward(model.cfg, model.params, tok, kv, len(ids))[0]
     finally:
         T.moe_route = route
-    return full, step[0, 0].float().cpu(), picks[:n_moe]
+    per = n_moe // -(-len(ids) // chunk)          # MoE layers: picks come chunk by chunk
+    return full, step[0, 0].float().cpu(), [torch.cat(picks[i:n_moe:per]) for i in range(per)]
 
 
 def families_phase(dev) -> dict:
@@ -4213,15 +4403,19 @@ def families_phase(dev) -> dict:
     (FAMILIES: LLAMA3_2, the three DeepSeek-R1 distills, Qwen3-MoE with a
     sparse and a dense layer, Qwen2-MoE's gated shared expert, DeepSeek V1
     and V1-MoE, DeepSeek-V3 with a low-rank q and grouped sigmoid routing,
-    Moonlight, V3-Light), written narrow by `write_family_ggmm` in f32 and
-    in q4_k and loaded on the card and on the CPU: the same config and every
-    parameter bit-equal; the logits of a 32-token prompt at every position
-    and of one decode step within FAMILY_TOL of the CPU's logit scale (q4_k:
-    at the positions whose expert picks agree, at least
-    FAMILY_PICKS_AGREE_MIN of them), the same argmax wherever the CPU's top
-    two are further apart than twice the tolerance.  Then the narrow
-    Qwen3-MoE chats two turns through `main.py --test` on the card and on
-    the CPU (f32 activations and cache): equal transcripts."""
+    Moonlight, V3-Light, Llama-2, CodeLlama, Mistral and Mixtral over rings
+    of 576 slots, Mistral2's 128-wide heads), written narrow by
+    `write_family_ggmm` in f32 and in q4_k and loaded on the card and on the
+    CPU: the same config and every parameter bit-equal; the logits of a
+    32-token prompt (FAMILY_RING_PROMPT tokens for the ring families, which
+    wraps their rings) at every position and of one decode step within
+    FAMILY_TOL of the CPU's logit scale (q4_k: at the positions whose expert
+    picks agree, at least FAMILY_PICKS_AGREE_MIN of them), the same argmax
+    wherever the CPU's top two are further apart than twice the tolerance.
+    Then the narrow Qwen3-MoE and each new family (FAMILY_CHATS) chat two
+    turns through `main.py --test` on the card and on the CPU (f32
+    activations and cache): equal transcripts (the ring families' turns
+    wrap their rings)."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.models import RuntimeConfig, load_model
     from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR, launch_counts, reset_launch_counts
@@ -4229,9 +4423,12 @@ def families_phase(dev) -> dict:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     res = {}
-    ids = np.random.default_rng(2).integers(0, 380, FAMILY_PROMPT).tolist()
+    rng = np.random.default_rng(2)
+    short = rng.integers(0, 380, FAMILY_PROMPT).tolist()
+    long = rng.integers(0, 380, FAMILY_RING_PROMPT).tolist()
     reset_launch_counts()
     for fam in FAMILIES:
+        ids = long if fam in RING_FAMILIES else short
         for fmt, tol in FAMILY_TOL.items():
             path = write_family_ggmm(BUILD_DIR / f"smoke_{fam}_{fmt}.bin", fam,
                                      dtype=GGMLType.F32 if fmt == "f32" else None)
@@ -4247,17 +4444,13 @@ def families_phase(dev) -> dict:
             for a, b in zip(gp, cp):
                 agree &= (a == b).all(dim=-1)
             g, c = torch.cat([gf[agree], gs[None]]), torch.cat([cf[agree], cs[None]])
-            scale = c.abs().amax(-1)
-            rel = ((g - c).abs().amax(-1) / scale).max().item()
-            top2 = c.topk(2, dim=-1).values
-            clear = top2[:, 0] - top2[:, 1] > 2 * tol * scale
-            same_argmax = bool((g.argmax(-1) == c.argmax(-1))[clear].all())
             r = {"model": type(card).__name__, "moe_layers": len(cp),
-                 "picks_agree_share": agree.float().mean().item(), "rel_to_logit_scale": rel,
-                 "argmax_equal_where_clear": same_argmax, "clear_rows": int(clear.sum())}
+                 "picks_agree_share": agree.float().mean().item(),
+                 **row_logit_errors(g, c, tol)}
             log(f"  {fam} {fmt}: {r}")
             if (agree.float().mean() < FAMILY_PICKS_AGREE_MIN or (fmt == "f32" and not agree.all())
-                    or rel > tol or not same_argmax or not torch.isfinite(g).all()):
+                    or r["rel_to_logit_scale"] > tol or not r["argmax_equal_where_clear"]
+                    or not torch.isfinite(g).all()):
                 raise AssertionError(f"{fam} {fmt}: the card's logits differ from the CPU's "
                                      f"({r}; tolerance {tol})")
             res[f"{fam}_{fmt}"] = r
@@ -4267,21 +4460,380 @@ def families_phase(dev) -> dict:
         if res["launches"][k] <= 0:
             raise AssertionError(f"families: kernel {k} was not launched")
 
-    # the narrow Qwen3-MoE chats through the CLI on the card and on the CPU
-    path = write_family_ggmm(BUILD_DIR / "smoke_qwen3_moe_f32_cli.bin", "qwen3_moe",
-                             dtype=GGMLType.F32, seed=4)
-    turns = BUILD_DIR / "smoke_qwen3_moe_turns.txt"
-    turns.write_text("Hello from the H100!\nAnd once more, with feeling.\n")
-    argv = ["-m", str(path), "--test", str(turns), "-t", "0", "--max_new_tokens", "12",
-            "--compute_dtype", "f32", "--cache_dtype", "f32"]
-    outs = _run_cli({"card": (argv, None), "cpu": (argv + ["--device", "cpu"], None)})
-    log("  qwen3_moe --test transcript:\n" + outs["card"].rstrip())
-    if _chat_lines(outs["card"]) != _chat_lines(outs["cpu"]) or len(_replies(outs["card"])) != 2:
-        raise AssertionError(f"the Qwen3-MoE --test transcript differs between the card and "
-                             f"the CPU:\n{outs['card']}\n---\n{outs['cpu']}")
-    res["transcript_qwen3_moe"] = outs["card"]
+    # the narrow Qwen3-MoE and the new families chat through the CLI on the
+    # card and on the CPU
+    jobs = {}
+    for fam in ("qwen3_moe",) + FAMILY_CHATS:
+        path = write_family_ggmm(BUILD_DIR / f"smoke_{fam}_f32_cli.bin", fam,
+                                 dtype=GGMLType.F32, seed=4)
+        turns = BUILD_DIR / f"smoke_{fam}_turns.txt"
+        turns.write_text("\n".join(family_turns(fam)) + "\n")
+        argv = ["-m", str(path), "--test", str(turns), "-t", "0", "--max_new_tokens", "12",
+                "--compute_dtype", "f32", "--cache_dtype", "f32"]
+        jobs[fam + ":card"] = (argv, None)
+        jobs[fam + ":cpu"] = (argv + ["--device", "cpu"], None)
+    outs = _run_cli(jobs)
+    for fam in ("qwen3_moe",) + FAMILY_CHATS:
+        card, cpu = outs[fam + ":card"], outs[fam + ":cpu"]
+        log(f"  {fam} --test transcript:\n" + card.rstrip())
+        if _chat_lines(card) != _chat_lines(cpu) or len(_replies(card)) != 2:
+            raise AssertionError(f"the {fam} --test transcript differs between the card and "
+                                 f"the CPU:\n{card}\n---\n{cpu}")
+        res[f"transcript_{fam}"] = card
     res["seconds"] = time.perf_counter() - t0
     log(f"  families phase: {len(FAMILIES)} model types in f32 and q4_k, {res['seconds']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------ mistral_7b phase
+MISTRAL_PROMPT = 4480              # prompt tokens, fed to the rings in chunks of SWA_EXTRA
+MISTRAL_NEW = 512                  # greedy tokens: decode crosses the wrap at n_past 4608
+MISTRAL_EAGER_NEW = 192            # the uncaptured reference's: 64 steps past the wrap
+MISTRAL_RING = 4608                # every layer's ring: window 4096 + SWA_EXTRA 512
+MISTRAL_DENSE_CTX = 4608           # max_length of the dense windowed route (no ring)
+MISTRAL_DENSE_NEW = 64             # q8 decode on the dense route: n_past 4480 -> 4543
+# ring against dense windowed prefill logits (the ring's f32 einsum against K3's
+# mode 2, which rounds p to bf16 for P.V), of the logit scale
+MISTRAL_RING_DENSE_TOL = 2e-2
+MISTRAL_CUT_POSITIONS = 4720       # the 2-layer cut's prompt: wraps the ring at 4608
+MISTRAL_CUT_STEPS = 2              # then decode steps, a 0-d device offset on the card
+# the 2-layer cut's logits, of the logit scale: over bf16 rings the Llama-3-8B
+# cut's (two_layer_phase); over q8 rings each side quantizes the keys it
+# computed: layer 0's from the same embeddings (f32-level differences, so at
+# most one int8 step apart), layer 1's from layer 0's bf16 output, where a
+# rounding flip moves a key by 2^-8 of it (up to two steps, in 1.04e-3 of
+# the two layers' entries in the first runs on the card); that moved the
+# logits by 1.54e-3 of their scale there
+MISTRAL_CUT_TOL = {"bfloat16": 1e-3, "int8": 4e-3}
+MISTRAL_SERVE = (4560, 4590)       # the 2-slot server's prompts: wrap after 48 and 18 tokens
+MISTRAL_SERVE_NEW = 64
+
+
+class _DequantOnce:
+    """While active, `ops/qmm.py`'s dequantize-then-matmul route takes each
+    CPU weight's dequantized bf16 values from a memo, held as f32 (which
+    `dot_f32` on the CPU computes in anyway): the values its every call
+    computes, made once.  CUDA weights pass through."""
+
+    def __enter__(self):
+        from chatllm_tpu_torch.ops import qmm
+
+        self.qmm, self.real, memo = qmm, qmm.dequant_weight, {}
+
+        def once(lin, dtype=torch.bfloat16):
+            if lin.q.is_cuda:
+                return self.real(lin, dtype)
+            key = (id(lin), dtype)
+            if key not in memo:
+                memo[key] = self.real(lin, dtype).float()
+            return memo[key]
+
+        qmm.dequant_weight = once
+        return self
+
+    def __exit__(self, *exc):
+        self.qmm.dequant_weight = self.real
+
+
+def _ring_cut(cfg2, params, ids, device, cache: str) -> tuple:
+    """A 2-layer cut's logits at every position [N, V] (f32, on the CPU) and
+    its rings (on the CPU): the prompt in chunks of SWA_EXTRA into rings of
+    MISTRAL_RING slots, then MISTRAL_CUT_STEPS one-token steps, their offset
+    a 0-d tensor on the card (the captured decode block's form) and an int
+    on the CPU."""
+    from chatllm_tpu_torch.nn import transformer as T
+
+    c2 = replace(cfg2, cache_dtype=cache)
+    kv = T.init_cache(c2, 1, cfg2.max_length, device=device)
+    if any(t.shape[1] != MISTRAL_RING for t in kv.k):
+        raise AssertionError(f"2-layer cut: ring slots {[t.shape[1] for t in kv.k]}")
+    outs, n, end = [], 0, MISTRAL_CUT_POSITIONS
+    with torch.inference_mode():
+        while n < len(ids):
+            m = min(T.SWA_EXTRA, end - n) if n < end else 1
+            x = torch.as_tensor(ids[None, n:n + m], device=device)
+            off = n if n < end or device == "cpu" else torch.tensor(n, device=device)
+            outs.append(T.transformer_forward(c2, params, x, kv, off)[0][0].float().cpu())
+            n += m
+    return torch.cat(outs), _cache_copy(kv, "cpu")
+
+
+def _cut_compare(name: str, g, c, tol: float) -> dict:
+    """Card logits g [N, V] against the CPU's c (`row_logit_errors`): finite,
+    within `tol`, the argmax equal where clear."""
+    if g.shape != c.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: logits shape {tuple(g.shape)} or not finite")
+    r = {"positions": int(g.shape[0]), **row_logit_errors(g, c, tol)}
+    log(f"  {name}: {r}")
+    if r["rel_to_logit_scale"] > tol or not r["argmax_equal_where_clear"]:
+        raise AssertionError(f"{name}: logits differ from the CPU run ({r}; tolerance {tol})")
+    return r
+
+
+def mistral_phase(dev) -> dict:
+    """Mistral-7B at full width and depth (`mistral_7b_config`: 32 layers,
+    sliding window 4096, random q4_k weights from seed 0) through the
+    port's entry points.
+
+      - The ring route (max_length 8192: 32 rings of 4608 slots), over a
+        bf16 and a q8 cache: a MISTRAL_PROMPT-token prompt in chunks of
+        SWA_EXTRA, then MISTRAL_NEW greedy tokens, so decode crosses the
+        wrap at n_past 4608 while keys leave the window; replayed from one
+        CUDA graph (the rings are read whole, so no KV bucket splits the
+        keys), launches exact (K1 225 per launched step and once per prefill
+        chunk, no K3, no K4), one replayed block past the wrap timed and
+        profiled; then the uncaptured loop, whose first MISTRAL_EAGER_NEW
+        tokens must be the replayed ones.
+      - The dense windowed route (max_length 4608: no ring): the same prompt
+        over a bf16 cache, K3 in mode 2 with window 4096 (2 chunks x 32
+        launches), its last logits against the ring route's within
+        MISTRAL_RING_DENSE_TOL; then a q8 decode of MISTRAL_DENSE_NEW tokens
+        from n_past MISTRAL_PROMPT (past the window), K4 with window 4096 on
+        every layer of every launched step, its tokens' agreement with the
+        ring route's recorded.
+      - The server's engine (BatchedEngine, 2 slots, q8 rings): two requests
+        of MISTRAL_SERVE tokens, the second submitted once the first
+        streams, 64 greedy tokens each, wrapping at different ring phases;
+        each reply must equal the single-stream InferenceEngine's tokens;
+        K2 launched 225 times per batched step.
+      - A 2-layer cut against the CPU over MISTRAL_CUT_POSITIONS positions
+        (across the wrap) and MISTRAL_CUT_STEPS decode steps, bf16 and q8
+        rings, within MISTRAL_CUT_TOL of the logit scale, layer 0's q8
+        entries at most one int8 step from the CPU's.  The CPU side runs in
+        a worker thread beside the card's replays, the dense route and the
+        server (each weight dequantized once, `_DequantOnce`); the
+        uncaptured runs wait for it, so that their host is not shared."""
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, mistral_7b_config,
+                                                    param_bytes)
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+    from chatllm_tpu_torch.ops.sampling import SamplerConfig
+    from chatllm_tpu_torch.runtime.batching import BatchedEngine
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
+
+    t_phase = time.perf_counter()
+    spans = {}
+
+    def span(name):
+        spans[name] = time.perf_counter() - t_phase - sum(spans.values())
+
+    cfg = mistral_7b_config(max_length=8192)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    per_step = 7 * L + 1                       # K1 per decode step: 7 projections x L + lm_head
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
+    torch.cuda.synchronize()
+    res = {"param_gib": param_bytes(params) / 2 ** 30, "spans_s": spans}
+    prompt = np.random.default_rng(0).integers(0, V, MISTRAL_PROMPT).tolist()
+    chunks = -(-MISTRAL_PROMPT // 512)
+
+    # ---- the 2-layer cut's CPU side, in a worker thread from here on
+    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    p2_cpu = _cut(params, 2, "cpu")
+    cut_ids = np.random.default_rng(3).integers(0, V, MISTRAL_CUT_POSITIONS + MISTRAL_CUT_STEPS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))    # a host core left for the card's dispatch
+    worker = ThreadPoolExecutor(1)
+
+    def cpu_cuts():
+        with _DequantOnce():
+            return {c: _ring_cut(cfg2, p2_cpu, cut_ids, "cpu", c) for c in ("bfloat16", "int8")}
+
+    cut_cpu = worker.submit(cpu_cuts)
+    span("setup")
+
+    def generate(eng, kv, ids, new: int) -> tuple[list, dict]:
+        dec = eng.decoder
+        was = (dec.eager_steps, dec.replayed_steps, dec.capture_ms)
+        reset_launch_counts()
+        reset_mode_launches()
+        perf = PerfInfo()
+        out, _, n_past = eng.generate(ids, GenerationConfig(do_sample=False, max_new_tokens=new),
+                                      perf=perf, cache=kv)
+        torch.cuda.synchronize()
+        eager, replayed = dec.eager_steps - was[0], dec.replayed_steps - was[1]
+        capture_ms = dec.capture_ms - was[2]
+        steps = len(out) - 1
+        r = {"prompt_tokens": len(ids), "prefill_ms": perf.prompt_ms, "gen_tokens": len(out),
+             "decode_ms": perf.gen_ms, "decode_steps_s": steps / perf.gen_ms * 1e3,
+             "eager_steps": eager, "replayed_steps": replayed, "capture_ms": capture_ms,
+             "graphs": dec.num_graphs(), "launches": launch_counts(),
+             "flash_modes": dict(MODE_LAUNCHES)}
+        if replayed:
+            # the decode span without the warm-up block and the capture
+            r["replayed_steps_s"] = replayed / (perf.gen_ms - capture_ms) * 1e3
+        if len(out) != new or n_past != len(ids) + new - 1:
+            raise AssertionError(f"mistral: {len(out)} tokens, n_past {n_past}")
+        return out, r
+
+    # ---- the ring route, replayed from CUDA graphs
+    ring, logits_ring = {}, None
+    for cache in ("bfloat16", "int8"):
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev)
+        kv = eng.new_cache(1)
+        if any(t.shape[1] != MISTRAL_RING for t in kv.k):
+            raise AssertionError(f"ring slots {[t.shape[1] for t in kv.k]}")
+        toks, r = generate(eng, kv, prompt, MISTRAL_NEW)
+        launched = r["eager_steps"] + r["replayed_steps"]
+        want = {"qgemv": per_step * launched + chunks, "qmm": 0, "flash_attention": 0,
+                "flash_decode": 0}
+        got = {k: r["launches"][k] for k in want}
+        log(f"  ring {cache}: prefill {r['prefill_ms']:.1f} ms ({chunks} chunks), "
+            f"{r.get('replayed_steps_s', 0):.2f} replayed steps/s, {r['graphs']} graph(s) "
+            f"captured in {r['capture_ms']:.0f} ms, launches {got}")
+        if got != want or r["graphs"] != 1 or r["replayed_steps"] < MISTRAL_NEW - 1:
+            raise AssertionError(f"ring {cache}: launches {got} (expected {want}), "
+                                 f"{r['graphs']} graphs, {r['replayed_steps']} replayed steps")
+        r["profiled_block"] = pb = _profile_block(eng, kv, MISTRAL_PROMPT + MISTRAL_NEW - 32)
+        r["profiled_steps_s"] = 1e3 / pb["step_ms"]
+        log(f"  ring {cache}: replayed block past the wrap {pb['block_ms']:.2f} ms "
+            f"({r['profiled_steps_s']:.2f} steps/s), kernels {pb['kernel_ms']} ms, busy share "
+            f"{pb['busy_share']}; top kernels {pb['top_kernels_ms']}")
+        if cache == "bfloat16":
+            with torch.inference_mode():
+                logits_ring = eng.prefill(prompt, eng.new_cache(1), 0)[0].float().cpu()
+        ring[cache] = {"graph": r, "tokens": toks}
+        del eng, kv
+        torch.cuda.empty_cache()
+    res["ring"] = ring
+    span("ring_graphs")
+
+    # ---- the dense windowed route (no ring): K3 and K4 with window 4096
+    dense = {}
+    cfg_d = replace(cfg, max_length=MISTRAL_DENSE_CTX)
+    eng = InferenceEngine(cfg_d, params, device=dev)
+    kv = eng.new_cache(1)
+    if any(t.shape[1] != MISTRAL_DENSE_CTX for t in kv.k) or eng._chunk_cap:
+        raise AssertionError("dense windowed route: ring layers or a chunk cap")
+    reset_launch_counts()
+    reset_mode_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits_dense = eng.prefill(prompt, kv, 0)[0].float().cpu()
+    dense["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    dense["launches"], dense["flash_modes"] = launch_counts(), dict(MODE_LAUNCHES)
+    err, rel = rel_err(logits_dense, logits_ring)
+    dense["vs_ring"] = {"max_abs_err": err, "rel_to_logit_scale": rel,
+                        "argmax_equal": bool(logits_dense.argmax() == logits_ring.argmax()),
+                        "logit_scale": logits_ring.abs().max().item()}
+    log(f"  dense windowed bf16 prefill: {dense['prefill_ms']:.1f} ms, K3 by mode "
+        f"{dense['flash_modes']}; last logits against the ring route's {dense['vs_ring']}")
+    if dense["flash_modes"][2] != 2 * L or dense["flash_modes"][0] or rel > MISTRAL_RING_DENSE_TOL:
+        raise AssertionError(f"dense windowed prefill: K3 by mode {dense['flash_modes']} "
+                             f"(expected {2 * L} in mode 2), {rel} of the logit scale from the "
+                             f"ring route (limit {MISTRAL_RING_DENSE_TOL})")
+    del eng, kv
+    torch.cuda.empty_cache()
+    eng = InferenceEngine(replace(cfg_d, cache_dtype="int8"), params, device=dev)
+    toks, r = generate(eng, eng.new_cache(1), prompt, MISTRAL_DENSE_NEW)
+    launched = r["eager_steps"] + r["replayed_steps"]
+    r["tokens_equal_ring_share"] = float(np.mean(
+        [a == b for a, b in zip(toks, ring["int8"]["tokens"])]))
+    r["tokens"] = toks
+    dense["q8"] = r
+    log(f"  dense windowed q8 decode from n_past {MISTRAL_PROMPT}: "
+        f"{r.get('replayed_steps_s', 0):.2f} replayed steps/s, K4 launches "
+        f"{r['launches']['flash_decode']} ({launched} launched steps), "
+        f"{r['tokens_equal_ring_share']:.3f} of the tokens equal the ring route's")
+    if r["launches"]["flash_decode"] != L * launched or launched < MISTRAL_DENSE_NEW - 1:
+        raise AssertionError(f"dense windowed q8: K4 {r['launches']['flash_decode']}, "
+                             f"expected {L * launched}")
+    res["dense"] = dense
+    del eng
+    torch.cuda.empty_cache()
+    span("dense")
+
+    # ---- the server's engine: 2 slots over q8 rings, staggered requests
+    rng = np.random.default_rng(5)
+    sprompts = [rng.integers(0, V, n).tolist() for n in MISTRAL_SERVE]
+    c8 = replace(cfg, cache_dtype="int8")
+    eng = InferenceEngine(c8, params, device=dev)
+    kv = eng.new_cache(1)
+    with torch.inference_mode():
+        single = [eng.generate(p, GenerationConfig(do_sample=False,
+                                                   max_new_tokens=MISTRAL_SERVE_NEW),
+                               cache=kv)[0] for p in sprompts]
+    del eng, kv
+    be = BatchedEngine(c8, params, max_slots=2, scfg=SamplerConfig(do_sample=False),
+                       device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        h1 = iter(be.submit(sprompts[0], max_new=MISTRAL_SERVE_NEW))
+        first = next(h1)                   # the first request is in its slot and streams
+        h2 = be.submit(sprompts[1], max_new=MISTRAL_SERVE_NEW)
+        replies = [[first] + list(h1), list(h2)]
+    finally:
+        be.shutdown()
+    torch.cuda.synchronize()
+    dec = be.decoder
+    sr = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+          "batched_steps": dec.eager_steps + dec.replayed_steps,
+          "replayed_steps": dec.replayed_steps, "graphs": dec.num_graphs(), "replies": replies}
+    res["serve"] = sr
+    log(f"  2-slot q8 ring server: {sr['wall_s']:.2f} s, {sr['batched_steps']} batched steps "
+        f"({sr['replayed_steps']} replayed from {sr['graphs']} graph(s)), K2 "
+        f"{sr['launches']['qmm']}")
+    if replies != single or any(len(t) != MISTRAL_SERVE_NEW for t in replies):
+        raise AssertionError(f"2-slot server: the staggered replies differ from the "
+                             f"single-stream engine's:\n{replies}\n{single}")
+    if sr["launches"]["qmm"] != per_step * sr["batched_steps"]:
+        raise AssertionError(f"2-slot server: K2 {sr['launches']['qmm']}, expected "
+                             f"{per_step} x {sr['batched_steps']} batched steps")
+    del be
+    torch.cuda.empty_cache()
+    span("serve")
+
+    # ---- the 2-layer cut on the card, against the CPU's
+    p2 = _cut(params, 2, dev)
+    card = {c: _ring_cut(cfg2, p2, cut_ids, dev, c) for c in ("bfloat16", "int8")}
+    t0 = time.perf_counter()
+    cpu = cut_cpu.result()
+    res["cut"] = {"cpu_wait_s": time.perf_counter() - t0}
+    worker.shutdown()
+    torch.set_num_threads(threads)
+    for cache in ("bfloat16", "int8"):
+        (g, g_kv), (c, c_kv) = card[cache], cpu[cache]
+        r = res["cut"][cache] = _cut_compare(
+            f"2-layer {cache} ring cut card vs cpu over {len(cut_ids)} positions", g, c,
+            MISTRAL_CUT_TOL[cache])
+        if cache == "int8":
+            for i in range(2):
+                steps = torch.cat([(a.int() - b.int()).abs().flatten()
+                                   for a, b in ((g_kv.k[i], c_kv.k[i]), (g_kv.v[i], c_kv.v[i]))])
+                r[f"layer{i}_int8_steps"] = {"max": int(steps.max()),
+                                             "one_step_share": (steps == 1).float().mean().item()}
+            log(f"  q8 rings card vs cpu, int8 entries apart: layer 0 {r['layer0_int8_steps']}, "
+                f"layer 1 {r['layer1_int8_steps']}")
+            if r["layer0_int8_steps"]["max"] > 1:
+                raise AssertionError(f"q8 rings: layer 0's int8 entries up to "
+                                     f"{r['layer0_int8_steps']['max']} steps from the CPU's")
+    del p2, card, cpu
+    span("cut")
+
+    # ---- the uncaptured loop: the replayed tokens' reference over their first
+    # MISTRAL_EAGER_NEW, across the wrap (the host to itself)
+    for cache in ("bfloat16", "int8"):
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev,
+                              cuda_graphs=False)
+        toks, r = generate(eng, eng.new_cache(1), prompt, MISTRAL_EAGER_NEW)
+        ring[cache]["eager"] = r
+        ring[cache]["graph_over_eager"] = (ring[cache]["graph"]["profiled_steps_s"]
+                                           / r["decode_steps_s"])
+        log(f"  ring {cache}, uncaptured: {r['decode_steps_s']:.2f} decode steps/s, prefill "
+            f"{r['prefill_ms']:.1f} ms")
+        if toks != ring[cache]["tokens"][:MISTRAL_EAGER_NEW]:
+            raise AssertionError(f"ring {cache}: replayed tokens differ from the uncaptured "
+                                 f"loop's:\n{ring[cache]['tokens']}\n{toks}")
+        if r["launches"]["qgemv"] != per_step * r["eager_steps"] + chunks:
+            raise AssertionError(f"ring {cache} uncaptured: K1 {r['launches']['qgemv']}")
+        del eng
+        torch.cuda.empty_cache()
+    span("uncaptured")
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  mistral_7b phase: params {res['param_gib']:.2f} GiB, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB, {res['seconds']:.1f} s ({spans})")
     return res
 
 
@@ -4914,6 +5466,11 @@ def main() -> int:
     report["qwen3_30b_a3b"]["kernel_totals"] = a3b_totals(report["kernels"])
     log(f"  Qwen3-30B-A3B totals per unit of its path: "
         f"{report['qwen3_30b_a3b']['kernel_totals']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== mistral_7b")
+    report["mistral_7b"] = mistral_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
