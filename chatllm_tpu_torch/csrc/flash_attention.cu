@@ -25,7 +25,7 @@
 // and the output accumulator at once.  What it does about the causes that
 // held the earlier mma.sync kernel to 4% of the bound:
 //  1. Nothing in flight during the math -> the producer keeps a ring of
-//     STAGES K and V tiles of 128 keys in flight with TMA
+//     STAGES K and V tiles of 128 keys (64 at D 256, `Geo`) in flight with TMA
 //     (cp.async.bulk.tensor, completion on mbarriers); each consumer
 //     warpgroup starts Q.K^T as soon as a K tile lands, and frees each
 //     stage through an "empty" barrier that the producer waits on before
@@ -69,7 +69,7 @@
 // design does about the causes that held the first f32 kernel (32 x 32
 // tiles of 128 threads) to 21% of that bound:
 //  1. Synchronous loads -> a ring of K and V tiles of 64 keys (2 stages at
-//     D 128, 4 at D 64) filled by cp.async (16-byte copies, zero fill past
+//     D 128, 4 at D 64; 2 stages of 32 keys at D 256) filled by cp.async (16-byte copies, zero fill past
 //     S) as the cache's raw bytes: the next tiles load while one is worked
 //     on.  A bf16 tile is widened once into f32 tiles beside the ring, so
 //     both modes' products read f32 (widening at every read was slower).
@@ -129,22 +129,26 @@ struct Strides { long b, t, h; };
 // ------------------------------------------------------------ bf16: wgmma
 constexpr int HBQ = 128;                 // query rows per block
 constexpr int WG_ROWS = 64;              // query rows per consumer warpgroup
-constexpr int HBK = 128;                 // keys per K/V tile
 constexpr int CONSUMER_WARPS = 8;        // two warpgroups
 constexpr int HTHREADS = 32 * (CONSUMER_WARPS + 4);   // + the producer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of one block, from a 1024-byte aligned base: Q as D/64
 // column blocks of [HBQ rows x 128 bytes], then STAGES K tiles and STAGES V
-// tiles, each D/64 column blocks of [HBK rows x 128 bytes] (the 128-byte
+// tiles, each D/64 column blocks of [BK rows x 128 bytes] (the 128-byte
 // swizzle TMA writes and the wgmma descriptors read), then the barriers
 // (q_full, k_full[], v_full[], k_empty[], v_empty[]) and the tile index.
+// Key tiles of 128 keys, 64 at D 256: there a consumer thread holds 128
+// accumulators of O, which beside 128-key scores and their probabilities
+// would pass setmaxnreg's 240 registers, and two stages of 128-key K and V
+// tiles (256 KB) would pass the card's 227 KB of shared memory.
 template <int D>
 struct Geo {
-    static constexpr int STAGES = D == 128 ? 2 : 4;
+    static constexpr int BK = D == 256 ? 64 : 128;
+    static constexpr int STAGES = D == 64 ? 4 : 2;
     static constexpr int CB = D / 64;
     static constexpr int Q_BYTES = HBQ * D * 2;
-    static constexpr int KV_BYTES = HBK * D * 2;
+    static constexpr int KV_BYTES = BK * D * 2;
     static constexpr int K_OFF = Q_BYTES;
     static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
     static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -157,7 +161,9 @@ struct Problem {
     long os_b, os_t, os_h;
 };
 
-// The key tiles [first, end) query tile qt visits (flash.py::tile_keys).
+// The key tiles [first, end) of BK keys query tile qt visits
+// (flash.py::tile_keys).
+template <int BK>
 __device__ __forceinline__ void tile_keys(int qt, const Problem& p, int& first, int& end) {
     const int t0 = qt * HBQ;
     const int lo = p.window > 0 ? max(0, p.n_past + t0 - p.window + 1) : 0;
@@ -167,16 +173,17 @@ __device__ __forceinline__ void tile_keys(int qt, const Problem& p, int& first, 
         first = end = 0;
         return;
     }
-    first = lo / HBK;
-    end = (hi + HBK - 1) / HBK;
+    first = lo / BK;
+    end = (hi + BK - 1) / BK;
 }
 
-// Every key of tile kt visible to every row of the warpgroup whose first row
-// sits at position q_lo (flash.py::tile_interior).
+// Every key of tile kt (BK keys) visible to every row of the warpgroup whose
+// first row sits at position q_lo (flash.py::tile_interior).
+template <int BK>
 __device__ __forceinline__ bool tile_interior(int kt, int q_lo, const Problem& p) {
-    const int k0 = kt * HBK;
-    bool ok = k0 + HBK <= p.n_past + p.n_tokens;
-    if (p.causal) ok = ok && k0 + HBK - 1 <= q_lo;
+    const int k0 = kt * BK;
+    bool ok = k0 + BK <= p.n_past + p.n_tokens;
+    if (p.causal) ok = ok && k0 + BK - 1 <= q_lo;
     if (p.window > 0) ok = ok && k0 > q_lo + WG_ROWS - 1 - p.window;
     return ok;
 }
@@ -288,6 +295,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, 
         : "l"(a), "l"(b), "r"(acc));
 }
 
+// d[0:32] (+)= A[64 x 16] . B[64 x 16]^T, as wgmma_ss_n128 over 64 keys
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t a, uint64_t b, int acc) {
+    if constexpr (BK == 128) wgmma_ss_n128(d, a, b, acc);
+    else wgmma_ss_n64(d, a, b, acc);
+}
+
 // d[0:64] += A[64 x 16] (registers: bf16 pairs, the m16n8k16 A layout per warp)
 //                 . B[16 x 128] (shared memory, MN-major, 128-byte swizzle)
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
@@ -331,10 +361,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// O (D columns) += P . V of 16 keys; V's descriptor at address `addr`, its
+// 64-wide column blocks `lbo` bytes apart.  At D 256 two m64n128k16: columns
+// 128 .. 255 are accumulator elements 64 .. 127, the layout of one n256.
 template <int D>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t b) {
-    if constexpr (D == 128) wgmma_rs_n128(d, a, b);
-    else wgmma_rs_n64(d, a, b);
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint32_t addr, uint32_t lbo) {
+    if constexpr (D == 256) {
+        wgmma_rs_n128(d, a, sw128_desc(addr, lbo));
+        wgmma_rs_n128(d + 64, a, sw128_desc(addr + 2 * lbo, lbo));
+    } else if constexpr (D == 128) {
+        wgmma_rs_n128(d, a, sw128_desc(addr, lbo));
+    } else {
+        wgmma_rs_n64(d, a, sw128_desc(addr, lbo));
+    }
 }
 
 template <int D>
@@ -344,7 +383,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ o, const Problem p) {
     using G = Geo<D>;
-    constexpr int ST = G::STAGES;
+    constexpr int ST = G::STAGES, BK = G::BK;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -365,11 +404,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // of flash.py::prefill_geometry: most key tiles first, then later tiles
     for (int i = tid; i < n_qt; i += HTHREADS) {
         int a, e;
-        tile_keys(i, p, a, e);
+        tile_keys<BK>(i, p, a, e);
         int rank = 0;
         for (int j = 0; j < n_qt; ++j) {
             int aj, ej;
-            tile_keys(j, p, aj, ej);
+            tile_keys<BK>(j, p, aj, ej);
             rank += (ej - aj > e - a) || (ej - aj == e - a && j > i);
         }
         if (rank == static_cast<int>(blockIdx.z)) *s_qt = i;
@@ -389,7 +428,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int qt = *s_qt;
     const int t0 = qt * HBQ;
     int kt_first, kt_end;
-    tile_keys(qt, p, kt_first, kt_end);
+    tile_keys<BK>(qt, p, kt_first, kt_end);
     const int n_tiles = kt_end - kt_first;
 
     if (warp >= CONSUMER_WARPS) {
@@ -404,18 +443,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             for (int i = 0; i < n_tiles; ++i) {
                 const int s = i % ST;
                 const uint32_t parity = ((i / ST) & 1) ^ 1;   // the previous round's release
-                const int k0 = (kt_first + i) * HBK;
+                const int k0 = (kt_first + i) * BK;
                 if (i >= ST) mbar_wait(k_empty(s), parity);
                 mbar_expect_tx(k_full(s), G::KV_BYTES);
 #pragma unroll
                 for (int c = 0; c < G::CB; ++c)
-                    tma_load(sk + s * G::KV_BYTES + c * HBK * 128, &tm_k, k_full(s), c * 64, k0,
+                    tma_load(sk + s * G::KV_BYTES + c * BK * 128, &tm_k, k_full(s), c * 64, k0,
                              hk, b);
                 if (i >= ST) mbar_wait(v_empty(s), parity);
                 mbar_expect_tx(v_full(s), G::KV_BYTES);
 #pragma unroll
                 for (int c = 0; c < G::CB; ++c)
-                    tma_load(sv + s * G::KV_BYTES + c * HBK * 128, &tm_v, v_full(s), c * 64, k0,
+                    tma_load(sv + s * G::KV_BYTES + c * BK * 128, &tm_v, v_full(s), c * 64, k0,
                              hk, b);
             }
         }
@@ -443,19 +482,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float l_run[2] = {0.f, 0.f};
 
     mbar_wait(q_full, 0);
-    float sacc[HBK / 2];
-    uint32_t pf[HBK / 16][4];
+    float sacc[BK / 2];
+    uint32_t pf[BK / 16][4];
     const uint32_t qa = sq + wg * (WG_ROWS * 128);
     const auto softmax = [&](int kt, float* corr) {
-        const int k0 = kt * HBK;
+        const int k0 = kt * BK;
         if (p.softcap > 0.f) {
 #pragma unroll
-            for (int j = 0; j < HBK / 2; ++j)
+            for (int j = 0; j < BK / 2; ++j)
                 sacc[j] = tanhf(sacc[j] * p.scale / p.softcap) * p.softcap;
         }
-        if (!tile_interior(kt, q_lo, p)) {
+        if (!tile_interior<BK>(kt, q_lo, p)) {
 #pragma unroll
-            for (int j = 0; j < HBK / 8; ++j)
+            for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
@@ -469,7 +508,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         // online softmax for rows wr (e = 0, 1) and wr + 8 (e = 2, 3)
         float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-        for (int j = 0; j < HBK / 8; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
             mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
             mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
         }
@@ -489,7 +528,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             none[r] = m_new == NEG_INF;
         }
 #pragma unroll
-        for (int j = 0; j < HBK / 2; ++j) {
+        for (int j = 0; j < BK / 2; ++j) {
             const int r = (j >> 1) & 1;
             float pv = fast_exp2(fmaf(sacc[j], c, -mc[r]));
             if (none[r]) pv = 1.f;
@@ -503,29 +542,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             l_run[r] = l_run[r] * corr[r] + rsum[r];
         }
     };
-    // S = Q K^T of stage s: 64 rows x 128 keys, D/16 steps of 16 along D
+    // S = Q K^T of stage s: 64 rows x BK keys, D/16 steps of 16 along D
     const auto issue_qk = [&](int s) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
             const uint32_t a = qa + (kk >> 2) * (HBQ * 128) + (kk & 3) * 32;
-            const uint32_t k = sk + s * G::KV_BYTES + (kk >> 2) * (HBK * 128) + (kk & 3) * 32;
-            wgmma_ss_n128(sacc, sw128_desc(a, 16), sw128_desc(k, 16), kk > 0);
+            const uint32_t k = sk + s * G::KV_BYTES + (kk >> 2) * (BK * 128) + (kk & 3) * 32;
+            wgmma_qk<BK>(sacc, sw128_desc(a, 16), sw128_desc(k, 16), kk > 0);
         }
         wgmma_commit();
     };
-    // O += P V of stage s: V [128 keys x D] row-major, read MN-major
+    // O += P V of stage s: V [BK keys x D] row-major, read MN-major
     // (transposed) by wgmma, 16 keys a step
     const auto issue_pv = [&](int s) {
 #pragma unroll
-        for (int kc = 0; kc < HBK / 16; ++kc)
-            wgmma_pv<D>(oacc, pf[kc], sw128_desc(sv + s * G::KV_BYTES + kc * 2048, HBK * 128));
+        for (int kc = 0; kc < BK / 16; ++kc)
+            wgmma_pv<D>(oacc, pf[kc], sv + s * G::KV_BYTES + kc * 2048, BK * 128);
         wgmma_commit();
     };
     // P as bf16 A fragments (m16n8k16 layout per warp) straight from the
     // score accumulator: 16 keys = accumulator columns 8 (2 kc) .. + 15
     const auto pack_p = [&]() {
 #pragma unroll
-        for (int kc = 0; kc < HBK / 16; ++kc) {
+        for (int kc = 0; kc < BK / 16; ++kc) {
             pf[kc][0] = pack_bf16(sacc[8 * kc + 0], sacc[8 * kc + 1]);
             pf[kc][1] = pack_bf16(sacc[8 * kc + 2], sacc[8 * kc + 3]);
             pf[kc][2] = pack_bf16(sacc[8 * kc + 4], sacc[8 * kc + 5]);
@@ -540,7 +579,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
         issue_qk(0);
         wgmma_wait<0>();
-        reg_fence<HBK / 2>(sacc);
+        reg_fence<BK / 2>(sacc);
         if (lane == 0) mbar_arrive(k_empty(0));
         softmax(kt_first, corr);
         pack_p();
@@ -553,17 +592,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(k_full(s), (i / ST) & 1);
         mbar_wait(v_full(sp), ((i - 1) / ST) & 1);
         reg_fence<D / 2>(oacc);
-        reg_fence<HBK / 4>(&pf[0][0]);
+        reg_fence<BK / 4>(&pf[0][0]);
         wgmma_fence();
         issue_qk(s);
         issue_pv(sp);
         wgmma_wait<1>();
-        reg_fence<HBK / 2>(sacc);
+        reg_fence<BK / 2>(sacc);
         if (lane == 0) mbar_arrive(k_empty(s));
         softmax(kt_first + i, corr);
         wgmma_wait<0>();
         reg_fence<D / 2>(oacc);
-        reg_fence<HBK / 4>(&pf[0][0]);
+        reg_fence<BK / 4>(&pf[0][0]);
         if (lane == 0) mbar_arrive(v_empty(sp));
 #pragma unroll
         for (int j = 0; j < D / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
@@ -573,7 +612,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int sp = (n_tiles - 1) % ST;
         mbar_wait(v_full(sp), ((n_tiles - 1) / ST) & 1);
         reg_fence<D / 2>(oacc);
-        reg_fence<HBK / 4>(&pf[0][0]);
+        reg_fence<BK / 4>(&pf[0][0]);
         wgmma_fence();
         issue_pv(sp);
         wgmma_wait<0>();
@@ -648,8 +687,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const lon
                  int causal, int window, float softcap, cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
     int err = encode_rows(&tq, q, D, T, Hq, B, st, HBQ);
-    if (!err) err = encode_rows(&tk, k, D, S, Hkv, B, st + 3, HBK);
-    if (!err) err = encode_rows(&tv, v, D, S, Hkv, B, st + 6, HBK);
+    if (!err) err = encode_rows(&tk, k, D, S, Hkv, B, st + 3, Geo<D>::BK);
+    if (!err) err = encode_rows(&tv, v, D, S, Hkv, B, st + 6, Geo<D>::BK);
     if (err) return err;
     const cudaError_t e = cudaFuncSetAttribute(
         flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::SMEM);
@@ -663,7 +702,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const lon
 }
 
 // ------------------------------------------------------ f32: CUDA cores
-constexpr int FBK = 64;            // f32 kernel: keys per K/V tile
 constexpr int FTHREADS = 256;      // 16 x 16 threads
 constexpr int MAX_SPLIT = 8;       // blocks of a cluster (the portable limit)
 constexpr int MIN_SHARE = 4;       // key tiles each block of a split walks at least
@@ -680,13 +718,15 @@ __device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0
 
 // The f32 kernel's geometry, KV the cache's dtype (f32, or bf16 in mode 2).
 // A block of 256 threads owns BQ query rows (128, or 64: `f32_rows`) and
-// walks FBK-key tiles; thread (ty, tx) holds S for the RT = BQ / 16 rows
-// ty + 16 r and the keys tx + 16 j, and O for the same rows and D / 16
-// columns c 64 + 4 tx + e.  Shared memory: Q [BQ][D + 4] f32; a ring of
-// STAGES stages of K and V tiles as the cache's raw bytes (f32: K [FBK][D +
-// 4], V [FBK][D]; bf16: K and V [FBK][D], widened once per tile into f32
-// tiles KF [FBK][D + 4] and VF [FBK][D] after the ring); the products read
-// only f32 tiles.  P [FBK][BQ + 4] f32, key-major, row ty + 16 r at column
+// walks BK-key tiles (64 keys, 32 at D 256, where two stages of 64-key f32
+// tiles beside Q would pass the card's shared memory); thread (ty, tx) holds
+// S for the RT = BQ / 16 rows ty + 16 r and the KJ = BK / 16 keys tx + 16 j,
+// and O for the same rows and D / 16 columns c 64 + 4 tx + e.  Shared
+// memory: Q [BQ][D + 4] f32; a ring of STAGES stages of K and V tiles as the
+// cache's raw bytes (f32: K [BK][D + 4], V [BK][D]; bf16: K and V [BK][D],
+// widened once per tile into f32 tiles KF [BK][D + 4] and VF [BK][D] after
+// the ring); the products read only f32 tiles.  P [BK][BQ + 4] f32,
+// key-major, row ty + 16 r at column
 // RT ty + r (so one 16-byte read gives four of a thread's rows), takes the
 // f32 K tile's place once Q.K^T is done.  The pads put the 16-byte reads
 // and writes of 8 consecutive threads on distinct banks.  After the walk
@@ -695,6 +735,8 @@ __device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0
 template <int D, typename KV, int BQ>
 struct FGeo {
     static constexpr bool WIDEN = sizeof(KV) == 2;                      // bf16 cache
+    static constexpr int BK = D == 256 ? 32 : 64;                       // keys per tile
+    static constexpr int KJ = BK / 16;                                  // keys a thread
     static constexpr int STAGES = D == 64 ? 4 : 2;                      // tiles in the ring
     static constexpr int RT = BQ / 16;                                  // rows a thread
     static constexpr int QS = D + 4;                                    // floats per q row
@@ -703,10 +745,10 @@ struct FGeo {
     static constexpr int RAW = D * static_cast<int>(sizeof(KV));        // bytes of a cache row
     static constexpr int KROW = WIDEN ? RAW : FKS * 4;                  // bytes per ring K row
     static constexpr int K_OFF = BQ * QS * 4;
-    static constexpr int STAGE = FBK * (KROW + RAW);
+    static constexpr int STAGE = BK * (KROW + RAW);
     static constexpr int KF_OFF = K_OFF + STAGES * STAGE;               // bf16: the f32 tiles
-    static constexpr int VF_OFF = KF_OFF + FBK * FKS * 4;
-    static constexpr int SMEM = WIDEN ? VF_OFF + FBK * D * 4 : KF_OFF;
+    static constexpr int VF_OFF = KF_OFF + BK * FKS * 4;
+    static constexpr int SMEM = WIDEN ? VF_OFF + BK * D * 4 : KF_OFF;
     static_assert(D >= BQ, "P fits the f32 K tile");
     static_assert(SMEM - K_OFF >= 4 * (BQ * D + 2 * BQ), "the merge fits after Q");
 };
@@ -721,9 +763,9 @@ struct FProblem {
     float scale, softcap;
 };
 
-// The key tiles [first, end) that the f32 kernel's query tile qt of bq rows
-// visits (flash.py::tile_keys).
-__host__ __device__ inline void f32_tile_keys(int qt, int bq, int T, int S, int n_past,
+// The key tiles [first, end) of bk keys that the f32 kernel's query tile qt
+// of bq rows visits (flash.py::tile_keys).
+__host__ __device__ inline void f32_tile_keys(int qt, int bq, int bk, int T, int S, int n_past,
                                               int n_tokens, int causal, int window,
                                               int& first, int& end) {
     const int t0 = qt * bq;
@@ -736,8 +778,8 @@ __host__ __device__ inline void f32_tile_keys(int qt, int bq, int T, int S, int 
         first = end = 0;
         return;
     }
-    first = lo / FBK;
-    end = (hi + FBK - 1) / FBK;
+    first = lo / bk;
+    end = (hi + bk - 1) / bk;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -752,7 +794,7 @@ template <int D, typename KV, int BQ>
 __global__ void __launch_bounds__(FTHREADS, 1)
 flash_f32_kernel(const FProblem p) {
     using G = FGeo<D, KV, BQ>;
-    constexpr int RT = G::RT;
+    constexpr int RT = G::RT, BK = G::BK, KJ = G::KJ;
     constexpr int NV = D / 64;                    // 16-byte reads of a V row per thread
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int s_qt;
@@ -768,11 +810,11 @@ flash_f32_kernel(const FProblem p) {
     // of flash.py::prefill_geometry: most key tiles first, then later tiles
     for (int i = tid; i < n_qt; i += FTHREADS) {
         int a, e;
-        f32_tile_keys(i, BQ, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, a, e);
+        f32_tile_keys(i, BQ, BK, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, a, e);
         int r = 0;
         for (int j = 0; j < n_qt; ++j) {
             int aj, ej;
-            f32_tile_keys(j, BQ, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, aj, ej);
+            f32_tile_keys(j, BQ, BK, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, aj, ej);
             r += (ej - aj > e - a) || (ej - aj == e - a && j > i);
         }
         if (r == static_cast<int>(blockIdx.z)) s_qt = i;
@@ -780,7 +822,7 @@ flash_f32_kernel(const FProblem p) {
     __syncthreads();
     const int qt = s_qt, t0 = qt * BQ;
     int first, end;
-    f32_tile_keys(qt, BQ, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, first, end);
+    f32_tile_keys(qt, BQ, BK, p.T, p.S, p.n_past, p.n_tokens, p.causal, p.window, first, end);
     const int n_all = end - first;
     const int ka = first + static_cast<int>(static_cast<long>(rank) * n_all / C);
     const int n_tiles = first + static_cast<int>(static_cast<long>(rank + 1) * n_all / C) - ka;
@@ -790,12 +832,12 @@ flash_f32_kernel(const FProblem p) {
     const KV* vb = static_cast<const KV*>(p.v) + b * p.vs.b + hk * p.vs.h;
     const auto load_tile = [&](int kt, int stage) {
         unsigned char* sk = smem + G::K_OFF + stage * G::STAGE;
-        unsigned char* sv = sk + FBK * G::KROW;
+        unsigned char* sv = sk + BK * G::KROW;
         constexpr int NCH = G::RAW / 16;            // 16-byte chunks of a row
 #pragma unroll
-        for (int it = 0; it < FBK * NCH / FTHREADS; ++it) {
+        for (int it = 0; it < BK * NCH / FTHREADS; ++it) {
             const int idx = tid + it * FTHREADS, r = idx / NCH, c = idx % NCH;
-            const int key = kt * FBK + r;
+            const int key = kt * BK + r;
             const bool ok = key < p.S;              // keys past S read as zeros
             const long row = ok ? key : 0;
             cp16(sk + r * G::KROW + c * 16,
@@ -845,14 +887,14 @@ flash_f32_kernel(const FProblem p) {
         unsigned char* sk = smem + G::K_OFF + (i % G::STAGES) * G::STAGE;
         float* kf = reinterpret_cast<float*>(G::WIDEN ? smem + G::KF_OFF : sk);
         const float* vf = reinterpret_cast<const float*>(G::WIDEN ? smem + G::VF_OFF
-                                                                  : sk + FBK * G::KROW);
+                                                                  : sk + BK * G::KROW);
         if constexpr (G::WIDEN) {
             // the bf16 tile widened once into the f32 tiles (the f32 of a
             // bf16 value is its 16 bits in the upper half)
             const uint16_t* rk = reinterpret_cast<const uint16_t*>(sk);
-            const uint16_t* rv = rk + FBK * D;
+            const uint16_t* rv = rk + BK * D;
 #pragma unroll
-            for (int it = 0; it < FBK * D / 8 / FTHREADS; ++it) {
+            for (int it = 0; it < BK * D / 8 / FTHREADS; ++it) {
                 const int idx = tid + it * FTHREADS, r = idx / (D / 8), c = (idx % (D / 8)) * 8;
                 const uint4 uk = *reinterpret_cast<const uint4*>(rk + r * D + c);
                 const uint4 uv = *reinterpret_cast<const uint4*>(rv + r * D + c);
@@ -875,23 +917,23 @@ flash_f32_kernel(const FProblem p) {
             __syncthreads();
         }
 
-        // S = Q K^T, an RT x 4 tile per thread: RT + 4 reads of 16 bytes per
-        // 16 RT FMAs
-        float s[RT][4];
+        // S = Q K^T, an RT x KJ tile per thread: RT + KJ reads of 16 bytes
+        // per 4 RT KJ FMAs
+        float s[RT][KJ];
 #pragma unroll
         for (int r = 0; r < RT; ++r)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+            for (int j = 0; j < KJ; ++j) s[r][j] = 0.f;
 #pragma unroll QK_UNROLL
         for (int d = 0; d < D; d += 4) {
-            float4 kv[4];
+            float4 kv[KJ];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) kv[j] = lds4(kf + (tx + 16 * j) * G::FKS + d);
+            for (int j = 0; j < KJ; ++j) kv[j] = lds4(kf + (tx + 16 * j) * G::FKS + d);
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
                 const float4 qv = lds4(sq + (ty + 16 * r) * G::QS + d);
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < KJ; ++j) {
                     s[r][j] = fmaf(qv.x, kv[j].x, s[r][j]);
                     s[r][j] = fmaf(qv.y, kv[j].y, s[r][j]);
                     s[r][j] = fmaf(qv.z, kv[j].z, s[r][j]);
@@ -900,15 +942,15 @@ flash_f32_kernel(const FProblem p) {
             }
         }
 
-        // online softmax: a row's 64 scores lie across 16 lanes of a warp
-        const int k0 = (ka + i) * FBK;
-        bool interior = k0 + FBK <= kv_len;
-        if (p.causal) interior = interior && k0 + FBK - 1 <= q_lo;
+        // online softmax: a row's BK scores lie across 16 lanes of a warp
+        const int k0 = (ka + i) * BK;
+        bool interior = k0 + BK <= kv_len;
+        if (p.causal) interior = interior && k0 + BK - 1 <= q_lo;
         if (p.window > 0) interior = interior && k0 > q_lo + BQ - 1 - p.window;
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < KJ; ++j) {
                 float x = s[r][j];
                 if (p.softcap > 0.f) x = tanhf(x * cap_in) * p.softcap;
                 x *= c2;
@@ -921,7 +963,9 @@ flash_f32_kernel(const FProblem p) {
                 }
                 s[r][j] = x;
             }
-            float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+            float mx = s[r][0];
+#pragma unroll
+            for (int j = 1; j < KJ; ++j) mx = fmaxf(mx, s[r][j]);
 #pragma unroll
             for (int off = 1; off < 16; off <<= 1)
                 mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
@@ -933,7 +977,7 @@ flash_f32_kernel(const FProblem p) {
             m_run[r] = m_new;
             float sum = 0.f;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < KJ; ++j) {
                 s[r][j] = fast_exp2(s[r][j] - m_new);
                 sum += s[r][j];
             }
@@ -945,7 +989,7 @@ flash_f32_kernel(const FProblem p) {
         float* sp = kf;
         // P key-major: one 16-byte read gives a key's probabilities of 4 rows
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < KJ; ++j)
 #pragma unroll
             for (int h4 = 0; h4 < RT / 4; ++h4) {
                 float4 pv = make_float4(s[4 * h4][j], s[4 * h4 + 1][j], s[4 * h4 + 2][j],
@@ -963,7 +1007,7 @@ flash_f32_kernel(const FProblem p) {
         // O += P V: per key RT / 4 reads of P and D / 64 of V for RT x D / 16
         // FMAs
 #pragma unroll PV_UNROLL
-        for (int k = 0; k < FBK; ++k) {
+        for (int k = 0; k < BK; ++k) {
             float4 pr[RT / 4];
 #pragma unroll
             for (int h4 = 0; h4 < RT / 4; ++h4) pr[h4] = lds4(sp + k * G::PS + RT * ty + 4 * h4);
@@ -1117,7 +1161,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const long*
     int longest = 0;
     for (int qt = 0; qt < n_qt; ++qt) {
         int a, b;
-        f32_tile_keys(qt, BQ, T, S, n_past, n_tokens, causal, window, a, b);
+        f32_tile_keys(qt, BQ, G::BK, T, S, n_past, n_tokens, causal, window, a, b);
         longest = b - a > longest ? b - a : longest;
     }
     const int blocks = n_qt * Hq * B;
@@ -1196,7 +1240,7 @@ int launch(int mode, const void* q, const void* k, const void* v, void* o, const
 // stride along D;
 // strides: 12 element strides (b, t, h) for q, k, v, o in that order, each
 // a multiple of 16 bytes, and 16-byte aligned q, k, v (mode 0 reads them
-// through TMA).  D must be 64 or 128; Hq % Hkv == 0; n_past + n_tokens <= S.
+// through TMA).  D must be 64, 128 or 256; Hq % Hkv == 0; n_past + n_tokens <= S.
 CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                      const long* strides, int B, int T, int S, int Hq,
                                      int Hkv, int D, int n_past, int n_tokens, float scale,
@@ -1209,6 +1253,9 @@ CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v
     if (D == 64)
         return launch<64>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
                           scale, causal, window, softcap, st);
+    if (D == 256)
+        return launch<256>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
+                           scale, causal, window, softcap, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1226,5 +1273,7 @@ CL_EXPORT int flash_attention_cluster_slots(int D, int mode, int bq, int C) {
     if (mode == 2 && D == 128 && bq == 128) return cluster_slots<128, __nv_bfloat16, 128>(C);
     if (mode == 2 && D == 128 && bq == 64) return cluster_slots<128, __nv_bfloat16, 64>(C);
     if (mode == 2 && D == 64 && bq == 64) return cluster_slots<64, __nv_bfloat16, 64>(C);
+    if (mode == 1 && D == 256 && bq == 64) return cluster_slots<256, float, 64>(C);
+    if (mode == 2 && D == 256 && bq == 64) return cluster_slots<256, __nv_bfloat16, 64>(C);
     return -1;
 }

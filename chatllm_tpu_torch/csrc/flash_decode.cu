@@ -2,7 +2,7 @@
 //
 //   q [B, T, Hq, D] (bf16 or f32); cache k [B, S, Hkv, D] and v [B, S, Hkv,
 //   Dv], int8 with f32 scales [B, S, Hkv] (the q8 cache) or bf16 / f32  ->
-//   o [B, T, Hq, Dv] in q's dtype.  D = Dv = 64 or 128, or (float dots only)
+//   o [B, T, Hq, Dv] in q's dtype.  D = Dv = 64, 128 or 256, or (float dots only)
 //   multi-head latent attention's expanded cache, D 192 (128 nope + 64 rope
 //   dims) and Dv 128, with one query head per kv head
 //
@@ -38,7 +38,10 @@
 // weighs them.
 //
 // Up to 64 query rows G*T per kv head (Qwen2.5-0.5B's 7 heads per kv head
-// at T = 8 are 56).  The cache is read through element strides, the scales
+// at T = 8 are 56), 32 at D 256 (Gemma-3-1B's 4 at T = 8).  D 256 (the Gemma
+// family's heads) takes the same designs: its float-dot stages are 34 KB
+// (int8), 66 KB (bf16) and 130 KB (f32: one stage, loads not overlapped),
+// its int8-dot slots 18 KB.  The cache is read through element strides, the scales
 // through their own (b, s, h) strides, so a [B, Hkv, S, D] cache and
 // [B, Hkv, S] scales pass as permuted views.
 //
@@ -61,7 +64,8 @@
 //     flash_decode.py::decode_geometry; up to 16, above 8 with the
 //     non-portable cluster attribute).  Each block reads its row's n_past,
 //     takes the live keys [lo, hi) as 64-key tiles aligned at multiples of
-//     64, and its share of them (`block_share`): a function of n_past and C
+//     64 (32-key tiles over an f32 cache at D 256: FGeom::TK), and its
+//     share of them (`block_share`): a function of n_past and C
 //     only, so a per-row n_past needs no read-back (the launch is
 //     capturable in a CUDA graph) and results repeat bit for bit.
 //  2. A ring of raw K/V tiles in shared memory in the cache's own dtype (an
@@ -73,7 +77,8 @@
 //     block where the rows are few.  Up to 8 rows (the main path's 4 and 7):
 //     warp w dots quarter w % 4 of key half w / 4 (lane j: key 32 (w / 4) +
 //     j, 16 bytes at a time; rows padded by 16 bytes, so the lanes' reads
-//     fall on distinct banks) against every row, and the quarters are summed
+//     fall on distinct banks; eighths of one 32-key tile over an f32 cache
+//     at D 256) against every row, and the parts are summed
 //     in shared memory; in P V thread i takes 4 columns of every row over
 //     one of 256 / (D/4) slices of the tile's keys, the slices summed in
 //     order at the end.  More rows: warp w takes rows w, w+8, ... over whole
@@ -227,6 +232,13 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
+// N values at stride `st`, summed as a pairwise tree
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* x, int st) {
+    if constexpr (N == 1) return x[0];
+    else return tree_sum<N / 2>(x, st) + tree_sum<N / 2>(x + N / 2 * st, st);
+}
+
 __device__ __forceinline__ void cp16(void* smem, const void* gmem, bool valid) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -288,11 +300,12 @@ __device__ __forceinline__ void write_out(const Params& p, int b, int h, int r, 
         static_cast<__nv_bfloat16*>(p.o)[off] = __float2bfloat16_rn(a * sc);
 }
 
-// Block `rank` of C takes the live tiles [ta, tb) of FTK keys: the tiles
-// aligned at multiples of FTK that meet [lo, hi), in C contiguous runs in
+// Block `rank` of C takes the live tiles [ta, tb) of TK keys: the tiles
+// aligned at multiples of TK that meet [lo, hi), in C contiguous runs in
 // rank order (ops/cuda/flash_decode.py::decode_share).
+template <int TK>
 __device__ __forceinline__ void block_share(int lo, int hi, int rank, int C, int& ta, int& tb) {
-    const int t0 = lo / FTK, nt = hi > lo ? (hi + FTK - 1) / FTK - t0 : 0;
+    const int t0 = lo / TK, nt = hi > lo ? (hi + TK - 1) / TK - t0 : 0;
     ta = t0 + static_cast<int>(static_cast<long>(rank) * nt / C);
     tb = t0 + static_cast<int>(static_cast<long>(rank + 1) * nt / C);
 }
@@ -373,11 +386,11 @@ __device__ __forceinline__ void owner_merge(const Params& p, const float* racc, 
 }
 
 // The float-dot kernel's shared memory: a ring of STAGES stages, each a
-// 64-key K tile (DK wide, rows padded by 16 bytes), a V tile (DV wide) and
+// TK-key K tile (DK wide, rows padded by 16 bytes), a V tile (DV wide) and
 // the tile's k and v scales, all in the cache's dtype; after the last tile
 // the ring's space takes, with few rows, the key slices' partials [ZS, R,
 // DV].  Then, in f32: q [R, DK], with few rows the warps' partial dots
-// [FWARPS, R, 32], p * v_scale [R, FTK], the tile's rescale factors [R], and
+// [FWARPS, R, 32], p * v_scale [R, TK], the tile's rescale factors [R], and
 // the receive buffer of the cluster's merge (Recv, over the [R, DV] output).
 template <int DK, int DV, typename KV, int MAXR>
 struct FGeom {
@@ -388,11 +401,17 @@ struct FGeom {
     static constexpr int KNCH = KROWB / 16;                          // 16-byte chunks per K row
     static constexpr int VNCH = VROWB / 16;                          // ... per V row
     static constexpr int VEC = 16 / static_cast<int>(sizeof(KV));    // values per chunk
-    static constexpr int VOFF = FTK * KROW;
-    static constexpr int SOFF = VOFF + FTK * VROWB;
-    static constexpr int STAGE = SOFF + 2 * FTK * 4;
+    // keys per tile: FTK, or half that over an f32 cache at D 256, whose
+    // 64-key stage (130 KB) leaves no room for a second
+    static constexpr int TK = sizeof(KV) == 4 && DK == 256 ? FTK / 2 : FTK;
+    static constexpr int KPL = TK / 32;            // keys per lane in the softmax
+    static constexpr int DQ = FWARPS / KPL;        // FEW: warps sharing a key's dots
+    static constexpr int VOFF = TK * KROW;
+    static constexpr int SOFF = VOFF + TK * VROWB;
+    static constexpr int STAGE = SOFF + 2 * TK * 4;
     static constexpr int FIT = 96 * 1024 / STAGE;
-    static constexpr int STAGES = FIT > 4 ? 4 : (FIT < 2 ? 2 : FIT);
+    static constexpr int STAGES = FIT > 4 ? 4 : FIT >= 2 ? FIT : 2;   // near the 96 KB target
+    static_assert(STAGES * STAGE <= 200 * 1024, "two stages beside q and the merge buffers");
     static constexpr int CW = DV / 4;              // threads across a row in P V, 4 columns each
     static constexpr int ZS = FTHREADS / CW;       // slices of the keys (FEW) or rows in P V
 
@@ -402,7 +421,7 @@ struct FGeom {
         return (ring + 15) / 16 * 16;
     }
     __host__ __device__ static int recv_offset(int R) {
-        return (ring_bytes(R) + 4 * (R * DK + (FEW ? FWARPS * R * 32 : 0) + R * FTK + R) + 15) /
+        return (ring_bytes(R) + 4 * (R * DK + (FEW ? FWARPS * R * 32 : 0) + R * TK + R) + 15) /
                16 * 16;
     }
     __host__ __device__ static int smem_bytes(int R, int C) {
@@ -416,11 +435,11 @@ decode_kernel(Params p) {
     using Gm = FGeom<DK, DV, KV, MAXR>;
     constexpr bool FEW = Gm::FEW;
     constexpr int NOWN = (MAXR + FWARPS - 1) / FWARPS;   // rows whose softmax a warp keeps
-    constexpr int CW = Gm::CW, ZS = Gm::ZS;
+    constexpr int CW = Gm::CW, ZS = Gm::ZS, TK = Gm::TK, KPL = Gm::KPL, DQ = Gm::DQ;
     constexpr int NACC = FEW ? MAXR : MAXR / ZS;
     static_assert(Gm::KNCH >= Gm::VNCH, "the tile copy takes V no wider than K");
-    constexpr int QCH = Gm::KNCH / 4;            // FEW: chunks of a key row's quarter
-    constexpr int KZ = FTK / ZS;                 // FEW: keys per slice in P V
+    constexpr int QCH = Gm::KNCH / DQ;           // FEW: chunks of a warp's part of a key row
+    constexpr int KZ = TK / ZS;                  // FEW: keys per slice in P V
     extern __shared__ __align__(16) uint8_t smem[];
     cg::cluster_group cluster = cg::this_cluster();
 
@@ -435,26 +454,26 @@ decode_kernel(Params p) {
     long long np;
     int lo, hi, ta, tb;
     live_keys(p, b, np, lo, hi);
-    block_share(lo, hi, blockIdx.x, gridDim.x, ta, tb);
+    block_share<TK>(lo, hi, blockIdx.x, gridDim.x, ta, tb);
 
     // tile t into its stage; keys outside [lo, hi) are zero-filled
     auto issue = [&](int t) {
         uint8_t* st = smem + ((t - ta) % Gm::STAGES) * Gm::STAGE;
         // one pass over a key's chunks copies its K and V chunks together
         // (for K wider than V, the last KNCH - VNCH chunks are K's alone)
-        for (int idx = tid; idx < FTK * Gm::KNCH; idx += FTHREADS) {
-            const int j = idx / Gm::KNCH, c = idx - j * Gm::KNCH, kp = t * FTK + j;
+        for (int idx = tid; idx < TK * Gm::KNCH; idx += FTHREADS) {
+            const int j = idx / Gm::KNCH, c = idx - j * Gm::KNCH, kp = t * TK + j;
             const bool ok = kp >= lo && kp < hi;
             cp16(st + j * Gm::KROW + c * 16, ok ? kb + kp * p.kst.t + c * Gm::VEC : kb, ok);
             if (c < Gm::VNCH)
                 cp16(st + Gm::VOFF + j * Gm::VROWB + c * 16,
                      ok ? vb + kp * p.vst.t + c * Gm::VEC : vb, ok);
         }
-        if (ksb && tid < 2 * FTK) {
-            const int kp = t * FTK + (tid & (FTK - 1));
+        if (ksb && tid < 2 * TK) {
+            const int kp = t * TK + (tid & (TK - 1));
             const bool ok = kp >= lo && kp < hi;
-            const float* src = tid < FTK ? (ok ? ksb + kp * p.kss.t : ksb)
-                                         : (ok ? vsb + kp * p.vss.t : vsb);
+            const float* src = tid < TK ? (ok ? ksb + kp * p.kss.t : ksb)
+                                        : (ok ? vsb + kp * p.vss.t : vsb);
             cp4(st + Gm::SOFF + tid * 4, src, ok);
         }
     };
@@ -465,8 +484,8 @@ decode_kernel(Params p) {
     }
     float* sq = reinterpret_cast<float*>(smem + Gm::ring_bytes(R));
     float* spart = sq + R * DK;              // FEW: [FWARPS][R][32] partial dots
-    float* sp = spart + (FEW ? FWARPS * R * 32 : 0);   // [R][FTK]: p * v_scale of the tile
-    float* scorr = sp + R * FTK;             // [R]: the tile's rescale factor
+    float* sp = spart + (FEW ? FWARPS * R * 32 : 0);   // [R][TK]: p * v_scale of the tile
+    float* scorr = sp + R * TK;              // [R]: the tile's rescale factor
     for (int idx = tid; idx < R * DK; idx += FTHREADS) {   // in flight beside the tiles' loads
         const int r = idx / DK, c = idx - r * DK, g = r / p.T, t = r - g * p.T;
         const float x = load_q(p, b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h + c);
@@ -503,20 +522,25 @@ decode_kernel(Params p) {
         const uint8_t* st = smem + ((t - ta) % Gm::STAGES) * Gm::STAGE;
         const KV* sv = reinterpret_cast<const KV*>(st + Gm::VOFF);
         const float* ssc = reinterpret_cast<const float*>(st + Gm::SOFF);
-        // lane j holds keys t * FTK + j and t * FTK + 32 + j
-        const int kp0 = t * FTK + lane, kp1 = kp0 + 32;
-        const bool in0 = kp0 >= lo && kp0 < hi, in1 = kp1 >= lo && kp1 < hi;
+        // lane j holds keys t * TK + k * 32 + j, k < KPL
+        int kp[KPL];
+        bool in[KPL];
+#pragma unroll
+        for (int k = 0; k < KPL; ++k) {
+            kp[k] = t * TK + k * 32 + lane;
+            in[k] = kp[k] >= lo && kp[k] < hi;
+        }
 
         // Raw dots s[i][k] of row w + FWARPS i with key k * 32 + lane.  Few
-        // rows: warp w dots a quarter (w % 4) of key half w / 4 against every
-        // row and leaves it in spart; many rows: whole key rows.
-        float s[NOWN][2];
+        // rows: warp w dots part w % DQ (of DQ) of key half w / DQ against
+        // every row and leaves it in spart; many rows: whole key rows.
+        float s[NOWN][KPL];
         if constexpr (FEW) {
-            const int kh = warp >> 2, qd = warp & 3;
+            const int kh = warp / DQ, qd = warp % DQ;
             float sw[MAXR];
 #pragma unroll
             for (int r = 0; r < MAXR; ++r) sw[r] = 0.f;
-            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * (Gm::KROWB / 4);
+            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * (Gm::KROWB / DQ);
 #pragma unroll
             for (int c = 0; c < QCH; ++c) {
                 float kf[Gm::VEC];
@@ -528,7 +552,7 @@ decode_kernel(Params p) {
 #pragma unroll
                 for (int r = 0; r < MAXR; ++r) {
                     if (r >= R) break;
-                    const float* qr = sq + r * DK + qd * (DK / 4) + c * Gm::VEC;
+                    const float* qr = sq + r * DK + qd * (DK / DQ) + c * Gm::VEC;
 #pragma unroll
                     for (int e = 0; e < Gm::VEC; e += 4) {
                         const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
@@ -547,16 +571,17 @@ decode_kernel(Params p) {
             __syncthreads();
             if (warp < R) {
 #pragma unroll
-                for (int k = 0; k < 2; ++k) {
-                    const float* pr = spart + (4 * k * R + warp) * 32 + lane;
-                    s[0][k] = (pr[0] + pr[R * 32]) + (pr[2 * R * 32] + pr[3 * R * 32]);
-                }
+                for (int k = 0; k < KPL; ++k)
+                    s[0][k] = tree_sum<DQ>(spart + (DQ * k * R + warp) * 32 + lane, R * 32);
             }
         } else {
 #pragma unroll
-            for (int i = 0; i < NOWN; ++i) s[i][0] = s[i][1] = 0.f;
+            for (int i = 0; i < NOWN; ++i) {
 #pragma unroll
-            for (int k = 0; k < 2; ++k) {
+                for (int k = 0; k < KPL; ++k) s[i][k] = 0.f;
+            }
+#pragma unroll
+            for (int k = 0; k < KPL; ++k) {
                 const uint8_t* kr = st + (k * 32 + lane) * Gm::KROW;
 #pragma unroll
                 for (int c = 0; c < Gm::KNCH; ++c) {
@@ -584,35 +609,40 @@ decode_kernel(Params p) {
             }
         }
 
-        // the online softmax of rows w, w+8, ... over the tile's 64 keys
-        const float ksc0 = ksb ? ssc[lane] : 1.f, ksc1 = ksb ? ssc[32 + lane] : 1.f;
-        const float vsc0 = ksb ? ssc[FTK + lane] : 1.f, vsc1 = ksb ? ssc[FTK + 32 + lane] : 1.f;
+        // the online softmax of rows w, w+8, ... over the tile's TK keys
+        float ksc[KPL], vsc[KPL];
+#pragma unroll
+        for (int k = 0; k < KPL; ++k) {
+            ksc[k] = ksb ? ssc[k * 32 + lane] : 1.f;
+            vsc[k] = ksb ? ssc[TK + k * 32 + lane] : 1.f;
+        }
 #pragma unroll
         for (int i = 0; i < NOWN; ++i) {
             const int r = warp + FWARPS * i;
             if (r >= R) break;
-            float x0 = s[i][0] * p.scale, x1 = s[i][1] * p.scale;
-            if (ksb) {
-                x0 *= ksc0;
-                x1 *= ksc1;
+            float x[KPL], mx = -CUDART_INF_F;
+#pragma unroll
+            for (int k = 0; k < KPL; ++k) {
+                x[k] = s[i][k] * p.scale;
+                if (ksb) x[k] *= ksc[k];
+                if (p.softcap > 0.f) x[k] = tanhf(x[k] / p.softcap) * p.softcap;
+                // keys outside [lo, hi) take no part; masked ones do, with
+                // -1e30, as in the Pallas kernel (weight 0 once a valid key
+                // sets the max)
+                x[k] = kp[k] >= rlo[i] && kp[k] < rhi[i] ? x[k] : NEG_INF;
+                mx = fmaxf(mx, in[k] ? x[k] : -CUDART_INF_F);
             }
-            if (p.softcap > 0.f) {
-                x0 = tanhf(x0 / p.softcap) * p.softcap;
-                x1 = tanhf(x1 / p.softcap) * p.softcap;
-            }
-            // keys outside [lo, hi) take no part; masked ones do, with -1e30,
-            // as in the Pallas kernel (weight 0 once a valid key sets the max)
-            x0 = kp0 >= rlo[i] && kp0 < rhi[i] ? x0 : NEG_INF;
-            x1 = kp1 >= rlo[i] && kp1 < rhi[i] ? x1 : NEG_INF;
-            const float m_new = fmaxf(m_run[i], warp_max(fmaxf(in0 ? x0 : -CUDART_INF_F,
-                                                               in1 ? x1 : -CUDART_INF_F)));
+            const float m_new = fmaxf(m_run[i], warp_max(mx));
             const float corr = expf(m_run[i] - m_new);
-            const float p0 = in0 ? expf(x0 - m_new) : 0.f, p1 = in1 ? expf(x1 - m_new) : 0.f;
-            l_run[i] = l_run[i] * corr + (p0 + p1);
+            float psum = 0.f;
+#pragma unroll
+            for (int k = 0; k < KPL; ++k) {
+                const float pk = in[k] ? expf(x[k] - m_new) : 0.f, pv = pk * vsc[k];
+                psum += pk;
+                sp[r * TK + k * 32 + lane] = p.bf16_dots ? round_bf16(pv) : pv;
+            }
+            l_run[i] = l_run[i] * corr + psum;
             m_run[i] = m_new;
-            const float pv0 = p0 * vsc0, pv1 = p1 * vsc1;
-            sp[r * FTK + lane] = p.bf16_dots ? round_bf16(pv0) : pv0;
-            sp[r * FTK + 32 + lane] = p.bf16_dots ? round_bf16(pv1) : pv1;
             if (lane == 0) scorr[r] = corr;
         }
         __syncthreads();
@@ -629,7 +659,7 @@ decode_kernel(Params p) {
             for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
         }
 #pragma unroll 2
-        for (int jb = 0; jb < (FEW ? KZ : FTK); jb += 4) {
+        for (int jb = 0; jb < (FEW ? KZ : TK); jb += 4) {
             const int j = FEW ? z * KZ + jb : jb;
             float4 v[4];
 #pragma unroll
@@ -643,7 +673,7 @@ decode_kernel(Params p) {
             for (int i = 0; i < NACC; ++i) {
                 const int r = FEW ? i : z + ZS * i;
                 if (r >= R) break;
-                const float4 p4 = *reinterpret_cast<const float4*>(sp + r * FTK + j);
+                const float4 p4 = *reinterpret_cast<const float4*>(sp + r * TK + j);
                 const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
                 for (int jj = 0; jj < 4; ++jj) {
@@ -906,27 +936,36 @@ decode_int8_kernel(Params p) {
     };
 
     // per-row symmetric quantization of q (the Pallas wrapper's, :438-444),
-    // packed four values to a word; in flight beside the first tiles' loads
+    // packed four values to a word, lane j taking words j, j + 32, ...; in
+    // flight beside the first tiles' loads
+    constexpr int QW = (D / 4 + 31) / 32;        // words of a q8 row per lane
     for (int r = warp; r < R; r += FWARPS) {
         const int g = r / p.T, t = r - g * p.T;
         const long base = b * p.qs.b + t * p.qs.t + static_cast<long>(h * G + g) * p.qs.h;
-        float x[4] = {0.f, 0.f, 0.f, 0.f};
-        const bool mine = lane * 4 < D;
-        if (mine) {
+        float x[QW][4];
+        float ax = 0.f;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) x[e] = load_q(p, base + lane * 4 + e);
+        for (int u = 0; u < QW; ++u) {
+            const int wi = lane + 32 * u;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                x[u][e] = wi * 4 < D ? load_q(p, base + wi * 4 + e) : 0.f;
+                ax = fmaxf(ax, fabsf(x[u][e]));
+            }
         }
-        const float amax =
-            warp_max(fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3]))));
+        const float amax = warp_max(ax);
         const float qrow = amax > 0.f ? amax / 127.f : 1.f;
-        if (mine) {
+#pragma unroll
+        for (int u = 0; u < QW; ++u) {
+            const int wi = lane + 32 * u;
+            if (wi * 4 >= D) continue;
             uint32_t w = 0;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int v = static_cast<int>(fminf(fmaxf(rintf(x[e] / qrow), -127.f), 127.f));
+                const int v = static_cast<int>(fminf(fmaxf(rintf(x[u][e] / qrow), -127.f), 127.f));
                 w |= (static_cast<uint32_t>(v) & 0xffu) << (8 * e);
             }
-            reinterpret_cast<uint32_t*>(sq8 + r * D)[lane] = w;
+            reinterpret_cast<uint32_t*>(sq8 + r * D)[wi] = w;
         }
         if (lane == 0) {
             sqsc[r] = qrow * p.scale;
@@ -1182,15 +1221,16 @@ int launch_rows(const Params& p, int R, int B, cudaStream_t stream) {
                           FGeom<DK, DV, KV, MAXR>::smem_bytes(R, p.n_splits), p, B, stream);
 }
 
-// K and V of one width: up to 64 rows.  MLA's K 192 / V 128 (one query
-// head per kv head, T <= 8): up to 8 rows.
+// K and V of one width: up to 64 rows, 32 at D 256 (`max_rows`).  MLA's K
+// 192 / V 128 (one query head per kv head, T <= 8): up to 8 rows.
 template <int DK, int DV, typename KV>
 int launch_float_rows(const Params& p, int B, cudaStream_t stream) {
     const int R = (p.Hq / p.Hkv) * p.T;
     if (R <= 8) return launch_rows<DK, DV, KV, 8>(p, R, B, stream);
     if constexpr (DK == DV) {
         if (R <= 32) return launch_rows<DK, DV, KV, 32>(p, R, B, stream);
-        return launch_rows<DK, DV, KV, 64>(p, R, B, stream);
+        if constexpr (DK == 256) return static_cast<int>(cudaErrorInvalidValue);
+        else return launch_rows<DK, DV, KV, 64>(p, R, B, stream);
     } else {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1226,7 +1266,8 @@ int launch_int8(const Params& p, int B, cudaStream_t stream) {
     const int R = (p.Hq / p.Hkv) * p.T;
     if (R <= 8) return launch_int8_rows<D, 8>(p, R, B, stream);
     if (R <= 32) return launch_int8_rows<D, 32>(p, R, B, stream);
-    return launch_int8_rows<D, 64>(p, R, B, stream);
+    if constexpr (D == 256) return static_cast<int>(cudaErrorInvalidValue);
+    else return launch_int8_rows<D, 64>(p, R, B, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const float* ks,
@@ -1242,9 +1283,14 @@ Params make_params(const void* q, const void* k, const void* v, const float* ks,
                   scale, softcap};
 }
 
+// Query rows G*T per kv head at head dim D: MAX_ROWS, 32 at D 256, where
+// 64 rows' q, partials and merge buffers beside the tiles pass the card's
+// shared memory (flash_decode.py D256_MAX_ROWS).
+constexpr int max_rows(int D) { return D == 256 ? 32 : MAX_ROWS; }
+
 bool bad_shape(int Hq, int Hkv, int T, int D, int q_kind) {
-    return Hkv <= 0 || Hq % Hkv || T <= 0 || (Hq / Hkv) * T > MAX_ROWS ||
-           (D != 64 && D != 128) || (q_kind != KIND_F32 && q_kind != KIND_BF16);
+    return Hkv <= 0 || Hq % Hkv || T <= 0 || (D != 64 && D != 128 && D != 256) ||
+           (Hq / Hkv) * T > max_rows(D) || (q_kind != KIND_F32 && q_kind != KIND_BF16);
 }
 
 }  // namespace
@@ -1254,7 +1300,8 @@ bool bad_shape(int Hq, int Hkv, int T, int D, int q_kind) {
 // and 16-byte aligned rows; strides: 18 element strides (b, t|s, h) of q,
 // k, v, o, ks, vs.  np_vec: int64 [B] per-row n_past, or null to use
 // np_scalar.  (D, Dv), the widths of q and K and of V and o: (64, 64) or
-// (128, 128) with G*T at most 64, or MLA's (192, 128) with G*T at most 8.
+// (128, 128) with G*T at most 64, (256, 256) with G*T at most 32, or MLA's
+// (192, 128) with G*T at most 8.
 // bf16 or f32 dots; `ctas` (1..16) blocks per (batch row, kv head), one
 // cluster (flash_decode.py decode_geometry).
 CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
@@ -1274,6 +1321,7 @@ CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
                                  ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (mla) return launch_float_kv<192, 128>(kv_kind, p, B, st);
+    if (D == 256) return launch_float_kv<256, 256>(kv_kind, p, B, st);
     return D == 128 ? launch_float_kv<128, 128>(kv_kind, p, B, st)
                     : launch_float_kv<64, 64>(kv_kind, p, B, st);
 }
@@ -1295,5 +1343,6 @@ CL_EXPORT int flash_decode_int8_launch(const void* q, const void* k, const void*
     const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, strides, T, S, Hq,
                                  Hkv, n_tokens, scale, window, softcap, q_kind, 0, block_k, ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (D == 256) return launch_int8<256>(p, B, st);
     return D == 128 ? launch_int8<128>(p, B, st) : launch_int8<64>(p, B, st);
 }

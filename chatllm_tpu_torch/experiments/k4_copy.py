@@ -36,8 +36,8 @@ ONE_PASS = """\
 """
 TWO_PASSES = """\
         }
-        for (int idx = tid; idx < FTK * Gm::VNCH; idx += FTHREADS) {
-            const int j = idx / Gm::VNCH, c = idx - j * Gm::VNCH, kp = t * FTK + j;
+        for (int idx = tid; idx < TK * Gm::VNCH; idx += FTHREADS) {
+            const int j = idx / Gm::VNCH, c = idx - j * Gm::VNCH, kp = t * TK + j;
             const bool ok = kp >= lo && kp < hi;
             cp16(st + Gm::VOFF + j * Gm::VROWB + c * 16,
                  ok ? vb + kp * p.vst.t + c * Gm::VEC : vb, ok);

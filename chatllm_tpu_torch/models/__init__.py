@@ -6,3 +6,5 @@ from . import mistral  # noqa: F401  (registers MISTRAL, MIXTRAL / WIZARDLM2_MOE
 from . import qwen  # noqa: F401  (registers QWEN2 and relatives, QWEN2MoE, QWEN3, R1 distills)
 from . import deepseek  # noqa: F401  (registers DeepSeek V1, V1-MoE, V2, V3)
 from . import internvl  # noqa: F401  (registers INTERN_VL)
+from . import gemma  # noqa: F401  (registers GEMMA, GEMMA2, GEMMA3)
+from . import misc_wave2  # noqa: F401  (registers RNJ_1)

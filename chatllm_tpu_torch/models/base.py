@@ -238,7 +238,10 @@ def load_model(path: str, rt: RuntimeConfig | None = None, device=None) -> BaseL
     gf = GGMMFile.open(path)
     cls = lookup_model(gf.model_type)
     if cls is None:
-        raise ValueError(f"unsupported model_type 0x{gf.model_type:x} in {path}")
+        from .model_types import ModelType
+
+        name = next((t.name for t in ModelType if int(t) == gf.model_type), "unknown")
+        raise ValueError(f"unsupported model_type 0x{gf.model_type:x} ({name}) in {path}")
     model = cls.load(gf, rt, dev)
     if rt.layer_spec:
         model = _apply_layer_spec(model, rt.layer_spec)

@@ -102,7 +102,7 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     dense in the compute dtype as the loader stacks them (random: N(0,
     1 / fan-in), drawn on the device), and a shared expert of width
     cfg.moe_shared_intermediate when it is not 0.  `centered`: see
-    synth_linear."""
+    synth_linear.  Post-norms under cfg.post_norms (Gemma-2/3's sandwich)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H = cfg.hidden_size
     d = cfg.resolved_head_dim()
@@ -160,8 +160,11 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                  * 0.02).to(compute_dtype)
     layers = []
     for i in range(cfg.num_hidden_layers):
-        layers.append({"attn_norm": ones(), "attn": attention(), "ffn_norm": ones(),
-                       "mlp": ffn(cfg.layer_spec(i))})
+        layer = {"attn_norm": ones(), "attn": attention(), "ffn_norm": ones(),
+                 "mlp": ffn(cfg.layer_spec(i))}
+        if cfg.post_norms:
+            layer.update(post_attn_norm=ones(), post_ffn_norm=ones())
+        layers.append(layer)
     params = {"embed": embed, "final_norm": ones(), "layers": tuple(layers)}
     if not cfg.tie_lm_head:
         params["lm_head"] = lin(H, cfg.vocab_size)
@@ -198,6 +201,60 @@ def mistral_7b_config(max_length: int = 8192) -> TransformerConfig:
         rope=RopeConfig(head_dim=128, freq_base=10000.0, layout=ROPE_NORMAL),
         norm_eps=1e-6, layer_specs=tuple(LayerSpec(sliding_window=4096) for _ in range(32)),
     )
+
+
+def gemma3_12b_config(max_length: int = 8192) -> TransformerConfig:
+    """Gemma-3-12B's text model as published (Hugging Face
+    `google/gemma-3-12b-it`, config.json `text_config`): vocab_size 262208,
+    hidden_size 3840, num_hidden_layers 48, intermediate_size 15360,
+    num_attention_heads 16, num_key_value_heads 8, head_dim 256,
+    query_pre_attn_scalar 256, sliding_window 1024 with
+    sliding_window_pattern 6 (layer i global iff (i + 1) % 6 == 0),
+    rope_theta 1e6 with linear rope_scaling factor 8, rope_local_base_freq
+    1e4, rms_norm_eps 1e-6, gelu_pytorch_tanh, tied embeddings; as the
+    GEMMA3 loader builds it (models/gemma.py: NeoX rope, q/k norms, sandwich
+    norms, the head scaled by 1/sqrt(hidden)).  Only max_length is cut: at
+    8192 the 40 sliding layers keep rings of 1024 + SWA_EXTRA = 1536 slots
+    beside 8 full layers of 8192; at 1536 or less no layer is a ring (the
+    dense windowed route)."""
+    from ..nn.transformer import LayerSpec
+
+    return TransformerConfig(
+        vocab_size=262208, hidden_size=3840, num_hidden_layers=48,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+        intermediate_size=15360, max_length=max_length, act="gelu_tanh", norm_eps=1e-6,
+        rope=RopeConfig(head_dim=256, freq_base=1e6, freq_scale=1.0 / 8, layout=ROPE_NEOX),
+        rope_local=RopeConfig(head_dim=256, freq_base=1e4, layout=ROPE_NEOX),
+        attention_scale=256 ** -0.5, qk_norm="rmsnorm", post_norms=True,
+        layer_specs=tuple(LayerSpec() if (i + 1) % 6 == 0
+                          else LayerSpec(sliding_window=1024, local_rope=True)
+                          for i in range(48)),
+        tie_lm_head=True, logit_scale=3840 ** -0.5)
+
+
+def gemma2_9b_config(max_length: int = 8192) -> TransformerConfig:
+    """Gemma-2-9B as published (Hugging Face `google/gemma-2-9b-it`,
+    config.json): vocab_size 256000, hidden_size 3584, num_hidden_layers 42,
+    intermediate_size 14336, num_attention_heads 16, num_key_value_heads 8,
+    head_dim 256, query_pre_attn_scalar 256, sliding_window 4096 on the even
+    layers, attn_logit_softcapping 50, final_logit_softcapping 30,
+    rope_theta 1e4, rms_norm_eps 1e-6, gelu_pytorch_tanh, tied embeddings;
+    as the GEMMA2 loader builds it (models/gemma.py: interleaved rope,
+    sandwich norms, the head scaled by 1/sqrt(hidden)).  Only max_length is
+    cut: at 8192 the even layers keep rings of 4096 + SWA_EXTRA = 4608
+    slots."""
+    from ..nn.transformer import LayerSpec
+
+    return TransformerConfig(
+        vocab_size=256000, hidden_size=3584, num_hidden_layers=42,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+        intermediate_size=14336, max_length=max_length, act="gelu_tanh", norm_eps=1e-6,
+        rope=RopeConfig(head_dim=256, freq_base=1e4, layout=ROPE_NORMAL),
+        attention_scale=256 ** -0.5, logit_softcap=50.0, final_logit_softcap=30.0,
+        post_norms=True,
+        layer_specs=tuple(LayerSpec(sliding_window=4096 if i % 2 == 0 else 0)
+                          for i in range(42)),
+        tie_lm_head=True, logit_scale=3584 ** -0.5)
 
 
 def qwen2_5_0_5b_config(max_length: int = 32768) -> TransformerConfig:

@@ -2,7 +2,9 @@
 `nn/transformer.py`: config, KV cache, pre-norm decoder layer (separate
 q/k/v projections, RoPE, GQA attention, SwiGLU MLP), the DeepSeek family's
 multi-head latent attention (both cache modes) and sparse MoE FFN, the
-sliding-window ring cache, and the model forward.
+sliding-window ring cache, the Gemma family's pieces (sandwich norms, the
+attention and final logit softcaps, the tied head's logit scale, a second
+rope table for local layers, gated GELU), and the model forward.
 
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
 "final_norm" {"w"}, "layers" (a tuple of per-layer dicts) and "lm_head";
@@ -36,6 +38,7 @@ class LayerSpec:
     sliding_window: int = 0        # 0 = full attention
     use_rope: bool = True
     is_moe: bool = False           # sparse MoE FFN (moe_mlp) instead of the dense one
+    local_rope: bool = False       # use cfg.rope_local's table (Gemma-3's sliding layers)
 
 
 @dataclass(frozen=True)
@@ -59,7 +62,7 @@ class TransformerConfig:
     intermediate_size: int
     max_length: int
     head_dim: int = -1                      # defaults to hidden/heads
-    act: str = "silu"
+    act: str = "silu"                       # silu | gelu_tanh
     norm_eps: float = 1e-5
     rms_norm_offset: float = 0.0
     rope: RopeConfig = None
@@ -68,6 +71,11 @@ class TransformerConfig:
     #                                         before RoPE (Qwen3); other modes raise
     tie_lm_head: bool = False
     attention_scale: float = -1.0           # -1 = 1/sqrt(head_dim)
+    logit_softcap: float = 0.0              # attention score softcap (Gemma-2)
+    final_logit_softcap: float = 0.0        # output logit softcap (Gemma-2)
+    post_norms: bool = False                # sandwich norms after attention and FFN (Gemma-2/3)
+    logit_scale: float = 1.0                # logits times this (Gemma's tied head: 1/sqrt(hidden))
+    rope_local: Optional[RopeConfig] = None  # second rope table (Gemma-3's local layers)
     causal: bool = True
     layer_specs: tuple = ()                 # per-layer LayerSpec; () = uniform
     # MoE (layers whose LayerSpec has is_moe); the DeepSeek family's modes
@@ -175,7 +183,9 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
     return KVCache(k=k, v=v, k_scale=zeros((), torch.float32), v_scale=zeros((), torch.float32))
 
 
-_ACTS = {"silu": F.silu}          # the Llama family's; others come with theirs
+# the Llama family's SiLU, the Gemma family's tanh-approximated GELU (the JAX
+# package's jax.nn.gelu(approximate=True)); others come with their families
+_ACTS = {"silu": F.silu, "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def _norm(cfg: TransformerConfig, x, p):
@@ -313,7 +323,10 @@ _OTHER_QK_NORMS = {"rmsnorm_full": "OLMo2", "layernorm": "Persimmon",
 
 
 def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
-                    k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
+                    k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None,
+                    rope_cfg: RopeConfig | None = None):
+    """GQA attention over the layer's cache; `rope_cfg` is the rope table
+    cos / sin were made from (cfg.rope unless the layer takes cfg.rope_local)."""
     B, T, _ = x.shape
     d = cfg.resolved_head_dim()
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -329,7 +342,7 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
             f"qk_norm {cfg.qk_norm!r} ({_OTHER_QK_NORMS.get(cfg.qk_norm, 'unknown family')}) "
             "is not ported to chatllm_tpu_torch yet")
     if spec.use_rope:
-        rc = cfg.rope
+        rc = rope_cfg or cfg.rope
         q = apply_rope(q, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
         k = apply_rope(k, cos, sin, layout=rc.layout, rot_dim=rc.resolved_rot_dim())
     scale = cfg.attention_scale if cfg.attention_scale > 0 else d ** -0.5
@@ -346,7 +359,8 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
                                       "item 4)")
         update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
         out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale,
-                                   causal=cfg.causal, sliding_window=spec.sliding_window,
+                                   causal=cfg.causal, logit_softcap=cfg.logit_softcap,
+                                   sliding_window=spec.sliding_window,
                                    k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
     out = out.reshape(B, T, hq * d)
     return matmul(out, p["o"]).to(x.dtype)
@@ -388,8 +402,8 @@ def _ring_attention(cfg: TransformerConfig, spec: LayerSpec, q, k_cache, v_cache
     n_past + T (the latest write to slot j, -1 while unwritten), and masks
     the causal window; keys carry their absolute-position rope.  Scores and
     values in f32 over the whole ring; the q8 scales fold into the scores
-    and probabilities.  `sinks` (one logit per query head) joins the softmax
-    denominator.  Everything is computed on the device, so a captured decode
+    (before cfg.logit_softcap) and the probabilities.  `sinks` (one logit
+    per query head) joins the softmax denominator.  Everything is computed on the device, so a captured decode
     block replays with the positions of its device n_past."""
     B, _, hq, d = q.shape
     S, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -407,6 +421,8 @@ def _ring_attention(cfg: TransformerConfig, spec: LayerSpec, q, k_cache, v_cache
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k_cache.float()) * scale
     if k_scale is not None:
         scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
+    if cfg.logit_softcap > 0:
+        scores = torch.tanh(scores / cfg.logit_softcap) * cfg.logit_softcap
     scores = scores + mask[:, None, None]
     if sinks is not None:
         sk = sinks.float().reshape(1, hkv, hq // hkv, 1, 1).expand(*scores.shape[:-1], 1)
@@ -518,15 +534,26 @@ def _mla_compressed_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, si
 
 
 def decoder_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
-                  k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None):
+                  k_cache, v_cache, n_past, k_scale=None, v_scale=None, kv_len=None,
+                  rope_cfg: RopeConfig | None = None):
     """Pre-norm decoder layer (reference LMBlock1): GQA or MLA attention,
-    dense or MoE FFN."""
-    attn = mla_attention_block if cfg.mla is not None else attention_block
+    dense or MoE FFN; with cfg.post_norms the attention and FFN outputs are
+    normed before their residual adds (LMBlock4, Gemma-2/3's sandwich)."""
     h = _norm(cfg, x, p["attn_norm"])
-    x = x + attn(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
-                 k_scale, v_scale, kv_len)
+    if cfg.mla is not None:
+        a = mla_attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
+                                k_scale, v_scale, kv_len)
+    else:
+        a = attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
+                            k_scale, v_scale, kv_len, rope_cfg)
+    if cfg.post_norms:
+        a = _norm(cfg, a, p["post_attn_norm"])
+    x = x + a
     h = _norm(cfg, x, p["ffn_norm"])
-    return x + mlp_dispatch(cfg, spec, p["mlp"], h)
+    m = mlp_dispatch(cfg, spec, p["mlp"], h)
+    if cfg.post_norms:
+        m = _norm(cfg, m, p["post_ffn_norm"])
+    return x + m
 
 
 def embed_tokens(cfg: TransformerConfig, params, ids):
@@ -534,10 +561,18 @@ def embed_tokens(cfg: TransformerConfig, params, ids):
 
 
 def lm_logits(cfg: TransformerConfig, params, x):
+    """The head (tied: the embedding's transpose), then cfg.logit_scale and
+    the final softcap, in f32 as the JAX package applies them."""
     if cfg.tie_lm_head:
         w = params["embed"]
-        return dot_f32(x.to(w.dtype), w.t())
-    return matmul(x, params["lm_head"])
+        logits = dot_f32(x.to(w.dtype), w.t())
+    else:
+        logits = matmul(x, params["lm_head"])
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap > 0:
+        logits = torch.tanh(logits / cfg.final_logit_softcap) * cfg.final_logit_softcap
+    return logits
 
 
 def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor | None,
@@ -565,12 +600,19 @@ def transformer_forward(cfg: TransformerConfig, params, ids: torch.Tensor | None
     else:
         positions = (n_past + steps)[None, :].expand(B, T)
     cos, sin = precompute_rope_cache(positions, cfg.rope)
+    cos_l = sin_l = None
+    if cfg.rope_local is not None:
+        # Gemma-3's local layers rotate by a second table of the same positions
+        cos_l, sin_l = precompute_rope_cache(positions, cfg.rope_local)
     quant = cache.k_scale is not None
     for i in range(cfg.num_hidden_layers):
-        x = decoder_layer(cfg, cfg.layer_spec(i), params["layers"][i], x, cos, sin,
+        spec = cfg.layer_spec(i)
+        local = spec.local_rope and cos_l is not None
+        c, s, rc = (cos_l, sin_l, cfg.rope_local) if local else (cos, sin, cfg.rope)
+        x = decoder_layer(cfg, spec, params["layers"][i], x, c, s,
                           cache.k[i], cache.v[i], n_past,
                           cache.k_scale[i] if quant else None,
-                          cache.v_scale[i] if quant else None, kv_len)
+                          cache.v_scale[i] if quant else None, kv_len, rc)
     x = _norm(cfg, x, params["final_norm"])
     if last_index is not None:
         x = x[:, last_index:last_index + 1, :]

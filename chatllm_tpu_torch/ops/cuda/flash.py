@@ -16,18 +16,22 @@ import torch
 from .build import FLASH, ptr, stream_ptr
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)     # head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 128, 256)     # head dims the CUDA kernel is instantiated for
 # The bf16 kernel's tiles (csrc/flash_attention.cu): a block owns BQ query
-# rows of one head, WG_ROWS per consumer warpgroup, and walks BK-key tiles
-# of the cache through a ring of STAGES[D] shared-memory stages.
-BQ, WG_ROWS, BK = 128, 64, 128
-STAGES = {64: 4, 128: 2}
+# rows of one head, WG_ROWS per consumer warpgroup, and walks BK[D]-key tiles
+# of the cache through a ring of STAGES[D] shared-memory stages (64-key
+# tiles at D 256, where 128-key ones pass the registers and the shared
+# memory).
+BQ, WG_ROWS = 128, 64
+BK = {64: 128, 128: 128, 256: 64}
+STAGES = {64: 4, 128: 2, 256: 2}
 # The f32 kernel's (modes 1 and 2): a block of 256 threads owns 128 or 64
-# query rows of one head (`f32_rows`) and walks FBK-key tiles through
+# query rows of one head (`f32_rows`) and walks FBK[D]-key tiles through
 # F_STAGES[D] stages; a walk is split over a cluster of up to MAX_SPLIT
 # blocks, each taking at least MIN_SHARE tiles of the longest walk, where
 # the card holds all the grid's clusters at once.
-FBK, F_STAGES = 64, {64: 4, 128: 2}
+FBK = {64: 64, 128: 64, 256: 32}
+F_STAGES = {64: 4, 128: 2, 256: 2}
 MAX_SPLIT, MIN_SHARE = 8, 4
 # Clusters of C blocks of the f32 kernel that one H100 holds at once, the
 # same for every D, mode and row count (one block an SM):
@@ -49,7 +53,7 @@ def reset_mode_launches():
 
 
 def tile_keys(qt: int, T: int, S: int, n_past: int, n_tokens: int, causal: bool,
-              window: int, *, bq: int = BQ, bk: int = BK) -> tuple[int, int]:
+              window: int, *, bq: int = BQ, bk: int = BK[128]) -> tuple[int, int]:
     """The key tiles [first, end) that query tile `qt` (rows qt*bq .. of the
     T) visits (csrc `tile_keys`, `f32_tile_keys`): those that meet the keys
     some real row of the tile may see, from the window's start for its first
@@ -66,7 +70,7 @@ def tile_keys(qt: int, T: int, S: int, n_past: int, n_tokens: int, causal: bool,
 
 
 def tile_interior(qt: int, kt: int, half: int, n_past: int, n_tokens: int, causal: bool,
-                  window: int, *, bq: int = BQ, bk: int = BK, rows: int = WG_ROWS) -> bool:
+                  window: int, *, bq: int = BQ, bk: int = BK[128], rows: int = WG_ROWS) -> bool:
     """Whether every key of tile kt is visible to every row of group `half`
     (`rows` rows: a consumer warpgroup of the bf16 kernel, the whole block of
     the f32 one) of query tile qt (csrc `tile_interior`, and the f32 kernel's
@@ -88,13 +92,13 @@ def f32_rows(D: int, T: int, heads: int, batch: int, sms: int = H100_SMS) -> int
 
 def f32_smem(D: int, kv_bytes: int, bq: int) -> int:
     """The f32 kernel's dynamic shared memory (csrc `FGeo::SMEM`): Q [bq][D +
-    4] f32 and F_STAGES[D] stages of K and V tiles of FBK keys as the
+    4] f32 and F_STAGES[D] stages of K and V tiles of FBK[D] keys as the
     cache's raw bytes (kv_bytes per value; an f32 K row padded to D + 4), and
     over a bf16 cache the tiles widened to f32 (K [FBK][D + 4], V [FBK][D]);
     P takes the f32 K tile's place."""
     k_row = 2 * D if kv_bytes == 2 else 4 * (D + 4)
-    ring = F_STAGES[D] * FBK * (k_row + D * kv_bytes)
-    widened = 4 * FBK * (2 * D + 4) if kv_bytes == 2 else 0
+    ring = F_STAGES[D] * FBK[D] * (k_row + D * kv_bytes)
+    widened = 4 * FBK[D] * (2 * D + 4) if kv_bytes == 2 else 0
     return 4 * bq * (D + 4) + ring + widened
 
 
@@ -125,7 +129,7 @@ def prefill_geometry(T: int, S: int, n_past: int, n_tokens: int, D: int, *,
     the block's dynamic shared memory (mode 0: Q, the K/V ring, a 1024-byte
     alignment pad, the barriers and the tile index)."""
     f32 = mode != 0
-    bq, bk = (f32_rows(D, T, heads, batch, sms), FBK) if f32 else (BQ, BK)
+    bq, bk = (f32_rows(D, T, heads, batch, sms), FBK[D]) if f32 else (BQ, BK[D])
     rows = bq if f32 else WG_ROWS
     n_qt = -(-T // bq)
     tiles = [tile_keys(qt, T, S, n_past, n_tokens, causal, window, bq=bq, bk=bk)
@@ -141,7 +145,7 @@ def prefill_geometry(T: int, S: int, n_past: int, n_tokens: int, D: int, *,
         stages, smem = F_STAGES[D], f32_smem(D, 4 if mode == 1 else 2, bq)
     else:
         splits, stages = 1, STAGES[D]
-        smem = 2 * D * (BQ + 2 * stages * BK) + 1024 + 8 * (1 + 4 * stages) + 8
+        smem = 2 * D * (BQ + 2 * stages * BK[D]) + 1024 + 8 * (1 + 4 * stages) + 8
     shares = [[(a + r * (b - a) // splits, a + (r + 1) * (b - a) // splits)
                for r in range(splits)] for a, b in tiles]
     return {"tiles": tiles, "interior": interior, "order": order, "splits": splits,

@@ -7,7 +7,8 @@ all-heads kernel `_batched_kernel` and its per-head kernel `_decode_kernel`).
 `flash_decode_plain`, its plain PyTorch version, for CPU tensors.  A call
 is one launch: a cluster of `decode_geometry` blocks per (batch row, kv
 head), each taking its share of the row's live keys (`live_range`): with
-bf16 or f32 dots 64-key tiles (`decode_share`), with int8 dots whole
+bf16 or f32 dots 64-key tiles (32 over an f32 cache at D 256:
+`float_tile`; `decode_share`), with int8 dots whole
 quantization blocks or, where a row has fewer live blocks than the cluster
 has ranks, tiles of one block (`int8_share`); merged inside the cluster.
 The wrapper allocates nothing but the output.
@@ -48,11 +49,15 @@ from .build import FLASH_DECODE, FLASH_DECODE_INT8, num_sms, ptr, stream_ptr
 from .checks import KIND_BF16, KIND_F32, KIND_I8
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)     # head dims (K = V) the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 128, 256)    # head dims (K = V) the CUDA kernel is instantiated for
 MLA_DIMS = (192, 128)     # ... and MLA's K / V widths, float dots only
 MAX_ROWS = 64             # G * T query rows per kv head the kernel holds (csrc MAX_ROWS)
+D256_MAX_ROWS = 32        # ... at D 256 (csrc `max_rows`: 64 rows' buffers pass the
+#                           shared memory): Gemma-3-1B's 4 query heads a kv head at T 8;
+#                           Gemma-2B's 8 at T > 4 (only under CHATLLM_TPU_FLASH_DECODE=1) raise
 MLA_MAX_ROWS = 8          # ... at MLA_DIMS (one query head per kv head, T <= 8)
 TILE_K = 64               # keys per tile of the bf16 / f32 dots (csrc FTK)
+F32_D256_TILE_K = 32      # ... over an f32 cache at D 256 (csrc FGeom::TK: two stages fit)
 MAX_CLUSTER = 16          # their blocks per (batch row, kv head) at most (csrc MAX_CLUSTER)
 PORTABLE_CLUSTER = 8      # above it the launcher sets the non-portable cluster attribute
 MAX_BLOCK_K = 512         # keys per quantization block of the int8 dots at most (csrc MAX_BLOCK_K)
@@ -108,15 +113,23 @@ def live_range(n_past: int, n_tokens: int, S: int, sliding_window: int = 0) -> t
     return min(max(lo, 0), S), min(max(n_past + n_tokens, 0), S)
 
 
-def decode_share(lo: int, hi: int, rank: int, ctas: int) -> tuple[int, int]:
+def float_tile(D: int, cache_dtype: torch.dtype) -> int:
+    """Keys per tile of the bf16 / f32 dots over a cache of `cache_dtype`
+    at head dim D (csrc FGeom::TK)."""
+    return F32_D256_TILE_K if D == 256 and cache_dtype == torch.float32 else TILE_K
+
+
+def decode_share(lo: int, hi: int, rank: int, ctas: int,
+                 tile: int = TILE_K) -> tuple[int, int]:
     """The keys [begin, end) that block `rank` of a cluster of `ctas` takes
-    of the live keys [lo, hi) (csrc `decode_kernel`): the 64-key tiles
-    aligned at multiples of TILE_K that meet [lo, hi), split into `ctas`
-    contiguous runs in rank order, clipped to [lo, hi); empty when begin >= end."""
-    t0 = lo // TILE_K
-    nt = -(-hi // TILE_K) - t0 if hi > lo else 0
+    of the live keys [lo, hi) (csrc `decode_kernel`): the `tile`-key tiles
+    (`float_tile`) aligned at multiples of the tile that meet [lo, hi), split
+    into `ctas` contiguous runs in rank order, clipped to [lo, hi); empty
+    when begin >= end."""
+    t0 = lo // tile
+    nt = -(-hi // tile) - t0 if hi > lo else 0
     ta, tb = t0 + rank * nt // ctas, t0 + (rank + 1) * nt // ctas
-    return max(ta * TILE_K, lo), min(tb * TILE_K, hi)
+    return max(ta * tile, lo), min(tb * tile, hi)
 
 
 def block_tiles(j: int, lo: int, hi: int, block_k: int) -> tuple[int, int]:
@@ -308,8 +321,8 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
     batched kernel's cap.  Returns [B, T, Hq, Dv] in q's dtype.
 
     The CUDA kernel takes bf16 or f32 q, D = Dv in HEAD_DIMS with G * T <=
-    MAX_ROWS (64), or with bf16 or f32 dots (D, Dv) = MLA_DIMS with G * T <=
-    MLA_MAX_ROWS (8), cache rows 16-byte aligned with unit stride along D (a permuted
+    MAX_ROWS (64; D256_MAX_ROWS, 32, at D 256), or with bf16 or f32 dots
+    (D, Dv) = MLA_DIMS with G * T <= MLA_MAX_ROWS (8), cache rows 16-byte aligned with unit stride along D (a permuted
     [B, Hkv, S, D] cache passes), scales of any strides (so do [B, Hkv, S]
     ones, permuted), and for int8 dots a capped block_k of at most 512."""
     B, T, Hq, D = q.shape
@@ -329,10 +342,12 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
     mla = (D, Dv) == MLA_DIMS and qk_dtype != "int8"
-    if not (mla or (D == Dv and D in HEAD_DIMS)) or G * T > (MLA_MAX_ROWS if mla else MAX_ROWS):
+    most = MLA_MAX_ROWS if mla else D256_MAX_ROWS if D == 256 else MAX_ROWS
+    if not (mla or (D == Dv and D in HEAD_DIMS)) or G * T > most:
         raise ValueError(f"flash_decode: (D, Dv)=({D}, {Dv}) with {qk_dtype} dots, G*T={G * T} "
-                         f"(need D = Dv in {HEAD_DIMS} with G*T <= {MAX_ROWS}, or "
-                         f"{MLA_DIMS} with float dots and G*T <= {MLA_MAX_ROWS})")
+                         f"(need D = Dv in {HEAD_DIMS} with G*T <= {MAX_ROWS}, "
+                         f"{D256_MAX_ROWS} at D 256, or {MLA_DIMS} with float dots and "
+                         f"G*T <= {MLA_MAX_ROWS})")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_decode: q {q.dtype}, need bfloat16 or float32")
     kind = _CACHE_KINDS.get(k_cache.dtype)

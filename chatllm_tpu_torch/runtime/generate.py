@@ -385,7 +385,10 @@ def shift_cache(cfg: TransformerConfig, cache: KVCache, shift: int, keep: int,
     its slots no longer hold positions in order, and the JAX package's
     slot-by-slot move leaves the kept slots and the clamped tail holding the
     wrong positions (ROADMAP.md section 3, "Shift over a ring").  A ring that
-    has not wrapped is shifted as a full-attention cache, as there."""
+    has not wrapped is shifted as a full-attention cache, as there.  Refused
+    too: a model with layers on a second rope table (Gemma-3's local layers,
+    `cfg.rope_local`), which the JAX package re-rotates with the first
+    (ROADMAP.md section 3, "Shift over Gemma-3's local layers")."""
     for i, k in enumerate(cache.k):
         S = k.shape[1]
         if is_ring(cfg, cfg.layer_spec(i), S) and (n_past is None or n_past > S):
@@ -393,6 +396,13 @@ def shift_cache(cfg: TransformerConfig, cache: KVCache, shift: int, keep: int,
                 f"Shift extending over a wrapped sliding-window ring (layer {i}: {S} slots, "
                 f"n_past {n_past}): the slots no longer hold positions in order; use "
                 "--extending restart or none")
+    if cfg.rope_local is not None and any(cfg.layer_spec(i).local_rope
+                                          for i in range(cfg.num_hidden_layers)):
+        raise NotImplementedError(
+            "Shift extending over Gemma-3's local layers: their keys carry the local rope "
+            "table (cfg.rope_local), but the reference re-rotates every rope layer by "
+            "cfg.rope, which leaves them at the wrong positions (ROADMAP.md section 3); "
+            "use --extending restart or none")
     if cfg.mla is not None:
         raise NotImplementedError(
             "Shift extending over an MLA cache: the reference re-rotates the first "

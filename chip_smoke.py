@@ -27,7 +27,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              128-column router, lm_head N 151936; K2 at the server's 2
              rows), K3 (mode 2 timed) at its 512- and 2048-token chunks and
              K4 over a q8 cache at its GQA group of 8 (32 query heads over
-             4 kv heads: 8 and 16 rows per kv head, B 1 and 2), and K1, K2
+             4 kv heads: 8 and 16 rows per kv head, B 1 and 2), K1 (timed)
+             and K2 at Gemma-3-12B's projections (K 3840 and 15360), K3 in its
+             three modes and K4 (float and int8 dots) at head_dim 256
+             (Gemma-3-12B's prefill chunk over 8192 slots, its dense windowed
+             route's chunk with window 1024 across the 64-key tiles, a chunk
+             deep in the cache, Gemma-2-9B's softcap 50, its q8 decode past
+             4096, a per-row step at B 2, 32 rows per kv head), and K1, K2
              and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
@@ -155,15 +161,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              near-ties, then logits within 2e-2 of the logit scale where the
              picks agree, DSV2_CUT_TOL); a 4-slot q8 server (4 chat
              requests, 16 tokens each).
-     internvl  full-width InternVL3.5-8B (`internvl_phase`: a Qwen3-8B LLM of
-             36 layers with per-head q/k norms, random q4_k projections, and
+     internvl  full-width InternVL3.5-8B (`internvl_phase`: a Qwen3-8B LLM cut
+             to IVL_DEPTH = 12 of its 36 layers, per-head q/k norms, random
+             q4_k projections, and
              the 24-layer InternViT-300M tower and projector in bf16, from
              seeds, max_length 8192) through `InternVL.chat_image` on seeded
              2000 x 1500 PNGs (12 tiles + a thumbnail, 3328 image tokens):
              preprocessing, tower, projector and spliced prefill timed; a
              second image on the same engine over a bf16 cache and over a q8
-             one captures nothing, K3 36 launches in mode 2 per image
-             prefill, K4 36 per q8 decode step, K1 253 per step; an OpenAI
+             one captures nothing, K3 one launch a layer in mode 2 per image
+             prefill, K4 one a layer per q8 decode step, K1 7 a layer + 1 per
+             step; an OpenAI
              image_url request with a data URI answers as chat_image does;
              2-layer cuts of the tower and of the LLM over the spliced
              embeddings against the CPU.
@@ -181,37 +189,66 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              scores, picks and logits with DeepSeek-V2-Lite's bounds); a
              2-slot q8 server (two requests, concurrent replies equal to
              sequential ones; K2 and K4 launched).
-     mistral_7b  full-width, full-depth Mistral-7B (`mistral_phase`: 32
-             layers of sliding window 4096, vocab 32000, random q4_k weights
-             from seed 0).  The ring route (max_length 8192: 32 rings of
-             4096 + SWA_EXTRA = 4608 slots) over bf16 and q8 caches: a
+     mistral_7b  full-width Mistral-7B cut to MISTRAL_DEPTH = 4 of its 32
+             layers (`mistral_phase`: sliding window 4096, vocab 32000,
+             random q4_k weights from seed 0).  The ring route (max_length
+             8192: rings of 4096 + SWA_EXTRA = 4608 slots) over bf16 and q8
+             caches: a
              4480-token prompt in chunks of 512 and 512 greedy tokens, so
-             decode crosses the wrap, replayed from one CUDA graph (K1 225
-             launches per launched step and one per prefill chunk, no K3,
+             decode crosses the wrap, replayed from one CUDA graph (K1 7 a
+             layer + 1 per launched step and one per prefill chunk, no K3,
              no K4), one block past the wrap profiled, the uncaptured loop's
              first 192 tokens equal to the replayed ones.  The dense windowed
              route (max_length 4608, no ring): the prompt's bf16 prefill (K3
-             mode 2 with window 4096, 64 launches; its last logits within 2e-2
+             mode 2 with window 4096, 2 a layer; its last logits within 2e-2
              of the ring route's), a q8 decode from n_past 4480 (K4 with
              window 4096 on every layer of every launched step).  The
              server's BatchedEngine, 2 slots over q8 rings: two staggered
              requests of 4560 and 4590 tokens, 64 greedy tokens each, wrapping
              at different ring phases, each equal to the single-stream
-             engine's tokens (K2 225 launches per batched step).  A 2-layer
+             engine's tokens (K2 7 a layer + 1 per batched step).  A 2-layer
              cut against the CPU over 4720 positions and 2 decode steps
              across the wrap, bf16 (1e-3 of the logit scale) and q8 rings
              (4e-3; layer 0's int8 entries at most one step from the CPU's).
              Params and peak device memory printed.
+     gemma3_12b  full-width, full-depth Gemma-3-12B (`gemma3_phase`: 48
+             layers of head_dim 256, 40 local over windows of 1024 on the local
+             rope table and 8 global, sandwich norms, the tied bf16 head of
+             262208 rows, random zero-centred q4_k weights from seed 0).  The
+             ring route (max_length 8192: rings of 1536 slots beside 8 global
+             layers) over bf16 and q8: a 2048-token prompt in chunks of 512
+             (K3 mode 2 on the global layers) and 256 greedy tokens,
+             replayed (K1 336 per launched step, K4 8 per q8 step), one
+             block profiled; the same 256 uncaptured in a child process
+             (`gemma3_uncaptured_main`) that runs beside the next phases,
+             its tokens checked after the cli phase.  At f32 activations:
+             the dense windowed route (max_length 1536): 1500 tokens, K3 on
+             all 48 layers (96 launches), its last logits within 2e-2 of
+             the ring route's, the same argmax; a 2-slot q8 server (2150
+             and 2170 tokens x 64): staggered replies bit-equal to
+             one-at-a-time ones, each token the single-stream engine's
+             greedy choice teacher-forced, up to 8e-3 of the logit scale
+             (K2 336, K4 8 per batched step).  A 2-layer cut (layers 4 and
+             5: local, global) over 1602 positions against the CPU, within
+             2e-2 of the logit scale over bf16 and q8, which its witness (the
+             card with its attention scale one f32 step up) passes and its control
+             (the local layer on the global rope table) fails.  Peak memory.
+     gemma2_9b  a full-width 2-layer cut of Gemma-2-9B (`gemma2_phase`: a
+             ring layer and a global one, attention softcap 50, final softcap
+             30) over 642 positions against the CPU, as gemma3's cut (its
+             control: no sandwich norms): K3 mode 2 and the ring's einsum
+             with softcap 50 over bf16, K4 with softcap 50 over q8.
      families  a narrow GGMM of every model type that runs on blocks
              already on the card (FAMILIES: LLAMA3_2, the DeepSeek-R1
              distills over Llama, Qwen2 and Qwen3, Qwen3-MoE, Qwen2-MoE,
              DeepSeek V1 and V1-MoE, DeepSeek-V3, Moonlight, V3-Light,
              Llama-2, CodeLlama, Mistral and Mixtral over rings of 576 slots
-             that their 640-token prompt wraps, Mistral2 with 128-wide heads)
-             in f32 and q4_k, loaded on the card and the CPU
-             (`families_phase`): config and weights bit-equal, logits within
-             1e-4 (f32) or 2e-2 (q4_k) of the CPU's; the narrow Qwen3-MoE and
-             each of the five new families chat through `main.py --test` on
+             that their 640-token prompt wraps, Mistral2 with 128-wide heads,
+             Gemma, Gemma-2, Gemma-3 and RNJ-1 with heads of 256, the last
+             three over such rings) in f32 and q4_k, loaded on the card and
+             the CPU (`families_phase`): config and weights bit-equal, logits
+             within 1e-4 (f32) or 2e-2 (q4_k) of the CPU's; the narrow
+             Qwen3-MoE and each of FAMILY_CHATS chat through `main.py --test` on
              the card and the CPU with equal transcripts (the ring families'
              turns wrap their rings).
   8. cli     write narrow LLAMA3, Qwen2 and DEEPSEEK_V2_LIGHT GGMMs with the
@@ -253,7 +290,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              N 14336, each checked against K2, 2048 chained calls each.
  15. e7      `chatllm_tpu_torch.experiments.bhsd_decode.main`: the 8
              variant/cache combinations of a Llama-3-8B decode step at B 32
-             over 1024 slots, 8 steps (the original's 48 cut to a sixth)
+             over 1024 slots, 4 steps (the original's 48 cut to a twelfth)
              eagerly and as a CUDA-graph replay.
              Phases 9-15 count every kernel's launches exactly.
 Then it prints the kernels line, the card line and, last, the result line.
@@ -291,10 +328,15 @@ DSV2_LAYERS = 27                   # DeepSeek-V2-Lite
 # phase (PERF.md section 4); widths stay as published
 DSV2_DEPTH = 10                    # the dense layer 0 and 9 MoE layers
 A3B_DEPTH = 16
+MISTRAL_DEPTH = 4                  # Mistral-7B's 32 layers cut to 4 (since the Gemma phases)
+IVL_DEPTH = 12                     # InternVL3.5-8B's 36 LLM layers cut to 12 (likewise)
 DECODE_BLOCK = 16                  # InferenceEngine's default decode_block
 
 
 PHASE_STARTS: list = []           # (phase, time) at each "== phase" line
+CHILDREN: list = []               # processes started beside the phases, stopped on exit
+HOST_THREADS = torch.get_num_threads()
+CUT_WORKER = ThreadPoolExecutor(1)  # the Gemma cuts' CPU sides, one at a time
 
 
 def log(msg: str):
@@ -353,15 +395,21 @@ def write_llama3_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, heads: i
 def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_heads: int,
                          layers: int, inter: int, *, qkv_bias: bool = False,
                          tie: bool = False, sparse=(), head_dim: int = 0, moe_pfx: str = "mlp",
-                         **moe):
+                         sandwich: bool = False, qk_norm: bool = False,
+                         embed_scale: float = 1.0, **moe):
     """The llama-family tensors of a narrow model, drawn from `w`; norm
     weights, biases and the embedding stay f32, as the converter leaves them.
     Layers marked in `sparse` take `_write_moe_ffn(**moe)` for their FFN,
-    under `{layer}.{moe_pfx}`.  `head_dim` defaults to hidden / heads."""
+    under `{layer}.{moe_pfx}`.  `head_dim` defaults to hidden / heads.
+    `sandwich` writes Gemma-2/3's four norms a layer (post_attention_layernorm
+    after attention, pre_ / post_feedforward_layernorm around the FFN),
+    `qk_norm` Gemma-3's per-head q / k norms.  The embedding's entries are
+    N(0, embed_scale^2)."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
 
     d = head_dim or hidden // heads
-    wr.write_tensor("model.embed_tokens.weight", w(vocab, hidden, scale=1.0), GGMLType.F32)
+    wr.write_tensor("model.embed_tokens.weight", w(vocab, hidden, scale=embed_scale),
+                    GGMLType.F32)
     for i in range(layers):
         p = f"model.layers.{i}"
         wr.write_tensor(f"{p}.input_layernorm.weight",
@@ -372,8 +420,15 @@ def _write_dense_tensors(wr, w, dtype, vocab: int, hidden: int, heads: int, kv_h
                 wr.write_tensor(f"{p}.self_attn.{name}_proj.bias", w(n_out, scale=0.5),
                                 GGMLType.F32)
         wr.write_tensor(f"{p}.self_attn.o_proj.weight", w(hidden, heads * d), dtype)
-        wr.write_tensor(f"{p}.post_attention_layernorm.weight",
-                        1.0 + 0.1 * w(hidden, scale=1.0), GGMLType.F32)
+        if qk_norm:
+            for name in ("q_norm", "k_norm"):
+                wr.write_tensor(f"{p}.self_attn.{name}.weight", 1.0 + 0.1 * w(d, scale=1.0),
+                                GGMLType.F32)
+        norms = (("post_attention", "pre_feedforward", "post_feedforward") if sandwich
+                 else ("post_attention",))
+        for name in norms:
+            wr.write_tensor(f"{p}.{name}_layernorm.weight", 1.0 + 0.1 * w(hidden, scale=1.0),
+                            GGMLType.F32)
         if i < len(sparse) and sparse[i]:
             _write_moe_ffn(wr, w, dtype, f"{p}.{moe_pfx}", hidden, **moe)
         else:
@@ -722,13 +777,21 @@ def write_deepseek_v2_ggmm(path, *, vocab_pad: int = 384, hidden: int = 256, hea
     return path
 
 
-SP_FAMILIES = ("llama2", "codellama", "mistral", "mixtral")   # BPEProcessor1 vocabs
-RING_FAMILIES = ("mistral", "mixtral")
+GEMMA_FAMILIES = ("gemma", "gemma2", "gemma3", "rnj_1")
+# BPEProcessor1 vocabs
+SP_FAMILIES = ("llama2", "codellama", "mistral", "mixtral") + GEMMA_FAMILIES
+RING_FAMILIES = ("mistral", "mixtral", "gemma2", "gemma3", "rnj_1")
 FAMILY_WINDOW = 64
 FAMILY_RING_CTX = 1024
 FAMILY_RING_PROMPT = 640           # wraps a ring of 64 + SWA_EXTRA = 576 slots
 MISTRAL2_HEAD_DIM = 128
 MISTRAL2_SPECIALS = ("<unk>", "<s>", "</s>", "[INST]", "[/INST]")
+GEMMA_HEAD_DIM = 256               # the narrow Gemmas' heads: most Gemma models' width
+GEMMA_SPECIALS = ("<pad>", "<start_of_turn>", "<end_of_turn>")
+# The narrow Gemmas' embedding entries: the tied head reads the embedding,
+# so at N(0, 1) a token's own row outweighs every other logit and greedy
+# decoding repeats the last token; at 0.1 the tokens vary
+GEMMA_EMBED_SCALE = 0.1
 
 
 def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cls=None,
@@ -743,7 +806,15 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
     norms, biases and the embedding f32.  `tie` sets LLAMA3_2's and the R1
     distills' tie flag and writes no lm_head.  Mistral and Mixtral attend
     over a `window` of 64 in a context of 1024: rings of 64 + SWA_EXTRA =
-    576 slots that a prompt of FAMILY_RING_PROMPT tokens wraps."""
+    576 slots that a prompt of FAMILY_RING_PROMPT tokens wraps.  The Gemmas
+    (GEMMA_FAMILIES) carry GEMMA_SPECIALS in their SentencePiece-score vocab
+    and heads of GEMMA_HEAD_DIM, 4 over 2 kv heads (Gemma-3: over 1, 4 query
+    heads a kv head, Gemma-3-1B's), always tied; Gemma-2's even layers and
+    Gemma-3's and RNJ-1's layer 0 (local, on the local rope table; layer 1
+    global) attend over the same window in rings of 576 slots.  Gemma-2 and
+    RNJ-1 softcap the scores at 50 and the logits at 30; Gemma-2 scales the
+    queries by query_pre_attn_scalar 144, not 256; RNJ-1 takes YaRN with
+    factor 4 over an original context of 256."""
     from chatllm_tpu_torch.ggmm.quants import GGMLType
     from chatllm_tpu_torch.ggmm.writer import GGMMWriter
     from chatllm_tpu_torch.models.model_types import ModelType
@@ -768,14 +839,20 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
     sp = family in SP_FAMILIES
     if family in RING_FAMILIES:
         max_len = FAMILY_RING_CTX
+    gemma = family in GEMMA_FAMILIES
     specials = (R1_SPECIALS if family.startswith("ds_r1") else
                 CHATML_SPECIALS if family.startswith("qwen") else
                 R1_SPECIALS[:2] if family.startswith("deepseek") else
                 MISTRAL2_SPECIALS if family == "mistral2" else LLAMA3_SPECIALS)
     n_kv = heads if family in ("deepseek", "llama2", "codellama") else 2
+    if family == "gemma3":
+        n_kv = 1
     bos, eos = (1, 2) if sp else (256, 257)
     base = [int(dtype), vocab, hidden, heads, layers, inter, max_len, bos, eos, -1, -1]
-    tensors = dict(qkv_bias=family in ("ds_r1_qwen", "qwen2_moe"), tie=tie)
+    tensors = dict(qkv_bias=family in ("ds_r1_qwen", "qwen2_moe"), tie=tie or gemma)
+    if gemma:
+        tensors.update(head_dim=GEMMA_HEAD_DIM, sandwich=family != "gemma",
+                       qk_norm=family in ("gemma3", "rnj_1"), embed_scale=GEMMA_EMBED_SCALE)
     with open(path, "wb") as f:
         wr = writer_cls(f, int(mtype), 1, meta={"model_name": f"tiny-{family}"})
         if family in ("llama2", "codellama"):
@@ -812,6 +889,25 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
             f.write(struct.pack("<f", 1000000.0))
             tensors.update(sparse=[True] * layers, experts=experts, moe_inter=moe_inter,
                            shared="shared_expert", shared_inter=2 * moe_inter, shared_gate=True)
+        elif family == "gemma":
+            # n_kv, head_dim, rope_theta
+            wr.write_config(base + [n_kv, GEMMA_HEAD_DIM], fmt="13i")
+            f.write(struct.pack("<f", 10000.0))
+        elif family == "gemma2":
+            # n_kv, head_dim, query_pre_attn_scalar, sliding_window; rope_theta,
+            # final and attention softcaps
+            wr.write_config(base + [n_kv, GEMMA_HEAD_DIM, 144, window], fmt="15i")
+            f.write(struct.pack("<3f", 10000.0, 30.0, 50.0))
+        elif family in ("gemma3", "rnj_1"):
+            # n_kv, head_dim, query_pre_attn_scalar, sliding_window, pattern;
+            # rope_local_base, rope_theta, rope_factor (linear)
+            wr.write_config(base + [n_kv, GEMMA_HEAD_DIM, GEMMA_HEAD_DIM, window, 2],
+                            fmt="16i")
+            f.write(struct.pack("<3f", 10000.0, 1000000.0, 8.0 if family == "gemma3" else 1.0))
+            if family == "rnj_1":
+                # YaRN: attn_factor, beta_fast, beta_slow, ext_factor, factor,
+                # orig_max; final and attention softcaps
+                f.write(struct.pack("<5fi2f", 1.0, 32.0, 1.0, 1.0, 4.0, 256, 30.0, 50.0))
         elif family == "deepseek":
             wr.write_config(base, fmt="11i")
         else:                                   # deepseek_v1_moe: layer 0 dense
@@ -823,7 +919,10 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
                            moe_inter=moe_inter, shared="shared_experts",
                            shared_inter=2 * moe_inter)
         wr._patch_offset(12)
-        if sp:
+        if gemma:
+            pieces = _sp_pieces(vocab - len(GEMMA_SPECIALS))
+            wr.write_vocab_sp(pieces + [(t.encode(), -1e4) for t in GEMMA_SPECIALS])
+        elif sp:
             wr.write_vocab_sp(_sp_pieces(vocab))
         else:
             wr.write_vocab_bpe(_byte_pieces(specials, vocab), [])
@@ -850,6 +949,10 @@ FAMILIES = {
     "mistral": ("MISTRAL", {}),
     "mixtral": ("MIXTRAL", {}),
     "mistral2": ("MISTRAL2", {}),
+    "gemma": ("GEMMA", {}),
+    "gemma2": ("GEMMA2", {}),
+    "gemma3": ("GEMMA3", {}),
+    "rnj_1": ("RNJ_1", {}),
 }
 
 
@@ -1103,6 +1206,12 @@ A3B_LAYERS = 48
 A3B_ROWS = 2                       # K2's rows in the A3B server's batched steps (2 slots)
 MISTRAL_LM_HEAD = (4096, 32000)    # Mistral-7B's lm_head (K, N); its other projections are
 #                                    Llama-3-8B's
+# Gemma-3-12B's quantized projections (K, N); its head is the tied bf16
+# embedding (dot_f32, not K1)
+SHAPES_G3 = {"q": (3840, 4096), "k_v": (3840, 2048), "o": (4096, 3840),
+             "gate_up": (3840, 15360), "down": (15360, 3840)}
+PER_LAYER_G3 = {"q": 1, "k_v": 2, "o": 1, "gate_up": 2, "down": 1}
+G3_LAYERS = 48
 
 
 def kernels_phase(dev, timer) -> dict:
@@ -1195,6 +1304,23 @@ def kernels_phase(dev, timer) -> dict:
             res["qmm"]["mistral_shapes"]["lm_head"] = _time_matmul(
                 timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
     del lin, w_bf16
+    # Gemma-3-12B (K 3840 and 15360): K1 timed at its q4_k projections, K2
+    # checked at 2 and 64 rows and timed at the 2-slot server's 2
+    res["qgemv"]["g3_shapes"], res["qmm"]["g3_shapes"] = {}, {}
+    for sname, (K, N) in SHAPES_G3.items():
+        lin = quant_weight("q4_k", K, N, gen, dev)
+        w_bf16 = dequant_weight(lin, torch.bfloat16)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, "q4_k")
+        res["qgemv"]["g3_shapes"][sname] = _time_matmul(
+            timer, qgemv, qgemv_plain, x, lin, y, w_bf16, F32_FLOPS)
+        for B in (2, 64):
+            xb = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+            yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, "q4_k")
+            if B == 2:
+                res["qmm"]["g3_shapes"][sname] = _time_matmul(
+                    timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
+        del lin, w_bf16
     coverage_cases(dev, gen, res)
     res["quantize_kv"] = quantize_kv_case(dev, gen)
     res["flash_attention"] = flash_cases(dev, timer, gen)
@@ -1568,6 +1694,7 @@ def flash_cases(dev, timer, gen) -> dict:
 
     L3, QW = (32, 8, 128), (14, 2, 64)     # Llama-3-8B; Qwen2.5-0.5B (7 heads per kv head)
     A3 = (32, 4, 128)                      # Qwen3-30B-A3B: 8 query heads per kv head
+    G3, G2, G1 = (16, 8, 256), (16, 8, 256), (4, 1, 256)   # Gemma-3-12B, -2-9B, -3-1B
     cases = [  # (heads, T, S, n_past, n_tokens, window, softcap, timed as)
         (L3, 128, 1024, 0, 128, 0, 0.0, None),
         (L3, 512, 8192, 1000, 512, 0, 0.0, None),
@@ -1615,12 +1742,28 @@ def flash_cases(dev, timer, gen) -> dict:
         # 512-row bucket past the window (timed in mode 2, the chat path's)
         (L3, 4096, 4608, 0, 4096, 4096, 0.0, "mistral_prefill_4096"),
         (L3, 512, 4608, 4096, 304, 4096, 0.0, "mistral_prefill_tail"),
+        # head dim 256 (the Gemma family): Gemma-3-12B's 512-token chunks
+        # over its global layers' 8192 slots (timed in all three modes), the
+        # last chunk of its GEMMA3_PROMPT in a 512-row bucket, its dense
+        # windowed route's 1024-row chunk over 1536 slots with window 1024
+        # across the 64-key tiles (timed), a chunk deep in the cache,
+        # Gemma-2's softcap 50 with and without its window, and Gemma-3-1B's
+        # 4 query heads on one kv head
+        (G3, 512, 8192, 1024, 512, 0, 0.0, "g3_prefill_512"),
+        (G3, 512, 8192, 1536, 464, 0, 0.0, None),
+        (G3, 1024, 1536, 0, 1024, 1024, 0.0, "g3_dense_prefill_1024"),
+        (G3, 512, 1536, 1024, 476, 1024, 0.0, None),
+        (G3, 256, 8192, 7500, 256, 0, 0.0, None),
+        (G2, 512, 8192, 512, 512, 0, 50.0, "g2_prefill_softcap"),
+        (G2, 320, 2048, 700, 320, 300, 50.0, None),
+        (G1, 200, 2048, 37, 180, 300, 0.0, None),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the clusters of each f32 kernel the card holds at once, which the
     # kernel's split and its schedule's twin both read
     slots = {(D, mode, bq): cluster_slots(D, mode, bq)
-             for D, bqs in ((128, (128, 64)), (64, (64,))) for mode in (1, 2) for bq in bqs}
+             for D, bqs in ((128, (128, 64)), (64, (64,)), (256, (64,)))
+             for mode in (1, 2) for bq in bqs}
     log(f"  f32 kernels' cluster slots (D, mode, rows): {slots}")
     out = {"cases": [], "shapes": {},
            "cluster_slots": {"/".join(map(str, k)): v for k, v in slots.items()}}
@@ -1663,7 +1806,8 @@ def flash_cases(dev, timer, gen) -> dict:
                                  "n_past": n_past, "n_tokens": n_tok, "window": win,
                                  "softcap": cap, "splits": splits, "max_abs_err": err,
                                  "scaled_err": scaled, "second_launch_same": same})
-            if timed and (mode == 2 or not timed.startswith(("ivl_", "a3b_", "mistral_"))):
+            if timed and (mode == 2 or not timed.startswith(("ivl_", "a3b_", "mistral_",
+                                                              "g3_dense", "g2_"))):
                 # visible (query, key) pairs: causal rows inside the window;
                 # padded rows see all keys
                 qpos = n_past + np.arange(T)
@@ -1759,6 +1903,21 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     # 4096 in a 4608-slot cache (extra "S": the cache's slots)
     (1, 1, 32, 8, 128, [4500], "int8", "bfloat16", {"sliding_window": 4096, "S": 4608},
      "mistral_decode_4500"),
+    # head dim 256: Gemma-3-12B's q8 decode on its global layers past 4096
+    # (bf16 and f32 dots), its 2-slot server's per-row step, Gemma-2-9B's
+    # softcap 50 (and its window), 32 rows per kv head (Gemma-3-1B's G 4 at
+    # T 8, the forced route's most), bf16 and f32 caches with sinks
+    (1, 1, 16, 8, 256, [5000], "int8", "bfloat16", {}, "g3_decode_5000"),
+    (1, 1, 16, 8, 256, [5000], "int8", "float32", {}, None),
+    (2, 1, 16, 8, 256, [2100, 6000], "int8", "bfloat16", {}, "g3_serve_2"),
+    (1, 1, 16, 8, 256, [6000], "int8", "bfloat16", {"logit_softcap": 50.0}, "g2_decode_6000"),
+    (1, 2, 16, 8, 256, [6000], "int8", "float32",
+     {"logit_softcap": 50.0, "sliding_window": 4096}, None),
+    (1, 8, 4, 1, 256, [3000], "int8", "bfloat16", {}, None),
+    (2, 8, 4, 1, 256, [10, 7000], "float32", "float32", {"sinks": True}, None),
+    (1, 4, 16, 8, 256, [4095], "bfloat16", "bfloat16", {"sinks": True}, None),
+    (1, 1, 16, 8, 256, [0], "int8", "bfloat16", {}, None),
+    (1, 1, 16, 8, 256, [8191], "int8", "float32", {}, None),
 ]
 
 # The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
@@ -1813,6 +1972,13 @@ DECODE_INT8_CASES = [
     (2, 1, 14, 2, 64, [10, 5000], {}, None),
     (1, 2, 14, 2, 64, [4000], {}, None),
     (1, 8, 14, 2, 64, [1000], {"q": torch.float32}, None),
+    # head dim 256 (Gemma): 256 products per dot; the q8 decode of Gemma-3-12B
+    # past 4096, Gemma-2-9B's softcap, per-row n_past at B 2, 32 rows
+    (1, 1, 16, 8, 256, [5000], {}, "g3_decode_5000"),
+    (1, 1, 16, 8, 256, [6000], {"logit_softcap": 50.0, "sliding_window": 4096}, None),
+    (2, 1, 16, 8, 256, [2100, 6000], {"sinks": True}, None),
+    (1, 8, 4, 1, 256, [3000], {"q": torch.float32}, None),
+    (1, 1, 16, 8, 256, [511], {}, None),
 ]
 
 # The int8 dots on the edges of their design (csrc `int8_share`): a row with
@@ -2265,12 +2431,12 @@ def chat_phase(dev, cfg, params) -> dict:
     return res
 
 
-def _profile_block(eng, kv, n_past: int) -> dict:
+def _profile_block(eng, kv, n_past: int, trace: bool = True) -> dict:
     """One replayed decode block of 16 greedy steps at `n_past` (its graph
-    already captured) timed with CUDA events, then once more under
-    torch.profiler: the kernels' device time by name, and their sum over
-    the block's time on the card (the device's busy share; None when the
-    profiler sees no device time)."""
+    already captured) timed with CUDA events, then, with `trace`, once more
+    under torch.profiler: the kernels' device time by name, and their sum
+    over the block's time on the card (the device's busy share; None when
+    the profiler sees no device time)."""
     from chatllm_tpu_torch.runtime.generate import GenerationConfig
 
     scfg = GenerationConfig(do_sample=False).sampler_config()    # the engine's key
@@ -2295,6 +2461,8 @@ def _profile_block(eng, kv, n_past: int) -> dict:
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     block_ms = float(np.median(times))
+    if not trace:
+        return {"block_ms": block_ms, "step_ms": block_ms / DECODE_BLOCK}
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         block()
@@ -3525,9 +3693,10 @@ def e6_phase(dev) -> dict:
     return res
 
 
-E7_STEPS = 8      # the original's 48 cut to a sixth: the rates are per step, and
+E7_STEPS = 4      # the original's 48 cut to a twelfth: the rates are per step, and
 #                   the plain einsum variants' eager loops took ~3 minutes (16
-#                   steps ~58 s; halved again to make room for the pipeline phase)
+#                   steps ~58 s; halved again to make room for the pipeline phase,
+#                   and again for the Gemma phases)
 
 
 def e7_phase() -> dict:
@@ -4312,7 +4481,8 @@ FAMILY_PROMPT = 32                 # prompt tokens of the families' card-vs-CPU 
 # experts may flip); the logits are compared where the picks agree
 FAMILY_PICKS_AGREE_MIN = 0.75
 FAMILY_TOL = {"f32": 1e-4, "q4_k": 2e-2}
-FAMILY_CHATS = ("llama2", "codellama", "mistral", "mixtral", "mistral2")   # --test chats too
+# --test chats too
+FAMILY_CHATS = ("llama2", "codellama", "mistral", "mixtral", "mistral2") + GEMMA_FAMILIES
 
 
 def family_turns(fam: str) -> list:
@@ -4535,19 +4705,20 @@ class _DequantOnce:
         self.qmm.dequant_weight = self.real
 
 
-def _ring_cut(cfg2, params, ids, device, cache: str) -> tuple:
+def _ring_cut(cfg2, params, ids, device, cache: str, *, slots=(MISTRAL_RING,) * 2,
+              end: int = MISTRAL_CUT_POSITIONS) -> tuple:
     """A 2-layer cut's logits at every position [N, V] (f32, on the CPU) and
-    its rings (on the CPU): the prompt in chunks of SWA_EXTRA into rings of
-    MISTRAL_RING slots, then MISTRAL_CUT_STEPS one-token steps, their offset
-    a 0-d tensor on the card (the captured decode block's form) and an int
-    on the CPU."""
+    its caches (on the CPU): the first `end` ids in chunks of SWA_EXTRA into
+    caches of `slots` slots a layer (rings of MISTRAL_RING by default), then
+    one-token steps for the rest, their offset a 0-d tensor on the card (the
+    captured decode block's form) and an int on the CPU."""
     from chatllm_tpu_torch.nn import transformer as T
 
     c2 = replace(cfg2, cache_dtype=cache)
     kv = T.init_cache(c2, 1, cfg2.max_length, device=device)
-    if any(t.shape[1] != MISTRAL_RING for t in kv.k):
-        raise AssertionError(f"2-layer cut: ring slots {[t.shape[1] for t in kv.k]}")
-    outs, n, end = [], 0, MISTRAL_CUT_POSITIONS
+    if tuple(t.shape[1] for t in kv.k) != tuple(slots):
+        raise AssertionError(f"2-layer cut: cache slots {[t.shape[1] for t in kv.k]}")
+    outs, n = [], 0
     with torch.inference_mode():
         while n < len(ids):
             m = min(T.SWA_EXTRA, end - n) if n < end else 1
@@ -4558,34 +4729,106 @@ def _ring_cut(cfg2, params, ids, device, cache: str) -> tuple:
     return torch.cat(outs), _cache_copy(kv, "cpu")
 
 
-def _cut_compare(name: str, g, c, tol: float) -> dict:
+def _cut_compare(name: str, g, c, tol: float, strict: bool = True) -> dict:
     """Card logits g [N, V] against the CPU's c (`row_logit_errors`): finite,
-    within `tol`, the argmax equal where clear."""
+    within `tol`, the argmax equal where clear (r["within_tolerance"]; with
+    `strict`, raises where not)."""
     if g.shape != c.shape or not torch.isfinite(g).all():
         raise AssertionError(f"{name}: logits shape {tuple(g.shape)} or not finite")
     r = {"positions": int(g.shape[0]), **row_logit_errors(g, c, tol)}
+    r["within_tolerance"] = r["rel_to_logit_scale"] <= tol and r["argmax_equal_where_clear"]
     log(f"  {name}: {r}")
-    if r["rel_to_logit_scale"] > tol or not r["argmax_equal_where_clear"]:
+    if strict and not r["within_tolerance"]:
         raise AssertionError(f"{name}: logits differ from the CPU run ({r}; tolerance {tol})")
     return r
 
 
-def mistral_phase(dev) -> dict:
-    """Mistral-7B at full width and depth (`mistral_7b_config`: 32 layers,
-    sliding window 4096, random q4_k weights from seed 0) through the
-    port's entry points.
+def _timed_generate(eng, kv, ids, new: int, name: str) -> tuple[list, dict]:
+    """`new` greedy tokens of `ids` through the engine on the cache `kv`:
+    the tokens, and the prefill and decode times, the decode block's eager
+    and replayed steps and captures, and the launch counts (K3's by mode)
+    of this call."""
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, PerfInfo
+
+    dec = eng.decoder
+    was = (dec.eager_steps, dec.replayed_steps, dec.capture_ms)
+    reset_launch_counts()
+    reset_mode_launches()
+    perf = PerfInfo()
+    out, _, n_past = eng.generate(ids, GenerationConfig(do_sample=False, max_new_tokens=new),
+                                  perf=perf, cache=kv)
+    torch.cuda.synchronize()
+    eager, replayed = dec.eager_steps - was[0], dec.replayed_steps - was[1]
+    capture_ms = dec.capture_ms - was[2]
+    steps = len(out) - 1
+    r = {"prompt_tokens": len(ids), "prefill_ms": perf.prompt_ms, "gen_tokens": len(out),
+         "decode_ms": perf.gen_ms, "decode_steps_s": steps / perf.gen_ms * 1e3,
+         "eager_steps": eager, "replayed_steps": replayed, "capture_ms": capture_ms,
+         "graphs": dec.num_graphs(), "launches": launch_counts(),
+         "flash_modes": dict(MODE_LAUNCHES)}
+    if replayed:
+        # the decode span without the warm-up block and the capture
+        r["replayed_steps_s"] = replayed / (perf.gen_ms - capture_ms) * 1e3
+    if len(out) != new or n_past != len(ids) + new - 1:
+        raise AssertionError(f"{name}: {len(out)} tokens, n_past {n_past}")
+    return out, r
+
+
+def _mistral_config():
+    from chatllm_tpu_torch.models.synthetic import mistral_7b_config
+
+    cfg = mistral_7b_config(max_length=8192)
+    return replace(cfg, num_hidden_layers=MISTRAL_DEPTH,
+                   layer_specs=cfg.layer_specs[:MISTRAL_DEPTH])
+
+
+def mistral_setup(dev) -> dict:
+    """The mistral_7b phase's 2-layer cut, its CPU side started in a worker
+    thread ahead of the phase, beside the card's work of the phases before
+    it: Mistral-7B's parameters are built on the card from seed 0, the cut's
+    two layers copied to the CPU and the card's copy freed (the phase builds
+    the same parameters again).  The worker runs on all host cores but one,
+    which the card's dispatch keeps; the phase restores the count."""
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params
+
+    cfg = _mistral_config()
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
+    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    p2_cpu = _cut(params, 2, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    cut_ids = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                MISTRAL_CUT_POSITIONS + MISTRAL_CUT_STEPS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))    # a host core left for the card's dispatch
+    worker = ThreadPoolExecutor(1)
+
+    def cpu_cuts():
+        with _DequantOnce():
+            return {c: _ring_cut(cfg2, p2_cpu, cut_ids, "cpu", c) for c in ("bfloat16", "int8")}
+
+    return {"cfg2": cfg2, "cut_ids": cut_ids, "threads": threads, "worker": worker,
+            "cpu": worker.submit(cpu_cuts)}
+
+
+def mistral_phase(dev, setup: dict) -> dict:
+    """Mistral-7B at full width, cut to MISTRAL_DEPTH of its 32 layers
+    (`mistral_7b_config`: sliding window 4096, random q4_k weights from seed
+    0) through the port's entry points.
 
       - The ring route (max_length 8192: 32 rings of 4608 slots), over a
         bf16 and a q8 cache: a MISTRAL_PROMPT-token prompt in chunks of
         SWA_EXTRA, then MISTRAL_NEW greedy tokens, so decode crosses the
         wrap at n_past 4608 while keys leave the window; replayed from one
         CUDA graph (the rings are read whole, so no KV bucket splits the
-        keys), launches exact (K1 225 per launched step and once per prefill
-        chunk, no K3, no K4), one replayed block past the wrap timed and
+        keys), launches exact (K1 7 L + 1 per launched step and once per
+        prefill chunk, no K3, no K4), one replayed block past the wrap timed and
         profiled; then the uncaptured loop, whose first MISTRAL_EAGER_NEW
         tokens must be the replayed ones.
       - The dense windowed route (max_length 4608: no ring): the same prompt
-        over a bf16 cache, K3 in mode 2 with window 4096 (2 chunks x 32
+        over a bf16 cache, K3 in mode 2 with window 4096 (2 chunks x L
         launches), its last logits against the ring route's within
         MISTRAL_RING_DENSE_TOL; then a q8 decode of MISTRAL_DENSE_NEW tokens
         from n_past MISTRAL_PROMPT (past the window), K4 with window 4096 on
@@ -4595,21 +4838,21 @@ def mistral_phase(dev) -> dict:
         of MISTRAL_SERVE tokens, the second submitted once the first
         streams, 64 greedy tokens each, wrapping at different ring phases;
         each reply must equal the single-stream InferenceEngine's tokens;
-        K2 launched 225 times per batched step.
+        K2 launched 7 L + 1 times per batched step.
       - A 2-layer cut against the CPU over MISTRAL_CUT_POSITIONS positions
         (across the wrap) and MISTRAL_CUT_STEPS decode steps, bf16 and q8
         rings, within MISTRAL_CUT_TOL of the logit scale, layer 0's q8
         entries at most one int8 step from the CPU's.  The CPU side runs in
-        a worker thread beside the card's replays, the dense route and the
-        server (each weight dequantized once, `_DequantOnce`); the
-        uncaptured runs wait for it, so that their host is not shared."""
-    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, mistral_7b_config,
-                                                    param_bytes)
+        a worker thread (`mistral_setup`, started before the qwen3_30b_a3b
+        phase) beside the card's work (each weight dequantized once,
+        `_DequantOnce`); the uncaptured runs wait for it, so that their host
+        is not shared."""
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, param_bytes
     from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
     from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
     from chatllm_tpu_torch.ops.sampling import SamplerConfig
     from chatllm_tpu_torch.runtime.batching import BatchedEngine
-    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine, PerfInfo
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
 
     t_phase = time.perf_counter()
     spans = {}
@@ -4617,7 +4860,7 @@ def mistral_phase(dev) -> dict:
     def span(name):
         spans[name] = time.perf_counter() - t_phase - sum(spans.values())
 
-    cfg = mistral_7b_config(max_length=8192)
+    cfg = _mistral_config()
     L, V = cfg.num_hidden_layers, cfg.vocab_size
     per_step = 7 * L + 1                       # K1 per decode step: 7 projections x L + lm_head
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4626,45 +4869,12 @@ def mistral_phase(dev) -> dict:
     res = {"param_gib": param_bytes(params) / 2 ** 30, "spans_s": spans}
     prompt = np.random.default_rng(0).integers(0, V, MISTRAL_PROMPT).tolist()
     chunks = -(-MISTRAL_PROMPT // 512)
-
-    # ---- the 2-layer cut's CPU side, in a worker thread from here on
-    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
-    p2_cpu = _cut(params, 2, "cpu")
-    cut_ids = np.random.default_rng(3).integers(0, V, MISTRAL_CUT_POSITIONS + MISTRAL_CUT_STEPS)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads - 1))    # a host core left for the card's dispatch
-    worker = ThreadPoolExecutor(1)
-
-    def cpu_cuts():
-        with _DequantOnce():
-            return {c: _ring_cut(cfg2, p2_cpu, cut_ids, "cpu", c) for c in ("bfloat16", "int8")}
-
-    cut_cpu = worker.submit(cpu_cuts)
+    cfg2, cut_ids = setup["cfg2"], setup["cut_ids"]
+    cut_cpu, worker, threads = setup["cpu"], setup["worker"], setup["threads"]
     span("setup")
 
     def generate(eng, kv, ids, new: int) -> tuple[list, dict]:
-        dec = eng.decoder
-        was = (dec.eager_steps, dec.replayed_steps, dec.capture_ms)
-        reset_launch_counts()
-        reset_mode_launches()
-        perf = PerfInfo()
-        out, _, n_past = eng.generate(ids, GenerationConfig(do_sample=False, max_new_tokens=new),
-                                      perf=perf, cache=kv)
-        torch.cuda.synchronize()
-        eager, replayed = dec.eager_steps - was[0], dec.replayed_steps - was[1]
-        capture_ms = dec.capture_ms - was[2]
-        steps = len(out) - 1
-        r = {"prompt_tokens": len(ids), "prefill_ms": perf.prompt_ms, "gen_tokens": len(out),
-             "decode_ms": perf.gen_ms, "decode_steps_s": steps / perf.gen_ms * 1e3,
-             "eager_steps": eager, "replayed_steps": replayed, "capture_ms": capture_ms,
-             "graphs": dec.num_graphs(), "launches": launch_counts(),
-             "flash_modes": dict(MODE_LAUNCHES)}
-        if replayed:
-            # the decode span without the warm-up block and the capture
-            r["replayed_steps_s"] = replayed / (perf.gen_ms - capture_ms) * 1e3
-        if len(out) != new or n_past != len(ids) + new - 1:
-            raise AssertionError(f"mistral: {len(out)} tokens, n_past {n_past}")
-        return out, r
+        return _timed_generate(eng, kv, ids, new, "mistral")
 
     # ---- the ring route, replayed from CUDA graphs
     ring, logits_ring = {}, None
@@ -4837,6 +5047,521 @@ def mistral_phase(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------ gemma3_12b phase
+GEMMA3_PROMPT = 2048               # prompt tokens: 4 chunks of SWA_EXTRA wrap the 1536-slot
+#                                    rings; decode then stays in one KV bucket (3072), one graph
+GEMMA3_NEW = 256                   # greedy tokens, replayed and uncaptured
+GEMMA3_RING = 1536                 # the local layers' rings: window 1024 + SWA_EXTRA 512
+GEMMA3_GLOBAL = (5, 11, 17, 23, 29, 35, 41, 47)    # layer i global iff (i + 1) % 6 == 0
+GEMMA3_DENSE_CTX = 1536            # max_length of the dense windowed route (no ring)
+GEMMA3_DENSE_PROMPT = 1500         # its prompt: the ring route's first 1500 tokens
+# The dense windowed route's last logits against the ring route's, of the
+# logit scale, both at f32 activations (the embedding in f32, as
+# --compute_dtype f32 loads it): Mistral-7B's bound.  At bf16 activations
+# the two read 2.14e-2 apart (NVIDIA H100 80GB HBM3, 700 W): 48 layers of
+# bf16 hidden states round the routes' f32 sums (K3's mode 2 over 1024-row
+# chunks against the ring's einsum over 512-row ones) apart, and the tied
+# head's zero-mean logits have no common component to dwarf that.  At f32
+# activations those roundings go; a wrong window or rope table would still
+# move every score.  The argmax must be equal too.
+GEMMA3_RING_DENSE_TOL = 2e-2
+GEMMA3_CUT_LAYERS = (4, 5)         # the 2-layer cut: a local layer, then a global one
+GEMMA3_CUT_POSITIONS = 1600        # its prompt: wraps the local ring at 1536
+GEMMA3_SERVE = (2150, 2170)        # the 2-slot server's prompts: they wrap the rings in
+#                                    prefill, at other phases; their last chunks (102, 122
+#                                    rows) take no K2
+GEMMA3_SERVE_NEW = 64
+# The Gemma cuts' logits against the CPU's, of the logit scale, each cut
+# also run on the card with its attention scale one f32 step up (the
+# witness, against the card: a difference at the size of two f32 sum
+# orders' parting) and with a fault (the control: Gemma-3's local layer on
+# the global rope table, Gemma-2 without its sandwich norms).  The bound
+# must pass the witness and fail the control.  The quantized matmuls round
+# their inputs to bf16 at any activation dtype (K2's twin, like the Pallas
+# kernel, adds the group minimum's term from f32 x): an f32-level
+# difference flips some roundings, each flip moves the next outputs by a
+# bf16 step of an input times a weight, and within two layers the two sides
+# part at the bf16 level; the zero-mean tied head leaves the logits no
+# component common to the vocabulary (the Llama and Mistral cuts' untied,
+# positive-biased heads inflate their scale so), so that shows at its own
+# size.  Readings over bf16 / q8 caches (NVIDIA H100 80GB HBM3, 700 W):
+# card against CPU 7.96e-3 / 8.55e-3 (Gemma-3) and 7.85e-3 / 8.68e-3
+# (Gemma-2); the witness 6.40e-3 / 6.11e-3 and 6.20e-3 / 6.92e-3; the
+# control 1.255 and 1.086 (PERF.md).  The bound: 2.3x the largest card
+# reading, 54x under the smaller control.  Argmax: equal wherever the CPU's
+# top two are further apart than twice the bound; the share equal where
+# they are 2e-3 of the scale apart is recorded.
+GEMMA_CUT_TOL = {"bfloat16": 2e-2, "int8": 2e-2}
+# The 2-slot server's replies against the single-stream engine's logits,
+# teacher-forced on each reply (its prefill of the prompt, then of the
+# reply but its last token): at every step the server's token must be the
+# argmax there, or within this share of the logit scale of it.  Both run at
+# f32 activations; their routes (K2 at 2 rows and K4 at a per-row n_past
+# against the prefill's matmuls, K3 and ring einsum) part at the bf16 level
+# of the matmuls' inputs.  Readings (NVIDIA H100 80GB HBM3, 700 W): 125 of
+# 128 steps the argmax, the other three 5.5e-4, 1.2e-3 and 2.2e-3 below it;
+# free-running at bf16 activations the replies parted at gaps of 2.2e-3 and
+# 7.7e-3.
+GEMMA3_SERVE_TIE = 8e-3
+GEMMA3_UNCAPTURED_TIMEOUT = 600    # seconds the uncaptured reference's process may take
+
+
+def gemma3_phase(dev) -> dict:
+    """Gemma-3-12B at full width and depth (`gemma3_12b_config`: 48 layers of
+    head_dim 256, 40 local layers over 1024-key windows on the local rope
+    table beside 8 global ones, sandwich norms, random zero-centred q4_k
+    weights from seed 0, the tied bf16 head) through the port's entry points.
+
+      - The ring route (max_length 8192: 40 rings of 1536 slots, 8 global
+        layers of 8192), over a bf16 and a q8 cache: a GEMMA3_PROMPT-token
+        prompt in chunks of SWA_EXTRA (K3 in mode 2 on the 8 global layers of
+        every chunk over bf16), then GEMMA3_NEW greedy tokens replayed from
+        CUDA graphs, launches exact (K1 336 per launched step, K4 8 per q8
+        step), one replayed block timed and profiled.  The uncaptured loop's
+        GEMMA3_NEW tokens, which must be the same, come from a process of
+        its own (`gemma3_uncaptured_start`), checked after the cli phase.
+      - The dense windowed route (max_length 1536: no ring): the prompt's
+        first GEMMA3_DENSE_PROMPT tokens over a bf16 cache at f32
+        activations, K3 in mode 2 on all 48 layers (window 1024 on the local
+        ones), its last logits against the ring route's on the same tokens
+        and activations within GEMMA3_RING_DENSE_TOL, the same argmax.
+      - The server's engine (BatchedEngine, 2 slots, q8, f32 activations):
+        two requests of GEMMA3_SERVE tokens, the second submitted once the
+        first streams, 64 greedy tokens each, their rings wrapping at other
+        phases; the replies must equal the same server's taking the requests
+        one at a time bit for bit, and at every step be the single-stream
+        engine's greedy choice on the same prefix, teacher-forced, up to
+        GEMMA3_SERVE_TIE; K2 336 and K4 8 per batched step (per-row n_past).
+      - A 2-layer cut (GEMMA3_CUT_LAYERS: local, global) against the CPU
+        over GEMMA3_CUT_POSITIONS positions and 2 decode steps, bf16 and q8,
+        within GEMMA_CUT_TOL of the logit scale, beside its witness and its
+        control (`_gemma_cut_check`); its CPU side on CUT_WORKER.
+      - Peak device memory."""
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, gemma3_12b_config,
+                                                    param_bytes)
+    from chatllm_tpu_torch.nn import transformer as T
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+    from chatllm_tpu_torch.ops.sampling import SamplerConfig
+    from chatllm_tpu_torch.runtime.batching import BatchedEngine
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine
+
+    t_phase = time.perf_counter()
+    spans = {}
+
+    def span(name):
+        spans[name] = time.perf_counter() - t_phase - sum(spans.values())
+
+    cfg = gemma3_12b_config(max_length=8192)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    glob = [i for i in range(L) if not cfg.layer_spec(i).sliding_window]
+    if tuple(glob) != GEMMA3_GLOBAL:
+        raise AssertionError(f"gemma3: global layers {glob}")
+    per_step = 7 * L                  # K1 per decode step (the tied head is dot_f32)
+    n_glob = len(glob)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, centered=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    res = {"param_gib": param_bytes(params) / 2 ** 30, "spans_s": spans,
+           "k1_per_step": per_step, "k4_per_q8_step": len(glob)}
+    prompt = gemma3_prompt(V)
+    chunks = -(-GEMMA3_PROMPT // 512)
+    slots = [GEMMA3_RING if cfg.layer_spec(i).sliding_window else cfg.max_length
+             for i in range(L)]
+    p32 = dict(params, embed=params["embed"].float())    # f32 activations
+
+    # ---- the 2-layer cut's CPU side, on CUT_WORKER from here on
+    a, b = GEMMA3_CUT_LAYERS
+    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[a:b + 1])
+    sel = dict(params, layers=params["layers"][a:b + 1])
+    cut_ids = np.random.default_rng(3).integers(0, V, GEMMA3_CUT_POSITIONS + 2)
+    cut_kw = dict(slots=(GEMMA3_RING, cfg.max_length), end=GEMMA3_CUT_POSITIONS)
+    cut_cpu = _cpu_cuts(cfg2, _to_device(sel, "cpu"), cut_ids, cut_kw)
+    span("setup")
+
+    # ---- the ring route, replayed from CUDA graphs
+    ring = {}
+    for cache in ("bfloat16", "int8"):
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev)
+        kv = eng.new_cache(1)
+        if [t.shape[1] for t in kv.k] != slots or eng._chunk_cap != 512:
+            raise AssertionError(f"gemma3 ring slots {[t.shape[1] for t in kv.k]}")
+        toks, r = _timed_generate(eng, kv, prompt, GEMMA3_NEW, "gemma3")
+        launched = r["eager_steps"] + r["replayed_steps"]
+        q8 = cache == "int8"
+        want = {"qgemv": per_step * launched, "qmm": 0,
+                "flash_attention": 0 if q8 else n_glob * chunks,
+                "flash_decode": n_glob * launched if q8 else 0}
+        got = {k: r["launches"][k] for k in want}
+        log(f"  ring {cache}: prefill {r['prefill_ms']:.1f} ms ({chunks} chunks), "
+            f"{r.get('replayed_steps_s', 0):.2f} replayed steps/s, {r['graphs']} graph(s) "
+            f"captured in {r['capture_ms']:.0f} ms, launches {got}, K3 by mode "
+            f"{r['flash_modes']}")
+        if (got != want or r["flash_modes"][2] != want["flash_attention"] or r["graphs"] != 1
+                or r["replayed_steps"] < GEMMA3_NEW - DECODE_BLOCK or len(set(toks)) < 8):
+            raise AssertionError(f"gemma3 ring {cache}: launches {got} (expected {want}), K3 "
+                                 f"by mode {r['flash_modes']}, {r['replayed_steps']} replayed "
+                                 f"steps, {len(set(toks))} distinct tokens")
+        # one replayed block timed, and over bf16 traced (the profiler's trace
+        # of a 16-step block of 48 layers takes it seconds)
+        r["profiled_block"] = pb = _profile_block(eng, kv, GEMMA3_PROMPT + GEMMA3_NEW - 32,
+                                                  trace=not q8)
+        r["profiled_steps_s"] = 1e3 / pb["step_ms"]
+        log(f"  ring {cache}: replayed block {pb['block_ms']:.2f} ms "
+            f"({r['profiled_steps_s']:.2f} steps/s), kernels {pb.get('kernel_ms')} ms, busy "
+            f"share {pb.get('busy_share')}; top kernels {pb.get('top_kernels_ms')}")
+        ring[cache] = {"graph": r, "tokens": toks}
+        del eng, kv
+        torch.cuda.empty_cache()
+    res["ring"] = ring
+    span("ring_graphs")
+
+    # ---- the dense windowed route (no ring): K3 on every layer, window 1024;
+    # against the ring route, both at f32 activations
+    dense = {}
+    with torch.inference_mode():
+        eng = InferenceEngine(cfg, p32, device=dev)
+        logits_ring = eng.prefill(prompt[:GEMMA3_DENSE_PROMPT], eng.new_cache(1),
+                                  0)[0].float().cpu()
+        eng = InferenceEngine(replace(cfg, max_length=GEMMA3_DENSE_CTX), p32, device=dev)
+        kv = eng.new_cache(1)
+        if any(t.shape[1] != GEMMA3_DENSE_CTX for t in kv.k) or eng._chunk_cap:
+            raise AssertionError("gemma3 dense windowed route: ring layers or a chunk cap")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reset_mode_launches()
+        t0 = time.perf_counter()
+        logits_dense = eng.prefill(prompt[:GEMMA3_DENSE_PROMPT], kv, 0)[0].float().cpu()
+    dense["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    dense["launches"], dense["flash_modes"] = launch_counts(), dict(MODE_LAUNCHES)
+    err, rel = rel_err(logits_dense, logits_ring)
+    dense["vs_ring"] = {"max_abs_err": err, "rel_to_logit_scale": rel,
+                        "argmax_equal": bool(logits_dense.argmax() == logits_ring.argmax()),
+                        "logit_scale": logits_ring.abs().max().item()}
+    d_chunks = 2                       # a 1024-row chunk and the rest in a 512-row bucket
+    log(f"  dense windowed prefill of {GEMMA3_DENSE_PROMPT} (f32 activations, bf16 cache): "
+        f"{dense['prefill_ms']:.1f} ms, K3 by mode {dense['flash_modes']}; last logits "
+        f"against the ring route's {dense['vs_ring']}")
+    if (dense["flash_modes"][2] != d_chunks * L or dense["flash_modes"][0]
+            or rel > GEMMA3_RING_DENSE_TOL or not dense["vs_ring"]["argmax_equal"]):
+        raise AssertionError(f"gemma3 dense windowed prefill: K3 by mode {dense['flash_modes']} "
+                             f"(expected {d_chunks * L} in mode 2), {rel} of the logit scale "
+                             f"from the ring route (limit {GEMMA3_RING_DENSE_TOL}), argmax "
+                             f"equal {dense['vs_ring']['argmax_equal']}")
+    res["dense"] = dense
+    del eng, kv
+    torch.cuda.empty_cache()
+    span("dense")
+
+    # ---- the server's engine: 2 slots over q8 rings, staggered requests,
+    # f32 activations
+    rng = np.random.default_rng(5)
+    sprompts = [rng.integers(0, V, n).tolist() for n in GEMMA3_SERVE]
+    c8 = replace(cfg, cache_dtype="int8")
+    be = BatchedEngine(c8, p32, max_slots=2, scfg=SamplerConfig(do_sample=False), device=dev)
+    dec = be.decoder
+    try:
+        # one request at a time, then staggered: the same steps' shapes and
+        # kernels, so the replies must be bit-equal
+        alone = [list(be.submit(p, max_new=GEMMA3_SERVE_NEW)) for p in sprompts]
+        was = (dec.eager_steps, dec.replayed_steps)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        h1 = iter(be.submit(sprompts[0], max_new=GEMMA3_SERVE_NEW))
+        first = next(h1)                   # the first request is in its slot and streams
+        h2 = be.submit(sprompts[1], max_new=GEMMA3_SERVE_NEW)
+        replies = [[first] + list(h1), list(h2)]
+    finally:
+        be.shutdown()
+    torch.cuda.synchronize()
+    steps = dec.eager_steps + dec.replayed_steps - sum(was)
+    sr = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+          "batched_steps": steps, "replayed_steps": dec.replayed_steps - was[1],
+          "graphs": dec.num_graphs(), "replies": replies}
+    del be
+    torch.cuda.empty_cache()
+    if replies != alone or any(len(t) != GEMMA3_SERVE_NEW for t in replies):
+        raise AssertionError(f"gemma3 2-slot server: the staggered replies differ from the "
+                             f"same server's one at a time:\n{replies}\n{alone}")
+    if (sr["launches"]["qmm"] != per_step * steps
+            or sr["launches"]["flash_decode"] != n_glob * steps):
+        raise AssertionError(f"gemma3 2-slot server: K2 {sr['launches']['qmm']}, K4 "
+                             f"{sr['launches']['flash_decode']}, expected {per_step} and "
+                             f"{n_glob} x {steps} batched steps")
+    # the single-stream engine, teacher-forced on each reply: its logits at
+    # every step, the prompt's last row then one row per reply token but the last
+    eng = InferenceEngine(c8, p32, device=dev)
+    sr["single"] = []
+    for p, got in zip(sprompts, replies):
+        with torch.inference_mode():
+            kv = eng.new_cache(1)
+            first_row, kv, n = eng.prefill(p, kv, 0)
+            x = torch.tensor([got[:-1]], device=dev)
+            rows = T.transformer_forward(eng.cfg, eng.params, x, kv, n)[0][0]
+            lg = torch.cat([first_row, rows]).float()
+        top = lg.max(-1).values
+        pick = lg.gather(-1, torch.tensor(got, device=dev)[:, None])[:, 0]
+        gaps = ((top - pick) / lg.abs().amax(-1)).cpu()
+        sr["single"].append({"argmax_steps": int((gaps == 0).sum()),
+                             "largest_gap": gaps.max().item(),
+                             "gaps_nonzero": [round(g, 6) for g in gaps.tolist() if g]})
+        del kv
+    res["serve"] = sr
+    log(f"  2-slot q8 server (f32 activations): {sr['wall_s']:.2f} s, {steps} batched steps "
+        f"({sr['replayed_steps']} replayed from {sr['graphs']} graph(s)), K2 "
+        f"{sr['launches']['qmm']}, K4 {sr['launches']['flash_decode']}; against the "
+        f"single-stream engine, teacher-forced {sr['single']}")
+    if any(a["largest_gap"] > GEMMA3_SERVE_TIE for a in sr["single"]):
+        raise AssertionError(f"gemma3 2-slot server: a reply's token is not the single-stream "
+                             f"engine's greedy choice on its prefix ({sr['single']}; limit "
+                             f"{GEMMA3_SERVE_TIE} of the logit scale)")
+    del eng
+    torch.cuda.empty_cache()
+    span("serve")
+
+    # ---- the 2-layer cut on the card, against the CPU's; the control: the
+    # local layer on the global rope table
+    p2 = _to_device(sel, dev)
+    card = {c: _ring_cut(cfg2, p2, cut_ids, dev, c, **cut_kw)[0] for c in ("bfloat16", "int8")}
+    witness, control = _witness_and_control(cfg2, p2, cut_ids, cut_kw,
+                                            replace(cfg2, rope_local=None))
+    t0 = time.perf_counter()
+    cpu = cut_cpu.result()
+    res["cut"] = dict(_gemma_cut_check(f"gemma3 2-layer cut (layers {a}, {b})", card, cpu,
+                                       witness, control,
+                                       "the local layer on the global rope table"),
+                      cpu_wait_s=time.perf_counter() - t0, layers=list(GEMMA3_CUT_LAYERS))
+    del p2, card, cpu, witness, control, p32, sel
+    span("cut")
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  gemma3_12b phase: params {res['param_gib']:.2f} GiB, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB, {res['seconds']:.1f} s ({spans})")
+    return res
+
+
+def _cpu_cuts(cfg2, p_cpu, ids, kw):
+    """A Gemma cut's CPU side over a bf16 and a q8 cache, queued on
+    CUT_WORKER (one cut at a time, on all host cores but one: the card's
+    dispatch keeps it).  Returns the future of {cache: logits}."""
+    def run():
+        torch.set_num_threads(max(1, HOST_THREADS - 1))
+        try:
+            with _DequantOnce():
+                return {c: _ring_cut(cfg2, p_cpu, ids, "cpu", c, **kw)[0]
+                        for c in ("bfloat16", "int8")}
+        finally:
+            torch.set_num_threads(HOST_THREADS)
+
+    return CUT_WORKER.submit(run)
+
+
+def _witness_and_control(cfg2, params, ids, kw, fault_cfg) -> tuple:
+    """A Gemma cut's witness on the card, {cache: logits} over a bf16 and a
+    q8 cache with the attention scale one f32 step up (every score moved by
+    about the parting of two f32 sum orders), and its control: the cut
+    under `fault_cfg` over bf16."""
+    dev = params["embed"].device
+    step = replace(cfg2, attention_scale=float(
+        np.nextafter(np.float32(cfg2.attention_scale), np.float32(1.0))))
+    witness = {c: _ring_cut(step, params, ids, dev, c, **kw)[0] for c in ("bfloat16", "int8")}
+    return witness, _ring_cut(fault_cfg, params, ids, dev, "bfloat16", **kw)[0]
+
+
+def _gemma_cut_check(name: str, card: dict, cpu: dict, witness: dict, control,
+                     fault: str) -> dict:
+    """A Gemma cut's card logits against the CPU's, per cache, beside the
+    witness against the card (`_witness_and_control`) and, over bf16, the control
+    (the card's cut with `fault`) against the CPU: the card and the witness
+    within GEMMA_CUT_TOL, the argmax equal where clear, the control outside
+    it.  Also records, for both, the share of equal argmaxes on the rows
+    whose top two are more than 2e-3 of the scale apart."""
+    res = {}
+    for cache in ("bfloat16", "int8"):
+        res[cache] = {}
+        for side, g, c in (("card", card[cache], cpu[cache]),
+                           ("witness", witness[cache], card[cache])):
+            top2 = c.topk(2, dim=-1).values
+            clear = top2[:, 0] - top2[:, 1] > 2e-3 * c.abs().amax(-1)
+            ref = "cpu" if side == "card" else "card"
+            r = _cut_compare(f"{name} {cache}, {side} vs {ref} over {len(c)} positions", g, c,
+                             GEMMA_CUT_TOL[cache], strict=False)
+            same = g.argmax(-1) == c.argmax(-1)
+            r["argmax_equal_share_at_2e-3"] = same[clear].float().mean().item()
+            r["rows_at_2e-3"] = int(clear.sum())
+            res[cache][side] = r
+    res["control"] = {"fault": fault, "rel_to_logit_scale": row_logit_errors(
+        control, cpu["bfloat16"], 0.0)["rel_to_logit_scale"]}
+    log(f"  {name}: control ({fault}) {res['control']['rel_to_logit_scale']:.4g} of the logit "
+        f"scale")
+    bad = [f"{cache} {side}" for cache in ("bfloat16", "int8") for side in ("card", "witness")
+           if not res[cache][side]["within_tolerance"]]
+    if bad or res["control"]["rel_to_logit_scale"] <= GEMMA_CUT_TOL["bfloat16"]:
+        raise AssertionError(f"{name}: {bad or 'the control'} outside the bounds ({res}; "
+                             f"bounds {GEMMA_CUT_TOL})")
+    return res
+
+
+def gemma3_prompt(vocab: int) -> list:
+    """The gemma3_12b phase's prompt, from seed 0."""
+    return np.random.default_rng(0).integers(0, vocab, GEMMA3_PROMPT).tolist()
+
+
+def gemma3_uncaptured_main(out: str) -> int:
+    """`python3 chip_smoke.py --gemma3-uncaptured OUT`: the gemma3_12b
+    phase's uncaptured reference in a process of its own, so that its
+    host-bound loop (5-7 steps/s: each step dispatches every op of 48
+    layers) runs beside the phases that follow: the same parameters (seed
+    0) and prompt, GEMMA3_NEW greedy tokens over a bf16 and a q8 ring cache
+    with CUDA graphs off; writes their tokens, times and launch counts to
+    OUT as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
+        return 2
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, gemma3_12b_config
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine
+
+    torch.set_num_threads(1)           # the parent's phases keep the other host cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = gemma3_12b_config(max_length=8192)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, centered=True, seed=0, device=dev)
+    prompt = gemma3_prompt(cfg.vocab_size)
+    res = {}
+    for cache in ("bfloat16", "int8"):
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev,
+                              cuda_graphs=False)
+        toks, r = _timed_generate(eng, eng.new_cache(1), prompt, GEMMA3_NEW, "gemma3")
+        res[cache] = dict(r, tokens=toks)
+        log(f"  ring {cache}, uncaptured: {r['decode_steps_s']:.2f} decode steps/s, prefill "
+            f"{r['prefill_ms']:.1f} ms")
+        del eng
+        torch.cuda.empty_cache()
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def gemma3_uncaptured_start() -> dict:
+    """Start `gemma3_uncaptured_main` in a child process (in CHILDREN, which
+    `main` stops if it fails first); `gemma3_uncaptured_check` takes it."""
+    OUT_DIR.mkdir(exist_ok=True)
+    out, logf = OUT_DIR / "gemma3_uncaptured.json", OUT_DIR / "gemma3_uncaptured.log"
+    out.unlink(missing_ok=True)
+    with open(logf, "w") as fh:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--gemma3-uncaptured", str(out)], cwd=ROOT, stdout=fh,
+                                stderr=subprocess.STDOUT)
+    CHILDREN.append(proc)
+    return {"proc": proc, "out": out, "log": logf, "t0": time.perf_counter()}
+
+
+def gemma3_uncaptured_check(job: dict, g3: dict) -> dict:
+    """Wait for the uncaptured reference's process: exit 0, its tokens the
+    replayed ones over each cache (g3: the gemma3_12b phase's report), K1 336
+    launches per uncaptured step and K4 8 per q8 step."""
+    t0 = time.perf_counter()
+    try:
+        rc = job["proc"].wait(timeout=GEMMA3_UNCAPTURED_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        raise
+    text = job["log"].read_text()
+    if rc != 0:
+        raise AssertionError(f"gemma3 uncaptured reference: exit {rc}:\n{text[-4000:]}")
+    print(text, end="", flush=True)
+    got = json.loads(job["out"].read_text())
+    res = {"waited_s": time.perf_counter() - t0, "seconds": time.perf_counter() - job["t0"]}
+    for cache in ("bfloat16", "int8"):
+        r = got[cache]
+        toks = r.pop("tokens")
+        ring = g3["ring"][cache]
+        ring["eager"] = r
+        ring["graph_over_eager"] = ring["graph"]["profiled_steps_s"] / r["decode_steps_s"]
+        if toks != ring["tokens"]:
+            raise AssertionError(f"gemma3 ring {cache}: replayed tokens differ from the "
+                                 f"uncaptured loop's:\n{ring['tokens']}\n{toks}")
+        k4 = g3["k4_per_q8_step"] * r["eager_steps"] if cache == "int8" else 0
+        if (r["replayed_steps"] or r["launches"]["qgemv"] != g3["k1_per_step"] * r["eager_steps"]
+                or r["launches"]["flash_decode"] != k4):
+            raise AssertionError(f"gemma3 ring {cache} uncaptured: {r['replayed_steps']} "
+                                 f"replayed steps, launches {r['launches']}")
+        res[cache] = {"tokens_equal": True, "decode_steps_s": r["decode_steps_s"]}
+    log(f"  gemma3_12b uncaptured reference: {res}")
+    return res
+
+
+# ------------------------------------------------------------ gemma2_9b phase
+GEMMA2_CUT_POSITIONS = 640         # the cut's prompt: K3 on its global layer per chunk
+GEMMA2_CUT_STEPS = 2               # then q8 / bf16 decode steps (K4 over q8)
+
+
+def gemma2_setup(dev) -> dict:
+    """The Gemma-2-9B cut's parameters on the card and on the CPU, and its CPU
+    side started in a worker thread (`gemma2_phase` takes the result), so
+    that it runs while the card works through the gemma3_12b phase."""
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, gemma2_9b_config
+
+    t0 = time.perf_counter()
+    full = gemma2_9b_config(max_length=8192)
+    cfg2 = replace(full, num_hidden_layers=2, layer_specs=full.layer_specs[:2])
+    if (cfg2.layer_spec(0).sliding_window, cfg2.layer_spec(1).sliding_window) != (4096, 0):
+        raise AssertionError(f"gemma2 cut: layer specs {cfg2.layer_specs}")
+    params = build_synthetic_params(cfg2, "q4k", zeros=False, centered=True, seed=0,
+                                    device=dev)
+    ids = np.random.default_rng(4).integers(0, cfg2.vocab_size,
+                                            GEMMA2_CUT_POSITIONS + GEMMA2_CUT_STEPS)
+    kw = dict(slots=(4608, 8192), end=GEMMA2_CUT_POSITIONS)
+    return {"cfg2": cfg2, "params": params, "ids": ids, "kw": kw,
+            "cpu": _cpu_cuts(cfg2, _to_device(params, "cpu"), ids, kw),
+            "setup_s": time.perf_counter() - t0}
+
+
+def gemma2_phase(dev, setup: dict) -> dict:
+    """A full-width 2-layer cut of Gemma-2-9B (`gemma2_9b_config`, layers 0
+    and 1: a ring of 4608 slots over the 4096-key window, then a global layer
+    of 8192; attention softcap 50, final softcap 30; random zero-centred q4_k
+    weights from seed 0) against the CPU (`gemma2_setup`, run beforehand):
+    GEMMA2_CUT_POSITIONS positions in chunks of SWA_EXTRA (K3 in mode 2 with
+    softcap 50 on the global layer of every chunk over bf16; the ring's
+    einsum softcapped on layer 0), then GEMMA2_CUT_STEPS decode steps at a
+    0-d device offset (K4 with softcap 50 over q8), bf16 and q8, within
+    GEMMA_CUT_TOL of the logit scale, beside its witness and its control
+    (the cut without its sandwich norms), as `_gemma_cut_check`."""
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
+
+    t0 = time.perf_counter()
+    cfg2, params, ids, kw = setup["cfg2"], setup["params"], setup["ids"], setup["kw"]
+    res = {"setup_s": setup["setup_s"]}
+    chunks = -(-GEMMA2_CUT_POSITIONS // 512)
+    card = {}
+    for cache in ("bfloat16", "int8"):
+        reset_launch_counts()
+        reset_mode_launches()
+        card[cache] = _ring_cut(cfg2, params, ids, dev, cache, **kw)[0]
+        torch.cuda.synchronize()
+        launches, modes = launch_counts(), dict(MODE_LAUNCHES)
+        got = {k: launches[k] for k in ("flash_attention", "flash_decode")}
+        want = ({"flash_attention": 0, "flash_decode": GEMMA2_CUT_STEPS} if cache == "int8"
+                else {"flash_attention": chunks, "flash_decode": 0})
+        log(f"  gemma2 {cache}: K3 by mode {modes}, launches {got}")
+        if got != want or modes[2] != want["flash_attention"]:
+            raise AssertionError(f"gemma2 cut {cache}: launches {got}, K3 by mode {modes} "
+                                 f"(expected {want})")
+        res[cache] = {"launches": got}
+    witness, control = _witness_and_control(cfg2, params, ids, kw,
+                                            replace(cfg2, post_norms=False))
+    t1 = time.perf_counter()
+    cpu = setup["cpu"].result()
+    res["cpu_wait_s"] = time.perf_counter() - t1
+    res["cut"] = _gemma_cut_check("gemma2 2-layer cut", card, cpu, witness, control,
+                                  "no sandwich norms")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  gemma2_9b cut: {res['seconds']:.1f} s here (waited {res['cpu_wait_s']:.1f} s for "
+        f"the CPU), {res['setup_s']:.1f} s of setup before the gemma3_12b phase")
+    return res
+
+
 # ---------------------------------------------------------------- report
 # ---------------------------------------------------------- internvl phase
 IVL_IMAGE_HW = (1500, 2000)        # a 4:3 photo: a 4 x 3 grid, 12 tiles + thumbnail
@@ -4846,7 +5571,7 @@ IVL_QUESTION = "Describe this image in one sentence."
 # the spliced prompt: the system prompt and ChatML's opening (45 ids), 13 x
 # 256 image tokens, `</img>`, the question and the assistant's opening (51)
 IVL_PROMPT_TOKENS = 3424
-IVL_STEP_K1 = 36 * 7 + 1           # K1 launches per decode step (36 layers x 7 + lm_head)
+IVL_STEP_K1 = IVL_DEPTH * 7 + 1    # K1 launches per decode step (IVL_DEPTH x 7 + lm_head)
 # 2-layer tower cut, card vs CPU, of the output scale: about 4x the first
 # readings (1.15e-4 after the tower, 2.04e-3 after the projector, whose fc1
 # takes bf16 input: one-ulp roundings of it move the output)
@@ -4912,7 +5637,8 @@ class _TimedTokens(_Tokens):
 
 
 def internvl_phase(dev) -> dict:
-    """Full-width InternVL3.5-8B (`internvl3_5_8b_config`: Qwen3-8B, 36 layers,
+    """Full-width InternVL3.5-8B (`internvl3_5_8b_config`: Qwen3-8B, cut to
+    IVL_DEPTH of its 36 layers,
     random q4_k projections from seed 0; `internvit_300m_config`: the 24-layer
     InternViT tower and the projector in bf16 from seed 1), max_length 8192,
     through `InternVL.chat_image` on two seeded 2000 x 1500 PNGs (12 tiles and
@@ -4921,12 +5647,12 @@ def internvl_phase(dev) -> dict:
         captured); then, on image 1, preprocessing, the tower, the projector
         and the spliced prefill timed one by one (the functions chat_image
         calls), and the whole call on the same engine, counted: no capture and
-        no warm-up step, every decode block replayed, K3 36 launches in mode
-        2 (the 4096-row prefill bucket in one call) and none in mode 0, K1 253
-        per replayed step plus the prefill's lm_head row;
+        no warm-up step, every decode block replayed, K3 one launch a layer in mode
+        2 (the 4096-row prefill bucket in one call) and none in mode 0, K1
+        IVL_STEP_K1 per replayed step plus the prefill's lm_head row;
       - one OpenAI request to the server with image 0 as a data URI: its
         reply equals chat_image's, and it captures nothing;
-      - a q8 cache likewise: K4 36 launches per replayed step;
+      - a q8 cache likewise: K4 one launch a layer per replayed step;
       - 2-layer cuts against the CPU on the same weights: the tower and
         projector on one tile (IVL_TOWER_TOL of the output scale) and the
         LLM's prefill over the spliced embeddings (IVL_CUT_TOL of the logit
@@ -4949,7 +5675,7 @@ def internvl_phase(dev) -> dict:
     from chatllm_tpu_torch.serve.server import ApiServer, _make_handler
 
     t_phase = time.perf_counter()
-    cfg = internvl3_5_8b_config(max_length=8192)
+    cfg = replace(internvl3_5_8b_config(max_length=8192), num_hidden_layers=IVL_DEPTH)
     vcfg = internvit_300m_config()
     params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
     vp = build_synthetic_vision(vcfg, cfg.hidden_size, seed=1, device=dev)
@@ -5156,6 +5882,29 @@ def a3b_totals(kres: dict) -> dict:
              "flash_attention_f32q_2048": (kres["flash_attention"]["shapes"],
                                            {"a3b_prefill_2048_f32q": A3B_LAYERS}),
              "flash_decode": (kres["flash_decode"]["shapes"], {"a3b_decode_1000": A3B_LAYERS})}
+    return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for name, (shapes, mult) in units.items()}
+
+
+def g3_totals(kres: dict) -> dict:
+    """K1, K2, K3 and K4 summed over one unit of Gemma-3-12B's path at its
+    shapes: a decode token (48 x 7 projections; the tied head is dot_f32), a
+    2-row batched step (K2), a 512-token prefill chunk over the ring route
+    (8 launches of K3 mode 2, its global layers) and a 1024-row chunk of the
+    dense windowed route (48 launches), and a q8 decode step past 4096 (8
+    launches of K4, bf16 dots and int8 dots)."""
+    tok = {k: G3_LAYERS * v for k, v in PER_LAYER_G3.items()}
+    n_glob = len(GEMMA3_GLOBAL)
+    units = {"qgemv": (kres["qgemv"]["g3_shapes"], tok),
+             "qmm": (kres["qmm"]["g3_shapes"], tok),
+             "flash_attention_f32q_512": (kres["flash_attention"]["shapes"],
+                                          {"g3_prefill_512_f32q": n_glob}),
+             "flash_attention_f32q_dense_1024": (kres["flash_attention"]["shapes"],
+                                                 {"g3_dense_prefill_1024_f32q": G3_LAYERS}),
+             "flash_decode": (kres["flash_decode"]["shapes"], {"g3_decode_5000": n_glob}),
+             "flash_decode_int8": (kres["flash_decode_int8"]["shapes"],
+                                   {"g3_decode_5000": n_glob})}
     return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
                    for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
             for name, (shapes, mult) in units.items()}
@@ -5461,6 +6210,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mistral = mistral_setup(dev)    # its cut's CPU side runs beside the next phase
     log("== qwen3_30b_a3b")
     report["qwen3_30b_a3b"] = qwen3_a3b_phase(dev)
     report["qwen3_30b_a3b"]["kernel_totals"] = a3b_totals(report["kernels"])
@@ -5470,7 +6220,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== mistral_7b")
-    report["mistral_7b"] = mistral_phase(dev)
+    report["mistral_7b"] = mistral_phase(dev, mistral)
+    del mistral
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gemma2 = gemma2_setup(dev)      # its CPU side runs beside the gemma3_12b phase
+    log("== gemma3_12b")
+    report["gemma3_12b"] = gemma3_phase(dev)
+    g3_uncaptured = gemma3_uncaptured_start()     # runs beside the phases up to e2
+    report["gemma3_12b"]["kernel_totals"] = g3_totals(report["kernels"])
+    log(f"  Gemma-3-12B totals per unit of its path: {report['gemma3_12b']['kernel_totals']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== gemma2_9b")
+    report["gemma2_9b"] = gemma2_phase(dev, gemma2)
+    del gemma2
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5481,6 +6247,11 @@ def main() -> int:
 
     log("== cli")
     report["cli"] = cli_phase()
+
+    log("== gemma3_uncaptured")
+    report["gemma3_12b"]["uncaptured"] = gemma3_uncaptured_check(g3_uncaptured,
+                                                                report["gemma3_12b"])
+    torch.cuda.empty_cache()
 
     log("== e2")
     report["e2"] = e2_phase()
@@ -5543,4 +6314,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        if sys.argv[1:2] == ["--gemma3-uncaptured"]:
+            sys.exit(gemma3_uncaptured_main(sys.argv[2]))
+        sys.exit(main())
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -55,8 +55,8 @@ def test_cluster_size_limits():
                 assert 1 <= C <= min(fd.MAX_CLUSTER, -(-s // fd.TILE_K))
 
 
-def _check_shares(lo, hi, C):
-    shares = [fd.decode_share(lo, hi, r, C) for r in range(C)]
+def _check_shares(lo, hi, C, tile=fd.TILE_K):
+    shares = [fd.decode_share(lo, hi, r, C, tile) for r in range(C)]
     live = [(a, b) for a, b in shares if a < b]
     if hi <= lo:
         assert not live
@@ -69,11 +69,11 @@ def _check_shares(lo, hi, C):
     # tile-aligned, and balanced to one tile
     tiles = []
     for a, b in live:
-        assert a == lo or a % fd.TILE_K == 0
-        assert b == hi or b % fd.TILE_K == 0
-        tiles.append(-(-b // fd.TILE_K) - a // fd.TILE_K)
+        assert a == lo or a % tile == 0
+        assert b == hi or b % tile == 0
+        tiles.append(-(-b // tile) - a // tile)
     assert max(tiles) - min(tiles) <= 1 or len(tiles) == 1
-    n_tiles = -(-hi // fd.TILE_K) - lo // fd.TILE_K
+    n_tiles = -(-hi // tile) - lo // tile
     assert sum(tiles) == n_tiles
     assert len(live) == min(C, n_tiles)
 
@@ -86,6 +86,22 @@ def test_shares_cover_the_live_keys(model, B, Hkv, want, T, window):
     for n_past in range(0, S - T + 1):
         lo, hi = fd.live_range(n_past, T, S, window)
         _check_shares(lo, hi, C)
+
+
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("B,Hkv", [(1, 8), (2, 8), (1, 1)])
+def test_f32_cache_d256_shares_cover_the_live_keys(B, Hkv, window):
+    """Over an f32 cache at D 256 the float dots take 32-key tiles (two
+    stages of 64 keys would not fit the shared memory); their shares keep
+    the rules of the 64-key ones at Gemma-3's kv heads."""
+    assert fd.float_tile(256, torch.float32) == fd.F32_D256_TILE_K == 32
+    assert {fd.float_tile(D, dt) for D in (64, 128, 256)
+            for dt in (torch.int8, torch.bfloat16)} == {fd.TILE_K}
+    assert fd.float_tile(128, torch.float32) == fd.TILE_K
+    C = fd.decode_geometry(B, Hkv, S, SMS)
+    for n_past in range(0, S, 7):
+        lo, hi = fd.live_range(n_past, 1, S, window)
+        _check_shares(lo, hi, C, fd.F32_D256_TILE_K)
 
 
 @pytest.mark.parametrize("window", [0, 5, 40])
@@ -230,7 +246,7 @@ def test_k4_copy_probe_patches_the_kernel():
     src = SRC.read_text()
     assert src.count(k4_copy.ONE_PASS) == 1
     two = src.replace(k4_copy.ONE_PASS, k4_copy.TWO_PASSES)
-    assert two.count("idx < FTK * Gm::KNCH") == two.count("idx < FTK * Gm::VNCH") == 1
+    assert two.count("idx < TK * Gm::KNCH") == two.count("idx < TK * Gm::VNCH") == 1
     assert "if (c < Gm::VNCH)" not in two
     if not torch.cuda.is_available():
         assert k4_copy.main([]) == 2

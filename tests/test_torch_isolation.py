@@ -25,7 +25,8 @@ NEW_MODULES = ("bench", "experiments", "experiments.gemv_probe2", "models.qwen",
                "experiments.qmm_m32", "experiments.timing",
                "experiments.qmm_unpack_variants", "experiments.bhsd_decode",
                "nn.vit", "models.internvl", "runtime.vision", "models.llama",
-               "models.deepseek", "models.synthetic")
+               "models.deepseek", "models.synthetic", "models.mistral", "models.gemma",
+               "models.misc_wave2")
 
 
 def _port_modules():
