@@ -26,14 +26,19 @@ def _rand(gen, shape, scale, dtype, device):
 
 def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
                  gen: torch.Generator | None = None, zeros: bool = True,
-                 device="cpu", centered: bool = False):
+                 device="cpu", centered: bool = False, k_fallback: str = "q4"):
     """A linear layer in the given device format: 'q4k' = superblock
     QuantLinear (int8 sc/m + f16 d/dmin, the q4_k loader layout), 'q4'/'q8'
     = grouped-affine QuantLinear, 'bf16'/'f32' = dense.  Random q4k / q4
     weights are positive-biased (d sc q - dm m, s q); `centered` draws them
     around zero instead, about n_in^-0.5 in spread (m = sc and dm = 7.5 d,
     b = -7.5 s: w = d sc (q - 7.5), s (q - 7.5)), so that a stack of them
-    keeps its activations' scale and its routing varied."""
+    keeps its activations' scale and its routing varied.  A 'q4k' weight
+    whose n_in is not a multiple of 256 takes `k_fallback` instead: 'q8' is
+    what the converter writes (q4_k -> q8_0, chatllm.cpp convert.py
+    tensor_type_fallback).  No converted file holds the default 'q4' there;
+    it is kept only so that the parameters built before 'q8' was offered
+    (DeepSeek-V2-Lite's layer-0 down, K 10944) stay as they were."""
     G = 32
     b_t = None
     if bias and zeros:
@@ -41,7 +46,7 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
     elif bias:
         b_t = torch.randn(n_out, generator=gen, device=device) * 0.1
     if fmt == "q4k" and n_in % 256 != 0:
-        fmt = "q4"                # same gate as the q4_k loader (in % QK_K)
+        fmt = k_fallback          # same gate as the q4_k loader (in % QK_K)
     if fmt == "q4k":
         SB = 8
         if zeros:
@@ -93,7 +98,8 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
 
 def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                            zeros: bool = True, compute_dtype=torch.bfloat16,
-                           seed: int = 0, device="cpu", centered: bool = False):
+                           seed: int = 0, device="cpu", centered: bool = False,
+                           fused: bool = False, k_fallback: str = "q4"):
     """The parameter dict of `cfg` in format `fmt` (see synth_linear), zero
     or seeded random.  MLA layers (cfg.mla) get the converter's split kv
     projections, and in latent mode the absorbed wk_abs / wv_abs; MoE layers
@@ -102,7 +108,10 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     dense in the compute dtype as the loader stacks them (random: N(0,
     1 / fan-in), drawn on the device), and a shared expert of width
     cfg.moe_shared_intermediate when it is not 0.  `centered`: see
-    synth_linear.  Post-norms under cfg.post_norms (Gemma-2/3's sandwich)."""
+    synth_linear.  Post-norms under cfg.post_norms (Gemma-2/3's sandwich).
+    `fused`: the GLM2 architecture's consolidated q|k|v ("qkv") and gate|up
+    ("gate_up") projections in place of the separate ones.  `k_fallback`:
+    see synth_linear."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H = cfg.hidden_size
     d = cfg.resolved_head_dim()
@@ -112,7 +121,7 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
 
     def lin(i, o, bias=False):
         return synth_linear(i, o, fmt, bias=bias, gen=gen, zeros=zeros, device=device,
-                            centered=centered)
+                            centered=centered, k_fallback=k_fallback)
 
     def ones(n=H):
         return {"w": torch.ones(n, dtype=torch.float32, device=device)}
@@ -124,6 +133,8 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                            dtype=compute_dtype).mul_(shape[1] ** -0.5)
 
     def attention():
+        if cfg.mla is None and fused:
+            return {"qkv": lin(H, qo + 2 * kvo, cfg.qkv_bias), "o": lin(qo, H)}
         if cfg.mla is None:
             attn = {"q": lin(H, qo, cfg.qkv_bias), "k": lin(H, kvo, cfg.qkv_bias),
                     "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H)}
@@ -143,6 +154,8 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
         return attn
 
     def ffn(spec):
+        if not spec.is_moe and fused:
+            return {"gate_up": lin(H, 2 * F), "down": lin(F, H)}
         if not spec.is_moe:
             return {"gate": lin(H, F), "up": lin(H, F), "down": lin(F, H)}
         E, Fe, Fs = cfg.moe_num_experts, cfg.moe_intermediate_size, cfg.moe_shared_intermediate
@@ -201,6 +214,26 @@ def mistral_7b_config(max_length: int = 8192) -> TransformerConfig:
         rope=RopeConfig(head_dim=128, freq_base=10000.0, layout=ROPE_NORMAL),
         norm_eps=1e-6, layer_specs=tuple(LayerSpec(sliding_window=4096) for _ in range(32)),
     )
+
+
+def glm4_9b_config(max_length: int = 8192) -> TransformerConfig:
+    """GLM-4-9B as published (Hugging Face `THUDM/glm-4-9b-chat`,
+    config.json): padded_vocab_size 151552, hidden_size 4096, num_layers 40,
+    num_attention_heads 32, multi_query_group_num 2, kv_channels 128,
+    ffn_hidden_size 13696, add_qkv_bias, untied output_layer, rope_ratio 500
+    (rope base 10000 x 500); as the GLM4 loader builds it (models/glm.py:
+    the interleaved rope on half of each head, RMS eps 1e-5, which is what
+    `load_model` keeps: it overrides eps only from `rms_norm_eps`, and GLM's
+    config.json says `layernorm_epsilon`).  Only max_length is cut.  The
+    FFN is not a multiple of 256, so a q4_k file stores `dense_4h_to_h` as
+    q8_0 (build_synthetic_params(..., k_fallback="q8"))."""
+    return TransformerConfig(
+        vocab_size=151552, hidden_size=4096, num_hidden_layers=40,
+        num_attention_heads=32, num_key_value_heads=2,
+        intermediate_size=13696, max_length=max_length,
+        rope=RopeConfig(head_dim=128, rot_dim=64, freq_base=10000.0 * 500,
+                        layout=ROPE_NORMAL),
+        norm_eps=1e-5, qkv_bias=True)
 
 
 def gemma3_12b_config(max_length: int = 8192) -> TransformerConfig:

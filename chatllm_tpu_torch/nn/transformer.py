@@ -1,6 +1,7 @@
 """Decoder-only transformer core, main-path subset of the JAX package's
-`nn/transformer.py`: config, KV cache, pre-norm decoder layer (separate
-q/k/v projections, RoPE, GQA attention, SwiGLU MLP), the DeepSeek family's
+`nn/transformer.py`: config, KV cache, pre-norm decoder layer (separate or
+consolidated q/k/v projections, RoPE, GQA attention, SwiGLU MLP with
+separate or fused gate/up), the DeepSeek family's
 multi-head latent attention (both cache modes) and sparse MoE FFN, the
 sliding-window ring cache, the Gemma family's pieces (sandwich norms, the
 attention and final logit softcaps, the tied head's logit scale, a second
@@ -194,9 +195,16 @@ def _norm(cfg: TransformerConfig, x, p):
 
 def gated_mlp(cfg: TransformerConfig, p, x):
     """down(act(gate(x)) * up(x)).  Quantized matmuls compute in bf16 at any
-    activation dtype, as the JAX package's do."""
-    g = matmul(x, p["gate"])
-    u = matmul(x, p["up"])
+    activation dtype, as the JAX package's do.  A fused `gate_up` weight
+    (GLM2's dense_h_to_4h, or runtime/fuse.py) is one projection split in
+    halves: act(h[:F]) * h[F:]."""
+    if "gate_up" in p:
+        h2 = matmul(x, p["gate_up"])
+        F = h2.shape[-1] // 2
+        g, u = h2[..., :F], h2[..., F:]
+    else:
+        g = matmul(x, p["gate"])
+        u = matmul(x, p["up"])
     h = (_ACTS[cfg.act](g) * u).to(x.dtype)
     return matmul(h, p["down"]).to(x.dtype)
 
@@ -330,9 +338,19 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
     B, T, _ = x.shape
     d = cfg.resolved_head_dim()
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-    q = matmul(x, p["q"]).reshape(B, T, hq, d)
-    k = matmul(x, p["k"]).reshape(B, T, hkv, d)
-    v = matmul(x, p["v"]).reshape(B, T, hkv, d)
+    if "qkv" in p:
+        # one consolidated projection, columns [q | k | v] (GLM2's
+        # query_key_value, or runtime/fuse.py); slices of its output, on the
+        # device, so a captured block replays them
+        fused = matmul(x, p["qkv"])
+        qo, kvo = hq * d, hkv * d
+        q = fused[..., :qo].reshape(B, T, hq, d)
+        k = fused[..., qo:qo + kvo].reshape(B, T, hkv, d)
+        v = fused[..., qo + kvo:].reshape(B, T, hkv, d)
+    else:
+        q = matmul(x, p["q"]).reshape(B, T, hq, d)
+        k = matmul(x, p["k"]).reshape(B, T, hkv, d)
+        v = matmul(x, p["v"]).reshape(B, T, hkv, d)
     if cfg.qk_norm == "rmsnorm":
         # per-head RMS norm over head_dim (chatllm.cpp QKNormedAttention)
         q = rms_norm(q, p["q_norm"]["w"], eps=cfg.norm_eps, offset=cfg.rms_norm_offset)

@@ -1,8 +1,14 @@
 """Chip smoke test of the PyTorch/CUDA port (chatllm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase but fused_decode
+    python3 chip_smoke.py --phases glm4_9b,cli  # build, kernels and the named ones
 
-Phases (any failure raises and exits non-zero; nothing is caught):
+Phases (any failure raises and exits non-zero; nothing is caught; with
+--phases, build and kernels run and then the named phases in this order, the
+Llama-3-8B params built when one of phases 3-7 and pipeline is named;
+`PHASES` lists the names).  The last line is `{"ok": true, "device": ...}`
+only when every phase of the run without arguments ran; a --phases run that
+leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
   1. build   nvcc-build every kernel library from csrc/, print the card.
   2. kernels hold K1 qgemv, K2 qmm, K3 flash_attention, K4 flash_decode
              (also its int8 dots, its 64-row shapes, E7's head-major cache
@@ -33,7 +39,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              (Gemma-3-12B's prefill chunk over 8192 slots, its dense windowed
              route's chunk with window 1024 across the 64-key tiles, a chunk
              deep in the cache, Gemma-2-9B's softcap 50, its q8 decode past
-             4096, a per-row step at B 2, 32 rows per kv head), and K1, K2
+             4096, a per-row step at B 2, 32 rows per kv head), K1 (timed)
+             and K2 at GLM-4-9B's projections (fused qkv N 4608 and gate_up
+             N 27392, the q8_0 down at K 13696, the head N 151552; K2 timed
+             at the server's 2 rows), K3 (mode 2 timed) and K4 at its 32
+             query heads over 2 kv heads, and K1, K2
              and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
@@ -85,13 +95,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              their capture ms, peak memory, one replayed block timed and
              profiled (busy share, top kernels) and K1's and K4's shares of
              a replayed step from the kernel table.
+     fused_decode  (only when named: `--phases fused_decode`; it brings
+             graph_decode, whose tokens it is held against, and K1's cases at
+             the fused shapes in the kernels phase) the same model through
+             `runtime/fuse.py::fuse_decode_streams` (q|k|v and gate|up fused:
+             K1 4 x 32 + 1 a step instead of 7 x 32 + 1) over bf16: its
+             replayed rate and exact launches, and both parameter sets
+             teacher-forced on the unfused run's 64 tokens, the fused logits
+             within 1e-3 of the logit scale at every step, the same argmax
+             where the top two are 2e-3 of it apart.
   4. bench   `chatllm_tpu_torch.bench.run_bench` on the same full-width
              params (TTFT at 512 and 2048 tokens, single-stream and batched
              decode replayed from CUDA graphs, the K6 read-bandwidth probe),
              its JSON line printed, launches exact per section (its warm-up
              blocks and two runs of replays); then
              the B=8 batched decode once more with CHATLLM_TPU_QMM_V2=1 (K5
-             launches 225 times per step, K2 not at all) and K5's tokens and
+             launches 7 a layer + 1 per step, K2 not at all) and K5's tokens and
              last-step logits held against K2's on the same token history
              (0.9 of the tokens equal, logits within 5e-3 of their scale);
              then `python -m chatllm_tpu_torch.bench` as a user runs it, with
@@ -131,8 +150,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              its scales and the kept rows bit-equal, int8 keys at most one
              step apart in at most 1e-5 of the entries, k scales within 1e-6
              relative; no turn
-             captures a graph for a bucket captured before; K1 225 and K4 32
-             launches per decode step; the system prompt's rows bit-equal
+             captures a graph for a bucket captured before; K1 7 a layer + 1
+             and K4 one a layer per decode step; the system prompt's rows
+             bit-equal
              after every turn), a session saved after turn 2 and loaded into
              a fresh Pipeline whose turn 3 has the same greedy ids; four turns
              over a bf16 cache with Restart (K3 mode 2 in every prefill, the
@@ -219,9 +239,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              layers) over bf16 and q8: a 2048-token prompt in chunks of 512
              (K3 mode 2 on the global layers) and 256 greedy tokens,
              replayed (K1 336 per launched step, K4 8 per q8 step), one
-             block profiled; the same 256 uncaptured in a child process
-             (`gemma3_uncaptured_main`) that runs beside the next phases,
-             its tokens checked after the cli phase.  At f32 activations:
+             block profiled.  The uncaptured reference at a depth cut of 12
+             layers (ten local, two global) in a child process
+             (`gemma3_uncaptured_main`) that runs beside the next phases:
+             256 tokens uncaptured and replayed over both rings, equal,
+             checked after the cli phase.  At f32 activations:
              the dense windowed route (max_length 1536): 1500 tokens, K3 on
              all 48 layers (96 launches), its last logits within 2e-2 of
              the ring route's, the same argmax; a 2-slot q8 server (2150
@@ -233,6 +255,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              2e-2 of the logit scale over bf16 and q8, which its witness (the
              card with its attention scale one f32 step up) passes and its control
              (the local layer on the global rope table) fails.  Peak memory.
+     glm4_9b  full-width, full-depth GLM-4-9B (`glm4_phase`: 40 layers, 32
+             query heads over 2 kv heads of 128 (G 16), the fused biased qkv
+             and gate_up, rope on half of each head at base 5e6, random q4_k
+             weights from seed 0 with the 13696-wide down projection q8_0,
+             the untied 151552-row head, max_length 8192).  The 1000-token
+             prompt and 64 greedy tokens over bf16 and q8 caches replayed
+             from graphs: K1 161 per step (+ the prefill's head), K3 mode 2
+             on all 40 layers over bf16, K4 40 a q8 step (16 rows a kv
+             head), one block profiled; on zero-centred weights (whose
+             tokens vary) a 2-slot q8 server (1000 and 1100 tokens x 64, f32
+             activations): staggered replies bit-equal to one-at-a-time
+             ones, K2 161 a batched step, each token's gap below the
+             single-stream engine's greedy choice, teacher-forced,
+             recorded; the same server at a 4-layer cut with each token that
+             cut's greedy choice, teacher-forced, up to 8e-3 of the logit
+             scale, beside a witness (attention scale one f32 step up) that
+             must pass it and a control (n_past one ahead) that must fail
+             it; and uncaptured tokens equal to replayed ones at a
+             4-layer cut over both caches; a 2-layer cut over 642
+             positions against the CPU within 1e-3 (bf16) and 4e-3 (q8) of
+             the logit scale, a miss reported beside its witness (the card's
+             cut with its attention scale one f32 step up) and failed beyond
+             twice it, its control (rope over whole heads) outside the
+             bound.  Peak memory.
      gemma2_9b  a full-width 2-layer cut of Gemma-2-9B (`gemma2_phase`: a
              ring layer and a global one, attention softcap 50, final softcap
              30) over 642 positions against the CPU, as gemma3's cut (its
@@ -245,7 +291,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              Llama-2, CodeLlama, Mistral and Mixtral over rings of 576 slots
              that their 640-token prompt wraps, Mistral2 with 128-wide heads,
              Gemma, Gemma-2, Gemma-3 and RNJ-1 with heads of 256, the last
-             three over such rings) in f32 and q4_k, loaded on the card and
+             three over such rings, ChatGLM2 / 3, CodeGeeX2 / 4, CharacterGLM,
+             GLM-4 and GLM-4-0414) in f32 and q4_k, loaded on the card and
              the CPU (`families_phase`): config and weights bit-equal, logits
              within 1e-4 (f32) or 2e-2 (q4_k) of the CPU's; the narrow
              Qwen3-MoE and each of FAMILY_CHATS chat through `main.py --test` on
@@ -270,7 +317,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              A narrow INTERN_VL GGMM (q4_k Qwen3 behind a 2-layer InternViT)
              asked about a 120 x 90 PNG through --multimedia_file_tags on the
              card and with --device cpu: byte-identical transcripts.
-             The 21 calls run six processes at a time (`_run_cli`; the two
+             The 21 calls run eight processes at a time, each on one intra-op
+             thread (`_run_cli`; the two
              --load_session calls after the rest).
   9. e2      `chatllm_tpu_torch.experiments.gemv_probe2.main`, all six
              variants.
@@ -300,6 +348,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -321,6 +370,8 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 SHAPES_8B = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
              "down": (14336, 4096), "lm_head": (4096, 128256)}
 PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}
+# the fused projections of Llama-3-8B under fuse_decode_streams (one of each a layer)
+SHAPES_8B_FUSED = {"qkv": (4096, 6144), "gate_up": (4096, 28672)}
 N_LAYERS = 32
 DSV2_LAYERS = 27                   # DeepSeek-V2-Lite
 # The depth the DeepSeek-V2-Lite and Qwen3-30B-A3B phases run at, cut from 27
@@ -826,6 +877,8 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
                                    **kw)
     if family in ("deepseek_v3", "moonlight", "deepseek_v3_light"):
         return write_deepseek_v2_ggmm(path, model_type=mtype, **kw)
+    if family in GLM_FAMILIES:
+        return write_glm_ggmm(path, family, **kw)
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
     rng = np.random.default_rng(seed)
@@ -930,6 +983,103 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
     return path
 
 
+# The GLM families: the GLM2 architecture (fused qkv and gate_up) over
+# ChatGLM2's SentencePiece-score vocab or GLM-4's byte-level one, and
+# GLM-4-0414 (separate q/k/v, sandwich norms) over GLM-4's
+GLM2_FAMILIES = ("chatglm2", "chatglm3", "codegeex2", "characterglm")
+GLM4_FAMILIES = ("glm4", "codegeex4")
+GLM_FAMILIES = GLM2_FAMILIES + GLM4_FAMILIES + ("glm4_0414",)
+# GLM-4's <|endoftext|> and the nine special pieces its tokenizer counts up
+# from it (chatllm.cpp models/chatglm.cpp v4)
+GLM4_SPECIALS = ("<|endoftext|>", "[MASK]", "[gMASK]", "[sMASK]", "<sop>", "<eop>",
+                 "<|system|>", "<|user|>", "<|assistant|>", "<|observation|>")
+GLM2_SPECIAL_IDS = 5               # ChatGLM2's mask .. eop ids, at and above its piece count
+
+
+def write_glm_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cls=None,
+                   vocab: int = 384, hidden: int = 256, heads: int = 4, kv_heads: int = 2,
+                   layers: int = 2, inter: int = 512, max_len: int = 512):
+    """A narrow random-weight GGMM of a GLM family (GLM_FAMILIES) in the
+    converter's layout (chatllm.cpp convert.py ChatGLM2Converter /
+    GLM4Converter names): hidden 256, 4 heads of 64 over 2 kv heads, 2
+    layers, FFN 512, every matrix in `dtype` (q4_k by default), norms,
+    biases and the embedding f32.  The GLM2 architecture writes the biased `query_key_value`
+    [q | k | v] and `dense_h_to_4h` [gate | up]; ChatGLM2's vocab is
+    SentencePiece-score with GLM2_SPECIAL_IDS ids past its pieces, GLM-4's
+    byte-level with GLM4_SPECIALS.  GLM-4 writes rope_ratio 500, GLM-4-0414
+    biased q/k/v, a rope of half the head and rope_theta 1e4."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.ggmm.writer import GGMMWriter
+    from chatllm_tpu_torch.models.model_types import ModelType
+
+    writer_cls = writer_cls or GGMMWriter
+    dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=None):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def norm(name, n=hidden):
+        wr.write_tensor(f"{name}.weight", 1.0 + 0.1 * w(n, scale=1.0), GGMLType.F32)
+
+    d = hidden // heads
+    glm2 = family in GLM2_FAMILIES
+    bos, eos = (1, 2) if glm2 else (-1, 256)
+    base = [int(dtype), vocab, hidden, heads, layers, inter, max_len, bos, eos, -1, -1]
+    with open(path, "wb") as f:
+        wr = writer_cls(f, int(ModelType[FAMILIES[family][0]]), 1,
+                        meta={"model_name": f"tiny-{family}"})
+        if family == "glm4_0414":
+            # n_kv, use_attention_bias, rope_dim; rope_theta
+            wr.write_config(base + [kv_heads, 1, d // 2], fmt="14i")
+            f.write(struct.pack("<f", 10000.0))
+        else:
+            wr.write_config(base + [kv_heads], fmt="12i")
+            if not glm2:
+                f.write(struct.pack("<f", 500.0))                # rope_ratio
+        wr._patch_offset(12)
+        if glm2:
+            wr.write_vocab_sp(_sp_pieces(vocab - GLM2_SPECIAL_IDS))
+        else:
+            wr.write_vocab_bpe(_byte_pieces(GLM4_SPECIALS, vocab), [])
+        qkv = (heads + 2 * kv_heads) * d
+        if family == "glm4_0414":
+            wr.write_tensor("model.embed_tokens.weight", w(vocab, hidden, scale=1.0),
+                            GGMLType.F32)
+            for i in range(layers):
+                p = f"model.layers.{i}"
+                norm(f"{p}.input_layernorm")
+                for name, n_out in (("q", heads * d), ("k", kv_heads * d), ("v", kv_heads * d)):
+                    wr.write_tensor(f"{p}.self_attn.{name}_proj.weight", w(n_out, hidden), dtype)
+                    wr.write_tensor(f"{p}.self_attn.{name}_proj.bias", w(n_out, scale=0.5),
+                                    GGMLType.F32)
+                wr.write_tensor(f"{p}.self_attn.o_proj.weight", w(hidden, heads * d), dtype)
+                for name in ("post_self_attn", "post_attention", "post_mlp"):
+                    norm(f"{p}.{name}_layernorm")
+                wr.write_tensor(f"{p}.mlp.gate_proj.weight", w(inter, hidden), dtype)
+                wr.write_tensor(f"{p}.mlp.up_proj.weight", w(inter, hidden), dtype)
+                wr.write_tensor(f"{p}.mlp.down_proj.weight", w(hidden, inter), dtype)
+            norm("model.norm")
+            wr.write_tensor("lm_head.weight", w(vocab, hidden), dtype)
+            return path
+        wr.write_tensor("transformer.embedding.word_embeddings.weight",
+                        w(vocab, hidden, scale=1.0), GGMLType.F32)
+        for i in range(layers):
+            p = f"transformer.encoder.layers.{i}"
+            norm(f"{p}.input_layernorm")
+            wr.write_tensor(f"{p}.self_attention.query_key_value.weight", w(qkv, hidden), dtype)
+            wr.write_tensor(f"{p}.self_attention.query_key_value.bias", w(qkv, scale=0.5),
+                            GGMLType.F32)
+            wr.write_tensor(f"{p}.self_attention.dense.weight", w(hidden, heads * d), dtype)
+            norm(f"{p}.post_attention_layernorm")
+            wr.write_tensor(f"{p}.mlp.dense_h_to_4h.weight", w(2 * inter, hidden), dtype)
+            wr.write_tensor(f"{p}.mlp.dense_4h_to_h.weight", w(hidden, inter), dtype)
+        norm("transformer.encoder.final_layernorm")
+        wr.write_tensor("transformer.output_layer.weight", w(vocab, hidden), dtype)
+    return path
+
+
 # The families of write_family_ggmm: name -> (model type, writer options)
 FAMILIES = {
     "llama3_2": ("LLAMA3_2", {}),
@@ -953,6 +1103,13 @@ FAMILIES = {
     "gemma2": ("GEMMA2", {}),
     "gemma3": ("GEMMA3", {}),
     "rnj_1": ("RNJ_1", {}),
+    "chatglm2": ("CHATGLM2", {}),
+    "chatglm3": ("CHATGLM3", {}),
+    "codegeex2": ("CODEGEEX2", {}),
+    "characterglm": ("CHARACTERGLM", {}),
+    "glm4": ("GLM4", {}),
+    "codegeex4": ("CODEGEEX4", {}),
+    "glm4_0414": ("GLM4_0414", {}),
 }
 
 
@@ -1212,9 +1369,18 @@ SHAPES_G3 = {"q": (3840, 4096), "k_v": (3840, 2048), "o": (4096, 3840),
              "gate_up": (3840, 15360), "down": (15360, 3840)}
 PER_LAYER_G3 = {"q": 1, "k_v": 2, "o": 1, "gate_up": 2, "down": 1}
 G3_LAYERS = 48
+# GLM-4-9B's projections (K, N, format): the fused q|k|v (32 + 2 x 2 heads of
+# 128) and gate|up, o, the down projection at K 13696 (not a multiple of 256:
+# the converter stores it q8_0), the untied 151552-row head
+SHAPES_GLM = {"qkv": (4096, 4608, "q4_k"), "o": (4096, 4096, "q4_k"),
+              "gate_up": (4096, 27392, "q4_k"), "down": (13696, 4096, "q8_0"),
+              "lm_head": (4096, 151552, "q4_k")}
+PER_LAYER_GLM = {"qkv": 1, "o": 1, "gate_up": 1, "down": 1}
+GLM_LAYERS = 40
+GLM_ROWS = 2                       # K2's rows in the GLM-4-9B server's batched steps (2 slots)
 
 
-def kernels_phase(dev, timer) -> dict:
+def kernels_phase(dev, timer, fused: bool = False) -> dict:
     from chatllm_tpu_torch.ops.cuda.gemv_kernel import qgemv, qgemv_plain
     from chatllm_tpu_torch.ops.cuda.qmm_decode import qmm_decode, qmm_decode_plain
     from chatllm_tpu_torch.ops.cuda.qmm_kernel import qmm, qmm_plain
@@ -1256,6 +1422,18 @@ def kernels_phase(dev, timer) -> dict:
     for fmt in ("q4_k", "q8_0", "q4_0", "q4_1"):
         for sname, (K, N) in SHAPES_8B.items():
             run(quant_weight(fmt, K, N, gen, dev), fmt, sname, fmt == "q4_k", "shapes")
+    # Llama-3-8B through fuse_decode_streams (with the fused_decode phase):
+    # K1 timed at the fused q|k|v and gate|up (its o and down are the
+    # unfused ones), on a generator of their own
+    res["qgemv"]["fused_shapes"] = {}
+    fgen = torch.Generator(device=dev).manual_seed(2)
+    for sname, (K, N) in SHAPES_8B_FUSED.items() if fused else ():
+        lin = quant_weight("q4_k", K, N, fgen, dev)
+        x = torch.randn(1, K, generator=fgen, device=dev).to(torch.bfloat16)
+        y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, "q4_k")
+        res["qgemv"]["fused_shapes"][sname] = _time_matmul(
+            timer, qgemv, qgemv_plain, x, lin, y, dequant_weight(lin, torch.bfloat16), F32_FLOPS)
+        del lin
     # Qwen2.5-0.5B: q8_0 (unpacked int8) with a bias, K = 896 and 4864
     for sname, (K, N) in SHAPES_QWEN.items():
         lin = replace(quant_weight("q8_0", K, N, gen, dev),
@@ -1319,6 +1497,24 @@ def kernels_phase(dev, timer) -> dict:
             yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, "q4_k")
             if B == 2:
                 res["qmm"]["g3_shapes"][sname] = _time_matmul(
+                    timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
+        del lin, w_bf16
+    # GLM-4-9B: K1 timed at its fused q4_k projections, its q8_0 down (K
+    # 13696: 428 groups) and its head; K2 checked at 2-64 rows and timed at
+    # the 2-slot server's 2
+    res["qgemv"]["glm_shapes"], res["qmm"]["glm_shapes"] = {}, {}
+    for sname, (K, N, fmt) in SHAPES_GLM.items():
+        lin = quant_weight(fmt, K, N, gen, dev)
+        w_bf16 = dequant_weight(lin, torch.bfloat16)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, fmt)
+        res["qgemv"]["glm_shapes"][sname] = _time_matmul(
+            timer, qgemv, qgemv_plain, x, lin, y, w_bf16, F32_FLOPS)
+        for B in (GLM_ROWS, 8, 37, 64):
+            xb = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+            yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, fmt)
+            if B == GLM_ROWS:
+                res["qmm"]["glm_shapes"][sname] = _time_matmul(
                     timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
         del lin, w_bf16
     coverage_cases(dev, gen, res)
@@ -1695,6 +1891,7 @@ def flash_cases(dev, timer, gen) -> dict:
     L3, QW = (32, 8, 128), (14, 2, 64)     # Llama-3-8B; Qwen2.5-0.5B (7 heads per kv head)
     A3 = (32, 4, 128)                      # Qwen3-30B-A3B: 8 query heads per kv head
     G3, G2, G1 = (16, 8, 256), (16, 8, 256), (4, 1, 256)   # Gemma-3-12B, -2-9B, -3-1B
+    GL = (32, 2, 128)                      # GLM-4-9B: 16 query heads per kv head
     cases = [  # (heads, T, S, n_past, n_tokens, window, softcap, timed as)
         (L3, 128, 1024, 0, 128, 0, 0.0, None),
         (L3, 512, 8192, 1000, 512, 0, 0.0, None),
@@ -1757,6 +1954,12 @@ def flash_cases(dev, timer, gen) -> dict:
         (G2, 512, 8192, 512, 512, 0, 50.0, "g2_prefill_softcap"),
         (G2, 320, 2048, 700, 320, 300, 50.0, None),
         (G1, 200, 2048, 37, 180, 300, 0.0, None),
+        # GLM-4-9B's 1000-token prompt in its 1024-row bucket over 8192 slots
+        # (timed in mode 2, the chat path's), a chunk after it off the row
+        # grid, and a chunk deep in the cache
+        (GL, 1024, 8192, 0, 1000, 0, 0.0, "glm_prefill_1000"),
+        (GL, 512, 8192, 1001, 500, 0, 0.0, None),
+        (GL, 128, 8192, 8064, 128, 0, 0.0, None),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the clusters of each f32 kernel the card holds at once, which the
@@ -1807,7 +2010,7 @@ def flash_cases(dev, timer, gen) -> dict:
                                  "softcap": cap, "splits": splits, "max_abs_err": err,
                                  "scaled_err": scaled, "second_launch_same": same})
             if timed and (mode == 2 or not timed.startswith(("ivl_", "a3b_", "mistral_",
-                                                              "g3_dense", "g2_"))):
+                                                              "g3_dense", "g2_", "glm_"))):
                 # visible (query, key) pairs: causal rows inside the window;
                 # padded rows see all keys
                 qpos = n_past + np.arange(T)
@@ -1918,6 +2121,13 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 4, 16, 8, 256, [4095], "bfloat16", "bfloat16", {"sinks": True}, None),
     (1, 1, 16, 8, 256, [0], "int8", "bfloat16", {}, None),
     (1, 1, 16, 8, 256, [8191], "int8", "float32", {}, None),
+    # GLM-4-9B: 32 query heads over 2 kv heads (G 16), its q8 decode after
+    # the 1000-token prompt (16 rows a kv head, the most the route sends),
+    # f32 dots, and the 2-slot server's per-row step (32 rows a kv head,
+    # which the route leaves to the chunked einsum; the kernel takes it)
+    (1, 1, 32, 2, 128, [1064], "int8", "bfloat16", {}, "glm_decode_1064"),
+    (1, 1, 32, 2, 128, [6000], "int8", "float32", {}, None),
+    (2, 1, 32, 2, 128, [1000, 2100], "int8", "bfloat16", {}, None),
 ]
 
 # The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
@@ -2887,7 +3097,8 @@ def pipeline_phase(dev, cfg, params, card: str) -> dict:
         tensor's data_ptr kept), timed and held against the port's shift run
         on the CPU over a copy of the cache taken just before it
         (`shift_vs_cpu`); no turn captures a graph for a bucket captured
-        before; K1 225 and K4 32 launches per decode step in every turn;
+        before; K1 7 a layer + 1 and K4 one a layer per decode step in every
+        turn;
       - a session saved after turn 2 and loaded into a fresh Pipeline, whose
         turn 3 has the uninterrupted pipeline's greedy ids;
       - bf16 cache, Restart, four turns: K3's mode 2 in each ~1000-token
@@ -3196,27 +3407,54 @@ def serve_phase(dev, cfg, params, *, model_type=None, tok=None, name="llama3-8b-
 
 
 # --------------------------------------------------------------- cli phase
-CLI_WORKERS = 6                    # CLI processes at a time, on 8 host cores
+CLI_WORKERS = 8                    # CLI processes at a time, on 8 host cores
+# one intra-op thread a CLI process: with PyTorch's default of one a core,
+# eight processes' narrow CPU chats spin their OpenMP threads against each
+# other (six --device cpu chats took 29.4 s so and 3.7 s with one thread
+# each on an 8-core host; transcripts identical)
+# The machine's interpreter writes no bytecode, so every process compiles
+# PyTorch's Python sources again (9-10 s an import there): the processes
+# this script starts cache them under the build directory (5.4 s an import)
+SUBPROCESS_ENV = dict(os.environ, PYTHONDONTWRITEBYTECODE="",
+                      PYTHONPYCACHEPREFIX=str(ROOT / "chatllm_tpu_torch" / "_build" / "pycache"))
+CLI_ENV = dict(SUBPROCESS_ENV, OMP_NUM_THREADS="1")
+CLI_POOL = ThreadPoolExecutor(CLI_WORKERS)   # the CLI processes' threads, one queue for all
 CLI_SYS = "You are a terse assistant on an H100."
 CLI_TURNS = 7                      # Shift fires several times in 256 slots
 
 
-def _run_cli(jobs: dict) -> dict:
-    """Run `python -m chatllm_tpu_torch.main` once per job (name -> (argv,
-    stdin or None)), CLI_WORKERS processes at a time; returns name ->
-    stdout.  The jobs are independent, so running them side by side only
+def _start_cli(jobs: dict) -> dict:
+    """Start `python -m chatllm_tpu_torch.main` once per job (name -> (argv,
+    stdin or None)) on CLI_POOL, CLI_WORKERS processes at a time, the jobs
+    of every phase in one queue; returns name -> the future of (stdout,
+    seconds).  The jobs are independent, so running them side by side only
     moves the perf lines, which no check compares."""
-    def one(item):
-        name, (args, stdin) = item
+    def one(name, args, stdin):
+        t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "chatllm_tpu_torch.main", *args], cwd=ROOT,
-                           capture_output=True, text=True, timeout=300, input=stdin)
+                           capture_output=True, text=True, timeout=300, input=stdin, env=CLI_ENV)
         if r.returncode != 0:
             raise AssertionError(f"cli {name} {args} exit {r.returncode}:\n{r.stdout}\n"
                                  f"{r.stderr}")
-        return name, r.stdout
+        return r.stdout, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(CLI_WORKERS) as pool:
-        return dict(pool.map(one, jobs.items()))
+    return {name: CLI_POOL.submit(one, name, args, stdin)
+            for name, (args, stdin) in jobs.items()}
+
+
+def _cli_outputs(futs: dict, what: str) -> dict:
+    """Wait for `_start_cli`'s jobs; returns name -> stdout and logs the
+    processes' seconds."""
+    done = {name: f.result() for name, f in futs.items()}
+    secs = sorted(t for _, t in done.values())
+    log(f"  {what}: {len(secs)} CLI processes of {secs[0]:.1f} to {secs[-1]:.1f} s, median "
+        f"{secs[len(secs) // 2]:.1f} s")
+    return {name: out for name, (out, _) in done.items()}
+
+
+def _run_cli(jobs: dict, what: str = "cli") -> dict:
+    """`_start_cli` and wait: name -> stdout."""
+    return _cli_outputs(_start_cli(jobs), what)
 
 
 def _chat_lines(s: str) -> list:
@@ -3231,19 +3469,10 @@ def _replies(out: str) -> list:
     return [s[:-1] if s.endswith("\n") else s for s in segs]
 
 
-def cli_phase() -> dict:
-    """Greedy CLI chats, two per model, whose transcripts must be
-    byte-identical: a narrow Llama-3 over a bf16 cache, the same with
-    `--cache_dtype q8_0` at a 4096-token context (K4 on every decode step),
-    a narrow Qwen2 (ChatML control tokens, biased q/k/v, tied head, q8_0
-    weights), and a narrow DeepSeek-V2 (q4_k, 8 routed experts + 2 shared,
-    MLA's 192 / 128 head widths, YaRN) at a 4096-token context with
-    `--mla_cache speed --cache_dtype q8_0` (K4 at (192, 128) on every
-    decode step) and `--mla_cache memory` (the latent cache, bf16); a narrow
-    InternVL asked about a PNG through `--multimedia_file_tags` on the card
-    and on the CPU (`--device cpu`), whose transcripts must be equal; then
-    the chat pipeline's flags (`cli_pipeline_jobs`).  Every call but the two
-    that load a session runs in one batch of `_run_cli`."""
+def cli_start() -> dict:
+    """`cli_phase`'s GGMMs written and its calls but the two that load a
+    session started on CLI_POOL, so that they run beside the phases before
+    `cli_phase` collects them."""
     from chatllm_tpu_torch.ops.cuda.build import BUILD_DIR
 
     t0 = time.perf_counter()
@@ -3271,7 +3500,25 @@ def cli_phase() -> dict:
     jobs.update({("transcript_internvl", "card"): (ivl, None),
                  ("transcript_internvl", "cpu"): (ivl + ["--device", "cpu"], None)})
     pipe_jobs, check_pipe = cli_pipeline_jobs(path)
-    outs = _run_cli({**jobs, **pipe_jobs})
+    return {"t0": t0, "models": models, "calls": len(jobs) + len(pipe_jobs) + 2,
+            "check_pipe": check_pipe, "futures": _start_cli({**jobs, **pipe_jobs})}
+
+
+def cli_phase(started: dict) -> dict:
+    """Greedy CLI chats, two per model, whose transcripts must be
+    byte-identical: a narrow Llama-3 over a bf16 cache, the same with
+    `--cache_dtype q8_0` at a 4096-token context (K4 on every decode step),
+    a narrow Qwen2 (ChatML control tokens, biased q/k/v, tied head, q8_0
+    weights), and a narrow DeepSeek-V2 (q4_k, 8 routed experts + 2 shared,
+    MLA's 192 / 128 head widths, YaRN) at a 4096-token context with
+    `--mla_cache speed --cache_dtype q8_0` (K4 at (192, 128) on every
+    decode step) and `--mla_cache memory` (the latent cache, bf16); a narrow
+    InternVL asked about a PNG through `--multimedia_file_tags` on the card
+    and on the CPU (`--device cpu`), whose transcripts must be equal; then
+    the chat pipeline's flags (`cli_pipeline_jobs`).  Every call but the two
+    that load a session was started by `cli_start`."""
+    outs = _cli_outputs(started["futures"], "cli")
+    models, check_pipe = started["models"], started["check_pipe"]
     res = {}
     card, cpu = outs[("transcript_internvl", "card")], outs[("transcript_internvl", "cpu")]
     log("  transcript_internvl:\n" + card.rstrip())
@@ -3289,8 +3536,8 @@ def cli_phase() -> dict:
             raise AssertionError(f"greedy transcripts differ:\n{runs[0]}\n---\n{runs[1]}")
         res[name] = runs[0]
     res["pipeline_flags"] = check_pipe(outs)
-    res["calls"] = len(jobs) + len(pipe_jobs) + 2
-    res["seconds"] = time.perf_counter() - t0
+    res["calls"] = started["calls"]
+    res["seconds"] = time.perf_counter() - started["t0"]
     log(f"  cli phase: {res['calls']} calls, {CLI_WORKERS} at a time, in {res['seconds']:.1f} s")
     return res
 
@@ -3409,10 +3656,10 @@ def bench_section_steps(n_past: int, steps: int, ctx: int) -> int:
 
 
 def bench_phase(dev, cfg, params) -> dict:
-    """The bench entry point on the full-width params already on the card,
+    """The bench's `run_bench` on the full-width params already on the card,
     launches counted from 0; then the batched section under
-    CHATLLM_TPU_QMM_V2=1 (K5 in place of K2), and K5 against K2 on one
-    token history."""
+    CHATLLM_TPU_QMM_V2=1 (K5 in place of K2), K5 against K2 on one token
+    history, and `bench_entry_point`."""
     import os
 
     from chatllm_tpu_torch import bench
@@ -3507,7 +3754,7 @@ def bench_entry_point() -> dict:
 
     res = {}
     for name, extra in (("bf16", {}), ("q8_0", {"BENCH_CACHE": "q8_0"})):
-        env = dict(os.environ, BENCH_STEPS="8", **extra)
+        env = dict(SUBPROCESS_ENV, BENCH_STEPS="8", **extra)
         env.pop("CHATLLM_TPU_QMM_V2", None)
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "chatllm_tpu_torch.bench"], cwd=ROOT, env=env,
@@ -3544,7 +3791,7 @@ def qwen2_phase(dev) -> dict:
     res = chat_phase(dev, cfg, params)
     L = cfg.num_hidden_layers
     steps = decode_launches(64)   # 63 decode steps: 4 blocks of 16
-    per_token = 7 * L                       # 168 quantized projections
+    per_token = 7 * L                       # quantized projections a token
     # bf16: two prompts x 64 replayed decode steps (K1); the 40-token prompt
     # is one 64-row chunk (K2); the 1000-token prompt one 1024-row chunk (K3)
     want = {"qgemv": 2 * steps * per_token, "qmm": per_token, "flash_attention": L,
@@ -4482,7 +4729,8 @@ FAMILY_PROMPT = 32                 # prompt tokens of the families' card-vs-CPU 
 FAMILY_PICKS_AGREE_MIN = 0.75
 FAMILY_TOL = {"f32": 1e-4, "q4_k": 2e-2}
 # --test chats too
-FAMILY_CHATS = ("llama2", "codellama", "mistral", "mixtral", "mistral2") + GEMMA_FAMILIES
+FAMILY_CHATS = (("llama2", "codellama", "mistral", "mixtral", "mistral2") + GEMMA_FAMILIES
+                + GLM_FAMILIES)
 
 
 def family_turns(fam: str) -> list:
@@ -4574,7 +4822,8 @@ def families_phase(dev) -> dict:
     sparse and a dense layer, Qwen2-MoE's gated shared expert, DeepSeek V1
     and V1-MoE, DeepSeek-V3 with a low-rank q and grouped sigmoid routing,
     Moonlight, V3-Light, Llama-2, CodeLlama, Mistral and Mixtral over rings
-    of 576 slots, Mistral2's 128-wide heads), written narrow by
+    of 576 slots, Mistral2's 128-wide heads, the Gemmas' heads of 256, the
+    GLM families' fused qkv and gate_up), written narrow by
     `write_family_ggmm` in f32 and in q4_k and loaded on the card and on the
     CPU: the same config and every parameter bit-equal; the logits of a
     32-token prompt (FAMILY_RING_PROMPT tokens for the ring families, which
@@ -4596,6 +4845,19 @@ def families_phase(dev) -> dict:
     rng = np.random.default_rng(2)
     short = rng.integers(0, 380, FAMILY_PROMPT).tolist()
     long = rng.integers(0, 380, FAMILY_RING_PROMPT).tolist()
+    # the narrow Qwen3-MoE and the new families chat through the CLI on the
+    # card and on the CPU, in processes that run beside the loads below
+    jobs = {}
+    for fam in ("qwen3_moe",) + FAMILY_CHATS:
+        path = write_family_ggmm(BUILD_DIR / f"smoke_{fam}_f32_cli.bin", fam,
+                                 dtype=GGMLType.F32, seed=4)
+        turns = BUILD_DIR / f"smoke_{fam}_turns.txt"
+        turns.write_text("\n".join(family_turns(fam)) + "\n")
+        argv = ["-m", str(path), "--test", str(turns), "-t", "0", "--max_new_tokens", "12",
+                "--compute_dtype", "f32", "--cache_dtype", "f32"]
+        jobs[fam + ":card"] = (argv, None)
+        jobs[fam + ":cpu"] = (argv + ["--device", "cpu"], None)
+    chats = _start_cli(jobs)
     reset_launch_counts()
     for fam in FAMILIES:
         ids = long if fam in RING_FAMILIES else short
@@ -4630,19 +4892,7 @@ def families_phase(dev) -> dict:
         if res["launches"][k] <= 0:
             raise AssertionError(f"families: kernel {k} was not launched")
 
-    # the narrow Qwen3-MoE and the new families chat through the CLI on the
-    # card and on the CPU
-    jobs = {}
-    for fam in ("qwen3_moe",) + FAMILY_CHATS:
-        path = write_family_ggmm(BUILD_DIR / f"smoke_{fam}_f32_cli.bin", fam,
-                                 dtype=GGMLType.F32, seed=4)
-        turns = BUILD_DIR / f"smoke_{fam}_turns.txt"
-        turns.write_text("\n".join(family_turns(fam)) + "\n")
-        argv = ["-m", str(path), "--test", str(turns), "-t", "0", "--max_new_tokens", "12",
-                "--compute_dtype", "f32", "--cache_dtype", "f32"]
-        jobs[fam + ":card"] = (argv, None)
-        jobs[fam + ":cpu"] = (argv + ["--device", "cpu"], None)
-    outs = _run_cli(jobs)
+    outs = _cli_outputs(chats, "families' chats")
     for fam in ("qwen3_moe",) + FAMILY_CHATS:
         card, cpu = outs[fam + ":card"], outs[fam + ":cpu"]
         log(f"  {fam} --test transcript:\n" + card.rstrip())
@@ -4683,12 +4933,16 @@ class _DequantOnce:
     """While active, `ops/qmm.py`'s dequantize-then-matmul route takes each
     CPU weight's dequantized bf16 values from a memo, held as f32 (which
     `dot_f32` on the CPU computes in anyway): the values its every call
-    computes, made once.  CUDA weights pass through."""
+    computes, made once; and the tied head's `dot_f32` takes the f32 copy
+    of the CPU embedding it makes on every call from a memo too.  CUDA
+    tensors pass through."""
 
     def __enter__(self):
+        from chatllm_tpu_torch.nn import transformer
         from chatllm_tpu_torch.ops import qmm
 
         self.qmm, self.real, memo = qmm, qmm.dequant_weight, {}
+        self.tr, self.dot, tables = transformer, transformer.dot_f32, {}
 
         def once(lin, dtype=torch.bfloat16):
             if lin.q.is_cuda:
@@ -4698,11 +4952,19 @@ class _DequantOnce:
                 memo[key] = self.real(lin, dtype).float()
             return memo[key]
 
-        qmm.dequant_weight = once
+        def dot_once(x, w):
+            if x.is_cuda or x.dtype == torch.float32:
+                return self.dot(x, w)
+            key = (w.data_ptr(), tuple(w.shape), w.stride())
+            if key not in tables:
+                tables[key] = w.float()
+            return torch.matmul(x.float(), tables[key])
+
+        qmm.dequant_weight, transformer.dot_f32 = once, dot_once
         return self
 
     def __exit__(self, *exc):
-        self.qmm.dequant_weight = self.real
+        self.qmm.dequant_weight, self.tr.dot_f32 = self.real, self.dot
 
 
 def _ring_cut(cfg2, params, ids, device, cache: str, *, slots=(MISTRAL_RING,) * 2,
@@ -5104,6 +5366,11 @@ GEMMA_CUT_TOL = {"bfloat16": 2e-2, "int8": 2e-2}
 # 7.7e-3.
 GEMMA3_SERVE_TIE = 8e-3
 GEMMA3_UNCAPTURED_TIMEOUT = 600    # seconds the uncaptured reference's process may take
+# The uncaptured reference's model: Gemma-3-12B's first 12 of 48 layers (ten
+# local, two global), so that its host-bound steps (6.88 / 5.22 steps/s at
+# 48 layers) leave room in the script; its tokens are held against replayed
+# ones of the same cut in its own process
+GEMMA3_UNCAPTURED_DEPTH = 12
 
 
 def gemma3_phase(dev) -> dict:
@@ -5117,9 +5384,11 @@ def gemma3_phase(dev) -> dict:
         prompt in chunks of SWA_EXTRA (K3 in mode 2 on the 8 global layers of
         every chunk over bf16), then GEMMA3_NEW greedy tokens replayed from
         CUDA graphs, launches exact (K1 336 per launched step, K4 8 per q8
-        step), one replayed block timed and profiled.  The uncaptured loop's
-        GEMMA3_NEW tokens, which must be the same, come from a process of
-        its own (`gemma3_uncaptured_start`), checked after the cli phase.
+        step), one replayed block timed and profiled.  The uncaptured
+        reference runs at a depth cut, GEMMA3_UNCAPTURED_DEPTH layers, in a
+        process of its own (`gemma3_uncaptured_start`): its GEMMA3_NEW
+        uncaptured tokens against replayed ones of the same cut, checked
+        after the cli phase.
       - The dense windowed route (max_length 1536: no ring): the prompt's
         first GEMMA3_DENSE_PROMPT tokens over a bf16 cache at f32
         activations, K3 in mode 2 on all 48 layers (window 1024 on the local
@@ -5139,11 +5408,8 @@ def gemma3_phase(dev) -> dict:
       - Peak device memory."""
     from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, gemma3_12b_config,
                                                     param_bytes)
-    from chatllm_tpu_torch.nn import transformer as T
     from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
     from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
-    from chatllm_tpu_torch.ops.sampling import SamplerConfig
-    from chatllm_tpu_torch.runtime.batching import BatchedEngine
     from chatllm_tpu_torch.runtime.generate import InferenceEngine
 
     t_phase = time.perf_counter()
@@ -5258,54 +5524,17 @@ def gemma3_phase(dev) -> dict:
     rng = np.random.default_rng(5)
     sprompts = [rng.integers(0, V, n).tolist() for n in GEMMA3_SERVE]
     c8 = replace(cfg, cache_dtype="int8")
-    be = BatchedEngine(c8, p32, max_slots=2, scfg=SamplerConfig(do_sample=False), device=dev)
-    dec = be.decoder
-    try:
-        # one request at a time, then staggered: the same steps' shapes and
-        # kernels, so the replies must be bit-equal
-        alone = [list(be.submit(p, max_new=GEMMA3_SERVE_NEW)) for p in sprompts]
-        was = (dec.eager_steps, dec.replayed_steps)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        h1 = iter(be.submit(sprompts[0], max_new=GEMMA3_SERVE_NEW))
-        first = next(h1)                   # the first request is in its slot and streams
-        h2 = be.submit(sprompts[1], max_new=GEMMA3_SERVE_NEW)
-        replies = [[first] + list(h1), list(h2)]
-    finally:
-        be.shutdown()
-    torch.cuda.synchronize()
-    steps = dec.eager_steps + dec.replayed_steps - sum(was)
-    sr = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
-          "batched_steps": steps, "replayed_steps": dec.replayed_steps - was[1],
-          "graphs": dec.num_graphs(), "replies": replies}
-    del be
-    torch.cuda.empty_cache()
-    if replies != alone or any(len(t) != GEMMA3_SERVE_NEW for t in replies):
-        raise AssertionError(f"gemma3 2-slot server: the staggered replies differ from the "
-                             f"same server's one at a time:\n{replies}\n{alone}")
+    sr = _staggered_server(dev, c8, p32, sprompts, GEMMA3_SERVE_NEW, "gemma3")
+    steps, replies = sr["batched_steps"], sr["replies"]
     if (sr["launches"]["qmm"] != per_step * steps
             or sr["launches"]["flash_decode"] != n_glob * steps):
         raise AssertionError(f"gemma3 2-slot server: K2 {sr['launches']['qmm']}, K4 "
                              f"{sr['launches']['flash_decode']}, expected {per_step} and "
                              f"{n_glob} x {steps} batched steps")
-    # the single-stream engine, teacher-forced on each reply: its logits at
-    # every step, the prompt's last row then one row per reply token but the last
+    # the single-stream engine, teacher-forced on each reply
     eng = InferenceEngine(c8, p32, device=dev)
-    sr["single"] = []
-    for p, got in zip(sprompts, replies):
-        with torch.inference_mode():
-            kv = eng.new_cache(1)
-            first_row, kv, n = eng.prefill(p, kv, 0)
-            x = torch.tensor([got[:-1]], device=dev)
-            rows = T.transformer_forward(eng.cfg, eng.params, x, kv, n)[0][0]
-            lg = torch.cat([first_row, rows]).float()
-        top = lg.max(-1).values
-        pick = lg.gather(-1, torch.tensor(got, device=dev)[:, None])[:, 0]
-        gaps = ((top - pick) / lg.abs().amax(-1)).cpu()
-        sr["single"].append({"argmax_steps": int((gaps == 0).sum()),
-                             "largest_gap": gaps.max().item(),
-                             "gaps_nonzero": [round(g, 6) for g in gaps.tolist() if g]})
-        del kv
+    sr["single"] = [_reply_gaps(_forced_rows(eng, p, got), got)
+                    for p, got in zip(sprompts, replies)]
     res["serve"] = sr
     log(f"  2-slot q8 server (f32 activations): {sr['wall_s']:.2f} s, {steps} batched steps "
         f"({sr['replayed_steps']} replayed from {sr['graphs']} graph(s)), K2 "
@@ -5362,9 +5591,8 @@ def _witness_and_control(cfg2, params, ids, kw, fault_cfg) -> tuple:
     about the parting of two f32 sum orders), and its control: the cut
     under `fault_cfg` over bf16."""
     dev = params["embed"].device
-    step = replace(cfg2, attention_scale=float(
-        np.nextafter(np.float32(cfg2.attention_scale), np.float32(1.0))))
-    witness = {c: _ring_cut(step, params, ids, dev, c, **kw)[0] for c in ("bfloat16", "int8")}
+    witness = {c: _ring_cut(_scale_step(cfg2), params, ids, dev, c, **kw)[0]
+               for c in ("bfloat16", "int8")}
     return witness, _ring_cut(fault_cfg, params, ids, dev, "bfloat16", **kw)[0]
 
 
@@ -5410,11 +5638,13 @@ def gemma3_prompt(vocab: int) -> list:
 def gemma3_uncaptured_main(out: str) -> int:
     """`python3 chip_smoke.py --gemma3-uncaptured OUT`: the gemma3_12b
     phase's uncaptured reference in a process of its own, so that its
-    host-bound loop (5-7 steps/s: each step dispatches every op of 48
-    layers) runs beside the phases that follow: the same parameters (seed
-    0) and prompt, GEMMA3_NEW greedy tokens over a bf16 and a q8 ring cache
-    with CUDA graphs off; writes their tokens, times and launch counts to
-    OUT as JSON."""
+    host-bound loop (each step dispatches every op of its layers) runs
+    beside the phases that follow.  The model is Gemma-3-12B's first
+    GEMMA3_UNCAPTURED_DEPTH layers (ten local, two global; the same
+    parameters, seed 0) with its prompt: GEMMA3_NEW greedy tokens over a
+    bf16 and a q8 ring cache with CUDA graphs off, then replayed from graphs
+    on a fresh engine; writes both runs' tokens, times and launch counts to
+    OUT as JSON (`gemma3_uncaptured_check` compares them)."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 2
@@ -5424,19 +5654,27 @@ def gemma3_uncaptured_main(out: str) -> int:
     torch.set_num_threads(1)           # the parent's phases keep the other host cores
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = gemma3_12b_config(max_length=8192)
+    full = gemma3_12b_config(max_length=8192)
+    n = GEMMA3_UNCAPTURED_DEPTH
+    # the draws run embedding, then layer by layer: these are the full
+    # model's first n layers
+    cfg = replace(full, num_hidden_layers=n, layer_specs=full.layer_specs[:n])
     params = build_synthetic_params(cfg, "q4k", zeros=False, centered=True, seed=0, device=dev)
     prompt = gemma3_prompt(cfg.vocab_size)
-    res = {}
+    res = {"layers": n, "global_layers": [i for i in range(n)
+                                          if not cfg.layer_spec(i).sliding_window]}
     for cache in ("bfloat16", "int8"):
-        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev,
-                              cuda_graphs=False)
-        toks, r = _timed_generate(eng, eng.new_cache(1), prompt, GEMMA3_NEW, "gemma3")
-        res[cache] = dict(r, tokens=toks)
-        log(f"  ring {cache}, uncaptured: {r['decode_steps_s']:.2f} decode steps/s, prefill "
-            f"{r['prefill_ms']:.1f} ms")
-        del eng
-        torch.cuda.empty_cache()
+        res[cache] = {}
+        for mode in ("eager", "graph"):
+            eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev,
+                                  cuda_graphs=mode == "graph")
+            toks, r = _timed_generate(eng, eng.new_cache(1), prompt, GEMMA3_NEW, "gemma3")
+            res[cache][mode] = dict(r, tokens=toks)
+            log(f"  ring {cache}, {n} layers, {mode}: {r['decode_steps_s']:.2f} decode steps/s "
+                f"({r.get('replayed_steps_s', 0):.2f} replayed), prefill "
+                f"{r['prefill_ms']:.1f} ms")
+            del eng
+            torch.cuda.empty_cache()
     Path(out).write_text(json.dumps(res))
     return 0
 
@@ -5450,15 +5688,18 @@ def gemma3_uncaptured_start() -> dict:
     with open(logf, "w") as fh:
         proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                                  "--gemma3-uncaptured", str(out)], cwd=ROOT, stdout=fh,
-                                stderr=subprocess.STDOUT)
+                                stderr=subprocess.STDOUT, env=SUBPROCESS_ENV)
     CHILDREN.append(proc)
     return {"proc": proc, "out": out, "log": logf, "t0": time.perf_counter()}
 
 
 def gemma3_uncaptured_check(job: dict, g3: dict) -> dict:
-    """Wait for the uncaptured reference's process: exit 0, its tokens the
-    replayed ones over each cache (g3: the gemma3_12b phase's report), K1 336
-    launches per uncaptured step and K4 8 per q8 step."""
+    """Wait for the uncaptured reference's process: exit 0, and over each
+    cache its GEMMA3_NEW uncaptured tokens equal to the replayed ones of the
+    same cut, K1 7 x depth launches per launched step and K4 one per global
+    layer and q8 step, none replayed in the uncaptured run, the rest of the
+    replayed run's steps from graphs.  g3: the gemma3_12b phase's report,
+    which takes the rates."""
     t0 = time.perf_counter()
     try:
         rc = job["proc"].wait(timeout=GEMMA3_UNCAPTURED_TIMEOUT)
@@ -5470,23 +5711,501 @@ def gemma3_uncaptured_check(job: dict, g3: dict) -> dict:
         raise AssertionError(f"gemma3 uncaptured reference: exit {rc}:\n{text[-4000:]}")
     print(text, end="", flush=True)
     got = json.loads(job["out"].read_text())
-    res = {"waited_s": time.perf_counter() - t0, "seconds": time.perf_counter() - job["t0"]}
+    n, n_glob = got["layers"], len(got["global_layers"])
+    res = {"waited_s": time.perf_counter() - t0, "seconds": time.perf_counter() - job["t0"],
+           "layers": n, "global_layers": got["global_layers"]}
+    if n != GEMMA3_UNCAPTURED_DEPTH or got["global_layers"] != [5, 11]:
+        raise AssertionError(f"gemma3 uncaptured reference: {n} layers, global "
+                             f"{got['global_layers']}")
     for cache in ("bfloat16", "int8"):
-        r = got[cache]
-        toks = r.pop("tokens")
-        ring = g3["ring"][cache]
-        ring["eager"] = r
-        ring["graph_over_eager"] = ring["graph"]["profiled_steps_s"] / r["decode_steps_s"]
-        if toks != ring["tokens"]:
-            raise AssertionError(f"gemma3 ring {cache}: replayed tokens differ from the "
-                                 f"uncaptured loop's:\n{ring['tokens']}\n{toks}")
-        k4 = g3["k4_per_q8_step"] * r["eager_steps"] if cache == "int8" else 0
-        if (r["replayed_steps"] or r["launches"]["qgemv"] != g3["k1_per_step"] * r["eager_steps"]
-                or r["launches"]["flash_decode"] != k4):
-            raise AssertionError(f"gemma3 ring {cache} uncaptured: {r['replayed_steps']} "
-                                 f"replayed steps, launches {r['launches']}")
-        res[cache] = {"tokens_equal": True, "decode_steps_s": r["decode_steps_s"]}
-    log(f"  gemma3_12b uncaptured reference: {res}")
+        eager, graph = got[cache]["eager"], got[cache]["graph"]
+        te, tg = eager.pop("tokens"), graph.pop("tokens")
+        if te != tg:
+            raise AssertionError(f"gemma3 {n}-layer cut, ring {cache}: replayed tokens differ "
+                                 f"from the uncaptured loop's:\n{tg}\n{te}")
+        for mode, r in (("eager", eager), ("graph", graph)):
+            launched = r["eager_steps"] + r["replayed_steps"]
+            k4 = n_glob * launched if cache == "int8" else 0
+            bad = (r["replayed_steps"] if mode == "eager"
+                   else r["replayed_steps"] < GEMMA3_NEW - DECODE_BLOCK)
+            if (bad or r["launches"]["qgemv"] != 7 * n * launched
+                    or r["launches"]["flash_decode"] != k4):
+                raise AssertionError(f"gemma3 {n}-layer cut, ring {cache} {mode}: "
+                                     f"{r['eager_steps']} eager / {r['replayed_steps']} "
+                                     f"replayed steps, launches {r['launches']}")
+        g3["ring"][cache]["cut_uncaptured"] = {"eager": eager, "graph": graph}
+        res[cache] = {"tokens_equal": True, "distinct_tokens": len(set(te)),
+                      "decode_steps_s": eager["decode_steps_s"],
+                      "replayed_steps_s": graph.get("replayed_steps_s"),
+                      "graph_over_eager": graph.get("replayed_steps_s", 0)
+                      / eager["decode_steps_s"]}
+    log(f"  gemma3_12b uncaptured reference ({n}-layer cut): {res}")
+    return res
+
+
+# ------------------------------------------------------------- glm4_9b phase
+GLM_PROMPT = 1000                  # prompt tokens: one 1024-row chunk, K3 on every layer
+GLM_NEW = 64                       # greedy tokens, replayed from CUDA graphs
+GLM_STEP_K1 = 4 * GLM_LAYERS + 1   # K1 launches a decode step: qkv, o, gate_up, down + head
+GLM_CUT_POSITIONS = 640            # the 2-layer cut's prompt (a 512- and a 128-row chunk,
+#                                    K3 on both), then 2 decode steps (K4 over q8)
+# The 2-layer cut's logits against the CPU's, of the logit scale: Mistral's
+# bounds (bf16 / q8: each side quantizes its own keys).  A miss is reported
+# beside the witness (the card's cut with its attention scale one f32 step
+# up, against the card) and stands as a miss only where the card is also
+# further from the CPU than twice the witness from the card; the control
+# (rope over whole heads instead of half) must fail the bound.
+GLM_CUT_TOL = {"bfloat16": 1e-3, "int8": 4e-3}
+GLM_SERVE = (1000, 1100)           # the 2-slot server's prompts: one 1024-row chunk, and
+#                                    1024 + 76 rows (a tail of 64 rows or fewer would take K2)
+GLM_SERVE_NEW = 64
+GLM_SERVE_TIE = GEMMA3_SERVE_TIE   # the 2-slot server, teacher-forced: Gemma-3's bound
+GLM_SERVE_DEPTH = 4                # the depth cut at which the server's tie is held
+GLM_EAGER_DEPTH = 4                # the uncaptured-against-replayed check's depth cut
+FUSED_TOL = 1e-3                   # the fused Llama against the unfused, teacher-forced
+FUSED_CLEAR = 2e-3                 # argmax held where the unfused top two are this far apart
+
+
+def _teacher_forced(eng, ids, tokens) -> torch.Tensor:
+    """The engine's logits [len(tokens), V] (f32, on the CPU) at every step of
+    greedy decoding forced onto `tokens`: the prompt's prefill, then one
+    token at a time at an int offset (one row: K1 on every projection),
+    uncaptured."""
+    from chatllm_tpu_torch.nn import transformer as T
+
+    with torch.inference_mode():
+        kv = eng.new_cache(1)
+        first, kv, n = eng.prefill(ids, kv, 0)
+        rows = [first.float().cpu()]
+        for t in tokens[:-1]:
+            x = torch.tensor([[t]], device=eng.device)
+            rows.append(T.transformer_forward(eng.cfg, eng.params, x, kv, n)[0][0]
+                        .float().cpu())
+            n += 1
+    return torch.cat(rows)
+
+
+def fused_decode_phase(dev, cfg, params, gd: dict) -> dict:
+    """The graph_decode phase's Llama-3-8B through `fuse_decode_streams`
+    (q|k|v and gate|up of every layer concatenated: K1 4 x 32 + 1 launches
+    a decode step instead of 7 x 32 + 1), over a bf16 cache: the 1000-token
+    prompt and 64 greedy tokens replayed from CUDA graphs, launches exact,
+    one replayed block timed.  Then both parameter sets teacher-forced on
+    the unfused replayed run's 64 tokens (gd: that phase's report): the
+    fused logits within FUSED_TOL of the unfused logit scale at every step,
+    the same argmax wherever the unfused top two are FUSED_CLEAR of it
+    apart.  K1 splits K by N, so the fused sums may round in another
+    order."""
+    from chatllm_tpu_torch.runtime.fuse import fuse_decode_streams
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    L = cfg.num_hidden_layers
+    fused = fuse_decode_streams(cfg, params)
+    if any(set(lp["attn"]) != {"qkv", "o"} or set(lp["mlp"]) != {"gate_up", "down"}
+           for lp in fused["layers"]):
+        raise AssertionError("fused llama3_8b: a layer kept separate projections")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 1000).tolist()
+    unfused = gd["bfloat16"]["graph"]["tokens"]
+    eng = InferenceEngine(cfg, fused, device=dev)
+    kv = eng.new_cache(1)
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=64)
+    eng.generate(ids, gcfg, cache=kv)                       # warm: captures
+    toks, r = _timed_generate(eng, kv, ids, 64, "fused llama3_8b")
+    steps = decode_launches(64)
+    want = {"qgemv": (4 * L + 1) * steps + 1, "qmm": 0}
+    got = {k: r["launches"][k] for k in ("qgemv", "qmm", "flash_attention", "flash_decode")}
+    pb = _profile_block(eng, kv, len(ids) + 48, trace=False)
+    res = {"launches": got, "k1_per_step": 4 * L + 1, "replayed_steps": r["replayed_steps"],
+           "decode_steps_s": r["decode_steps_s"], "profiled_block": pb,
+           "replayed_steps_s": 1e3 / pb["step_ms"], "tokens_equal_unfused": toks == unfused}
+    unf = gd["bfloat16"]["graph"]["profiled_block"]
+    res["unfused_replayed_steps_s"] = 1e3 / unf["step_ms"]
+    log(f"  fused llama3_8b bf16 cache: {res['replayed_steps_s']:.2f} replayed steps/s "
+        f"(unfused {res['unfused_replayed_steps_s']:.2f}), launches {got}, tokens equal to "
+        f"the unfused run's: {res['tokens_equal_unfused']}")
+    if any(got[k] != v for k, v in want.items()) or r["replayed_steps"] != steps:
+        raise AssertionError(f"fused llama3_8b: launches {got}, expected {want}; "
+                             f"{r['replayed_steps']} replayed steps")
+    del eng, kv
+    torch.cuda.empty_cache()
+    # teacher-forced on the unfused run's tokens, both parameter sets
+    lg = {}
+    for name, p in (("unfused", params), ("fused", fused)):
+        lg[name] = _teacher_forced(InferenceEngine(cfg, p, device=dev), ids, unfused)
+    tf = row_logit_errors(lg["fused"], lg["unfused"], FUSED_CLEAR / 2)
+    tf["unfused_argmax_is_run"] = bool(torch.equal(lg["unfused"].argmax(-1),
+                                                   torch.tensor(unfused)))
+    res["teacher_forced"] = tf
+    log(f"  fused llama3_8b, teacher-forced on the unfused tokens: {tf}")
+    if tf["rel_to_logit_scale"] > FUSED_TOL or not tf["argmax_equal_where_clear"]:
+        raise AssertionError(f"fused llama3_8b: {tf} (bound {FUSED_TOL} of the logit scale, "
+                             f"argmax where the top two are {FUSED_CLEAR} apart)")
+    del fused
+    torch.cuda.empty_cache()
+    return res
+
+
+def _scale_step(cfg):
+    """`cfg` with its attention scale one f32 step up (a witness's nudge:
+    every score moves by about the parting of two f32 sum orders)."""
+    d = cfg.resolved_head_dim()
+    scale = cfg.attention_scale if cfg.attention_scale > 0 else d ** -0.5
+    return replace(cfg, attention_scale=float(np.nextafter(np.float32(scale), np.float32(1.0))))
+
+
+def _forced_rows(eng, prompt, reply, ahead: int = 0) -> torch.Tensor:
+    """The engine's logits [len(reply), V] (f32, on the CPU) teacher-forced
+    along `reply`: the prompt's prefill gives the first row, then the reply
+    but its last token in one chunk the rest, written `ahead` positions past
+    the prompt's end (0: right after it; more: a faulty position, a
+    control's)."""
+    from chatllm_tpu_torch.nn import transformer as T
+
+    with torch.inference_mode():
+        kv = eng.new_cache(1)
+        first, kv, n = eng.prefill(prompt, kv, 0)
+        x = torch.tensor([reply[:-1]], device=eng.device)
+        rows = T.transformer_forward(eng.cfg, eng.params, x, kv, n + ahead)[0][0]
+        return torch.cat([first, rows]).float().cpu()
+
+
+def _reply_gaps(lg, reply) -> dict:
+    """A reply's tokens against logits [len(reply), V] along it: at each
+    step the pick's gap below the top, over the row's logit scale."""
+    top = lg.max(-1).values
+    pick = lg.gather(-1, torch.tensor(reply)[:, None])[:, 0]
+    gaps = (top - pick) / lg.abs().amax(-1)
+    return {"argmax_steps": int((gaps == 0).sum()), "largest_gap": gaps.max().item(),
+            "gaps_nonzero": [round(g, 6) for g in gaps.tolist() if g]}
+
+
+def _staggered_server(dev, cfg8, params, prompts, new: int, name: str) -> dict:
+    """The server's engine (BatchedEngine, 2 slots, greedy) over `prompts`:
+    one request at a time, then the second submitted once the first streams,
+    `new` tokens each.  The same steps' shapes and kernels, so the replies
+    must be bit-equal.  Returns the staggered run's wall time, launches,
+    batched and replayed steps, graphs and replies."""
+    from chatllm_tpu_torch.ops.cuda.build import launch_counts, reset_launch_counts
+    from chatllm_tpu_torch.ops.sampling import SamplerConfig
+    from chatllm_tpu_torch.runtime.batching import BatchedEngine
+
+    be = BatchedEngine(cfg8, params, max_slots=2, scfg=SamplerConfig(do_sample=False),
+                       device=dev)
+    dec = be.decoder
+    try:
+        alone = [list(be.submit(p, max_new=new)) for p in prompts]
+        was = (dec.eager_steps, dec.replayed_steps)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        h1 = iter(be.submit(prompts[0], max_new=new))
+        first = next(h1)                   # the first request is in its slot and streams
+        h2 = be.submit(prompts[1], max_new=new)
+        replies = [[first] + list(h1), list(h2)]
+    finally:
+        be.shutdown()
+    torch.cuda.synchronize()
+    sr = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+          "batched_steps": dec.eager_steps + dec.replayed_steps - sum(was),
+          "replayed_steps": dec.replayed_steps - was[1], "graphs": dec.num_graphs(),
+          "replies": replies}
+    del be
+    torch.cuda.empty_cache()
+    if replies != alone or any(len(t) != new for t in replies):
+        raise AssertionError(f"{name} 2-slot server: the staggered replies differ from the "
+                             f"same server's one at a time:\n{replies}\n{alone}")
+    return sr
+
+
+def _glm_cut_cpu(cfg2, p_cpu, ids):
+    """The GLM-4-9B cut's CPU side over a bf16 and a q8 cache, queued on
+    CUT_WORKER (all host cores but one, each weight dequantized once)."""
+    def run():
+        torch.set_num_threads(max(1, HOST_THREADS - 1))
+        try:
+            with _DequantOnce():
+                return {c: _ring_cut(cfg2, p_cpu, ids, "cpu", c, slots=(cfg2.max_length,) * 2,
+                                     end=GLM_CUT_POSITIONS)[0] for c in ("bfloat16", "int8")}
+        finally:
+            torch.set_num_threads(HOST_THREADS)
+
+    return CUT_WORKER.submit(run)
+
+
+def _glm_server(dev, cfg8, params, prompts, name: str) -> dict:
+    """`_staggered_server` over GLM-4-9B's q8 cache at cfg8's depth, its
+    launches held: K2 on every projection of every batched step (B.G = 32
+    leaves K4 for the chunked einsum, as in the JAX package), no K4."""
+    sr = _staggered_server(dev, cfg8, params, prompts, GLM_SERVE_NEW, name)
+    per_step = 4 * cfg8.num_hidden_layers + 1
+    if (sr["launches"]["qmm"] != per_step * sr["batched_steps"]
+            or sr["launches"]["flash_decode"]):
+        raise AssertionError(f"{name} 2-slot server: K2 {sr['launches']['qmm']} (expected "
+                             f"{per_step} x {sr['batched_steps']} batched steps), K4 "
+                             f"{sr['launches']['flash_decode']} (expected none at B.G = 32)")
+    return sr
+
+
+def _glm_serve_cut(dev, c8, p32, prompts) -> dict:
+    """The 2-slot q8 server at GLM_SERVE_DEPTH layers, teacher-forced on the
+    single-stream engine of the same cut: every token of both replies its
+    greedy choice or within GLM_SERVE_TIE of the logit scale below it, and
+    at least 8 distinct tokens a reply.  The same measure is taken of the
+    greedy choices of two other single streams, teacher-forced on the same
+    prefixes: the witness (its attention scale one f32 step up) must pass
+    the tie, and the control (its n_past one ahead after the prompt: a hole
+    in the cache, every reply position off by one) must fail it.  How far
+    each one's logits part from the single stream's is recorded."""
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine
+
+    n = GLM_SERVE_DEPTH
+    cfgc = replace(c8, num_hidden_layers=n)
+    pc = dict(p32, layers=p32["layers"][:n])
+    sr = _glm_server(dev, cfgc, pc, prompts, f"glm4_9b {n}-layer cut")
+    eng, wit = (InferenceEngine(c, pc, device=dev) for c in (cfgc, _scale_step(cfgc)))
+    sr["single"] = []
+    for p, got in zip(prompts, sr["replies"]):
+        lg, lw = _forced_rows(eng, p, got), _forced_rows(wit, p, got)
+        lc = _forced_rows(eng, p, got, ahead=1)
+        scale = lg.abs().amax(-1)
+        sr["single"].append(dict(
+            _reply_gaps(lg, got), distinct_tokens=len(set(got)),
+            witness=((lw - lg).abs().amax(-1) / scale).max().item(),
+            witness_gap=_reply_gaps(lg, lw.argmax(-1).tolist())["largest_gap"],
+            control=((lc - lg).abs().amax(-1) / scale).max().item(),
+            control_gap=_reply_gaps(lg, lc.argmax(-1).tolist())["largest_gap"]))
+    del eng, wit, pc
+    torch.cuda.empty_cache()
+    single = sr["single"]
+    log(f"  2-slot q8 server at {n} layers: {sr['batched_steps']} batched steps, K2 "
+        f"{sr['launches']['qmm']}; against the single-stream engine, teacher-forced {single} "
+        f"(limit {GLM_SERVE_TIE} of the logit scale)")
+    if any(a["distinct_tokens"] < 8 or a["largest_gap"] > GLM_SERVE_TIE for a in single):
+        raise AssertionError(f"glm4_9b 2-slot server at {n} layers: a reply's token is not the "
+                             f"single-stream engine's greedy choice on its prefix ({single}; "
+                             f"limit {GLM_SERVE_TIE} of the logit scale)")
+    if any(a["witness_gap"] > GLM_SERVE_TIE for a in single):
+        raise AssertionError(f"glm4_9b 2-slot server at {n} layers: the witness (attention "
+                             f"scale one f32 step up) fails the tie ({single})")
+    if max(a["control_gap"] for a in single) <= GLM_SERVE_TIE:
+        raise AssertionError(f"glm4_9b 2-slot server at {n} layers: the control (n_past one "
+                             f"ahead) passes the tie ({single})")
+    return sr
+
+
+def glm4_phase(dev) -> dict:
+    """GLM-4-9B at full width and depth (`glm4_9b_config`: 40 layers, 32
+    query heads over 2 kv heads of 128 (G 16), the fused biased qkv and
+    gate_up, rope on half of each head at base 5e6, random q4_k weights
+    from seed 0 with the 13696-wide down projection in q8_0, as the
+    converter stores it, the untied 151552-row head) through the port's
+    entry points.
+
+      - Over a bf16 and a q8 cache (max_length 8192): the GLM_PROMPT-token
+        prompt and GLM_NEW greedy tokens, run once to capture, then counted:
+        every decode step replayed, K1 GLM_STEP_K1 launches a step and one
+        for the prefill's head, K3 in mode 2 on all 40 layers over bf16, K4
+        on all 40 a q8 step (16 rows a kv head), no K2; one replayed block
+        profiled into its kernels over bf16, timed over q8.
+      - A 2-layer cut against the CPU over GLM_CUT_POSITIONS positions and 2
+        decode steps, bf16 and q8, within GLM_CUT_TOL of the logit scale,
+        its witness and control beside it; its CPU side on CUT_WORKER.
+      - On zero-centred weights (seed 1), whose greedy tokens vary (at
+        least 8 distinct in each reply; the positive-biased ones above
+        repeat one token): the server's engine (BatchedEngine, 2 slots, q8,
+        f32 activations), two requests of GLM_SERVE tokens, staggered,
+        GLM_SERVE_NEW tokens each, bit-equal to the same server one at a
+        time (B.G = 32 takes the chunked einsum, as in the JAX package), K2
+        GLM_STEP_K1 a batched step, each token's gap below the single-stream
+        engine's greedy choice, teacher-forced, recorded; the same server
+        at GLM_SERVE_DEPTH layers with every token that cut's greedy
+        choice, teacher-forced, up to GLM_SERVE_TIE of the logit scale,
+        beside a witness that must pass the tie and a control that must
+        fail it (`_glm_serve_cut`); and at a depth cut of GLM_EAGER_DEPTH
+        layers, the
+        uncaptured loop's GLM_NEW tokens equal to the replayed ones over
+        both caches.
+      - Params and peak device memory."""
+    from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, glm4_9b_config,
+                                                    param_bytes)
+    from chatllm_tpu_torch.ops.qtensor import QuantLinear
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    t_phase = time.perf_counter()
+    spans = {}
+
+    def span(name):
+        spans[name] = time.perf_counter() - t_phase - sum(spans.values())
+
+    cfg = glm4_9b_config(max_length=8192)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev, fused=True,
+                                    k_fallback="q8")
+    torch.cuda.synchronize()
+    lp = params["layers"][0]
+    down, qkv = lp["mlp"]["down"], lp["attn"]["qkv"]
+    if (not isinstance(down, QuantLinear) or down.sb or down.packed or not qkv.sb
+            or qkv.shape_in_out != (4096, 4608) or qkv.bias is None
+            or lp["mlp"]["gate_up"].shape_in_out != (4096, 27392)):
+        raise AssertionError("glm4_9b: params are not q4_k with a q8_0 down, fused qkv "
+                             "(with its bias) and gate_up")
+    res = {"param_gib": param_bytes(params) / 2 ** 30, "spans_s": spans,
+           "k1_per_step": GLM_STEP_K1}
+    prompt = np.random.default_rng(0).integers(0, V, GLM_PROMPT).tolist()
+
+    # ---- the 2-layer cut's CPU side, on CUT_WORKER from here on
+    cfg2 = replace(cfg, num_hidden_layers=2)
+    sel = _to_device(dict(params, layers=params["layers"][:2]), "cpu")
+    cut_ids = np.random.default_rng(3).integers(0, V, GLM_CUT_POSITIONS + 2)
+    cut_cpu = _glm_cut_cpu(cfg2, sel, cut_ids)
+    span("setup")
+
+    # ---- the chat path over bf16 and q8, replayed from CUDA graphs
+    steps = decode_launches(GLM_NEW)
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=GLM_NEW)
+    chat = {}
+    for cache in ("bfloat16", "int8"):
+        q8 = cache == "int8"
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev)
+        kv = eng.new_cache(1)
+        t0 = time.perf_counter()
+        eng.generate(prompt, gcfg, cache=kv)                # warm: captures
+        warm_s = time.perf_counter() - t0
+        toks, r = _timed_generate(eng, kv, prompt, GLM_NEW, f"glm4_9b {cache}")
+        r["warm_run_s"] = warm_s
+        want = {"qgemv": GLM_STEP_K1 * steps + 1, "qmm": 0,
+                "flash_attention": 0 if q8 else L, "flash_decode": L * steps if q8 else 0}
+        got = {k: r["launches"][k] for k in want}
+        t0 = time.perf_counter()
+        r["profiled_block"] = pb = _profile_block(eng, kv, GLM_PROMPT + 48, trace=not q8)
+        r["profile_s"] = time.perf_counter() - t0
+        r["profiled_steps_s"] = 1e3 / pb["step_ms"]
+        log(f"  {cache} cache: prefill {r['prefill_ms']:.1f} ms, {r['profiled_steps_s']:.2f} "
+            f"replayed steps/s (block {pb['block_ms']:.2f} ms), warm run {warm_s:.2f} s, "
+            f"profiled in {r['profile_s']:.1f} s, {len(set(toks))} distinct tokens, "
+            f"launches {got}, K3 by mode {r['flash_modes']}; kernels {pb.get('kernel_ms')} ms, "
+            f"busy share {pb.get('busy_share')}; top kernels {pb.get('top_kernels_ms')}")
+        if (got != want or r["flash_modes"][2] != want["flash_attention"]
+                or r["replayed_steps"] != steps):
+            raise AssertionError(f"glm4_9b {cache}: launches {got} (expected {want}), K3 by "
+                                 f"mode {r['flash_modes']}, {r['replayed_steps']} replayed "
+                                 f"steps")
+        chat[cache] = {"graph": r, "tokens": toks, "distinct_tokens": len(set(toks))}
+        del eng, kv
+        torch.cuda.empty_cache()
+    res["chat"] = chat
+    span("chat")
+
+    # ---- zero-centred weights (seed 1) for the token checks: the
+    # positive-biased ones above give one greedy token over and over, so a
+    # reply could match its reference without its steps being right
+    del params, lp, down, qkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=1, device=dev, fused=True,
+                                    k_fallback="q8", centered=True)
+    span("centred_params")
+
+    # ---- the server's engine: 2 slots over q8, staggered requests, f32
+    # activations.  At full depth its replies are held against the same
+    # server's one at a time and its launches counted; their teacher-forced
+    # gaps below the single-stream engine's greedy choice are recorded, not
+    # held: there one f32 step of the attention scale parts the logits by
+    # 3.9e-2 / 4.7e-2 of their scale, more than the tie.  The tie is held at
+    # GLM_SERVE_DEPTH layers (`_glm_serve_cut`).
+    p32 = dict(params, embed=params["embed"].float())
+    rng = np.random.default_rng(5)
+    sprompts = [rng.integers(0, V, n).tolist() for n in GLM_SERVE]
+    c8 = replace(cfg, cache_dtype="int8")
+    sr = _glm_server(dev, c8, p32, sprompts, "glm4_9b")
+    eng = InferenceEngine(c8, p32, device=dev)
+    sr["single"] = [dict(_reply_gaps(_forced_rows(eng, p, got), got),
+                         distinct_tokens=len(set(got)))
+                    for p, got in zip(sprompts, sr["replies"])]
+    log(f"  2-slot q8 server (f32 activations, centred weights): {sr['wall_s']:.2f} s, "
+        f"{sr['batched_steps']} batched steps ({sr['replayed_steps']} replayed from "
+        f"{sr['graphs']} graph(s)), K2 {sr['launches']['qmm']}; against the single-stream "
+        f"engine, teacher-forced (recorded) {sr['single']}")
+    if any(a["distinct_tokens"] < 8 for a in sr["single"]):
+        raise AssertionError(f"glm4_9b 2-slot server: a reply repeats its tokens "
+                             f"({sr['single']})")
+    del eng
+    torch.cuda.empty_cache()
+    sr["cut"] = _glm_serve_cut(dev, c8, p32, sprompts)
+    res["serve"] = sr
+    del p32
+    torch.cuda.empty_cache()
+    span("serve")
+
+    # ---- uncaptured against replayed at a depth cut
+    cfg4 = replace(cfg, num_hidden_layers=GLM_EAGER_DEPTH)
+    p4 = dict(params, layers=params["layers"][:GLM_EAGER_DEPTH])
+    res["eager_cut"] = {"layers": GLM_EAGER_DEPTH}
+    for cache in ("bfloat16", "int8"):
+        runs = {}
+        for mode in ("eager", "graph"):
+            eng = InferenceEngine(replace(cfg4, cache_dtype=cache), p4, device=dev,
+                                  cuda_graphs=mode == "graph")
+            runs[mode] = _timed_generate(eng, eng.new_cache(1), prompt, GLM_NEW,
+                                         f"glm4_9b {GLM_EAGER_DEPTH}-layer cut {mode}")
+            del eng
+        (te, re_), (tg, rg) = runs["eager"], runs["graph"]
+        k1 = 4 * GLM_EAGER_DEPTH + 1
+        res["eager_cut"][cache] = {"tokens_equal": te == tg, "distinct_tokens": len(set(te)),
+                                   "eager_steps_s": re_["decode_steps_s"],
+                                   "replayed_steps_s": rg.get("replayed_steps_s")}
+        log(f"  {GLM_EAGER_DEPTH}-layer cut (centred weights), {cache}: "
+            f"{res['eager_cut'][cache]}")
+        if (te != tg or len(set(te)) < 8 or re_["replayed_steps"]
+                or rg["replayed_steps"] < GLM_NEW - DECODE_BLOCK
+                or re_["launches"]["qgemv"] != k1 * re_["eager_steps"] + 1):
+            raise AssertionError(f"glm4_9b {GLM_EAGER_DEPTH}-layer cut {cache}: replayed tokens "
+                                 f"{tg} against uncaptured {te}; eager launches "
+                                 f"{re_['launches']}, {re_['eager_steps']} eager steps")
+    del p4, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    span("eager_cut")
+
+    # ---- the 2-layer cut (the first weights) on the card against the CPU's,
+    # beside its witness and its control (rope over whole heads)
+    p2 = _to_device(sel, dev)
+    kw = dict(slots=(cfg.max_length,) * 2, end=GLM_CUT_POSITIONS)
+    card = {c: _ring_cut(cfg2, p2, cut_ids, dev, c, **kw)[0] for c in ("bfloat16", "int8")}
+    witness = {c: _ring_cut(_scale_step(cfg2), p2, cut_ids, dev, c, **kw)[0]
+               for c in ("bfloat16", "int8")}
+    fault = replace(cfg2, rope=replace(cfg2.rope, rot_dim=-1))
+    control = _ring_cut(fault, p2, cut_ids, dev, "bfloat16", **kw)[0]
+    t0 = time.perf_counter()
+    cpu = cut_cpu.result()
+    cut = {"cpu_wait_s": time.perf_counter() - t0, "bounds": GLM_CUT_TOL}
+    for cache in ("bfloat16", "int8"):
+        tol = GLM_CUT_TOL[cache]
+        c = {"card": _cut_compare(f"glm4_9b 2-layer cut {cache}, card vs cpu", card[cache],
+                                  cpu[cache], tol, strict=False),
+             "witness": _cut_compare(f"glm4_9b 2-layer cut {cache}, witness vs card",
+                                     witness[cache], card[cache], tol, strict=False)}
+        c["bound_met"] = c["card"]["within_tolerance"]
+        cut[cache] = c
+        # a miss stands only at the size of the witness's own parting
+        if not c["bound_met"] and (
+                c["card"]["rel_to_logit_scale"] > 2 * c["witness"]["rel_to_logit_scale"]
+                or not c["card"]["argmax_equal_where_clear"]):
+            raise AssertionError(f"glm4_9b 2-layer cut {cache}: the card is {c['card']} from "
+                                 f"the CPU, beyond {tol} and twice its witness's {c['witness']}")
+    cut["control"] = {"fault": "rope over whole heads", "rel_to_logit_scale": row_logit_errors(
+        control, cpu["bfloat16"], 0.0)["rel_to_logit_scale"]}
+    log(f"  glm4_9b 2-layer cut: control {cut['control']}, bounds met "
+        f"{ {k: cut[k]['bound_met'] for k in ('bfloat16', 'int8')} }")
+    if cut["control"]["rel_to_logit_scale"] <= GLM_CUT_TOL["int8"]:
+        raise AssertionError(f"glm4_9b 2-layer cut: the control passes the bound ({cut})")
+    res["cut"] = cut
+    del p2, card, cpu, witness, control, sel
+    span("cut")
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  glm4_9b phase: params {res['param_gib']:.2f} GiB, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB, {res['seconds']:.1f} s ({spans})")
     return res
 
 
@@ -5910,6 +6629,23 @@ def g3_totals(kres: dict) -> dict:
             for name, (shapes, mult) in units.items()}
 
 
+def glm_totals(kres: dict) -> dict:
+    """K1, K2, K3 and K4 summed over one unit of GLM-4-9B's path at its
+    shapes: a decode token (40 x 4 fused projections + the lm_head), a 2-row
+    batched step (K2, the lm_head included), the 1000-token prompt's chunk
+    (40 launches of K3 mode 2) and a q8 decode step after it (40 launches of
+    K4)."""
+    tok = {**{k: GLM_LAYERS * v for k, v in PER_LAYER_GLM.items()}, "lm_head": 1}
+    units = {"qgemv": (kres["qgemv"]["glm_shapes"], tok),
+             "qmm": (kres["qmm"]["glm_shapes"], tok),
+             "flash_attention_f32q": (kres["flash_attention"]["shapes"],
+                                      {"glm_prefill_1000_f32q": GLM_LAYERS}),
+             "flash_decode": (kres["flash_decode"]["shapes"], {"glm_decode_1064": GLM_LAYERS})}
+    return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for name, (shapes, mult) in units.items()}
+
+
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
               "chatllm_tpu/ops/pallas/gemv_kernel.py:161"),
@@ -6012,7 +6748,7 @@ def kernels_line(kres: dict, launches: dict) -> dict:
         cases = [c for c in r["cases"] if name not in k3
                  or (c["q_dtype"], c["dtype"]) == k3[name]]
         entries.append(_line_entry(name, src, rep, r["shapes"], mult[name], cases,
-                                   launches[name]))
+                                   launches.get(name)))
     return {"kernels": entries}
 
 
@@ -6100,17 +6836,74 @@ def qwen_totals(kres: dict) -> dict:
             for name, (shapes, mult) in units.items()}
 
 
-def main() -> int:
+# The phases after build and kernels (which always run), in the order `main`
+# runs them; `--phases a,b,...` runs the named ones in this order
+PHASES = ("llama3_8b", "graph_decode", "fused_decode", "bench", "serve", "two_layer", "int8_engine",
+          "f32_engine", "switches", "pipeline", "qwen2", "deepseek_v2_lite", "internvl",
+          "qwen3_30b_a3b", "mistral_7b", "glm4_9b", "gemma3_12b", "gemma2_9b", "families",
+          "cli", "e2", "e1", "e3", "e4", "e5", "e6", "e7")
+LLAMA_PHASES = PHASES[:PHASES.index("qwen2")]       # the phases on Llama-3-8B's params
+# The phases of the run without arguments: all but fused_decode, an opt-in
+# transform's check that runs only when named
+DEFAULT_PHASES = tuple(n for n in PHASES if n != "fused_decode")
+
+
+def parse_phases(argv) -> tuple:
+    """The phases `argv` selects: DEFAULT_PHASES with no argument, else those
+    of `--phases a,b,...` (build and kernels run anyway and may be named;
+    fused_decode brings graph_decode, whose run it is held against)."""
+    if not argv:
+        return DEFAULT_PHASES
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: python3 chip_smoke.py [--phases name,name,...]")
+    names = [n for n in argv[1].split(",") if n and n not in ("build", "kernels")]
+    bad = [n for n in names if n not in PHASES]
+    if bad:
+        raise SystemExit(f"unknown phases {bad}; the phases are build, kernels, "
+                         f"{', '.join(PHASES)}")
+    if "fused_decode" in names:
+        names.append("graph_decode")
+    return tuple(n for n in PHASES if n in names)
+
+
+def last_line(selected, device: dict) -> dict:
+    """The object printed last after the `selected` phases passed: the
+    contract's `{"ok": true, ...}` only when every phase of the run without
+    arguments ran; else the phases that passed, and no "ok", so that a part
+    of the smoke is not read as the whole."""
+    if set(DEFAULT_PHASES) <= set(selected):
+        return {"ok": True, "device": device}
+    return {"phases_passed": ["build", "kernels", *selected], "device": device}
+
+
+def _at(tree, *path):
+    """tree[path[0]][path[1]]..., or None where a phase did not run."""
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _total(*counts):
+    """The sum of the counts that were taken (None when none was)."""
+    taken = [c for c in counts if c is not None]
+    return sum(taken) if taken else None
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 2
+    selected = parse_phases(list(argv))
     from chatllm_tpu_torch.ops.cuda.build import build_all
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda,
+              "phases": list(selected)}
     t_start = time.perf_counter()
 
     log("== build")
@@ -6130,186 +6923,212 @@ def main() -> int:
 
     log("== kernels")
     timer = Timer(dev)
-    report["kernels"] = kernels_phase(dev, timer)
+    report["kernels"] = kernels_phase(dev, timer, fused="fused_decode" in selected)
     report["qwen_kernel_totals"] = qwen_totals(report["kernels"])
     log(f"  Qwen2.5-0.5B totals per unit of its path: {report['qwen_kernel_totals']}")
+    report["glm_kernel_totals"] = glm_totals(report["kernels"])
+    log(f"  GLM-4-9B totals per unit of its path: {report['glm_kernel_totals']}")
     report["k5_vs_k2"] = k5_vs_k2(report["kernels"])
     report["k4_int8_vs_float"] = k4_int8_vs_float(report["kernels"])
     del timer
     torch.cuda.empty_cache()
 
-    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, llama3_8b_config
+    def on(name):
+        return name in selected
 
-    cfg = llama3_8b_config(max_length=8192)
-    t0 = time.perf_counter()
-    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
-    torch.cuda.synchronize()
-    log(f"== llama3_8b: built {cfg.num_hidden_layers}-layer synthetic q4_k params in "
-        f"{time.perf_counter() - t0:.1f} s")
-    report["llama3_8b"] = chat_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+    if any(on(n) for n in LLAMA_PHASES):
+        from chatllm_tpu_torch.models.synthetic import build_synthetic_params, llama3_8b_config
 
-    log("== graph_decode")
-    report["graph_decode"] = graph_decode_phase(dev, cfg, params, "llama3_8b")
-    report["graph_decode"]["kernel_shares"] = kernel_shares(
-        report["kernels"], report["graph_decode"], "shapes", N_LAYERS, True, "decode_1000")
-    log(f"  kernel shares of a replayed step: {report['graph_decode']['kernel_shares']}")
-    torch.cuda.empty_cache()
+        log("== llama3_8b_params")
+        cfg = llama3_8b_config(max_length=8192)
+        t0 = time.perf_counter()
+        params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"  built {cfg.num_hidden_layers}-layer synthetic Llama-3-8B q4_k params in "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    log("== bench")
-    report["bench"] = bench_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+        if on("llama3_8b"):
+            log("== llama3_8b")
+            report["llama3_8b"] = chat_phase(dev, cfg, params)
+            torch.cuda.empty_cache()
 
-    log("== serve")
-    report["serve"] = serve_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+        if on("graph_decode"):
+            log("== graph_decode")
+            gd = report["graph_decode"] = graph_decode_phase(dev, cfg, params, "llama3_8b")
+            gd["kernel_shares"] = kernel_shares(report["kernels"], dict(gd), "shapes",
+                                                N_LAYERS, True, "decode_1000")
+            log(f"  kernel shares of a replayed step: {gd['kernel_shares']}")
+            torch.cuda.empty_cache()
 
-    log("== two_layer")
-    report["two_layer"] = two_layer_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+        if on("fused_decode"):
+            log("== fused_decode")
+            gd = report["graph_decode"]
+            gd["fused"] = fused_decode_phase(dev, cfg, params, gd)
+            kq = report["kernels"]["qgemv"]
+            sh, fs = kq["shapes"], kq["fused_shapes"]
+            gd["fused"]["k1_ms_per_token"] = {
+                "unfused": sum(n * sh[k]["ms"] for k, n in _per_token(N_LAYERS, True).items()),
+                "fused": N_LAYERS * (fs["qkv"]["ms"] + fs["gate_up"]["ms"] + sh["q_o"]["ms"]
+                                     + sh["down"]["ms"]) + sh["lm_head"]["ms"]}
+            log(f"  K1 per decode token from the kernel table: {gd['fused']['k1_ms_per_token']}")
+            torch.cuda.empty_cache()
 
-    log("== int8_engine")
-    report["int8_engine"] = int8_engine_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+        if on("bench"):
+            log("== bench")
+            report["bench"] = bench_phase(dev, cfg, params)
+            torch.cuda.empty_cache()
+        for name, phase in (("serve", serve_phase), ("two_layer", two_layer_phase),
+                            ("int8_engine", int8_engine_phase),
+                            ("f32_engine", f32_engine_phase), ("switches", switch_phase)):
+            if on(name):
+                log(f"== {name}")
+                report[name] = phase(dev, cfg, params)
+                torch.cuda.empty_cache()
 
-    log("== f32_engine")
-    report["f32_engine"] = f32_engine_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+        if on("pipeline"):
+            log("== pipeline")
+            report["pipeline"] = pipeline_phase(dev, cfg, params, smi)
+        del params
+        gc.collect()              # the server's objects held the params in cycles
+        torch.cuda.empty_cache()
 
-    log("== switches")
-    report["switches"] = switch_phase(dev, cfg, params)
-    torch.cuda.empty_cache()
+    if on("qwen2"):
+        log("== qwen2")
+        report["qwen2"] = qwen2_phase(dev)
+        report["qwen2"]["graph_decode"]["kernel_shares"] = kernel_shares(
+            report["kernels"], report["qwen2"]["graph_decode"], "qwen_shapes", QWEN_LAYERS,
+            False, "decode_1000_qwen")
+        log(f"  Qwen2.5-0.5B kernel shares of a replayed step: "
+            f"{report['qwen2']['graph_decode']['kernel_shares']}")
+        torch.cuda.empty_cache()
 
-    log("== pipeline")
-    report["pipeline"] = pipeline_phase(dev, cfg, params, smi)
-    del params
-    gc.collect()              # the server's objects held the params in cycles
-    torch.cuda.empty_cache()
+    # Mistral's cut's CPU side runs beside the deepseek_v2_lite, internvl and
+    # qwen3_30b_a3b phases
+    mistral = mistral_setup(dev) if on("mistral_7b") else None
+    if on("deepseek_v2_lite"):
+        log("== deepseek_v2_lite")
+        t0 = time.perf_counter()
+        report["deepseek_v2_lite"] = deepseek_phase(dev)
+        report["deepseek_v2_lite"]["seconds"] = time.perf_counter() - t0
+        log(f"  deepseek_v2_lite phase: {report['deepseek_v2_lite']['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("== qwen2")
-    report["qwen2"] = qwen2_phase(dev)
-    report["qwen2"]["graph_decode"]["kernel_shares"] = kernel_shares(
-        report["kernels"], report["qwen2"]["graph_decode"], "qwen_shapes", QWEN_LAYERS, False,
-        "decode_1000_qwen")
-    log(f"  Qwen2.5-0.5B kernel shares of a replayed step: "
-        f"{report['qwen2']['graph_decode']['kernel_shares']}")
-    torch.cuda.empty_cache()
+    if on("internvl"):
+        log("== internvl")
+        report["internvl"] = internvl_phase(dev)
+        report["internvl"]["kernel_totals"] = ivl_totals(report["kernels"])
+        log(f"  InternVL3.5-8B totals per unit of its path: "
+            f"{report['internvl']['kernel_totals']}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("== deepseek_v2_lite")
-    t0 = time.perf_counter()
-    report["deepseek_v2_lite"] = deepseek_phase(dev)
-    report["deepseek_v2_lite"]["seconds"] = time.perf_counter() - t0
-    log(f"  deepseek_v2_lite phase: {report['deepseek_v2_lite']['seconds']:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if on("qwen3_30b_a3b"):
+        log("== qwen3_30b_a3b")
+        report["qwen3_30b_a3b"] = qwen3_a3b_phase(dev)
+        report["qwen3_30b_a3b"]["kernel_totals"] = a3b_totals(report["kernels"])
+        log(f"  Qwen3-30B-A3B totals per unit of its path: "
+            f"{report['qwen3_30b_a3b']['kernel_totals']}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("== internvl")
-    report["internvl"] = internvl_phase(dev)
-    report["internvl"]["kernel_totals"] = ivl_totals(report["kernels"])
-    log(f"  InternVL3.5-8B totals per unit of its path: {report['internvl']['kernel_totals']}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if on("mistral_7b"):
+        log("== mistral_7b")
+        report["mistral_7b"] = mistral_phase(dev, mistral)
+        del mistral
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    mistral = mistral_setup(dev)    # its cut's CPU side runs beside the next phase
-    log("== qwen3_30b_a3b")
-    report["qwen3_30b_a3b"] = qwen3_a3b_phase(dev)
-    report["qwen3_30b_a3b"]["kernel_totals"] = a3b_totals(report["kernels"])
-    log(f"  Qwen3-30B-A3B totals per unit of its path: "
-        f"{report['qwen3_30b_a3b']['kernel_totals']}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if on("glm4_9b"):
+        log("== glm4_9b")
+        report["glm4_9b"] = glm4_phase(dev)
+        report["glm4_9b"]["kernel_totals"] = report["glm_kernel_totals"]
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("== mistral_7b")
-    report["mistral_7b"] = mistral_phase(dev, mistral)
-    del mistral
-    gc.collect()
-    torch.cuda.empty_cache()
+    # Gemma-2's cut's CPU side runs beside the gemma3_12b phase, and the
+    # uncaptured Gemma-3 reference's process beside the phases after it
+    gemma2 = gemma2_setup(dev) if on("gemma2_9b") else None
+    g3_uncaptured = None
+    if on("gemma3_12b"):
+        log("== gemma3_12b")
+        report["gemma3_12b"] = gemma3_phase(dev)
+        g3_uncaptured = gemma3_uncaptured_start()
+        report["gemma3_12b"]["kernel_totals"] = g3_totals(report["kernels"])
+        log(f"  Gemma-3-12B totals per unit of its path: "
+            f"{report['gemma3_12b']['kernel_totals']}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    gemma2 = gemma2_setup(dev)      # its CPU side runs beside the gemma3_12b phase
-    log("== gemma3_12b")
-    report["gemma3_12b"] = gemma3_phase(dev)
-    g3_uncaptured = gemma3_uncaptured_start()     # runs beside the phases up to e2
-    report["gemma3_12b"]["kernel_totals"] = g3_totals(report["kernels"])
-    log(f"  Gemma-3-12B totals per unit of its path: {report['gemma3_12b']['kernel_totals']}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if on("gemma2_9b"):
+        log("== gemma2_9b")
+        report["gemma2_9b"] = gemma2_phase(dev, gemma2)
+        del gemma2
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("== gemma2_9b")
-    report["gemma2_9b"] = gemma2_phase(dev, gemma2)
-    del gemma2
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the cli phase's processes run beside the families phase's
+    cli = cli_start() if on("cli") else None
+    if on("families"):
+        log("== families")
+        report["families"] = families_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("== families")
-    report["families"] = families_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if on("cli"):
+        log("== cli")
+        report["cli"] = cli_phase(cli)
 
-    log("== cli")
-    report["cli"] = cli_phase()
+    if g3_uncaptured is not None:
+        log("== gemma3_uncaptured")
+        report["gemma3_12b"]["uncaptured"] = gemma3_uncaptured_check(g3_uncaptured,
+                                                                    report["gemma3_12b"])
+        torch.cuda.empty_cache()
 
-    log("== gemma3_uncaptured")
-    report["gemma3_12b"]["uncaptured"] = gemma3_uncaptured_check(g3_uncaptured,
-                                                                report["gemma3_12b"])
-    torch.cuda.empty_cache()
-
-    log("== e2")
-    report["e2"] = e2_phase()
-
-    log("== e1")
-    report["e1"] = e1_phase()
-    torch.cuda.empty_cache()
-
-    log("== e3")
-    report["e3"] = e3_phase()
-
-    log("== e4")
-    report["e4"] = e4_phase()
-
-    log("== e5")
-    report["e5"] = e5_phase()
-    torch.cuda.empty_cache()
-
-    log("== e6")
-    report["e6"] = e6_phase(dev)
-    torch.cuda.empty_cache()
-
-    log("== e7")
-    report["e7"] = e7_phase()
+    for name, phase in (("e2", e2_phase), ("e1", e1_phase), ("e3", e3_phase),
+                        ("e4", e4_phase), ("e5", e5_phase), ("e6", lambda: e6_phase(dev)),
+                        ("e7", e7_phase)):
+        if on(name):
+            log(f"== {name}")
+            report[name] = phase()
+            torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t_start
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     report["phase_s"] = {name: end - t for (name, t), end in zip(PHASE_STARTS, ends)}
     log(f"  seconds by phase: {report['phase_s']}")
-    log(f"== all phases passed in {report['seconds']:.0f} s")
+    log(f"== all {len(selected) + 2} phases passed in {report['seconds']:.0f} s")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    launches = dict(report["llama3_8b"]["launches"],
-                    flash_attention=report["llama3_8b"]["flash_modes"][0],
-                    flash_attention_f32=report["f32_engine"]["f32_cache"]["flash_modes"][1],
-                    flash_attention_f32q=report["llama3_8b"]["flash_modes"][2],
-                    flash_decode=report["llama3_8b"]["q8_prompt_1000"]["launches"]["flash_decode"],
-                    flash_decode_mla=report["deepseek_v2_lite"]["chat"]["int8_graph"]["launches"][
-                        "flash_decode"],
-                    qmm_decode=report["bench"]["v2"]["launches"]["qmm_decode"],
-                    bw_probe=report["bench"]["launches"]["bw_probe"],
-                    gemv_stream=report["e2"]["launches"]["gemv_stream"]
-                    + report["e1"]["launches"]["gemv_stream"],
-                    gemv_vpu=report["e2"]["launches"]["gemv_vpu"]
-                    + report["e1"]["launches"]["gemv_vpu"],
-                    stream_read=report["e3"]["launches"]["stream_read"],
-                    qgemv_bf16=report["e3"]["launches"]["qgemv_bf16"],
-                    unpack_gemv=report["e4"]["launches"]["unpack_gemv"],
-                    qmm_dma=report["e5"]["launches"]["qmm_dma"],
-                    flash_decode_int8=report["int8_engine"]["launches"]["flash_decode_int8"],
-                    flash_decode_e7=report["e7"]["launches"]["flash_decode"],
-                    qmm_unpack=report["e6"]["launches"]["qmm_unpack"],
-                    qmm_unpack_diag=report["e6"]["launches"]["qmm_unpack_diag"])
+    # each kernel's launches on its own path (None where that phase did not run)
+    ll = report.get("llama3_8b", {})
+    launches = dict(ll.get("launches", {}),
+                    flash_attention=_at(ll, "flash_modes", 0),
+                    flash_attention_f32=_at(report, "f32_engine", "f32_cache", "flash_modes", 1),
+                    flash_attention_f32q=_at(ll, "flash_modes", 2),
+                    flash_decode=_at(ll, "q8_prompt_1000", "launches", "flash_decode"),
+                    flash_decode_mla=_at(report, "deepseek_v2_lite", "chat", "int8_graph",
+                                         "launches", "flash_decode"),
+                    qmm_decode=_at(report, "bench", "v2", "launches", "qmm_decode"),
+                    bw_probe=_at(report, "bench", "launches", "bw_probe"),
+                    gemv_stream=_total(_at(report, "e2", "launches", "gemv_stream"),
+                                       _at(report, "e1", "launches", "gemv_stream")),
+                    gemv_vpu=_total(_at(report, "e2", "launches", "gemv_vpu"),
+                                    _at(report, "e1", "launches", "gemv_vpu")),
+                    stream_read=_at(report, "e3", "launches", "stream_read"),
+                    qgemv_bf16=_at(report, "e3", "launches", "qgemv_bf16"),
+                    unpack_gemv=_at(report, "e4", "launches", "unpack_gemv"),
+                    qmm_dma=_at(report, "e5", "launches", "qmm_dma"),
+                    flash_decode_int8=_at(report, "int8_engine", "launches",
+                                          "flash_decode_int8"),
+                    flash_decode_e7=_at(report, "e7", "launches", "flash_decode"),
+                    qmm_unpack=_at(report, "e6", "launches", "qmm_unpack"),
+                    qmm_unpack_diag=_at(report, "e6", "launches", "qmm_unpack_diag"))
     print(json.dumps(kernels_line(report["kernels"], launches)))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps(last_line(selected, {"platform": "gpu",
+                                          "kind": torch.cuda.get_device_name(0),
+                                          "count": torch.cuda.device_count()})))
     return 0
 
 
@@ -6317,7 +7136,7 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--gemma3-uncaptured"]:
             sys.exit(gemma3_uncaptured_main(sys.argv[2]))
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     finally:
         for child in CHILDREN:
             if child.poll() is None:

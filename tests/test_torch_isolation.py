@@ -26,7 +26,7 @@ NEW_MODULES = ("bench", "experiments", "experiments.gemv_probe2", "models.qwen",
                "experiments.qmm_unpack_variants", "experiments.bhsd_decode",
                "nn.vit", "models.internvl", "runtime.vision", "models.llama",
                "models.deepseek", "models.synthetic", "models.mistral", "models.gemma",
-               "models.misc_wave2")
+               "models.misc_wave2", "models.glm", "runtime.fuse")
 
 
 def _port_modules():
@@ -167,3 +167,31 @@ def test_chip_smoke_refuses_without_a_card():
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_phase_selector():
+    """`--phases` picks phases in the script's order (build and kernels run
+    anyway); no argument picks every phase but the opt-in fused_decode, which
+    brings graph_decode; an unknown name stops the run before any work, as
+    does the card's absence with a selection.  Only a run of every default
+    phase ends with the "ok" line."""
+    assert chip_smoke.parse_phases([]) == chip_smoke.DEFAULT_PHASES
+    assert set(chip_smoke.PHASES) - set(chip_smoke.DEFAULT_PHASES) == {"fused_decode"}
+    assert chip_smoke.parse_phases(["--phases", "families,build,glm4_9b,graph_decode"]) == (
+        "graph_decode", "glm4_9b", "families")
+    assert chip_smoke.parse_phases(["--phases", "fused_decode,glm4_9b"]) == (
+        "graph_decode", "fused_decode", "glm4_9b")
+    dev = {"platform": "gpu", "kind": "card", "count": 1}
+    assert chip_smoke.last_line(chip_smoke.DEFAULT_PHASES, dev) == {"ok": True, "device": dev}
+    assert chip_smoke.last_line(chip_smoke.PHASES, dev)["ok"] is True
+    part = chip_smoke.last_line(("glm4_9b",), dev)
+    assert "ok" not in part and part["phases_passed"] == ["build", "kernels", "glm4_9b"]
+    assert set(chip_smoke.LLAMA_PHASES) >= {"llama3_8b", "graph_decode", "pipeline"}
+    with pytest.raises(SystemExit, match="unknown phases"):
+        chip_smoke.parse_phases(["--phases", "glm4_9b,nope"])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phases", "glm4_9b"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
