@@ -69,8 +69,9 @@
 // design does about the causes that held the first f32 kernel (32 x 32
 // tiles of 128 threads) to 21% of that bound:
 //  1. Synchronous loads -> a ring of K and V tiles of 64 keys (2 stages at
-//     D 128, 4 at D 64; 2 stages of 32 keys at D 256) filled by cp.async (16-byte copies, zero fill past
-//     S) as the cache's raw bytes: the next tiles load while one is worked
+//     D 128, 4 at D 64, 80 and 96; 2 stages of 32 keys at D 256) filled by
+//     cp.async (16-byte copies, zero fill past S) as the cache's raw bytes:
+//     the next tiles load while one is worked
 //     on.  A bf16 tile is widened once into f32 tiles beside the ring, so
 //     both modes' products read f32 (widening at every read was slower).
 //  2. Q.K^T bound by shared-memory loads -> blocks of 256 threads own 128
@@ -141,14 +142,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Key tiles of 128 keys, 64 at D 256: there a consumer thread holds 128
 // accumulators of O, which beside 128-key scores and their probabilities
 // would pass setmaxnreg's 240 registers, and two stages of 128-key K and V
-// tiles (256 KB) would pass the card's 227 KB of shared memory.
+// tiles (256 KB) would pass the card's 227 KB of shared memory.  A head dim
+// that is not a multiple of 64 (Phi's 80 and 96) runs on the tiles of the
+// next one, DP = 128: the tensor maps' inner extent is the true D, so TMA
+// zero-fills columns D .. DP - 1 of every Q, K and V tile and no read
+// reaches the next head's row; Q.K^T takes only the D / 16 steps that hold
+// data, P.V is m64n128 over the padded V (its columns past D are zeros), and
+// only D columns of O are stored.
 template <int D>
 struct Geo {
+    static constexpr int DP = D % 64 == 0 ? D : 128;       // the tiles' width
+    static_assert(D % 16 == 0 && D <= DP, "D a multiple of 16, at most the tiles' width");
     static constexpr int BK = D == 256 ? 64 : 128;
     static constexpr int STAGES = D == 64 ? 4 : 2;
-    static constexpr int CB = D / 64;
-    static constexpr int Q_BYTES = HBQ * D * 2;
-    static constexpr int KV_BYTES = BK * D * 2;
+    static constexpr int CB = DP / 64;
+    static constexpr int Q_BYTES = HBQ * DP * 2;
+    static constexpr int KV_BYTES = BK * DP * 2;
     static constexpr int K_OFF = Q_BYTES;
     static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
     static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -383,7 +392,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ o, const Problem p) {
     using G = Geo<D>;
-    constexpr int ST = G::STAGES, BK = G::BK;
+    constexpr int ST = G::STAGES, BK = G::BK, DP = G::DP;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
@@ -475,9 +484,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the softcap (already scaled) times log2(e)
     const float c = (p.softcap > 0.f ? 1.f : p.scale) * LOG2E;
 
-    float oacc[D / 2];
+    float oacc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
     float m_run[2] = {NEG_INF, NEG_INF};
     float l_run[2] = {0.f, 0.f};
 
@@ -542,7 +551,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             l_run[r] = l_run[r] * corr[r] + rsum[r];
         }
     };
-    // S = Q K^T of stage s: 64 rows x BK keys, D/16 steps of 16 along D
+    // S = Q K^T of stage s: 64 rows x BK keys, D/16 steps of 16 along D (the
+    // padded columns past D are zeros in both)
     const auto issue_qk = [&](int s) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -557,7 +567,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const auto issue_pv = [&](int s) {
 #pragma unroll
         for (int kc = 0; kc < BK / 16; ++kc)
-            wgmma_pv<D>(oacc, pf[kc], sv + s * G::KV_BYTES + kc * 2048, BK * 128);
+            wgmma_pv<DP>(oacc, pf[kc], sv + s * G::KV_BYTES + kc * 2048, BK * 128);
         wgmma_commit();
     };
     // P as bf16 A fragments (m16n8k16 layout per warp) straight from the
@@ -591,7 +601,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         float corr[2];
         mbar_wait(k_full(s), (i / ST) & 1);
         mbar_wait(v_full(sp), ((i - 1) / ST) & 1);
-        reg_fence<D / 2>(oacc);
+        reg_fence<DP / 2>(oacc);
         reg_fence<BK / 4>(&pf[0][0]);
         wgmma_fence();
         issue_qk(s);
@@ -601,24 +611,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (lane == 0) mbar_arrive(k_empty(s));
         softmax(kt_first + i, corr);
         wgmma_wait<0>();
-        reg_fence<D / 2>(oacc);
+        reg_fence<DP / 2>(oacc);
         reg_fence<BK / 4>(&pf[0][0]);
         if (lane == 0) mbar_arrive(v_empty(sp));
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
+        for (int j = 0; j < DP / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
         pack_p();
     }
     if (n_tiles > 0) {
         const int sp = (n_tiles - 1) % ST;
         mbar_wait(v_full(sp), ((n_tiles - 1) / ST) & 1);
-        reg_fence<D / 2>(oacc);
+        reg_fence<DP / 2>(oacc);
         reg_fence<BK / 4>(&pf[0][0]);
         wgmma_fence();
         issue_pv(sp);
         wgmma_wait<0>();
-        reg_fence<D / 2>(oacc);
+        reg_fence<DP / 2>(oacc);
     }
-    // finalize: o = acc / max(l, 1e-30); rows past T are never stored
+    // finalize: o = acc / max(l, 1e-30) over the D real columns; rows past T
+    // are never stored
     const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
     const float inv1 = 1.f / fmaxf(l_run[1], 1e-30f);
     __nv_bfloat16* ob = o + b * p.os_b + h * p.os_h;
@@ -660,8 +671,9 @@ EncodeTiled encoder() {
 
 // A bf16 [B, rows, H, D] tensor with element strides st = (b, t, h) as a
 // tensor map of boxes [64 of D, box_rows rows, one head, one batch row],
-// 128-byte swizzled, zero fill past the edges.  A dimension of extent 1 is
-// only read at coordinate 0, so its stride is set to a legal one.
+// 128-byte swizzled, zero fill past the edges (columns D .. 127 of a box
+// at D 80 or 96 among them).  A dimension of extent 1 is only read at
+// coordinate 0, so its stride is set to a legal one.
 int encode_rows(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int batch,
                 const long* st, int box_rows) {
     const EncodeTiled encode = encoder();
@@ -721,7 +733,9 @@ __device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0
 // walks BK-key tiles (64 keys, 32 at D 256, where two stages of 64-key f32
 // tiles beside Q would pass the card's shared memory); thread (ty, tx) holds
 // S for the RT = BQ / 16 rows ty + 16 r and the KJ = BK / 16 keys tx + 16 j,
-// and O for the same rows and D / 16 columns c 64 + 4 tx + e.  Shared
+// and O for the same rows and the columns c 64 + 4 tx + e below D, c < NV =
+// D / 64 rounded up (at D 80 and 96 the last 64-column block is partial:
+// its columns past D belong to no thread).  Shared
 // memory: Q [BQ][D + 4] f32; a ring of STAGES stages of K and V tiles as the
 // cache's raw bytes (f32: K [BK][D + 4], V [BK][D]; bf16: K and V [BK][D],
 // widened once per tile into f32 tiles KF [BK][D + 4] and VF [BK][D] after
@@ -737,7 +751,7 @@ struct FGeo {
     static constexpr bool WIDEN = sizeof(KV) == 2;                      // bf16 cache
     static constexpr int BK = D == 256 ? 32 : 64;                       // keys per tile
     static constexpr int KJ = BK / 16;                                  // keys a thread
-    static constexpr int STAGES = D == 64 ? 4 : 2;                      // tiles in the ring
+    static constexpr int STAGES = D == 128 || D == 256 ? 2 : 4;         // tiles in the ring
     static constexpr int RT = BQ / 16;                                  // rows a thread
     static constexpr int QS = D + 4;                                    // floats per q row
     static constexpr int FKS = D + 4;                                   // floats per f32 K row
@@ -795,7 +809,11 @@ __global__ void __launch_bounds__(FTHREADS, 1)
 flash_f32_kernel(const FProblem p) {
     using G = FGeo<D, KV, BQ>;
     constexpr int RT = G::RT, BK = G::BK, KJ = G::KJ;
-    constexpr int NV = D / 64;                    // 16-byte reads of a V row per thread
+    constexpr int NV = (D + 63) / 64;             // 16-byte reads of a V row per thread
+    // column block c of this thread lies below D (always, at a multiple of 64)
+    const auto col_ok = [](int c) {
+        return D % 64 == 0 || c * 64 + static_cast<int>(threadIdx.x & 15) * 4 < D;
+    };
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int s_qt;
     float* sq = reinterpret_cast<float*>(smem);
@@ -835,8 +853,9 @@ flash_f32_kernel(const FProblem p) {
         unsigned char* sv = sk + BK * G::KROW;
         constexpr int NCH = G::RAW / 16;            // 16-byte chunks of a row
 #pragma unroll
-        for (int it = 0; it < BK * NCH / FTHREADS; ++it) {
+        for (int it = 0; it < (BK * NCH + FTHREADS - 1) / FTHREADS; ++it) {
             const int idx = tid + it * FTHREADS, r = idx / NCH, c = idx % NCH;
+            if (BK * NCH % FTHREADS && idx >= BK * NCH) break;
             const int key = kt * BK + r;
             const bool ok = key < p.S;              // keys past S read as zeros
             const long row = ok ? key : 0;
@@ -863,14 +882,14 @@ flash_f32_kernel(const FProblem p) {
         cp_commit();
     }
 
-    float acc[RT][D / 16];
+    float acc[RT][NV * 4];
     float m_run[RT], l_run[RT];
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
         m_run[r] = NEG_INF;
         l_run[r] = 0.f;
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
+        for (int c = 0; c < NV * 4; ++c) acc[r][c] = 0.f;
     }
     const int q_lo = p.n_past + t0, kv_len = p.n_past + p.n_tokens;
     // scores enter exp2 as s * c2: raw dots times scale * log2(e), or after
@@ -894,8 +913,9 @@ flash_f32_kernel(const FProblem p) {
             const uint16_t* rk = reinterpret_cast<const uint16_t*>(sk);
             const uint16_t* rv = rk + BK * D;
 #pragma unroll
-            for (int it = 0; it < BK * D / 8 / FTHREADS; ++it) {
+            for (int it = 0; it < (BK * D / 8 + FTHREADS - 1) / FTHREADS; ++it) {
                 const int idx = tid + it * FTHREADS, r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+                if (BK * D / 8 % FTHREADS && idx >= BK * D / 8) break;
                 const uint4 uk = *reinterpret_cast<const uint4*>(rk + r * D + c);
                 const uint4 uv = *reinterpret_cast<const uint4*>(rv + r * D + c);
                 const uint32_t wk[4] = {uk.x, uk.y, uk.z, uk.w}, wv[4] = {uv.x, uv.y, uv.z, uv.w};
@@ -983,7 +1003,7 @@ flash_f32_kernel(const FProblem p) {
             }
             l_run[r] = fmaf(l_run[r], corr, sum);       // this thread's share of the row
 #pragma unroll
-            for (int c = 0; c < D / 16; ++c) acc[r][c] *= corr;
+            for (int c = 0; c < NV * 4; ++c) acc[r][c] *= corr;
         }
         __syncthreads();      // every thread is done with the f32 K tile: P takes its place
         float* sp = kf;
@@ -1013,6 +1033,7 @@ flash_f32_kernel(const FProblem p) {
             for (int h4 = 0; h4 < RT / 4; ++h4) pr[h4] = lds4(sp + k * G::PS + RT * ty + 4 * h4);
 #pragma unroll
             for (int c = 0; c < NV; ++c) {
+                if (!col_ok(c)) continue;
                 const float4 v4 = lds4(vf + k * D + c * 64 + tx * 4);
                 const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
@@ -1048,9 +1069,10 @@ flash_f32_kernel(const FProblem p) {
             const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
 #pragma unroll
             for (int c = 0; c < NV; ++c)
-                *reinterpret_cast<float4*>(ob + t * p.os.t + c * 64 + tx * 4) =
-                    make_float4(acc[r][c * 4] * inv, acc[r][c * 4 + 1] * inv,
-                                acc[r][c * 4 + 2] * inv, acc[r][c * 4 + 3] * inv);
+                if (col_ok(c))
+                    *reinterpret_cast<float4*>(ob + t * p.os.t + c * 64 + tx * 4) =
+                        make_float4(acc[r][c * 4] * inv, acc[r][c * 4 + 1] * inv,
+                                    acc[r][c * 4 + 2] * inv, acc[r][c * 4 + 3] * inv);
         }
         return;
     }
@@ -1071,9 +1093,10 @@ flash_f32_kernel(const FProblem p) {
         float* dst = cluster.map_shared_rank(racc, own) + (rank * RO + rl) * D;
 #pragma unroll
         for (int c = 0; c < NV; ++c)
-            *reinterpret_cast<float4*>(dst + c * 64 + tx * 4) =
-                make_float4(acc[r][c * 4], acc[r][c * 4 + 1], acc[r][c * 4 + 2],
-                            acc[r][c * 4 + 3]);
+            if (col_ok(c))
+                *reinterpret_cast<float4*>(dst + c * 64 + tx * 4) =
+                    make_float4(acc[r][c * 4], acc[r][c * 4 + 1], acc[r][c * 4 + 2],
+                                acc[r][c * 4 + 3]);
         if (tx == 0)
             *reinterpret_cast<float2*>(cluster.map_shared_rank(rml, own) +
                                        (rank * RO + rl) * 2) = make_float2(m_run[r], l_run[r]);
@@ -1240,7 +1263,8 @@ int launch(int mode, const void* q, const void* k, const void* v, void* o, const
 // stride along D;
 // strides: 12 element strides (b, t, h) for q, k, v, o in that order, each
 // a multiple of 16 bytes, and 16-byte aligned q, k, v (mode 0 reads them
-// through TMA).  D must be 64, 128 or 256; Hq % Hkv == 0; n_past + n_tokens <= S.
+// through TMA).  D must be 64, 80, 96, 128 or 256; Hq % Hkv == 0; n_past +
+// n_tokens <= S.
 CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                      const long* strides, int B, int T, int S, int Hq,
                                      int Hkv, int D, int n_past, int n_tokens, float scale,
@@ -1256,6 +1280,12 @@ CL_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v
     if (D == 256)
         return launch<256>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
                            scale, causal, window, softcap, st);
+    if (D == 96)
+        return launch<96>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
+                          scale, causal, window, softcap, st);
+    if (D == 80)
+        return launch<80>(mode, q, k, v, o, strides, B, T, S, Hq, Hkv, n_past, n_tokens,
+                          scale, causal, window, softcap, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1275,5 +1305,9 @@ CL_EXPORT int flash_attention_cluster_slots(int D, int mode, int bq, int C) {
     if (mode == 2 && D == 64 && bq == 64) return cluster_slots<64, __nv_bfloat16, 64>(C);
     if (mode == 1 && D == 256 && bq == 64) return cluster_slots<256, float, 64>(C);
     if (mode == 2 && D == 256 && bq == 64) return cluster_slots<256, __nv_bfloat16, 64>(C);
+    if (mode == 1 && D == 96 && bq == 64) return cluster_slots<96, float, 64>(C);
+    if (mode == 2 && D == 96 && bq == 64) return cluster_slots<96, __nv_bfloat16, 64>(C);
+    if (mode == 1 && D == 80 && bq == 64) return cluster_slots<80, float, 64>(C);
+    if (mode == 2 && D == 80 && bq == 64) return cluster_slots<80, __nv_bfloat16, 64>(C);
     return -1;
 }

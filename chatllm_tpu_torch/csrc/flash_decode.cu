@@ -2,7 +2,7 @@
 //
 //   q [B, T, Hq, D] (bf16 or f32); cache k [B, S, Hkv, D] and v [B, S, Hkv,
 //   Dv], int8 with f32 scales [B, S, Hkv] (the q8 cache) or bf16 / f32  ->
-//   o [B, T, Hq, Dv] in q's dtype.  D = Dv = 64, 128 or 256, or (float dots only)
+//   o [B, T, Hq, Dv] in q's dtype.  D = Dv = 64, 80, 96, 128 or 256, or (float dots only)
 //   multi-head latent attention's expanded cache, D 192 (128 nope + 64 rope
 //   dims) and Dv 128, with one query head per kv head
 //
@@ -38,7 +38,12 @@
 // weighs them.
 //
 // Up to 64 query rows G*T per kv head (Qwen2.5-0.5B's 7 heads per kv head
-// at T = 8 are 56), 32 at D 256 (Gemma-3-1B's 4 at T = 8).  D 256 (the Gemma
+// at T = 8 are 56), 32 at D 256 (Gemma-3-1B's 4 at T = 8).  D 80 and 96
+// (Phi-2's and Phi-3's heads) take the same designs: a row's 16-byte chunks
+// (5 or 6 of int8, 10 or 12 of bf16) are split over the warps that share a
+// key as evenly as they go, and P.V, whose DV / 4 = 20 or 24 threads across
+// a row fill no power of two of the block, runs on the largest power of two
+// of such groups that the block holds (8: 160 or 192 of its 256 threads).  D 256 (the Gemma
 // family's heads) takes the same designs: its float-dot stages are 34 KB
 // (int8), 66 KB (bf16) and 130 KB (f32: one stage, loads not overlapped),
 // its int8-dot slots 18 KB.  The cache is read through element strides, the scales
@@ -155,6 +160,10 @@ constexpr int MAX_CLUSTER = 16;   // blocks per (batch row, kv head) (flash_deco
 constexpr float NEG_INF = -1e30f;
 
 struct Strides { long b, t, h; };
+
+// The largest power of two <= n: the groups of CW threads that share P V's
+// keys or rows (a D 80 or 96 row's 20 or 24 threads leave the rest idle).
+__host__ __device__ constexpr int pow2_floor(int n) { return n < 2 ? 1 : 2 * pow2_floor(n / 2); }
 
 struct Params {
     const void* q;
@@ -413,7 +422,7 @@ struct FGeom {
     static constexpr int STAGES = FIT > 4 ? 4 : FIT >= 2 ? FIT : 2;   // near the 96 KB target
     static_assert(STAGES * STAGE <= 200 * 1024, "two stages beside q and the merge buffers");
     static constexpr int CW = DV / 4;              // threads across a row in P V, 4 columns each
-    static constexpr int ZS = FTHREADS / CW;       // slices of the keys (FEW) or rows in P V
+    static constexpr int ZS = pow2_floor(FTHREADS / CW);   // key slices (FEW) or rows in P V
 
     __host__ __device__ static int ring_bytes(int R) {
         const int part = FEW ? ZS * R * DV * 4 : 0;
@@ -438,7 +447,9 @@ decode_kernel(Params p) {
     constexpr int CW = Gm::CW, ZS = Gm::ZS, TK = Gm::TK, KPL = Gm::KPL, DQ = Gm::DQ;
     constexpr int NACC = FEW ? MAXR : MAXR / ZS;
     static_assert(Gm::KNCH >= Gm::VNCH, "the tile copy takes V no wider than K");
-    constexpr int QCH = Gm::KNCH / DQ;           // FEW: chunks of a warp's part of a key row
+    // FEW: chunks of a warp's part of a key row; the last parts may be short
+    // (D 80 and 96: 5 or 6 int8 chunks, 10 or 12 bf16 ones over 4 parts)
+    constexpr int QCH = (Gm::KNCH + DQ - 1) / DQ;
     constexpr int KZ = TK / ZS;                  // FEW: keys per slice in P V
     extern __shared__ __align__(16) uint8_t smem[];
     cg::cluster_group cluster = cg::this_cluster();
@@ -513,6 +524,7 @@ decode_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     const int c4 = (tid % CW) * 4, z = tid / CW;
+    const bool in_pv = z < ZS;               // this thread takes part in P V
 
     for (int t = ta; t < tb; ++t) {
         cp_wait<Gm::STAGES - 2>();
@@ -540,9 +552,10 @@ decode_kernel(Params p) {
             float sw[MAXR];
 #pragma unroll
             for (int r = 0; r < MAXR; ++r) sw[r] = 0.f;
-            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * (Gm::KROWB / DQ);
+            const uint8_t* kr = st + (kh * 32 + lane) * Gm::KROW + qd * QCH * 16;
 #pragma unroll
             for (int c = 0; c < QCH; ++c) {
+                if (Gm::KNCH % DQ && qd * QCH + c >= Gm::KNCH) break;
                 float kf[Gm::VEC];
                 cvt(*reinterpret_cast<const uint4*>(kr + c * 16), kf, KV{});
                 if (round_kv) {
@@ -552,7 +565,7 @@ decode_kernel(Params p) {
 #pragma unroll
                 for (int r = 0; r < MAXR; ++r) {
                     if (r >= R) break;
-                    const float* qr = sq + r * DK + qd * (DK / DQ) + c * Gm::VEC;
+                    const float* qr = sq + r * DK + (qd * QCH + c) * Gm::VEC;
 #pragma unroll
                     for (int e = 0; e < Gm::VEC; e += 4) {
                         const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
@@ -653,13 +666,13 @@ decode_kernel(Params p) {
 #pragma unroll
         for (int i = 0; i < NACC; ++i) {
             const int r = FEW ? i : z + ZS * i;
-            if (r >= R) break;
+            if (!in_pv || r >= R) break;
             const float corr = scorr[r];
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
         }
 #pragma unroll 2
-        for (int jb = 0; jb < (FEW ? KZ : TK); jb += 4) {
+        for (int jb = 0; jb < (in_pv ? (FEW ? KZ : TK) : 0); jb += 4) {
             const int j = FEW ? z * KZ + jb : jb;
             float4 v[4];
 #pragma unroll
@@ -697,7 +710,7 @@ decode_kernel(Params p) {
         float* pz = reinterpret_cast<float*>(smem);    // [ZS][R][DV]
 #pragma unroll
         for (int r = 0; r < MAXR; ++r) {
-            if (r >= R) break;
+            if (!in_pv || r >= R) break;
             float* dst = pz + (z * R + r) * DV + c4;
             dst[0] = acc[r][0];
             dst[1] = acc[r][1];
@@ -717,7 +730,7 @@ decode_kernel(Params p) {
 #pragma unroll
         for (int i = 0; i < NACC; ++i) {
             const int r = z + ZS * i;
-            if (r >= R) break;
+            if (!in_pv || r >= R) break;
             send_acc<4>(cluster, racc, r * DV + c4, span, acc[i]);
         }
     }
@@ -795,7 +808,7 @@ struct IGeom {
     static constexpr int SLOT = SOFF + 2 * FTK * 4;
     static constexpr int STAGES = 4;
     static constexpr int CW = D / 4;               // threads across a row in P V, 4 columns each
-    static constexpr int ZS = FTHREADS / CW;       // key slices (FEW) or rows in P V
+    static constexpr int ZS = pow2_floor(FTHREADS / CW);   // key slices (FEW) or rows in P V
     static constexpr int NSTAT = 9;                // the per-row f32 arrays
 
     // score columns per row: a block's tiles, rounded up to 128 (whole
@@ -984,6 +997,7 @@ decode_int8_kernel(Params p) {
             acc[i][e] = 0.f;
         }
     const int c4 = (tid % CW) * 4, z = tid / CW;
+    const bool in_pv = z < ZS;               // this thread takes part in P V
     const uint8_t* spq = reinterpret_cast<const uint8_t*>(ss);   // pq of row r: spq + 4 r SSK
 
     for (int j = sh.j0; j < sh.j1; ++j) {
@@ -1105,7 +1119,7 @@ decode_int8_kernel(Params p) {
             const uint8_t* st = next_tile();
             const int cb = (u - u0) * FTK;
 #pragma unroll 2
-            for (int jb = 0; jb < (FEW ? KZ : FTK); jb += 4) {
+            for (int jb = 0; jb < (in_pv ? (FEW ? KZ : FTK) : 0); jb += 4) {
                 const int jk = FEW ? z * KZ + jb : jb;
                 uint32_t w[4];
 #pragma unroll
@@ -1127,7 +1141,7 @@ decode_int8_kernel(Params p) {
 #pragma unroll
             for (int i = 0; i < NACC; ++i) {
                 const int r = FEW ? i : z + ZS * i;
-                if (r >= R) break;
+                if (!in_pv || r >= R) break;
                 const float fo = sfo[r], fn = sfn[r];
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
@@ -1149,7 +1163,7 @@ decode_int8_kernel(Params p) {
         float* pz = reinterpret_cast<float*>(smem);    // [ZS][R][D]
 #pragma unroll
         for (int r = 0; r < MAXR; ++r) {
-            if (r >= R) break;
+            if (!in_pv || r >= R) break;
             float* dst = pz + (z * R + r) * D + c4;
             dst[0] = acc[r][0];
             dst[1] = acc[r][1];
@@ -1169,7 +1183,7 @@ decode_int8_kernel(Params p) {
 #pragma unroll
         for (int i = 0; i < NACC; ++i) {
             const int r = z + ZS * i;
-            if (r >= R) break;
+            if (!in_pv || r >= R) break;
             send_acc<4>(cluster, racc, r * D + c4, span, acc[i]);
         }
     }
@@ -1289,19 +1303,32 @@ Params make_params(const void* q, const void* k, const void* v, const float* ks,
 constexpr int max_rows(int D) { return D == 256 ? 32 : MAX_ROWS; }
 
 bool bad_shape(int Hq, int Hkv, int T, int D, int q_kind) {
-    return Hkv <= 0 || Hq % Hkv || T <= 0 || (D != 64 && D != 128 && D != 256) ||
+    return Hkv <= 0 || Hq % Hkv || T <= 0 ||
+           (D != 64 && D != 80 && D != 96 && D != 128 && D != 256) ||
            (Hq / Hkv) * T > max_rows(D) || (q_kind != KIND_F32 && q_kind != KIND_BF16);
 }
 
 }  // namespace
 
+// FD_PART selects what a build exports: 1 the float dots at D 64, 128 and
+// MLA's (192, 128), 3 the float dots at D 80, 96 and 256, 2 the int8 dots;
+// unset, all of them.  Each part instantiates only its own kernels, so the
+// three libraries build side by side (ops/cuda/build.py).
+#if !defined(FD_PART)
+#define FD_NARROW 1
+#define FD_WIDE 1
+#else
+#define FD_NARROW (FD_PART == 1)
+#define FD_WIDE (FD_PART == 3)
+#endif
+#if FD_NARROW || FD_WIDE
 // q: bf16 (q_kind KIND_BF16) or f32 (KIND_F32); k/v: int8 with ks/vs
 // (kv_kind KIND_I8) or bf16 / f32 without; unit stride along the head dim
 // and 16-byte aligned rows; strides: 18 element strides (b, t|s, h) of q,
 // k, v, o, ks, vs.  np_vec: int64 [B] per-row n_past, or null to use
-// np_scalar.  (D, Dv), the widths of q and K and of V and o: (64, 64) or
-// (128, 128) with G*T at most 64, (256, 256) with G*T at most 32, or MLA's
-// (192, 128) with G*T at most 8.
+// np_scalar.  (D, Dv), the widths of q and K and of V and o: (64, 64), (80,
+// 80), (96, 96) or (128, 128) with G*T at most 64, (256, 256) with G*T at
+// most 32, or MLA's (192, 128) with G*T at most 8.
 // bf16 or f32 dots; `ctas` (1..16) blocks per (batch row, kv head), one
 // cluster (flash_decode.py decode_geometry).
 CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
@@ -1320,12 +1347,24 @@ CL_EXPORT int flash_decode_launch(const void* q, const void* k, const void* v,
                                  Hkv, n_tokens, scale, window, softcap, q_kind, bf16_dots, FTK,
                                  ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (mla) return launch_float_kv<192, 128>(kv_kind, p, B, st);
-    if (D == 256) return launch_float_kv<256, 256>(kv_kind, p, B, st);
-    return D == 128 ? launch_float_kv<128, 128>(kv_kind, p, B, st)
-                    : launch_float_kv<64, 64>(kv_kind, p, B, st);
+    switch (mla ? 192 : D) {
+#if FD_NARROW
+        case 192: return launch_float_kv<192, 128>(kv_kind, p, B, st);
+        case 128: return launch_float_kv<128, 128>(kv_kind, p, B, st);
+        case 64: return launch_float_kv<64, 64>(kv_kind, p, B, st);
+#endif
+#if FD_WIDE
+        case 256: return launch_float_kv<256, 256>(kv_kind, p, B, st);
+        case 96: return launch_float_kv<96, 96>(kv_kind, p, B, st);
+        case 80: return launch_float_kv<80, 80>(kv_kind, p, B, st);
+#endif
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
+#endif
+
+#if !defined(FD_PART) || FD_PART == 2
 // The int8-dot mode over an int8 cache with its scales: q to sinks, np_vec,
 // np_scalar, o and strides as flash_decode_launch; `block_k` (1..512) keys
 // per quantization block, the Pallas kernel's; `ctas` (1..16) blocks per
@@ -1343,6 +1382,12 @@ CL_EXPORT int flash_decode_int8_launch(const void* q, const void* k, const void*
     const Params p = make_params(q, k, v, ks, vs, sinks, np_vec, np_scalar, o, strides, T, S, Hq,
                                  Hkv, n_tokens, scale, window, softcap, q_kind, 0, block_k, ctas);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (D == 256) return launch_int8<256>(p, B, st);
-    return D == 128 ? launch_int8<128>(p, B, st) : launch_int8<64>(p, B, st);
+    switch (D) {
+        case 256: return launch_int8<256>(p, B, st);
+        case 128: return launch_int8<128>(p, B, st);
+        case 96: return launch_int8<96>(p, B, st);
+        case 80: return launch_int8<80>(p, B, st);
+        default: return launch_int8<64>(p, B, st);
+    }
 }
+#endif

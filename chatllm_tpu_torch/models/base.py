@@ -246,9 +246,11 @@ def load_model(path: str, rt: RuntimeConfig | None = None, device=None) -> BaseL
     if rt.layer_spec:
         model = _apply_layer_spec(model, rt.layer_spec)
     # Norm eps is the one field the binary config structs don't carry; the
-    # GGMM JSON meta holds the original HF config.json.
+    # GGMM JSON meta holds the original HF config.json (`rms_norm_eps`, or
+    # `layer_norm_eps` for a LayerNorm decoder).
     hf_cfg = (gf.meta or {}).get("config.json") or {}
-    eps = hf_cfg.get("rms_norm_eps")
+    key = "layer_norm_eps" if model.cfg.norm_type == "layernorm" else "rms_norm_eps"
+    eps = hf_cfg.get(key)
     if eps is not None and float(eps) != model.cfg.norm_eps:
         model.cfg = replace(model.cfg, norm_eps=float(eps))
     return model

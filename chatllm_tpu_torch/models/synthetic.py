@@ -99,7 +99,7 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
 def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                            zeros: bool = True, compute_dtype=torch.bfloat16,
                            seed: int = 0, device="cpu", centered: bool = False,
-                           fused: bool = False, k_fallback: str = "q4"):
+                           fused: bool = False, k_fallback: str = "q4", mlp: str = "gated"):
     """The parameter dict of `cfg` in format `fmt` (see synth_linear), zero
     or seeded random.  MLA layers (cfg.mla) get the converter's split kv
     projections, and in latent mode the absorbed wk_abs / wv_abs; MoE layers
@@ -111,20 +111,31 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     synth_linear.  Post-norms under cfg.post_norms (Gemma-2/3's sandwich).
     `fused`: the GLM2 architecture's consolidated q|k|v ("qkv") and gate|up
     ("gate_up") projections in place of the separate ones.  `k_fallback`:
-    see synth_linear."""
+    see synth_linear.  `mlp="plain"`: the dense FFN is up / down (Phi-2's
+    fc1 / fc2).  Under cfg.o_bias (Phi-2's layout) the o projection, the
+    dense FFN's linears and the head carry biases (q/k/v follow
+    cfg.qkv_bias).  A LayerNorm config
+    (cfg.norm_type) gets every norm's bias, zero beside its unit weight; a
+    parallel-residual one no ffn_norm.  The defaults build what they built
+    before these options existed, draw for draw."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H = cfg.hidden_size
     d = cfg.resolved_head_dim()
     qo = cfg.num_attention_heads * d
     kvo = cfg.num_key_value_heads * d
     F = cfg.intermediate_size
+    plain = mlp == "plain"
+    biases = cfg.o_bias
 
     def lin(i, o, bias=False):
         return synth_linear(i, o, fmt, bias=bias, gen=gen, zeros=zeros, device=device,
                             centered=centered, k_fallback=k_fallback)
 
     def ones(n=H):
-        return {"w": torch.ones(n, dtype=torch.float32, device=device)}
+        p = {"w": torch.ones(n, dtype=torch.float32, device=device)}
+        if cfg.norm_type == "layernorm":
+            p["b"] = torch.zeros(n, dtype=torch.float32, device=device)
+        return p
 
     def stack(*shape):
         if zeros:
@@ -137,7 +148,7 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
             return {"qkv": lin(H, qo + 2 * kvo, cfg.qkv_bias), "o": lin(qo, H)}
         if cfg.mla is None:
             attn = {"q": lin(H, qo, cfg.qkv_bias), "k": lin(H, kvo, cfg.qkv_bias),
-                    "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H)}
+                    "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H, biases)}
             if cfg.qk_norm == "rmsnorm":          # Qwen3's per-head q/k norms
                 attn.update(q_norm=ones(d), k_norm=ones(d))
             return attn
@@ -156,6 +167,8 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     def ffn(spec):
         if not spec.is_moe and fused:
             return {"gate_up": lin(H, 2 * F), "down": lin(F, H)}
+        if not spec.is_moe and plain:
+            return {"up": lin(H, F, biases), "down": lin(F, H, biases)}
         if not spec.is_moe:
             return {"gate": lin(H, F), "up": lin(H, F), "down": lin(F, H)}
         E, Fe, Fs = cfg.moe_num_experts, cfg.moe_intermediate_size, cfg.moe_shared_intermediate
@@ -173,14 +186,16 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                  * 0.02).to(compute_dtype)
     layers = []
     for i in range(cfg.num_hidden_layers):
-        layer = {"attn_norm": ones(), "attn": attention(), "ffn_norm": ones(),
-                 "mlp": ffn(cfg.layer_spec(i))}
+        layer = {"attn_norm": ones(), "attn": attention()}
+        if not cfg.parallel_residual:
+            layer["ffn_norm"] = ones()
+        layer["mlp"] = ffn(cfg.layer_spec(i))
         if cfg.post_norms:
             layer.update(post_attn_norm=ones(), post_ffn_norm=ones())
         layers.append(layer)
     params = {"embed": embed, "final_norm": ones(), "layers": tuple(layers)}
     if not cfg.tie_lm_head:
-        params["lm_head"] = lin(H, cfg.vocab_size)
+        params["lm_head"] = lin(H, cfg.vocab_size, biases)
     return params
 
 
@@ -234,6 +249,70 @@ def glm4_9b_config(max_length: int = 8192) -> TransformerConfig:
         rope=RopeConfig(head_dim=128, rot_dim=64, freq_base=10000.0 * 500,
                         layout=ROPE_NORMAL),
         norm_eps=1e-5, qkv_bias=True)
+
+
+# Phi-3.5-mini-instruct's LongRoPE long_factor (config.json rope_scaling), one
+# per pair of a head's 96 dims, as f32 values: what the PHI3_SU2 loader reads
+# from a converted file (the first rot / 2 of the 128 stored).
+PHI3_5_MINI_LONG_FACTOR = (
+    1.0800000429153442, 1.1100000143051147, 1.1399999856948853, 1.340000033378601,
+    1.5899999141693115, 1.600000023841858, 1.6200000047683716, 2.620000123977661,
+    3.2300000190734863, 3.2300000190734863, 4.789999961853027, 7.400000095367432,
+    7.700000286102295, 9.09000015258789, 12.199999809265137, 17.670000076293945,
+    24.46000099182129, 28.57000160217041, 30.420001983642578, 30.840002059936523,
+    32.590003967285156, 32.93000411987305, 42.320003509521484, 44.96000289916992,
+    50.340003967285156, 50.45000457763672, 57.55000305175781, 57.93000411987305,
+    58.21000289916992, 60.1400032043457, 62.61000442504883, 62.62000274658203,
+    62.71000289916992, 63.1400032043457, 63.1400032043457, 63.77000427246094,
+    63.93000411987305, 63.96000289916992, 63.970001220703125, 64.02999877929688,
+    64.06999969482422, 64.08000183105469, 64.12000274658203, 64.41000366210938,
+    64.4800033569336, 64.51000213623047, 64.52999877929688, 64.83999633789062)
+
+
+def phi3_5_mini_config(max_length: int = 8192) -> TransformerConfig:
+    """Phi-3.5-mini-instruct as published (Hugging Face
+    `microsoft/Phi-3.5-mini-instruct`, config.json): vocab_size 32064,
+    hidden_size 3072, num_hidden_layers 32, num_attention_heads 32,
+    num_key_value_heads 32 (head dim 96), intermediate_size 8192,
+    rope_theta 10000, rope_scaling longrope over
+    original_max_position_embeddings 4096 of max_position_embeddings 131072,
+    sliding_window 262144, rms_norm_eps 1e-5, untied head; as the PHI3_SU2
+    loader builds it (models/phi.py: the interleaved rope the converter
+    permutes q/k into, the long factors, mscale sqrt(1 + ln 32 / ln 4096),
+    every layer windowed over 262145 keys, which no cache of max_length
+    slots reaches: the dense windowed route, no ring).  Only max_length is
+    cut."""
+    import math
+
+    from ..nn.transformer import LayerSpec
+
+    mscale = math.sqrt(1.0 + math.log(131072 / 4096) / math.log(4096))
+    return TransformerConfig(
+        vocab_size=32064, hidden_size=3072, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32,
+        intermediate_size=8192, max_length=max_length,
+        rope=RopeConfig(head_dim=96, freq_base=10000.0, layout=ROPE_NORMAL,
+                        freq_factors=PHI3_5_MINI_LONG_FACTOR, mscale_all=mscale),
+        norm_eps=1e-5, layer_specs=tuple(LayerSpec(sliding_window=262145) for _ in range(32)))
+
+
+def phi2_config(max_length: int = 4096) -> TransformerConfig:
+    """Phi-2 as published (Hugging Face `microsoft/phi-2`, config.json):
+    vocab_size 51200, hidden_size 2560, num_hidden_layers 32,
+    num_attention_heads 32 (MHA, head dim 80), intermediate_size 10240,
+    partial_rotary_factor 0.4 (NeoX rope on 32 of 80 dims), rope_theta
+    10000, layer_norm_eps 1e-5, gelu_new (tanh GELU), biases on every
+    projection and on the untied head, a parallel residual; as the PHI2_V2
+    loader builds it (models/phi.py).  max_length 4096 is above the trained
+    2048, so that a q8 cache takes K4 (attention.py's 4096-slot threshold);
+    rope past the trained positions means nothing on random weights."""
+    return TransformerConfig(
+        vocab_size=51200, hidden_size=2560, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32,
+        intermediate_size=10240, max_length=max_length, act="gelu_tanh",
+        norm_type="layernorm", norm_eps=1e-5,
+        rope=RopeConfig(head_dim=80, rot_dim=32, freq_base=10000.0, layout=ROPE_NEOX),
+        qkv_bias=True, o_bias=True, parallel_residual=True)
 
 
 def gemma3_12b_config(max_length: int = 8192) -> TransformerConfig:

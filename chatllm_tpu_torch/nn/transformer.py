@@ -1,15 +1,17 @@
 """Decoder-only transformer core, main-path subset of the JAX package's
 `nn/transformer.py`: config, KV cache, pre-norm decoder layer (separate or
 consolidated q/k/v projections, RoPE, GQA attention, SwiGLU MLP with
-separate or fused gate/up), the DeepSeek family's
+separate or fused gate/up, or the plain up/down MLP), the Phi family's
+LayerNorm decoder and parallel residual, the DeepSeek family's
 multi-head latent attention (both cache modes) and sparse MoE FFN, the
 sliding-window ring cache, the Gemma family's pieces (sandwich norms, the
 attention and final logit softcaps, the tied head's logit scale, a second
 rope table for local layers, gated GELU), and the model forward.
 
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
-"final_norm" {"w"}, "layers" (a tuple of per-layer dicts) and "lm_head";
-linears are DenseLinear/QuantLinear from ops/qtensor.py.  The KV cache is
+"final_norm" {"w"} (and "b" for LayerNorm), "layers" (a tuple of per-layer
+dicts) and "lm_head"; linears are DenseLinear/QuantLinear from
+ops/qtensor.py.  The KV cache is
 written in place.  `n_past` is an int (one stream's prefill), a 0-d int64
 device tensor (rows sharing one position read on the device: the decode
 block a CUDA graph captures, runtime/decode_graph.py, with `kv_len` its
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import (NEG_INF, _key_bound, _rows_write, attention_with_cache,
                              quantize_kv, update_kv_cache)
-from ..ops.norm import rms_norm
+from ..ops.norm import layer_norm, rms_norm
 from ..ops.qmm import dot_f32, matmul
 from ..ops.rope import RopeConfig, apply_rope, precompute_rope_cache
 
@@ -64,10 +66,14 @@ class TransformerConfig:
     max_length: int
     head_dim: int = -1                      # defaults to hidden/heads
     act: str = "silu"                       # silu | gelu_tanh
+    norm_type: str = "rmsnorm"              # rmsnorm | layernorm (Phi)
     norm_eps: float = 1e-5
     rms_norm_offset: float = 0.0
     rope: RopeConfig = None
     qkv_bias: bool = False
+    o_bias: bool = False                    # the o projection carries a bias (Phi-2; the
+    #                                         linear holds it, as in the JAX package;
+    #                                         models/synthetic.py builds it from this)
     qk_norm: str = "none"                   # "rmsnorm": per-head RMS norm of q and k
     #                                         before RoPE (Qwen3); other modes raise
     tie_lm_head: bool = False
@@ -75,6 +81,7 @@ class TransformerConfig:
     logit_softcap: float = 0.0              # attention score softcap (Gemma-2)
     final_logit_softcap: float = 0.0        # output logit softcap (Gemma-2)
     post_norms: bool = False                # sandwich norms after attention and FFN (Gemma-2/3)
+    parallel_residual: bool = False         # x + attn(norm(x)) + mlp(norm(x)) (Phi-2)
     logit_scale: float = 1.0                # logits times this (Gemma's tied head: 1/sqrt(hidden))
     rope_local: Optional[RopeConfig] = None  # second rope table (Gemma-3's local layers)
     causal: bool = True
@@ -190,6 +197,8 @@ _ACTS = {"silu": F.silu, "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def _norm(cfg: TransformerConfig, x, p):
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, p["w"], p.get("b"), eps=cfg.norm_eps)
     return rms_norm(x, p["w"], eps=cfg.norm_eps, offset=cfg.rms_norm_offset)
 
 
@@ -206,6 +215,16 @@ def gated_mlp(cfg: TransformerConfig, p, x):
         g = matmul(x, p["gate"])
         u = matmul(x, p["up"])
     h = (_ACTS[cfg.act](g) * u).to(x.dtype)
+    return matmul(h, p["down"]).to(x.dtype)
+
+
+def simple_mlp(cfg: TransformerConfig, p, x):
+    """down(act(up(x))), the biases (Phi-2's fc1 / fc2) inside the linears.
+    Apertus's xIELU activation is not ported."""
+    if "xielu" in p:
+        raise NotImplementedError("the xIELU MLP (Apertus) is not ported to "
+                                  "chatllm_tpu_torch yet")
+    h = _ACTS[cfg.act](matmul(x, p["up"])).to(x.dtype)
     return matmul(h, p["down"]).to(x.dtype)
 
 
@@ -226,7 +245,9 @@ def mlp_dispatch(cfg: TransformerConfig, spec: LayerSpec, p, x, router_x=None):
         _not_ported("pre-gate routing (router_x)", "Megrez2")
     if spec.is_moe:
         return moe_mlp(cfg, p, x)
-    return gated_mlp(cfg, p, x)
+    if "gate" in p or "gate_up" in p:
+        return gated_mlp(cfg, p, x)
+    return simple_mlp(cfg, p, x)
 
 
 def moe_route(cfg: TransformerConfig, p, xt):
@@ -556,7 +577,10 @@ def decoder_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
                   rope_cfg: RopeConfig | None = None):
     """Pre-norm decoder layer (reference LMBlock1): GQA or MLA attention,
     dense or MoE FFN; with cfg.post_norms the attention and FFN outputs are
-    normed before their residual adds (LMBlock4, Gemma-2/3's sandwich)."""
+    normed before their residual adds (LMBlock4, Gemma-2/3's sandwich); with
+    cfg.parallel_residual the FFN takes the same normed input as attention
+    and both outputs join the residual together, (x + attn) + mlp (LMBlock2,
+    Phi-2: no ffn_norm)."""
     h = _norm(cfg, x, p["attn_norm"])
     if cfg.mla is not None:
         a = mla_attention_block(cfg, spec, p["attn"], h, cos, sin, k_cache, v_cache, n_past,
@@ -566,6 +590,8 @@ def decoder_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
                             k_scale, v_scale, kv_len, rope_cfg)
     if cfg.post_norms:
         a = _norm(cfg, a, p["post_attn_norm"])
+    if cfg.parallel_residual:
+        return x + a + mlp_dispatch(cfg, spec, p["mlp"], h)
     x = x + a
     h = _norm(cfg, x, p["ffn_norm"])
     m = mlp_dispatch(cfg, spec, p["mlp"], h)

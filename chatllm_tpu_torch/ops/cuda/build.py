@@ -45,10 +45,17 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One csrc/*.cu library: its exported launcher and a launch count."""
+    """One csrc/*.cu library: its exported launcher and a launch count.
+    `defines` (macro names or NAME=value) select a part of the source: two
+    kernels of one source with different defines are two libraries, built
+    by two nvcc processes side by side.  A part of another kernel's wrapper
+    counts its launches as that kernel's (`counts_as`)."""
 
-    def __init__(self, source: str, fn: str, argtypes: list, name: str | None = None):
+    def __init__(self, source: str, fn: str, argtypes: list, name: str | None = None,
+                 defines: tuple = (), counts_as: "CudaKernel | None" = None):
         self.source = source
+        self.counts_as = counts_as
+        self.flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
         self.fn = fn
         self.argtypes = argtypes
         self.name = name or Path(source).stem
@@ -61,7 +68,7 @@ class CudaKernel:
         for p in sorted(CSRC.glob("*.cuh")) + [CSRC / self.source]:
             h.update(p.name.encode())
             h.update(p.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{Path(self.source).stem}-{h.hexdigest()[:12]}.so"
 
     def start_build(self):
@@ -71,7 +78,7 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [_nvcc(), *self.flags, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -116,7 +123,7 @@ class CudaKernel:
         if rc != 0:
             msg = self._lib.cl_error_string(rc).decode()
             raise RuntimeError(f"{self.fn}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        (self.counts_as or self).launches += 1
 
 
 QGEMV = CudaKernel("qgemv.cu", "qgemv_launch",
@@ -126,13 +133,22 @@ QMM = CudaKernel("qmm.cu", "qmm_launch",
 FLASH = CudaKernel("flash_attention.cu", "flash_attention_launch",
                    [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, F, I, P])
 
-FLASH_DECODE = CudaKernel("flash_decode.cu", "flash_decode_launch",
-                          [P, P, P, P, P, P, P, I, P, P,
-                           I, I, I, I, I, I, I, I, F, I, F, I, I, I, I, P])
+# K4 from one source in three libraries (csrc/flash_decode.cu, FD_PART),
+# so that their nvcc runs go side by side: the float dots at D 64, 128 and
+# MLA's (192, 128), the float dots at D 80, 96 and 256 (their launches
+# counted as flash_decode's; ops/cuda/flash_decode.py picks by D), and the
+# int8 dots.  As one library the source made the whole build 41-51 s longer
+# (PERF.md section 4).
+_FD_ARGS = [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, F, I, F, I, I, I, I, P]
+FLASH_DECODE = CudaKernel("flash_decode.cu", "flash_decode_launch", _FD_ARGS,
+                          defines=("FD_PART=1",))
+FLASH_DECODE_WIDE = CudaKernel("flash_decode.cu", "flash_decode_launch", _FD_ARGS,
+                               name="flash_decode_wide", defines=("FD_PART=3",),
+                               counts_as=FLASH_DECODE)
 FLASH_DECODE_INT8 = CudaKernel("flash_decode.cu", "flash_decode_int8_launch",
                                [P, P, P, P, P, P, P, I, P, P,
                                 I, I, I, I, I, I, I, F, I, F, I, I, I, P],
-                               name="flash_decode_int8")
+                               name="flash_decode_int8", defines=("FD_PART=2",))
 QMM_DECODE = CudaKernel("qmm_decode.cu", "qmm_decode_launch",
                         [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
 BW_PROBE = CudaKernel("bw_probe.cu", "bw_probe_launch", [P, L, P, P, P, I, I, P])
@@ -153,7 +169,8 @@ QMM_UNPACK = CudaKernel("qmm_unpack.cu", "qmm_unpack_launch",
 QMM_UNPACK_DIAG = CudaKernel("qmm_unpack.cu", "qmm_unpack_diag_launch",
                              [P, P, P, P, P, P, P, P, I, I, I, I, I, P], name="qmm_unpack_diag")
 
-KERNELS = {k.name: k for k in (QGEMV, QMM, FLASH, FLASH_DECODE, FLASH_DECODE_INT8, QMM_DECODE,
+KERNELS = {k.name: k for k in (QGEMV, QMM, FLASH, FLASH_DECODE, FLASH_DECODE_WIDE,
+                               FLASH_DECODE_INT8, QMM_DECODE,
                                BW_PROBE, GEMV_STREAM, GEMV_VPU, STREAM_READ, QGEMV_BF16,
                                UNPACK_GEMV, QMM_DMA, QMM_UNPACK, QMM_UNPACK_DIAG)}
 

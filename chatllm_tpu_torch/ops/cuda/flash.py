@@ -16,22 +16,24 @@ import torch
 from .build import FLASH, ptr, stream_ptr
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)     # head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 80, 96, 128, 256)   # head dims the CUDA kernel is instantiated for
 # The bf16 kernel's tiles (csrc/flash_attention.cu): a block owns BQ query
 # rows of one head, WG_ROWS per consumer warpgroup, and walks BK[D]-key tiles
 # of the cache through a ring of STAGES[D] shared-memory stages (64-key
 # tiles at D 256, where 128-key ones pass the registers and the shared
-# memory).
+# memory).  Its tiles are TILE_D[D] columns wide: D 80 and 96 run on D 128's
+# tiles, the columns past D zero-filled by TMA.
 BQ, WG_ROWS = 128, 64
-BK = {64: 128, 128: 128, 256: 64}
-STAGES = {64: 4, 128: 2, 256: 2}
+BK = {64: 128, 80: 128, 96: 128, 128: 128, 256: 64}
+STAGES = {64: 4, 80: 2, 96: 2, 128: 2, 256: 2}
+TILE_D = {64: 64, 80: 128, 96: 128, 128: 128, 256: 256}
 # The f32 kernel's (modes 1 and 2): a block of 256 threads owns 128 or 64
 # query rows of one head (`f32_rows`) and walks FBK[D]-key tiles through
 # F_STAGES[D] stages; a walk is split over a cluster of up to MAX_SPLIT
 # blocks, each taking at least MIN_SHARE tiles of the longest walk, where
 # the card holds all the grid's clusters at once.
-FBK = {64: 64, 128: 64, 256: 32}
-F_STAGES = {64: 4, 128: 2, 256: 2}
+FBK = {64: 64, 80: 64, 96: 64, 128: 64, 256: 32}
+F_STAGES = {64: 4, 80: 4, 96: 4, 128: 2, 256: 2}
 MAX_SPLIT, MIN_SHARE = 8, 4
 # Clusters of C blocks of the f32 kernel that one H100 holds at once, the
 # same for every D, mode and row count (one block an SM):
@@ -145,7 +147,7 @@ def prefill_geometry(T: int, S: int, n_past: int, n_tokens: int, D: int, *,
         stages, smem = F_STAGES[D], f32_smem(D, 4 if mode == 1 else 2, bq)
     else:
         splits, stages = 1, STAGES[D]
-        smem = 2 * D * (BQ + 2 * stages * BK[D]) + 1024 + 8 * (1 + 4 * stages) + 8
+        smem = 2 * TILE_D[D] * (BQ + 2 * stages * BK[D]) + 1024 + 8 * (1 + 4 * stages) + 8
     shares = [[(a + r * (b - a) // splits, a + (r + 1) * (b - a) // splits)
                for r in range(splits)] for a, b in tiles]
     return {"tiles": tiles, "interior": interior, "order": order, "splits": splits,

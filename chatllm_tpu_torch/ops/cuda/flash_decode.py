@@ -45,12 +45,13 @@ import os
 
 import torch
 
-from .build import FLASH_DECODE, FLASH_DECODE_INT8, num_sms, ptr, stream_ptr
+from .build import FLASH_DECODE, FLASH_DECODE_INT8, FLASH_DECODE_WIDE, num_sms, ptr, stream_ptr
 from .checks import KIND_BF16, KIND_F32, KIND_I8
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)    # head dims (K = V) the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 80, 96, 128, 256)   # head dims (K = V) the CUDA kernel is instantiated for
 MLA_DIMS = (192, 128)     # ... and MLA's K / V widths, float dots only
+WIDE_DIMS = (80, 96, 256)  # the float dots' head dims built in their own library
 MAX_ROWS = 64             # G * T query rows per kv head the kernel holds (csrc MAX_ROWS)
 D256_MAX_ROWS = 32        # ... at D 256 (csrc `max_rows`: 64 rows' buffers pass the
 #                           shared memory): Gemma-3-1B's 4 query heads a kv head at T 8;
@@ -388,7 +389,8 @@ def flash_decode(q, k_cache, v_cache, n_past, n_tokens: int, *, scale: float,
     rest = (int(n_tokens), float(scale), int(sliding_window), float(logit_softcap),
             KIND_F32 if q.dtype == torch.float32 else KIND_BF16)
     if qk_dtype != "int8":
-        FLASH_DECODE.launch(*head, *dims, Dv, *rest, kind, int(qk_dtype == "bfloat16"),
+        lib = FLASH_DECODE_WIDE if D in WIDE_DIMS else FLASH_DECODE
+        lib.launch(*head, *dims, Dv, *rest, kind, int(qk_dtype == "bfloat16"),
                             decode_geometry(B, Hkv, S, num_sms(dev)), stream_ptr(dev))
         return o
     bk = batched_block_k(block_k, S, Hkv, D, Dv, 1)

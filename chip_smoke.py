@@ -43,7 +43,12 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              and K2 at GLM-4-9B's projections (fused qkv N 4608 and gate_up
              N 27392, the q8_0 down at K 13696, the head N 151552; K2 timed
              at the server's 2 rows), K3 (mode 2 timed) and K4 at its 32
-             query heads over 2 kv heads, and K1, K2
+             query heads over 2 kv heads, K3 in its three modes and K4 (f32
+             and int8 dots) at head dims 96 and 80 (Phi-3.5-mini's and
+             Phi-2's 1000-token chunk over 8192 / 4096 slots and their q8
+             decode after it, timed; the 2-slot step, a chunk ending at the
+             cache's last slot, a window with the softcap, 64 rows a kv
+             head), and K1, K2
              and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
@@ -161,13 +166,14 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              at each Shift (the next turn's prefill and first decode step over
              the shifted cache within 1e-3 of the logit scale, same argmax),
              run first, its CPU side in a worker thread during the rest.
-  7. qwen2   full-width Qwen2.5-0.5B (24 layers, vocab 151936, random q8_0
-             weights with non-zero q/k/v biases, tied lm_head, max_length
-             8192) through InferenceEngine over bf16 and q8 caches with exact
-             launch counts (168 quantized projections per token), its 2-layer
+  7. qwen2   full-width Qwen2.5-0.5B cut to QWEN_DEPTH = 6 of its 24 layers
+             (vocab 151936, random q8_0 weights with non-zero q/k/v biases,
+             tied lm_head, max_length 8192) through InferenceEngine over bf16
+             and q8 caches with exact launch counts (7 quantized projections a
+             layer per token), its 2-layer
              cuts against the CPU (1e-2 of the logit scale, same argmax), and
              graph_decode at its width.
-     deepseek_v2_lite  full-width DeepSeek-V2-Lite cut to DSV2_DEPTH = 10 of
+     deepseek_v2_lite  full-width DeepSeek-V2-Lite cut to DSV2_DEPTH = 3 of
              its 27 layers (MLA, 64
              routed experts + 2 shared, top-6; random zero-centred q4_k
              projections and bf16 expert stacks from a seed,
@@ -195,7 +201,7 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              image_url request with a data URI answers as chat_image does;
              2-layer cuts of the tower and of the LLM over the spliced
              embeddings against the CPU.
-     qwen3_30b_a3b  full-width Qwen3-30B-A3B cut to A3B_DEPTH = 16 of its 48
+     qwen3_30b_a3b  full-width Qwen3-30B-A3B cut to A3B_DEPTH = 8 of its 48
              MoE layers (`qwen3_a3b_phase`:
              128 experts, top-8, no shared expert, 32 query
              heads over 4 kv heads, random zero-centred q4_k projections and
@@ -279,6 +285,35 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              cut with its attention scale one f32 step up) and failed beyond
              twice it, its control (rope over whole heads) outside the
              bound.  Peak memory.
+     phi3_5_mini  full-width, full-depth Phi-3.5-mini (`phi_phase`: 32
+             layers, 32 heads of 96 over 32 kv heads, LongRoPE's long factors
+             and mscale, a window of 262145 beyond every cache (the dense
+             windowed route), the untied 32064-row head on the
+             dequantize-then-matmul route, random q4_k weights from seed 0,
+             max_length 8192): the 1000-token prompt and 64 greedy tokens
+             over bf16 and q8 caches replayed from graphs, K1 224 a step, K3
+             mode 2 at D 96 on all 32 layers over bf16, K4 (one row a kv
+             head, f32 dots) 32 a q8 step, one block profiled; a 2-layer cut
+             over 642 positions against the CPU within 1e-3 / 4e-3, the
+             argmax equal where clear (recorded beside two witnesses: the
+             attention scale one f32 step up, and the card at f32
+             activations; control: the long factors dropped); on
+             zero-centred weights uncaptured tokens equal to
+             replayed ones at a 4-layer cut, and a 2-slot q8 server (1000 and
+             1100 tokens x 32, f32 activations, K4 with per-row n_past at B.G
+             2) whose replies equal one-at-a-time ones, its tie to the single
+             stream held at a 4-layer cut as GLM-4-9B's.  Peak memory.
+     phi2    full-width, full-depth Phi-2 (`phi_phase`: 32 heads of 80,
+             LayerNorm with biases, the parallel residual, the biased GELU
+             MLP and head, NeoX rope on 32 of 80 dims, zero-centred q4_k
+             weights from seed 0; max_length 4096, above
+             its trained 2048, so that a q8 cache takes K4): the same chat
+             runs (K1 193 a step: q, k, v, dense, fc1, fc2 a layer and the
+             head; K3 mode 2 and K4 at D 80), the 2-layer cut (a miss of 1e-3
+             / 4e-3 fails on a clear argmax or beyond twice the larger of its
+             two witnesses; control: rope over whole heads; the same cut on
+             positive-biased weights recorded beside its witnesses) and the
+             uncaptured check; no server.
      gemma2_9b  a full-width 2-layer cut of Gemma-2-9B (`gemma2_phase`: a
              ring layer and a global one, attention softcap 50, final softcap
              30) over 642 positions against the CPU, as gemma3's cut (its
@@ -292,7 +327,10 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              that their 640-token prompt wraps, Mistral2 with 128-wide heads,
              Gemma, Gemma-2, Gemma-3 and RNJ-1 with heads of 256, the last
              three over such rings, ChatGLM2 / 3, CodeGeeX2 / 4, CharacterGLM,
-             GLM-4 and GLM-4-0414) in f32 and q4_k, loaded on the card and
+             GLM-4 and GLM-4-0414, the ten Phi types: Phi-2 and
+             Dolphin-Phi-2 in both layouts, Phi-3 over a ring of 2560
+             slots, Phi-3-SU / SU2 / SU3, Phi-4-mini and Phi-4) in f32 and
+             q4_k, loaded on the card and
              the CPU (`families_phase`): config and weights bit-equal, logits
              within 1e-4 (f32) or 2e-2 (q4_k) of the CPU's; the narrow
              Qwen3-MoE and each of FAMILY_CHATS chat through `main.py --test` on
@@ -377,10 +415,15 @@ DSV2_LAYERS = 27                   # DeepSeek-V2-Lite
 # The depth the DeepSeek-V2-Lite and Qwen3-30B-A3B phases run at, cut from 27
 # and 48 so that the whole script stays inside its time with the mistral_7b
 # phase (PERF.md section 4); widths stay as published
-DSV2_DEPTH = 10                    # the dense layer 0 and 9 MoE layers
-A3B_DEPTH = 16
+# Depth cuts of phases whose kernels and paths other phases cover at full
+# depth, sized to the time the Phi phases added, after a whole-script run with
+# them passed 1200 s (1292.3 s on a host that built in 127.9 s; PERF.md
+# section 4)
+DSV2_DEPTH = 3                     # the dense layer 0 and 2 MoE layers
+A3B_DEPTH = 8
 MISTRAL_DEPTH = 4                  # Mistral-7B's 32 layers cut to 4 (since the Gemma phases)
 IVL_DEPTH = 12                     # InternVL3.5-8B's 36 LLM layers cut to 12 (likewise)
+QWEN_DEPTH = 6                     # Qwen2.5-0.5B's 24 layers cut to 6
 DECODE_BLOCK = 16                  # InferenceEngine's default decode_block
 
 
@@ -879,6 +922,8 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
         return write_deepseek_v2_ggmm(path, model_type=mtype, **kw)
     if family in GLM_FAMILIES:
         return write_glm_ggmm(path, family, **kw)
+    if family in PHI_FAMILIES:
+        return write_phi_ggmm(path, family, **kw)
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
     rng = np.random.default_rng(seed)
@@ -1080,6 +1125,137 @@ def write_glm_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cls=N
     return path
 
 
+# The Phi families: Phi-2's LayerNorm decoder with a parallel residual and
+# biases everywhere, in the v2 (HF) names or the v1 (GPT-style) ones; Phi-3's
+# llama-like blocks over a SentencePiece-score vocab, plain, windowed over
+# 2048 keys in a 4096 context (a ring of 2560 slots), or with LongRoPE's
+# factors (SU / SU2 over a window wider than any cache; SU3 / PHI4_MINI with
+# their stored mscales); Phi-4's over a byte-level vocab
+PHI2_FAMILIES = ("phi2", "dolphinphi2_v2", "phi2_v1", "dolphinphi2")
+PHI3_FAMILIES = ("phi3", "phi3_su", "phi3_su2", "phi3_su3", "phi4_mini")
+PHI_FAMILIES = PHI2_FAMILIES + PHI3_FAMILIES + ("phi4",)
+PHI3_SPECIALS = ("<|endoftext|>", "<|assistant|>", "<|system|>", "<|end|>", "<|user|>")
+PHI4_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_sep|>", "<|im_end|>")
+PHI3_WINDOW = 2047                 # Phi-3-mini-4k's sliding_window (the loader adds 1)
+PHI3_CTX = 4096
+PHI2_ROPE_DIM = 24                 # the v2 files' rope width (v1's is fixed at 32)
+PHI_SU_CTX = (1024, 256)           # max_position_embeddings, original_max_position_embeddings
+PHI_SU_WINDOW = 262144             # Phi-3.5-mini's: wider than any cache, no ring
+PHI35_WINDOW = PHI_SU_WINDOW + 1   # the window its layers take (the loader adds 1)
+
+
+def write_phi_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cls=None,
+                   vocab: int = 384, hidden: int = 256, heads: int = 4, kv_heads: int = 2,
+                   layers: int = 2, inter: int = 512, phi3_fallback: bool = False):
+    """A narrow random-weight GGMM of a Phi family (PHI_FAMILIES) in the
+    converter's layout (chatllm.cpp convert.py Phi2Converter / Phi3Converter
+    / Phi3SUConverter / Phi4Converter names): hidden 256, 4 heads of 64, 2
+    layers, FFN 512, every matrix in `dtype` (q4_k by default), norms,
+    biases and the embedding f32.  Phi-2 (MHA): LayerNorm weights and
+    biases, biased q/k/v, dense, fc1, fc2 and head; its vocab byte-level
+    with <|endoftext|> (Dolphin's: ChatML's specials).  Phi-3 (2 kv heads):
+    the SentencePiece-score vocab of `_sp_pieces` with PHI3_SPECIALS past it
+    (eos <|endoftext|>); `phi3_fallback` writes a PHI3 file whose 32000
+    pieces hold no role piece under a config vocab of 32064, the layout in
+    which the loader takes Phi-3's fixed role ids.  Phi-4: the Llama-3
+    config over a byte-level vocab with PHI4_SPECIALS."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.ggmm.writer import GGMMWriter
+    from chatllm_tpu_torch.models.model_types import ModelType
+
+    writer_cls = writer_cls or GGMMWriter
+    dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=None):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def tensor(name, *shape, scale=None):
+        wr.write_tensor(name, w(*shape, scale=scale), dtype if len(shape) == 2 else GGMLType.F32)
+
+    phi2 = family in PHI2_FAMILIES
+    if phi3_fallback:
+        vocab = 32064
+    max_len = PHI3_CTX if family == "phi3" else PHI_SU_CTX[0] if family != "phi4" else 512
+    if phi2:
+        kv_heads, max_len = heads, 512
+    specials = (CHATML_SPECIALS if family.startswith("dolphin") else PHI4_SPECIALS
+                if family == "phi4" else CHATML_SPECIALS[:1] if phi2 else PHI3_SPECIALS)
+    sp = family in PHI3_FAMILIES
+    bos, eos = ((1, vocab - len(PHI3_SPECIALS)) if sp and not phi3_fallback else (1, 2) if sp
+                else (256, 256) if phi2 else (256, 256 + len(PHI4_SPECIALS) - 1))
+    base = [int(dtype), vocab, hidden, heads, layers, inter, max_len, bos, eos, -1, -1]
+    d = hidden // heads
+    with open(path, "wb") as f:
+        wr = writer_cls(f, int(ModelType[FAMILIES[family][0]]), 1,
+                        meta={"model_name": f"tiny-{family}"})
+        if family in ("phi2", "dolphinphi2_v2"):
+            wr.write_config(base, fmt="11i")
+            f.write(struct.pack("<if", PHI2_ROPE_DIM, 10000.0))       # rope_dim, rope_theta
+        elif phi2:
+            wr.write_config(base, fmt="11i")
+        elif family == "phi3":
+            # n_kv, original_max_position_embeddings, sliding_window; rope_theta
+            wr.write_config(base + [kv_heads, PHI3_CTX, PHI3_WINDOW], fmt="14i")
+            f.write(struct.pack("<f", 10000.0))
+        elif family == "phi4":
+            wr.write_config(base + [kv_heads], fmt="12i")              # n_kv; rope_theta
+            f.write(struct.pack("<f", 250000.0))
+        else:
+            # max_position_embeddings, n_kv, original_max, sliding_window,
+            # rope_scaling; rope_theta, short and long factors (128 each,
+            # the first d / 2 used), SU3 / PHI4_MINI: short and long mscale
+            wr.write_config(base + [PHI_SU_CTX[0], kv_heads, PHI_SU_CTX[1], PHI_SU_WINDOW, 1],
+                            fmt="16i")
+            half = d // 2
+            short = [1.0] * half + [0.0] * (128 - half)
+            long = [1.0 + i / 4 for i in range(half)] + [0.0] * (128 - half)
+            f.write(struct.pack("<f128f128f", 10000.0, *short, *long))
+            if family in ("phi3_su3", "phi4_mini"):
+                f.write(struct.pack("<2f", 1.0, 1.25))
+        wr._patch_offset(12)
+        if phi3_fallback:
+            wr.write_vocab_sp(_sp_pieces(32000))
+        elif sp:
+            wr.write_vocab_sp(_sp_pieces(vocab - len(specials))
+                              + [(t.encode(), -1e4) for t in specials])
+        else:
+            wr.write_vocab_bpe(_byte_pieces(specials, vocab), [])
+        if not phi2:
+            _write_dense_tensors(wr, w, dtype, vocab, hidden, heads, kv_heads, layers, inter)
+            return path
+        v1 = family in ("phi2_v1", "dolphinphi2")
+        names = PHI2_V1_TENSORS if v1 else PHI2_V2_TENSORS
+        wr.write_tensor(names["embed"], w(vocab, hidden, scale=1.0), GGMLType.F32)
+        for i in range(layers):
+            p = names["layer"].format(i=i)
+            wr.write_tensor(f"{p}.{names['norm']}.weight", 1.0 + 0.1 * w(hidden, scale=1.0),
+                            GGMLType.F32)
+            tensor(f"{p}.{names['norm']}.bias", hidden, scale=0.1)
+            for name in ("q_proj", "k_proj", "v_proj", names["o"]):
+                tensor(f"{p}.{names['attn']}.{name}.weight", hidden, heads * d)
+                tensor(f"{p}.{names['attn']}.{name}.bias", hidden, scale=0.5)
+            tensor(f"{p}.mlp.fc1.weight", inter, hidden)
+            tensor(f"{p}.mlp.fc1.bias", inter, scale=0.5)
+            tensor(f"{p}.mlp.fc2.weight", hidden, inter)
+            tensor(f"{p}.mlp.fc2.bias", hidden, scale=0.5)
+        wr.write_tensor(f"{names['final_norm']}.weight", 1.0 + 0.1 * w(hidden, scale=1.0),
+                        GGMLType.F32)
+        tensor(f"{names['final_norm']}.bias", hidden, scale=0.1)
+        tensor(f"{names['head']}.weight", vocab, hidden)
+        tensor(f"{names['head']}.bias", vocab, scale=0.5)
+    return path
+
+
+PHI2_V2_TENSORS = {"embed": "model.embed_tokens.weight", "layer": "model.layers.{i}",
+                   "norm": "input_layernorm", "attn": "self_attn", "o": "dense",
+                   "final_norm": "model.final_layernorm", "head": "lm_head"}
+PHI2_V1_TENSORS = {"embed": "transformer.embd.wte.weight", "layer": "transformer.h.{i}",
+                   "norm": "ln", "attn": "mixer", "o": "out_proj", "final_norm": "lm_head.ln",
+                   "head": "lm_head.linear"}
+
+
 # The families of write_family_ggmm: name -> (model type, writer options)
 FAMILIES = {
     "llama3_2": ("LLAMA3_2", {}),
@@ -1110,6 +1286,16 @@ FAMILIES = {
     "glm4": ("GLM4", {}),
     "codegeex4": ("CODEGEEX4", {}),
     "glm4_0414": ("GLM4_0414", {}),
+    "phi2": ("PHI2_V2", {}),
+    "dolphinphi2_v2": ("DOLPHINPHI2_V2", {}),
+    "phi2_v1": ("PHI2", {}),
+    "dolphinphi2": ("DOLPHINPHI2", {}),
+    "phi3": ("PHI3", {}),
+    "phi3_su": ("PHI3_SU", {}),
+    "phi3_su2": ("PHI3_SU2", {}),
+    "phi3_su3": ("PHI3_SU3", {}),
+    "phi4_mini": ("PHI4_MINI", {}),
+    "phi4": ("PHI4", {}),
 }
 
 
@@ -1892,6 +2078,7 @@ def flash_cases(dev, timer, gen) -> dict:
     A3 = (32, 4, 128)                      # Qwen3-30B-A3B: 8 query heads per kv head
     G3, G2, G1 = (16, 8, 256), (16, 8, 256), (4, 1, 256)   # Gemma-3-12B, -2-9B, -3-1B
     GL = (32, 2, 128)                      # GLM-4-9B: 16 query heads per kv head
+    P35, P2 = (32, 32, 96), (32, 32, 80)   # Phi-3.5-mini, Phi-2: MHA at D 96 / 80
     cases = [  # (heads, T, S, n_past, n_tokens, window, softcap, timed as)
         (L3, 128, 1024, 0, 128, 0, 0.0, None),
         (L3, 512, 8192, 1000, 512, 0, 0.0, None),
@@ -1960,12 +2147,21 @@ def flash_cases(dev, timer, gen) -> dict:
         (GL, 1024, 8192, 0, 1000, 0, 0.0, "glm_prefill_1000"),
         (GL, 512, 8192, 1001, 500, 0, 0.0, None),
         (GL, 128, 8192, 8064, 128, 0, 0.0, None),
+        # head dims 80 and 96 (D 128's tiles, the columns past D zero): the
+        # 1000-token prompt of Phi-3.5-mini (its window of 262145 over 8192
+        # slots) and of Phi-2 (4096 slots), timed in all three modes; a
+        # chunk that ends at the cache's last slot, a window with the softcap
+        (P35, 1024, 8192, 0, 1000, PHI35_WINDOW, 0.0, "phi35_prefill_1000"),
+        (P2, 1024, 4096, 0, 1000, 0, 0.0, "phi2_prefill_1000"),
+        (P35, 200, 4000, 3800, 200, 0, 0.0, None),
+        (P2, 320, 2048, 700, 320, 300, 50.0, None),
     ]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the clusters of each f32 kernel the card holds at once, which the
     # kernel's split and its schedule's twin both read
     slots = {(D, mode, bq): cluster_slots(D, mode, bq)
-             for D, bqs in ((128, (128, 64)), (64, (64,)), (256, (64,)))
+             for D, bqs in ((128, (128, 64)), (64, (64,)), (80, (64,)), (96, (64,)),
+                            (256, (64,)))
              for mode in (1, 2) for bq in bqs}
     log(f"  f32 kernels' cluster slots (D, mode, rows): {slots}")
     out = {"cases": [], "shapes": {},
@@ -2128,6 +2324,16 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (1, 1, 32, 2, 128, [1064], "int8", "bfloat16", {}, "glm_decode_1064"),
     (1, 1, 32, 2, 128, [6000], "int8", "float32", {}, None),
     (2, 1, 32, 2, 128, [1000, 2100], "int8", "bfloat16", {}, None),
+    # head dims 96 and 80 (Phi-3.5-mini, Phi-2: 32 kv heads, one row each):
+    # their q8 decode after the 1000-token prompt with the f32 dots the
+    # route takes there (the JAX package's per-head kernel), the 2-slot
+    # server's per-row step, bf16 dots, 64 rows a kv head with sinks
+    (1, 1, 32, 32, 96, [1064], "int8", "float32", {"sliding_window": PHI35_WINDOW},
+     "phi35_decode_1064"),
+    (1, 1, 32, 32, 80, [1064], "int8", "float32", {"S": 4096}, "phi2_decode_1064"),
+    (2, 1, 32, 32, 96, [1000, 1100], "int8", "float32", {}, "phi35_serve_2"),
+    (1, 1, 32, 32, 96, [3000], "bfloat16", "bfloat16", {}, None),
+    (1, 8, 8, 1, 80, [2000], "float32", "float32", {"sinks": True}, None),
 ]
 
 # The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
@@ -2189,6 +2395,11 @@ DECODE_INT8_CASES = [
     (2, 1, 16, 8, 256, [2100, 6000], {"sinks": True}, None),
     (1, 8, 4, 1, 256, [3000], {"q": torch.float32}, None),
     (1, 1, 16, 8, 256, [511], {}, None),
+    # head dims 96 and 80 (Phi-3.5-mini, Phi-2): 6 and 5 16-byte chunks a
+    # row, 32 kv heads (the batched kernel's block 256 at D 96), 64 rows
+    (1, 1, 32, 32, 96, [1064], {}, "phi35_decode_1064"),
+    (1, 1, 32, 32, 80, [1064], {}, "phi2_decode_1064"),
+    (1, 8, 8, 1, 80, [3000], {"sinks": True}, None),
 ]
 
 # The int8 dots on the edges of their design (csrc `int8_share`): a row with
@@ -3785,7 +3996,7 @@ def qwen2_phase(dev) -> dict:
     caches with exact launch counts, then the 2-layer cuts against the CPU."""
     from chatllm_tpu_torch.models.synthetic import build_synthetic_params, qwen2_5_0_5b_config
 
-    cfg = qwen2_5_0_5b_config(max_length=8192)
+    cfg = replace(qwen2_5_0_5b_config(max_length=8192), num_hidden_layers=QWEN_DEPTH)
     params = build_synthetic_params(cfg, "q8", zeros=False, seed=0, device=dev)
     torch.cuda.synchronize()
     res = chat_phase(dev, cfg, params)
@@ -4730,7 +4941,8 @@ FAMILY_PICKS_AGREE_MIN = 0.75
 FAMILY_TOL = {"f32": 1e-4, "q4_k": 2e-2}
 # --test chats too
 FAMILY_CHATS = (("llama2", "codellama", "mistral", "mixtral", "mistral2") + GEMMA_FAMILIES
-                + GLM_FAMILIES)
+                + GLM_FAMILIES + ("phi2", "phi2_v1", "dolphinphi2", "phi3", "phi3_su2",
+                                  "phi3_su3", "phi4"))
 
 
 def family_turns(fam: str) -> list:
@@ -4823,7 +5035,8 @@ def families_phase(dev) -> dict:
     and V1-MoE, DeepSeek-V3 with a low-rank q and grouped sigmoid routing,
     Moonlight, V3-Light, Llama-2, CodeLlama, Mistral and Mixtral over rings
     of 576 slots, Mistral2's 128-wide heads, the Gemmas' heads of 256, the
-    GLM families' fused qkv and gate_up), written narrow by
+    GLM families' fused qkv and gate_up, the Phi families' LayerNorm
+    decoder, parallel residual and LongRoPE), written narrow by
     `write_family_ggmm` in f32 and in q4_k and loaded on the card and on the
     CPU: the same config and every parameter bit-equal; the logits of a
     32-token prompt (FAMILY_RING_PROMPT tokens for the ring families, which
@@ -5569,16 +5782,15 @@ def gemma3_phase(dev) -> dict:
     return res
 
 
-def _cpu_cuts(cfg2, p_cpu, ids, kw):
-    """A Gemma cut's CPU side over a bf16 and a q8 cache, queued on
-    CUT_WORKER (one cut at a time, on all host cores but one: the card's
-    dispatch keeps it).  Returns the future of {cache: logits}."""
+def _cpu_cuts(cfg2, p_cpu, ids, kw, caches=("bfloat16", "int8")):
+    """A Gemma cut's CPU side over a bf16 and a q8 cache (or `caches`),
+    queued on CUT_WORKER (one cut at a time, on all host cores but one: the
+    card's dispatch keeps it).  Returns the future of {cache: logits}."""
     def run():
         torch.set_num_threads(max(1, HOST_THREADS - 1))
         try:
             with _DequantOnce():
-                return {c: _ring_cut(cfg2, p_cpu, ids, "cpu", c, **kw)[0]
-                        for c in ("bfloat16", "int8")}
+                return {c: _ring_cut(cfg2, p_cpu, ids, "cpu", c, **kw)[0] for c in caches}
         finally:
             torch.set_num_threads(HOST_THREADS)
 
@@ -5945,8 +6157,9 @@ def _glm_server(dev, cfg8, params, prompts, name: str) -> dict:
     return sr
 
 
-def _glm_serve_cut(dev, c8, p32, prompts) -> dict:
-    """The 2-slot q8 server at GLM_SERVE_DEPTH layers, teacher-forced on the
+def _serve_cut(dev, c8, p32, prompts, name: str = "glm4_9b", server=None) -> dict:
+    """The 2-slot q8 server (`server`, `_glm_server` by default, which holds
+    its launches) at GLM_SERVE_DEPTH layers, teacher-forced on the
     single-stream engine of the same cut: every token of both replies its
     greedy choice or within GLM_SERVE_TIE of the logit scale below it, and
     at least 8 distinct tokens a reply.  The same measure is taken of the
@@ -5960,7 +6173,7 @@ def _glm_serve_cut(dev, c8, p32, prompts) -> dict:
     n = GLM_SERVE_DEPTH
     cfgc = replace(c8, num_hidden_layers=n)
     pc = dict(p32, layers=p32["layers"][:n])
-    sr = _glm_server(dev, cfgc, pc, prompts, f"glm4_9b {n}-layer cut")
+    sr = (server or _glm_server)(dev, cfgc, pc, prompts, f"{name} {n}-layer cut")
     eng, wit = (InferenceEngine(c, pc, device=dev) for c in (cfgc, _scale_step(cfgc)))
     sr["single"] = []
     for p, got in zip(prompts, sr["replies"]):
@@ -5980,14 +6193,14 @@ def _glm_serve_cut(dev, c8, p32, prompts) -> dict:
         f"{sr['launches']['qmm']}; against the single-stream engine, teacher-forced {single} "
         f"(limit {GLM_SERVE_TIE} of the logit scale)")
     if any(a["distinct_tokens"] < 8 or a["largest_gap"] > GLM_SERVE_TIE for a in single):
-        raise AssertionError(f"glm4_9b 2-slot server at {n} layers: a reply's token is not the "
+        raise AssertionError(f"{name} 2-slot server at {n} layers: a reply's token is not the "
                              f"single-stream engine's greedy choice on its prefix ({single}; "
                              f"limit {GLM_SERVE_TIE} of the logit scale)")
     if any(a["witness_gap"] > GLM_SERVE_TIE for a in single):
-        raise AssertionError(f"glm4_9b 2-slot server at {n} layers: the witness (attention "
+        raise AssertionError(f"{name} 2-slot server at {n} layers: the witness (attention "
                              f"scale one f32 step up) fails the tie ({single})")
     if max(a["control_gap"] for a in single) <= GLM_SERVE_TIE:
-        raise AssertionError(f"glm4_9b 2-slot server at {n} layers: the control (n_past one "
+        raise AssertionError(f"{name} 2-slot server at {n} layers: the control (n_past one "
                              f"ahead) passes the tie ({single})")
     return sr
 
@@ -6020,7 +6233,7 @@ def glm4_phase(dev) -> dict:
         at GLM_SERVE_DEPTH layers with every token that cut's greedy
         choice, teacher-forced, up to GLM_SERVE_TIE of the logit scale,
         beside a witness that must pass the tie and a control that must
-        fail it (`_glm_serve_cut`); and at a depth cut of GLM_EAGER_DEPTH
+        fail it (`_serve_cut`); and at a depth cut of GLM_EAGER_DEPTH
         layers, the
         uncaptured loop's GLM_NEW tokens equal to the replayed ones over
         both caches.
@@ -6112,7 +6325,7 @@ def glm4_phase(dev) -> dict:
     # gaps below the single-stream engine's greedy choice are recorded, not
     # held: there one f32 step of the attention scale parts the logits by
     # 3.9e-2 / 4.7e-2 of their scale, more than the tie.  The tie is held at
-    # GLM_SERVE_DEPTH layers (`_glm_serve_cut`).
+    # GLM_SERVE_DEPTH layers (`_serve_cut`).
     p32 = dict(params, embed=params["embed"].float())
     rng = np.random.default_rng(5)
     sprompts = [rng.integers(0, V, n).tolist() for n in GLM_SERVE]
@@ -6131,38 +6344,16 @@ def glm4_phase(dev) -> dict:
                              f"({sr['single']})")
     del eng
     torch.cuda.empty_cache()
-    sr["cut"] = _glm_serve_cut(dev, c8, p32, sprompts)
+    sr["cut"] = _serve_cut(dev, c8, p32, sprompts)
     res["serve"] = sr
     del p32
     torch.cuda.empty_cache()
     span("serve")
 
     # ---- uncaptured against replayed at a depth cut
-    cfg4 = replace(cfg, num_hidden_layers=GLM_EAGER_DEPTH)
-    p4 = dict(params, layers=params["layers"][:GLM_EAGER_DEPTH])
-    res["eager_cut"] = {"layers": GLM_EAGER_DEPTH}
-    for cache in ("bfloat16", "int8"):
-        runs = {}
-        for mode in ("eager", "graph"):
-            eng = InferenceEngine(replace(cfg4, cache_dtype=cache), p4, device=dev,
-                                  cuda_graphs=mode == "graph")
-            runs[mode] = _timed_generate(eng, eng.new_cache(1), prompt, GLM_NEW,
-                                         f"glm4_9b {GLM_EAGER_DEPTH}-layer cut {mode}")
-            del eng
-        (te, re_), (tg, rg) = runs["eager"], runs["graph"]
-        k1 = 4 * GLM_EAGER_DEPTH + 1
-        res["eager_cut"][cache] = {"tokens_equal": te == tg, "distinct_tokens": len(set(te)),
-                                   "eager_steps_s": re_["decode_steps_s"],
-                                   "replayed_steps_s": rg.get("replayed_steps_s")}
-        log(f"  {GLM_EAGER_DEPTH}-layer cut (centred weights), {cache}: "
-            f"{res['eager_cut'][cache]}")
-        if (te != tg or len(set(te)) < 8 or re_["replayed_steps"]
-                or rg["replayed_steps"] < GLM_NEW - DECODE_BLOCK
-                or re_["launches"]["qgemv"] != k1 * re_["eager_steps"] + 1):
-            raise AssertionError(f"glm4_9b {GLM_EAGER_DEPTH}-layer cut {cache}: replayed tokens "
-                                 f"{tg} against uncaptured {te}; eager launches "
-                                 f"{re_['launches']}, {re_['eager_steps']} eager steps")
-    del p4, params
+    res["eager_cut"] = _eager_vs_replayed(dev, cfg, params, prompt, "glm4_9b", GLM_STEP_K1, True,
+                                          GLM_EAGER_DEPTH, GLM_NEW)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     span("eager_cut")
@@ -6205,6 +6396,308 @@ def glm4_phase(dev) -> dict:
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     res["seconds"] = time.perf_counter() - t_phase
     log(f"  glm4_9b phase: params {res['param_gib']:.2f} GiB, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB, {res['seconds']:.1f} s ({spans})")
+    return res
+
+
+# ------------------------------------------------------ phi3_5_mini, phi2 phases
+PHI_PROMPT = 1000                  # prompt tokens: one 1024-row chunk, K3 on every layer
+PHI_NEW = 64                       # greedy tokens, replayed from CUDA graphs
+PHI_LAYERS = 32
+PHI_CUT_POSITIONS = 640            # the 2-layer cut's prompt (a 512- and a 128-row chunk,
+#                                    K3 on both over bf16), then 2 decode steps (K4 over q8)
+# The 2-layer cut's logits against the CPU's, of the logit scale: Mistral's
+# and GLM-4-9B's bounds.  Phi-3.5-mini's cut is held to them.  Phi-2's (its
+# LayerNorm over zero-centred weights) is held as GLM-4-9B's is, with a second
+# witness beside the first: a miss fails on a clear argmax, or beyond twice
+# the larger of the witness (the card's cut with its attention scale one f32
+# step up, against the card) and the f32 witness (the card's cut at f32
+# activations against the CPU's at bf16: what the CPU's own bf16 rounding of
+# the activations leaves; `_phi_cut`).
+PHI_CUT_TOL = GLM_CUT_TOL
+PHI_SERVE = GLM_SERVE              # the 2-slot server's prompts (1000 and 1100 tokens)
+PHI_SERVE_NEW = 32
+PHI_EAGER_DEPTH = 4                # the uncaptured-against-replayed check's depth cut
+# Each model's builder and max_length, its build_synthetic_params options,
+# its K1 launches a decode step and whether the head is one of them
+# (Phi-3.5-mini's N 32064 is not a multiple of 128: the dequantize-then-matmul
+# route, as in the JAX package), whether it runs the 2-slot server, and its
+# cut's control and whether a miss of its bound may stand beside the
+# witnesses (`strict`).  Phi-2's weights are zero-centred throughout: on
+# positive-biased ones its 2-layer cut parted from the CPU, and its witness
+# from the card, by several hundredths of the logit scale; the phase records
+# that cut beside both witnesses (`_phi_cut`, bf16 cache, not held).
+PHI_MODELS = {
+    "phi3_5_mini": dict(config="phi3_5_mini_config", max_length=8192, opts={},
+                        k1_step=7 * PHI_LAYERS, head_k1=False, serve=True, strict=True,
+                        control="LongRoPE's factors dropped",
+                        fault=lambda c: replace(c, rope=replace(c.rope, freq_factors=None))),
+    "phi2": dict(config="phi2_config", max_length=4096,
+                 opts=dict(mlp="plain", centered=True),
+                 k1_step=6 * PHI_LAYERS + 1, head_k1=True, serve=False, strict=False,
+                 control="rope over whole heads",
+                 fault=lambda c: replace(c, rope=replace(c.rope, rot_dim=-1))),
+}
+
+
+def _phi_cut(name: str, cfg2, p2, ids, kw, cpu: dict, strict: bool) -> dict:
+    """A Phi 2-layer cut on the card (params `p2`) against the CPU's logits
+    `cpu` {cache: logits}, per cache, beside the witness (the card's cut
+    with its attention scale one f32 step up, against the card) and the f32
+    witness (the card's cut at f32 activations, against the CPU; and against
+    the card).  `strict` True: each cut within PHI_CUT_TOL with the argmax
+    equal where clear, or it raises; False: a miss raises on a clear argmax
+    or beyond twice the larger witness; None: recorded, not held."""
+    dev = p2["embed"].device
+    p32 = dict(p2, embed=p2["embed"].float())
+    res = {}
+    for cache in cpu:
+        tol = PHI_CUT_TOL[cache]
+        card = _ring_cut(cfg2, p2, ids, dev, cache, **kw)[0]
+        witness = _ring_cut(_scale_step(cfg2), p2, ids, dev, cache, **kw)[0]
+        f32 = _ring_cut(cfg2, p32, ids, dev, cache, **kw)[0]
+        what = f"{name} 2-layer cut {cache}"
+        c = {"card": _cut_compare(f"{what}, card vs cpu", card, cpu[cache], tol, strict=False),
+             "witness": _cut_compare(f"{what}, witness vs card", witness, card, tol,
+                                     strict=False),
+             "f32_witness": _cut_compare(f"{what}, card at f32 activations vs cpu", f32,
+                                         cpu[cache], tol, strict=False),
+             "f32_vs_card": _cut_compare(f"{what}, card at f32 activations vs card", f32,
+                                         card, tol, strict=False)}
+        c["bound_met"] = c["card"]["within_tolerance"]
+        c["limit"] = 2 * max(c["witness"]["rel_to_logit_scale"],
+                             c["f32_witness"]["rel_to_logit_scale"])
+        res[cache] = c
+        if strict is None or c["bound_met"]:
+            continue
+        if strict or (c["card"]["rel_to_logit_scale"] > c["limit"]
+                      or not c["card"]["argmax_equal_where_clear"]):
+            raise AssertionError(f"{what}: the card is {c['card']} from the CPU, beyond {tol}"
+                                 + ("" if strict else f" and twice the larger witness ("
+                                    f"{c['witness']}; f32 {c['f32_witness']})"))
+    return res
+
+
+def _phi_server(dev, cfg8, params, prompts, name: str) -> dict:
+    """`_staggered_server` over a Phi model's q8 cache, its launches held:
+    K2 on every quantized projection of every batched step, and K4 (per-row
+    n_past, B.G = 2) on every layer of it."""
+    sr = _staggered_server(dev, cfg8, params, prompts, PHI_SERVE_NEW, name)
+    L, n = cfg8.num_hidden_layers, sr["batched_steps"]
+    want = {"qmm": 7 * L * n, "flash_decode": L * n}
+    got = {k: sr["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name} 2-slot server: launches {got}, expected {want} "
+                             f"({n} batched steps)")
+    return sr
+
+
+def _eager_vs_replayed(dev, cfg, params, prompt, name: str, k1_step: int, head_k1: bool,
+                       depth: int, new: int) -> dict:
+    """At a depth cut of `depth` layers, the uncaptured loop's `new` tokens
+    against the replayed ones over a bf16 and a q8 cache: equal, at least 8
+    distinct, the uncaptured run's K1 launches exact (`k1_step` a step at
+    full depth, the head among them when `head_k1`, and then the prefill's
+    head too)."""
+    from chatllm_tpu_torch.runtime.generate import InferenceEngine
+
+    L = cfg.num_hidden_layers
+    k1 = k1_step - (k1_step - int(head_k1)) // L * (L - depth)
+    cfg4 = replace(cfg, num_hidden_layers=depth, layer_specs=cfg.layer_specs[:depth])
+    p4 = dict(params, layers=params["layers"][:depth])
+    res = {"layers": depth}
+    for cache in ("bfloat16", "int8"):
+        runs = {}
+        for mode in ("eager", "graph"):
+            eng = InferenceEngine(replace(cfg4, cache_dtype=cache), p4, device=dev,
+                                  cuda_graphs=mode == "graph")
+            runs[mode] = _timed_generate(eng, eng.new_cache(1), prompt, new,
+                                         f"{name} {depth}-layer cut {mode}")
+            del eng
+        (te, re_), (tg, rg) = runs["eager"], runs["graph"]
+        res[cache] = {"tokens_equal": te == tg, "distinct_tokens": len(set(te)),
+                      "eager_steps_s": re_["decode_steps_s"],
+                      "replayed_steps_s": rg.get("replayed_steps_s")}
+        log(f"  {name} {depth}-layer cut (centred weights), {cache}: {res[cache]}")
+        if (te != tg or len(set(te)) < 8 or re_["replayed_steps"]
+                or rg["replayed_steps"] < new - DECODE_BLOCK
+                or re_["launches"]["qgemv"] != k1 * re_["eager_steps"] + int(head_k1)):
+            raise AssertionError(f"{name} {depth}-layer cut {cache}: replayed tokens {tg} "
+                                 f"against uncaptured {te}; eager launches {re_['launches']}, "
+                                 f"{re_['eager_steps']} eager steps")
+    return res
+
+
+def phi_phase(dev, name: str) -> dict:
+    """Phi-3.5-mini (`phi3_5_mini_config`: 32 layers, 32 heads of 96 over 32
+    kv heads, LongRoPE's long factors and mscale, every layer windowed over
+    262145 keys, which no cache reaches: the dense windowed route; the
+    untied head of 32064 rows) or Phi-2 (`phi2_config`: 32 layers, 32 heads
+    of 80, LayerNorm with biases, NeoX rope on 32 of 80 dims, biased q/k/v,
+    dense, fc1, fc2 and head, the parallel residual; max_length 4096, where
+    a q8 cache takes K4) at full width and depth, random q4_k weights from
+    seed 0 (Phi-2's zero-centred: PHI_MODELS), through the port's entry
+    points.
+
+      - Over a bf16 and a q8 cache: the PHI_PROMPT-token prompt and PHI_NEW
+        greedy tokens, run once to capture, then counted: every decode step
+        replayed, K1 on every quantized projection of every step (Phi-2: its
+        head too, and the prefill's head), K3 in mode 2 on all 32 layers
+        over bf16 (D 96 / 80), K4 on all 32 a q8 step (one row a kv head,
+        the per-head kernel's f32 dots), no K2; one replayed block profiled
+        into its kernels over bf16, timed over q8.
+      - A 2-layer cut against the CPU over PHI_CUT_POSITIONS positions and 2
+        decode steps, bf16 and q8, held to PHI_CUT_TOL of the logit scale
+        beside its two witnesses (`_phi_cut`: Phi-3.5-mini strictly; for
+        Phi-2 a miss fails on a clear argmax or beyond twice the larger
+        witness), the control (`PHI_MODELS`) outside the bound; Phi-2's cut
+        on positive-biased weights recorded beside its witnesses over bf16;
+        the CPU sides on CUT_WORKER.
+      - On zero-centred weights (Phi-3.5-mini's from seed 1), whose greedy
+        tokens vary: at a
+        depth cut of PHI_EAGER_DEPTH layers, the uncaptured loop's tokens
+        equal to the replayed ones over both caches; Phi-3.5-mini's server
+        engine (BatchedEngine, 2 slots, q8, f32 activations), two requests
+        of PHI_SERVE tokens, staggered, PHI_SERVE_NEW tokens each, bit-equal
+        to the same server one at a time, K2 on every projection and K4 with
+        per-row n_past on every layer of every batched step, and at
+        GLM_SERVE_DEPTH layers each token the single stream's greedy choice,
+        teacher-forced, within GLM_SERVE_TIE (`_serve_cut`: its witness
+        passes, its control fails).
+      - Params and peak device memory."""
+    from chatllm_tpu_torch.models import synthetic
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, param_bytes
+    from chatllm_tpu_torch.ops.qtensor import QuantLinear
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    m = PHI_MODELS[name]
+    max_len, opts, k1_step, head_k1 = m["max_length"], m["opts"], m["k1_step"], m["head_k1"]
+    t_phase = time.perf_counter()
+    spans = {}
+
+    def span(what):
+        spans[what] = time.perf_counter() - t_phase - sum(spans.values())
+
+    cfg = getattr(synthetic, m["config"])(max_length=max_len)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev, **opts)
+    torch.cuda.synchronize()
+    lp = params["layers"][0]
+    if not all(isinstance(x, QuantLinear) and x.sb
+               for x in (*lp["attn"].values(), *lp["mlp"].values(), params["lm_head"])):
+        raise AssertionError(f"{name}: params are not q4_k")
+    res = {"param_gib": param_bytes(params) / 2 ** 30, "spans_s": spans, "k1_per_step": k1_step,
+           "head_on_k1": head_k1}
+    prompt = np.random.default_rng(0).integers(0, V, PHI_PROMPT).tolist()
+
+    # ---- the 2-layer cut's CPU side, on CUT_WORKER from here on
+    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    sel = _to_device(dict(params, layers=params["layers"][:2]), "cpu")
+    cut_ids = np.random.default_rng(3).integers(0, V, PHI_CUT_POSITIONS + 2)
+    kw = dict(slots=(max_len,) * 2, end=PHI_CUT_POSITIONS)
+    cut_cpu = _cpu_cuts(cfg2, sel, cut_ids, kw)
+    if opts.get("centered"):
+        # the same cut on positive-biased weights, recorded beside its
+        # witnesses over a bf16 cache
+        biased = _to_device(build_synthetic_params(
+            cfg2, "q4k", zeros=False, seed=0, device=dev,
+            **{k: v for k, v in opts.items() if k != "centered"}), "cpu")
+        biased_cpu = _cpu_cuts(cfg2, biased, cut_ids, kw, caches=("bfloat16",))
+    span("setup")
+
+    # ---- the chat path over bf16 and q8, replayed from CUDA graphs
+    steps = decode_launches(PHI_NEW)
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=PHI_NEW)
+    chat = {}
+    for cache in ("bfloat16", "int8"):
+        q8 = cache == "int8"
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev)
+        kv = eng.new_cache(1)
+        t0 = time.perf_counter()
+        eng.generate(prompt, gcfg, cache=kv)                # warm: captures
+        warm_s = time.perf_counter() - t0
+        toks, r = _timed_generate(eng, kv, prompt, PHI_NEW, f"{name} {cache}")
+        r["warm_run_s"] = warm_s
+        want = {"qgemv": k1_step * steps + int(head_k1), "qmm": 0,
+                "flash_attention": 0 if q8 else L, "flash_decode": L * steps if q8 else 0}
+        got = {k: r["launches"][k] for k in want}
+        r["profiled_block"] = pb = _profile_block(eng, kv, PHI_PROMPT + 48, trace=not q8)
+        r["profiled_steps_s"] = 1e3 / pb["step_ms"]
+        log(f"  {name} {cache} cache: prefill {r['prefill_ms']:.1f} ms, "
+            f"{r['profiled_steps_s']:.2f} replayed steps/s (block {pb['block_ms']:.2f} ms), "
+            f"warm run {warm_s:.2f} s, {len(set(toks))} distinct tokens, launches {got}, K3 by "
+            f"mode {r['flash_modes']}; kernels {pb.get('kernel_ms')} ms, busy share "
+            f"{pb.get('busy_share')}; top kernels {pb.get('top_kernels_ms')}")
+        if (got != want or r["flash_modes"][2] != want["flash_attention"]
+                or r["replayed_steps"] != steps):
+            raise AssertionError(f"{name} {cache}: launches {got} (expected {want}), K3 by "
+                                 f"mode {r['flash_modes']}, {r['replayed_steps']} replayed "
+                                 f"steps")
+        chat[cache] = {"graph": r, "tokens": toks, "distinct_tokens": len(set(toks))}
+        del eng, kv
+        torch.cuda.empty_cache()
+    res["chat"] = chat
+    span("chat")
+
+    # ---- the 2-layer cut (the seed-0 weights) on the card against the CPU's,
+    # beside its witnesses and its control
+    p2 = _to_device(sel, dev)
+    control = _ring_cut(m["fault"](cfg2), p2, cut_ids, dev, "bfloat16", **kw)[0]
+    t0 = time.perf_counter()
+    cpu = cut_cpu.result()
+    cut = {"cpu_wait_s": time.perf_counter() - t0, "bounds": PHI_CUT_TOL,
+           **_phi_cut(name, cfg2, p2, cut_ids, kw, cpu, m["strict"])}
+    cut["control"] = {"fault": m["control"], "rel_to_logit_scale": row_logit_errors(
+        control, cpu["bfloat16"], 0.0)["rel_to_logit_scale"]}
+    log(f"  {name} 2-layer cut: control {cut['control']}, bounds met "
+        f"{ {k: cut[k]['bound_met'] for k in ('bfloat16', 'int8')} }")
+    if cut["control"]["rel_to_logit_scale"] <= PHI_CUT_TOL["int8"]:
+        raise AssertionError(f"{name} 2-layer cut: the control passes the bound ({cut})")
+    if opts.get("centered"):
+        t0 = time.perf_counter()
+        bcpu = biased_cpu.result()
+        cut["positive_biased"] = {"cpu_wait_s": time.perf_counter() - t0, **_phi_cut(
+            f"{name} (positive-biased weights)", cfg2, _to_device(biased, dev), cut_ids, kw,
+            bcpu, None)}
+        del biased, bcpu
+    res["cut"] = cut
+    del p2, cpu, control, sel, lp
+    span("cut")
+
+    # ---- zero-centred weights (seed 1 unless they were from the start):
+    # tokens that vary
+    if not opts.get("centered"):
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = build_synthetic_params(cfg, "q4k", zeros=False, seed=1, device=dev,
+                                        centered=True, **opts)
+    res["eager_cut"] = _eager_vs_replayed(dev, cfg, params, prompt, name, k1_step, head_k1,
+                                          PHI_EAGER_DEPTH, PHI_NEW)
+    span("eager_cut")
+    if m["serve"]:
+        # the server's engine: 2 slots over q8, staggered requests, f32
+        # activations; its tie to the single stream held at GLM_SERVE_DEPTH
+        p32 = dict(params, embed=params["embed"].float())
+        rng = np.random.default_rng(5)
+        sprompts = [rng.integers(0, V, n).tolist() for n in PHI_SERVE]
+        c8 = replace(cfg, cache_dtype="int8")
+        sr = _phi_server(dev, c8, p32, sprompts, name)
+        log(f"  {name} 2-slot q8 server (f32 activations, centred weights): {sr['wall_s']:.2f} s, "
+            f"{sr['batched_steps']} batched steps ({sr['replayed_steps']} replayed from "
+            f"{sr['graphs']} graph(s)), K2 {sr['launches']['qmm']}, K4 "
+            f"{sr['launches']['flash_decode']}")
+        sr["cut"] = _serve_cut(dev, c8, p32, sprompts, name, _phi_server)
+        res["serve"] = sr
+        del p32
+        span("serve")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  {name} phase: params {res['param_gib']:.2f} GiB, peak device memory "
         f"{res['peak_mem_gib']:.2f} GiB, {res['seconds']:.1f} s ({spans})")
     return res
 
@@ -6646,6 +7139,26 @@ def glm_totals(kres: dict) -> dict:
             for name, (shapes, mult) in units.items()}
 
 
+def phi_totals(kres: dict) -> dict:
+    """K3 and K4 summed over one unit of each Phi model's path at its shapes:
+    the 1000-token prompt's chunk (32 launches of K3 in each mode; mode 2 is
+    the chat path's over a bf16 cache) and a q8 decode step after it (32
+    launches of K4: the f32 dots the route takes, and the int8 dots)."""
+    out = {}
+    for model in ("phi35", "phi2"):
+        fa = kres["flash_attention"]["shapes"]
+        units = {**{f"flash_attention{tag}": (fa, {f"{model}_prefill_1000{tag}": PHI_LAYERS})
+                    for tag in ("", "_f32", "_f32q")},
+                 "flash_decode": (kres["flash_decode"]["shapes"],
+                                  {f"{model}_decode_1064": PHI_LAYERS}),
+                 "flash_decode_int8": (kres["flash_decode_int8"]["shapes"],
+                                       {f"{model}_decode_1064": PHI_LAYERS})}
+        out[model] = {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
+                             for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                      for name, (shapes, mult) in units.items()}
+    return out
+
+
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
               "chatllm_tpu/ops/pallas/gemv_kernel.py:161"),
@@ -6840,7 +7353,8 @@ def qwen_totals(kres: dict) -> dict:
 # runs them; `--phases a,b,...` runs the named ones in this order
 PHASES = ("llama3_8b", "graph_decode", "fused_decode", "bench", "serve", "two_layer", "int8_engine",
           "f32_engine", "switches", "pipeline", "qwen2", "deepseek_v2_lite", "internvl",
-          "qwen3_30b_a3b", "mistral_7b", "glm4_9b", "gemma3_12b", "gemma2_9b", "families",
+          "qwen3_30b_a3b", "mistral_7b", "glm4_9b", "phi3_5_mini", "phi2", "gemma3_12b",
+          "gemma2_9b", "families",
           "cli", "e2", "e1", "e3", "e4", "e5", "e6", "e7")
 LLAMA_PHASES = PHASES[:PHASES.index("qwen2")]       # the phases on Llama-3-8B's params
 # The phases of the run without arguments: all but fused_decode, an opt-in
@@ -6928,6 +7442,9 @@ def main(argv=()) -> int:
     log(f"  Qwen2.5-0.5B totals per unit of its path: {report['qwen_kernel_totals']}")
     report["glm_kernel_totals"] = glm_totals(report["kernels"])
     log(f"  GLM-4-9B totals per unit of its path: {report['glm_kernel_totals']}")
+    report["phi_kernel_totals"] = phi_totals(report["kernels"])
+    log(f"  Phi-3.5-mini and Phi-2 totals per unit of their paths: "
+        f"{report['phi_kernel_totals']}")
     report["k5_vs_k2"] = k5_vs_k2(report["kernels"])
     report["k4_int8_vs_float"] = k4_int8_vs_float(report["kernels"])
     del timer
@@ -6996,7 +7513,7 @@ def main(argv=()) -> int:
         log("== qwen2")
         report["qwen2"] = qwen2_phase(dev)
         report["qwen2"]["graph_decode"]["kernel_shares"] = kernel_shares(
-            report["kernels"], report["qwen2"]["graph_decode"], "qwen_shapes", QWEN_LAYERS,
+            report["kernels"], report["qwen2"]["graph_decode"], "qwen_shapes", QWEN_DEPTH,
             False, "decode_1000_qwen")
         log(f"  Qwen2.5-0.5B kernel shares of a replayed step: "
             f"{report['qwen2']['graph_decode']['kernel_shares']}")
@@ -7045,6 +7562,14 @@ def main(argv=()) -> int:
         report["glm4_9b"]["kernel_totals"] = report["glm_kernel_totals"]
         gc.collect()
         torch.cuda.empty_cache()
+
+    for name, key in (("phi3_5_mini", "phi35"), ("phi2", "phi2")):
+        if on(name):
+            log(f"== {name}")
+            report[name] = phi_phase(dev, name)
+            report[name]["kernel_totals"] = report["phi_kernel_totals"][key]
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # Gemma-2's cut's CPU side runs beside the gemma3_12b phase, and the
     # uncaptured Gemma-3 reference's process beside the phases after it

@@ -15,9 +15,9 @@ tokens, hidden 256, 8 experts):
     families) and their decoding equal;
   - the DeepSeek-R1 tokenizers (Qwen's split and Llama's digit triples)
     against the JAX ones on digits, the special pieces and non-ASCII text;
-  - model types this port does not register (Phi-3, Kimi-VL; Mixtral
+  - model types this port does not register (Phi-3.5-MoE, Kimi-VL; Mixtral
     loads since the Mistral family landed, Gemma 2 since the Gemma family
-    did) still fail to load."""
+    did, Phi-3 since the Phi family did) still fail to load."""
 import dataclasses
 
 import numpy as np
@@ -198,7 +198,7 @@ def test_r1_tokenizers_match_jax(files, case, text):
         assert split[:2] == (["123", "45"] if case == "ds_r1_llama" else ["1", "2"])
 
 
-@pytest.mark.parametrize("mtype", ["PHI3", "KIMI_VL"])
+@pytest.mark.parametrize("mtype", ["PHI3_MOE", "KIMI_VL"])
 def test_unregistered_model_types_still_fail_to_load(tmp_path, mtype):
     path = chip_smoke.write_internvl_ggmm(tmp_path / "m.bin", tower=False, layers=1,
                                           dtype=GGMLType.F32, model_type=ModelType[mtype])
