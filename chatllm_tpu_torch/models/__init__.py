@@ -10,3 +10,4 @@ from . import gemma  # noqa: F401  (registers GEMMA, GEMMA2, GEMMA3)
 from . import misc_wave2  # noqa: F401  (registers RNJ_1)
 from . import glm  # noqa: F401  (registers CHATGLM2 / 3, CODEGEEX2 / 4, GLM4, GLM4_0414, CHARACTERGLM)
 from . import phi  # noqa: F401  (registers the PHI2 / 3 / 4 types but PHI3_MOE)
+from . import gpt_oss  # noqa: F401  (registers GPT_OSS)

@@ -103,12 +103,13 @@ class ParamBuilder:
         """Token embedding table [V, H] in the compute dtype."""
         return self.array(name, self.compute_dtype)
 
-    def linear(self, prefix: str):
-        """`{prefix}.weight` (+ `.bias`) as a DenseLinear/QuantLinear."""
+    def linear(self, prefix: str, *, bias: bool = True):
+        """`{prefix}.weight` (+ `.bias` when the file has it and `bias`) as a
+        DenseLinear/QuantLinear."""
         wname = prefix + ".weight"
         e = self.gf.tensors[wname]
         bname = prefix + ".bias"
-        b = self.raw_f32(bname) if self.gf.has_tensor(bname) else None
+        b = self.raw_f32(bname) if bias and self.gf.has_tensor(bname) else None
         raw, dtype = self.gf.raw_tensor(wname), e.dtype
         if self.rt.re_quantize and len(e.shape) == 2:
             target = GGMLType[self.rt.re_quantize.upper()]

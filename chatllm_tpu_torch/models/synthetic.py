@@ -26,7 +26,8 @@ def _rand(gen, shape, scale, dtype, device):
 
 def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
                  gen: torch.Generator | None = None, zeros: bool = True,
-                 device="cpu", centered: bool = False, k_fallback: str = "q4"):
+                 device="cpu", centered: bool = False, k_fallback: str = "q4",
+                 centered_q8: bool = False):
     """A linear layer in the given device format: 'q4k' = superblock
     QuantLinear (int8 sc/m + f16 d/dmin, the q4_k loader layout), 'q4'/'q8'
     = grouped-affine QuantLinear, 'bf16'/'f32' = dense.  Random q4k / q4
@@ -38,7 +39,10 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
     what the converter writes (q4_k -> q8_0, chatllm.cpp convert.py
     tensor_type_fallback).  No converted file holds the default 'q4' there;
     it is kept only so that the parameters built before 'q8' was offered
-    (DeepSeek-V2-Lite's layer-0 down, K 10944) stay as they were."""
+    (DeepSeek-V2-Lite's layer-0 down, K 10944) stay as they were.  Random
+    'q8' weights are symmetric with scales up to 0.01 (about 0.42 in
+    spread, whatever n_in); `centered_q8` draws their scales so that the
+    spread is n_in^-0.5, as a centred q4k weight's."""
     G = 32
     b_t = None
     if bias and zeros:
@@ -81,8 +85,11 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
             s = _rand(gen, (n_in // G, n_out), 2 * n_in ** -0.5 / 5.32 if centered else 0.01,
                       torch.float16, device)
         else:
+            # E[q^2] = 127^2 / 3 and E[s^2] = smax^2 / 3: smax = 3 / (127 n_in^0.5)
+            # gives weights of spread n_in^-0.5
             q = _randint(gen, -127, 127, (rows, n_out), torch.int8, device)
-            s = _rand(gen, (n_in // G, n_out), 0.01, torch.float16, device)
+            smax = 3.0 / 127.0 * n_in ** -0.5 if centered and centered_q8 else 0.01
+            s = _rand(gen, (n_in // G, n_out), smax, torch.float16, device)
         b = None
         if packed:
             b = ((s.float() * -7.5).to(torch.float16) if centered and not zeros else
@@ -99,7 +106,8 @@ def synth_linear(n_in: int, n_out: int, fmt: str, *, bias: bool = False,
 def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                            zeros: bool = True, compute_dtype=torch.bfloat16,
                            seed: int = 0, device="cpu", centered: bool = False,
-                           fused: bool = False, k_fallback: str = "q4", mlp: str = "gated"):
+                           fused: bool = False, k_fallback: str = "q4", mlp: str = "gated",
+                           centered_q8: bool = False):
     """The parameter dict of `cfg` in format `fmt` (see synth_linear), zero
     or seeded random.  MLA layers (cfg.mla) get the converter's split kv
     projections, and in latent mode the absorbed wk_abs / wv_abs; MoE layers
@@ -116,8 +124,14 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     dense FFN's linears and the head carry biases (q/k/v follow
     cfg.qkv_bias).  A LayerNorm config
     (cfg.norm_type) gets every norm's bias, zero beside its unit weight; a
-    parallel-residual one no ffn_norm.  The defaults build what they built
-    before these options existed, draw for draw."""
+    parallel-residual one no ffn_norm.  GPT-OSS's layout follows from its
+    config: the softmax-top-k router (cfg.moe_score_func "softmax_topk")
+    gets its bias ("gate_linear_bias", f32), `swiglu_oai` experts
+    (cfg.moe_act) their gate_b / up_b [E, F] and down_b [E, H] in the
+    compute dtype (random: N(0, 0.1^2)); with either, every layer gets one
+    f32 sink logit a query head (N(0, 1) when random) and the head no bias
+    under cfg.o_bias.  `centered_q8`: see synth_linear.  The defaults build
+    what they built before these options existed, draw for draw."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H = cfg.hidden_size
     d = cfg.resolved_head_dim()
@@ -126,10 +140,18 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
     F = cfg.intermediate_size
     plain = mlp == "plain"
     biases = cfg.o_bias
+    router_bias = cfg.moe_score_func == "softmax_topk"
+    expert_biases = cfg.moe_act == "swiglu_oai"
+    sinks = router_bias or expert_biases
 
     def lin(i, o, bias=False):
         return synth_linear(i, o, fmt, bias=bias, gen=gen, zeros=zeros, device=device,
-                            centered=centered, k_fallback=k_fallback)
+                            centered=centered, k_fallback=k_fallback, centered_q8=centered_q8)
+
+    def vec(*shape, scale=0.1, dtype=torch.float32):
+        if zeros:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
     def ones(n=H):
         p = {"w": torch.ones(n, dtype=torch.float32, device=device)}
@@ -151,6 +173,8 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
                     "v": lin(H, kvo, cfg.qkv_bias), "o": lin(qo, H, biases)}
             if cfg.qk_norm == "rmsnorm":          # Qwen3's per-head q/k norms
                 attn.update(q_norm=ones(d), k_norm=ones(d))
+            if sinks:
+                attn["sinks"] = vec(cfg.num_attention_heads, scale=1.0)
             return attn
         m, h = cfg.mla, cfg.num_attention_heads
         attn = {"q": lin(H, h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
@@ -175,6 +199,12 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
         mlp = {"gate": lin(H, E),
                "experts": {"gate": stack(E, H, Fe), "up": stack(E, H, Fe),
                            "down": stack(E, Fe, H)}}
+        if router_bias:
+            mlp["gate_linear_bias"] = vec(E)
+        if expert_biases:
+            mlp["experts"].update(gate_b=vec(E, Fe, dtype=compute_dtype),
+                                  up_b=vec(E, Fe, dtype=compute_dtype),
+                                  down_b=vec(E, H, dtype=compute_dtype))
         if Fs:
             mlp["shared"] = {"gate": lin(H, Fs), "up": lin(H, Fs), "down": lin(Fs, H)}
         return mlp
@@ -195,7 +225,7 @@ def build_synthetic_params(cfg: TransformerConfig, fmt: str = "q4", *,
         layers.append(layer)
     params = {"embed": embed, "final_norm": ones(), "layers": tuple(layers)}
     if not cfg.tie_lm_head:
-        params["lm_head"] = lin(H, cfg.vocab_size, biases)
+        params["lm_head"] = lin(H, cfg.vocab_size, biases and not sinks)
     return params
 
 
@@ -367,6 +397,44 @@ def gemma2_9b_config(max_length: int = 8192) -> TransformerConfig:
         layer_specs=tuple(LayerSpec(sliding_window=4096 if i % 2 == 0 else 0)
                           for i in range(42)),
         tie_lm_head=True, logit_scale=3584 ** -0.5)
+
+
+# build_synthetic_params' options for GPT-OSS (its layout follows from the
+# config): q/k/v, the router and the head (K 2880, not a multiple of 256) in
+# q8_0, as the converter writes them, drawn at n_in^-0.5 with the rest of a
+# centred model
+GPT_OSS_OPTS = dict(k_fallback="q8", centered_q8=True)
+
+
+def gpt_oss_20b_config(max_length: int = 8192) -> TransformerConfig:
+    """GPT-OSS-20B as published (Hugging Face `openai/gpt-oss-20b`,
+    config.json): vocab_size 201088, hidden_size 2880, num_hidden_layers
+    24, num_attention_heads 64, num_key_value_heads 8, head_dim 64,
+    num_local_experts 32 of intermediate_size 2880, num_experts_per_tok 4,
+    sliding_window 128 on the layers `layer_types` marks
+    sliding_attention (the even ones, layer 0 first), rope_theta 150000
+    with YaRN (factor 32 over original_max_position_embeddings 4096,
+    beta_fast 32, beta_slow 1), swiglu_limit 7.0, rms_norm_eps 1e-5,
+    attention biases, untied head; as the GPT_OSS loader builds it
+    (models/gpt_oss.py: NeoX rope, the softmax over the top 4 of the
+    biased router logits, `swiglu_oai`; every FFN a MoE; build_synthetic_params
+    gives it the sinks and the biases).  Only
+    max_length is cut: at 8192 the sliding layers keep rings of 128 +
+    SWA_EXTRA = 640 slots beside 12 full layers of 8192."""
+    from ..nn.transformer import LayerSpec
+
+    return TransformerConfig(
+        vocab_size=201088, hidden_size=2880, num_hidden_layers=24,
+        num_attention_heads=64, num_key_value_heads=8, head_dim=64,
+        intermediate_size=2880, max_length=max_length, norm_eps=1e-5,
+        rope=RopeConfig(head_dim=64, freq_base=150000.0, layout=ROPE_NEOX,
+                        freq_scale=1.0 / 32, ext_factor=1.0, beta_fast=32.0, beta_slow=1.0,
+                        orig_ctx=4096),
+        layer_specs=tuple(LayerSpec(sliding_window=128 if i % 2 == 0 else 0, is_moe=True)
+                          for i in range(24)),
+        qkv_bias=True, o_bias=True, moe_num_experts=32, moe_top_k=4,
+        moe_intermediate_size=2880, moe_score_func="softmax_topk", moe_act="swiglu_oai",
+        moe_swiglu_limit=7.0)
 
 
 def qwen2_5_0_5b_config(max_length: int = 32768) -> TransformerConfig:

@@ -6,7 +6,9 @@ LayerNorm decoder and parallel residual, the DeepSeek family's
 multi-head latent attention (both cache modes) and sparse MoE FFN, the
 sliding-window ring cache, the Gemma family's pieces (sandwich norms, the
 attention and final logit softcaps, the tied head's logit scale, a second
-rope table for local layers, gated GELU), and the model forward.
+rope table for local layers, gated GELU), GPT-OSS's pieces (attention sinks
+on every route, the biased softmax-top-k router, biased experts with the
+clamped `swiglu_oai`), and the model forward.
 
 Parameters are a plain dict: "embed" [V, H] in the compute dtype,
 "final_norm" {"w"} (and "b" for LayerNorm), "layers" (a tuple of per-layer
@@ -26,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import (NEG_INF, _key_bound, _rows_write, attention_with_cache,
+from ..ops.attention import (NEG_INF, _key_bound, _rows_write, _softmax, attention_with_cache,
                              quantize_kv, update_kv_cache)
 from ..ops.norm import layer_norm, rms_norm
 from ..ops.qmm import dot_f32, matmul
@@ -95,8 +97,12 @@ class TransformerConfig:
     moe_n_group: int = 1            # grouped top-k routing
     moe_topk_group: int = 1
     moe_routed_scale: float = 1.0
-    moe_score_func: str = "softmax"  # softmax | sigmoid (others: other families)
-    moe_act: str = ""               # "" = act ("swiglu_oai": GPT-OSS, not ported)
+    moe_score_func: str = "softmax"  # softmax | sigmoid | softmax_topk (GPT-OSS: the top k
+    #   of the raw logits, then a softmax over those k); sparsemixer (Phi-3.5-MoE) raises
+    moe_act: str = ""               # "" = act | "swiglu_oai" (GPT-OSS: min(g, L) sigmoid(a g)
+    #   (clamp(u, -L, L) + 1), L = moe_swiglu_limit, a = moe_swiglu_alpha)
+    moe_swiglu_limit: float = 7.0
+    moe_swiglu_alpha: float = 1.702
     moe_grouped_argmax: bool = False  # Pangu-MoE routing, not ported
     moe_pre_weighting: bool = False   # Llama-4 routing, not ported
     moe_group_select: str = "sum2"  # grouped top-k group scoring: "sum2" ranks
@@ -228,12 +234,11 @@ def simple_mlp(cfg: TransformerConfig, p, x):
     return matmul(h, p["down"]).to(x.dtype)
 
 
-# Routing and expert modes of the JAX package's moe_mlp that belong to
-# families not ported yet: they raise, naming the family.
-_OTHER_SCORE_FUNCS = {"softmax_topk": "GPT-OSS", "sparsemixer": "Phi-3.5-MoE"}
-_OTHER_PARAMS = {"gate_linear_bias": "GPT-OSS", "router_scale": "Pangu-MoE",
-                 "small_experts": "GroveMoE"}
-_OTHER_EXPERT_PARAMS = {"gate_b": "GPT-OSS", "up_b": "GPT-OSS", "down_b": "GPT-OSS"}
+# Routing modes of the JAX package's moe_mlp that belong to families not
+# ported yet (Phi-3.5-MoE, Pangu-MoE, GroveMoE; Megrez2's pre-gate routing and
+# Llama-4's pre-weighting below): they raise, naming the family.
+_OTHER_SCORE_FUNCS = {"sparsemixer": "Phi-3.5-MoE"}
+_OTHER_PARAMS = {"router_scale": "Pangu-MoE", "small_experts": "GroveMoE"}
 
 
 def _not_ported(what: str, family: str):
@@ -251,18 +256,26 @@ def mlp_dispatch(cfg: TransformerConfig, spec: LayerSpec, p, x, router_x=None):
 
 
 def moe_route(cfg: TransformerConfig, p, xt):
-    """The router of the JAX package's moe_mlp in its softmax and sigmoid
-    modes: scores, the selection-only `gate_bias`, grouped top-k in both
-    `moe_group_select` modes, then the top-k experts and their weights (from
-    the unbiased scores, normalized with + 1e-20 under moe_norm_topk_prob,
-    times moe_routed_scale).  xt: [N, H] -> (topi int64 [N, K], topv f32
-    [N, K]), all on the device."""
+    """The router of the JAX package's moe_mlp.  The logits carry
+    `gate_linear_bias` when there is one (GPT-OSS's router bias).
+    softmax_topk: the top k of those logits, then a softmax over the k.
+    softmax and sigmoid: scores, the selection-only `gate_bias`, grouped
+    top-k in both `moe_group_select` modes, then the top-k experts and
+    their weights (from the unbiased scores, normalized with + 1e-20 under
+    moe_norm_topk_prob, times moe_routed_scale).  Among equal values the
+    lower index comes first (XLA's top_k).  xt: [N, H] -> (topi int64 [N,
+    K], topv f32 [N, K]), all on the device."""
     if cfg.moe_score_func in _OTHER_SCORE_FUNCS:
         _not_ported(f"score function {cfg.moe_score_func!r}",
                     _OTHER_SCORE_FUNCS[cfg.moe_score_func])
     if cfg.moe_grouped_argmax:
         _not_ported("grouped-argmax routing", "Pangu-MoE")
     logits = matmul(xt, p["gate"]).float()                            # [N, E]
+    if "gate_linear_bias" in p:
+        logits = logits + p["gate_linear_bias"].float()
+    if cfg.moe_score_func == "softmax_topk":
+        topl, topi = _topk(logits, cfg.moe_top_k)
+        return topi, torch.softmax(topl, dim=-1)
     if cfg.moe_score_func == "sigmoid":
         probs = torch.sigmoid(logits)
     elif cfg.moe_score_func == "softmax":
@@ -286,14 +299,20 @@ def moe_route(cfg: TransformerConfig, p, xt):
             gtop = torch.topk(gscore, cfg.moe_topk_group, dim=-1).values
             gmask = gscore >= gtop[..., -1:]
             sel = torch.where(gmask[:, :, None], gsel, float("-inf")).reshape(N, -1)
-    # the k largest, the lower index first among equal scores (XLA's top_k)
-    topi = torch.sort(sel, dim=-1, descending=True, stable=True).indices[:, :cfg.moe_top_k]
+    topi = _topk(sel, cfg.moe_top_k)[1]
     topv = torch.gather(probs, -1, topi)
     if cfg.moe_norm_topk_prob:
         topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
     if cfg.moe_routed_scale != 1.0:
         topv = topv * cfg.moe_routed_scale
     return topi, topv
+
+
+def _topk(x, k: int):
+    """(values, indices) of the k largest of each row, the lower index
+    first among equal values (XLA's top_k: a stable descending sort)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
 
 
 def moe_mlp(cfg: TransformerConfig, p, x):
@@ -312,20 +331,32 @@ def _experts_out(cfg: TransformerConfig, ex, xt, topi, topv, n_experts: int):
     """The selected experts' outputs weighed and summed, as the JAX package
     computes it: combine weights [N, E] (one-hot rows of topv rounded to the
     activation dtype) and a dense product over all experts of the stacked
-    weights gate/up [E, H, F] and down [E, F, H].  The products are batched
-    matmuls over the stacks as they lie (x broadcast over E, never a copy or
-    a transpose of the weights); routing stays on the device."""
-    for key, family in _OTHER_EXPERT_PARAMS.items():
-        if key in ex:
-            _not_ported(f"expert parameter {key!r}", family)
-    if cfg.moe_act:
-        _not_ported(f"expert activation {cfg.moe_act!r}", "GPT-OSS")
+    weights gate/up [E, H, F] and down [E, F, H], with GPT-OSS's expert
+    biases gate_b / up_b [E, F] and down_b [E, H] when they are there and
+    its `swiglu_oai` under cfg.moe_act (in f32, cast back to the product's
+    dtype).  The products are batched matmuls over the stacks as they lie
+    (x broadcast over E, never a copy or a transpose of the weights);
+    routing stays on the device."""
+    if cfg.moe_act not in ("", "swiglu_oai"):
+        raise ValueError(f"moe_act {cfg.moe_act!r}")
     N = xt.shape[0]
     combine = torch.zeros(N, n_experts, dtype=xt.dtype, device=xt.device)
     combine.scatter_(1, topi, topv.to(xt.dtype))                       # [N, E]
     g = torch.matmul(xt, ex["gate"])                                   # [E, N, F]
     u = torch.matmul(xt, ex["up"])
-    out = torch.matmul(_ACTS[cfg.act](g) * u, ex["down"])              # [E, N, H]
+    if "gate_b" in ex:
+        g = g + ex["gate_b"][:, None, :]
+        u = u + ex["up_b"][:, None, :]
+    if cfg.moe_act == "swiglu_oai":
+        lim, alpha = cfg.moe_swiglu_limit, cfg.moe_swiglu_alpha
+        gf = torch.clamp(g.float(), max=lim)
+        uf = torch.clamp(u.float(), -lim, lim)
+        hidden = (gf * torch.sigmoid(alpha * gf) * (uf + 1.0)).to(g.dtype)
+    else:
+        hidden = _ACTS[cfg.act](g) * u
+    out = torch.matmul(hidden, ex["down"])                             # [E, N, H]
+    if "down_b" in ex:
+        out = out + ex["down_b"][:, None, :]
     return torch.einsum("enh,ne->nh", out, combine)
 
 
@@ -392,14 +423,10 @@ def attention_block(cfg: TransformerConfig, spec: LayerSpec, p, x, cos, sin,
         out = _ring_attention(cfg, spec, q, k_cache, v_cache, n_past, T, scale,
                               k_scale, v_scale, sinks=p.get("sinks"))
     else:
-        if "sinks" in p:
-            raise NotImplementedError("attention sinks outside a ring layer (GPT-OSS) are not "
-                                      "ported to chatllm_tpu_torch yet (ROADMAP.md section 1, "
-                                      "item 4)")
         update_kv_cache(k_cache, v_cache, k, v, n_past, k_scale, v_scale)
         out = attention_with_cache(q, k_cache, v_cache, n_past, T, scale=scale,
                                    causal=cfg.causal, logit_softcap=cfg.logit_softcap,
-                                   sliding_window=spec.sliding_window,
+                                   sliding_window=spec.sliding_window, sinks=p.get("sinks"),
                                    k_scale=k_scale, v_scale=v_scale, kv_len=kv_len)
     out = out.reshape(B, T, hq * d)
     return matmul(out, p["o"]).to(x.dtype)
@@ -462,14 +489,7 @@ def _ring_attention(cfg: TransformerConfig, spec: LayerSpec, q, k_cache, v_cache
         scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
     if cfg.logit_softcap > 0:
         scores = torch.tanh(scores / cfg.logit_softcap) * cfg.logit_softcap
-    scores = scores + mask[:, None, None]
-    if sinks is not None:
-        sk = sinks.float().reshape(1, hkv, hq // hkv, 1, 1).expand(*scores.shape[:-1], 1)
-        all_scores = torch.cat([scores, sk], dim=-1)
-        e = torch.exp(all_scores - all_scores.amax(dim=-1, keepdim=True))
-        p = e[..., :-1] / e.sum(dim=-1, keepdim=True)
-    else:
-        p = torch.softmax(scores, dim=-1)
+    p = _softmax(scores + mask[:, None, None], sinks)
     if v_scale is not None:
         p = p * v_scale.transpose(1, 2)[:, :, None, None, :]
     out = torch.einsum("bhgts,bshd->bthgd", p, v_cache.float())

@@ -24,6 +24,10 @@ Routing follows the JAX package's conditions:
     1024-key chunks, no [T, S] score tensor);
   - otherwise the dense path below, which is the reference semantics.
 
+Learned attention sinks (`sinks`, one f32 logit per query head: GPT-OSS)
+join every route's softmax denominator and emit no value; as in the JAX
+package, K3 and the chunked route are taken only without them.
+
 The JAX package's switches are read at call time, as it reads them:
 CHATLLM_TPU_FLASH=0/1 gates K3, CHATLLM_TPU_FLASH_DECODE=0/1 gates K4
 (unset: as CHATLLM_TPU_FLASH), and CHATLLM_TPU_FLASH_DECODE=1 is its forced
@@ -181,14 +185,16 @@ def _mask(n_past, T: int, k_pos, n_tokens: int, causal: bool, sliding_window: in
 def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
                          scale: float, causal: bool = True,
                          logit_softcap: float = 0.0, sliding_window: int = 0,
-                         k_scale=None, v_scale=None, kv_len: int | None = None) -> torch.Tensor:
+                         sinks=None, k_scale=None, v_scale=None,
+                         kv_len: int | None = None) -> torch.Tensor:
     """q: [B, T, Hq, D]; caches [B, S, Hkv, D] already holding this step's
     keys (int8 with [B, S, Hkv] scales for a q8 cache).  A key at position p
     is visible to query t of row b iff p < n_past[b] + n_tokens (and
     p <= n_past[b] + t when causal, and p > n_past[b] + t - sliding_window
-    with a window).  `n_past` is an int, a 0-d or an int64 [B] tensor;
-    with a tensor, `kv_len` (at least every n_past + n_tokens) bounds the
-    keys the einsum routes read (module docstring)."""
+    with a window).  `sinks` (f32 [Hq] or None) joins each head's softmax
+    denominator with no value.  `n_past` is an int, a 0-d or an int64 [B]
+    tensor; with a tensor, `kv_len` (at least every n_past + n_tokens)
+    bounds the keys the einsum routes read (module docstring)."""
     B, T, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
@@ -199,8 +205,8 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
     # K3 under the JAX package's conditions.  The query keeps its dtype (a
     # bf16 one is promoted over an f32 cache, exactly), as the Pallas
     # kernel's mixed-dtype dots do; the output is q's dtype.
-    if (T >= FLASH_MIN_Q and S >= FLASH_MIN_KV and k_scale is None and Dv == D
-            and not isinstance(n_past, torch.Tensor) and flash_enabled()
+    if (T >= FLASH_MIN_Q and S >= FLASH_MIN_KV and sinks is None and k_scale is None
+            and Dv == D and not isinstance(n_past, torch.Tensor) and flash_enabled()
             and _pick_block(T, 512) >= 128 and _pick_block(S, 512) >= 256):
         _count("flash_attention")
         qf = q.to(torch.promote_types(q.dtype, k_cache.dtype))
@@ -223,7 +229,7 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
             n_past = npast_vector(n_past, B, q.device)
         return flash_decode(q, k_cache, v_cache, n_past, n_tokens, scale=scale,
                             sliding_window=sliding_window, logit_softcap=logit_softcap,
-                            k_scale=k_scale, v_scale=v_scale, block_k=block_k)
+                            k_scale=k_scale, v_scale=v_scale, sinks=sinks, block_k=block_k)
 
     qg = q.reshape(B, T, Hkv, G, D)
     # bf16 dots only when the cache carries no extra precision to lose: int8
@@ -236,10 +242,10 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
 
     if _per_row(n_past):
         out = _batched_npast_attention(qg, k_cache, v_cache, n_past, n_tokens,
-                                       kv_len=kv_len, **kw)
+                                       kv_len=kv_len, sinks=sinks, **kw)
         return out.reshape(B, T, Hq, Dv).to(q.dtype)
 
-    if S >= CHUNKED_ATTN_THRESHOLD and S % 1024 == 0:
+    if S >= CHUNKED_ATTN_THRESHOLD and S % 1024 == 0 and sinks is None:
         out = _chunked_attention(qg, k_cache, v_cache, n_past, n_tokens, kv_len=kv_len, **kw)
         return out.reshape(B, T, Hq, Dv).to(q.dtype)
 
@@ -256,11 +262,24 @@ def attention_with_cache(q, k_cache, v_cache, n_past, n_tokens=None, *,
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
     k_pos = torch.arange(kv_len, device=q.device)[None, :]
     valid = _mask(n_past, T, k_pos, n_tokens, causal, sliding_window)
-    p = torch.softmax(scores + torch.where(valid, 0.0, NEG_INF), dim=-1)
+    p = _softmax(scores + torch.where(valid, 0.0, NEG_INF), sinks)
     if v_scale is not None:
         p = _scale_rows(p, v_scale[:, :kv_len])
     out = _dot("bhgts,bshd->bthgd", p, vc, bf16_dots)
     return out.reshape(B, T, Hq, Dv).to(q.dtype)
+
+
+def _softmax(scores, sinks):
+    """Softmax over the keys of [B, Hkv, G, T, S] scores; `sinks` ([Hq] or
+    None) is one more column per head that joins the denominator and emits
+    no value, as in the JAX package (max, exp and sum over S + 1 columns)."""
+    if sinks is None:
+        return torch.softmax(scores, dim=-1)
+    Hkv, G = scores.shape[1:3]
+    sk = sinks.float().reshape(1, Hkv, G, 1, 1).expand(*scores.shape[:-1], 1)
+    all_scores = torch.cat([scores, sk], dim=-1)
+    e = torch.exp(all_scores - all_scores.amax(dim=-1, keepdim=True))
+    return e[..., :-1] / e.sum(dim=-1, keepdim=True)
 
 
 def _key_bound(S: int, n_past, n_tokens: int, kv_len: int | None) -> int:
@@ -321,11 +340,11 @@ def _chunked_attention(qg, k_cache, v_cache, n_past, n_tokens: int, *, scale,
 def _batched_npast_attention(qg, k_cache, v_cache, n_past: torch.Tensor, n_tokens: int,
                              *, scale, causal, logit_softcap, sliding_window,
                              k_scale=None, v_scale=None, bf16_dots=False,
-                             kv_len: int | None = None):
+                             kv_len: int | None = None, sinks=None):
     """Dense attention with a per-row n_past vector [B]: each batch slot
     sees its own causal frontier (the continuous-batching decode over one
-    shared [B, S] cache), over the first `kv_len` slots (all when None).
-    Returns [B, T, Hkv, G, Dv]."""
+    shared [B, S] cache), over the first `kv_len` slots (all when None),
+    `sinks` in the denominator.  Returns [B, T, Hkv, G, Dv]."""
     B, T, Hkv, G, D = qg.shape
     S = _key_bound(k_cache.shape[1], n_past, n_tokens, kv_len)
     k_cache, v_cache = k_cache[:, :S], v_cache[:, :S]
@@ -338,7 +357,7 @@ def _batched_npast_attention(qg, k_cache, v_cache, n_past: torch.Tensor, n_token
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
     k_pos = torch.arange(S, device=qg.device)[None, None, :]
     valid = _mask(n_past, T, k_pos, n_tokens, causal, sliding_window)     # [B, T, S]
-    p = torch.softmax(scores + torch.where(valid, 0.0, NEG_INF)[:, None, None], dim=-1)
+    p = _softmax(scores + torch.where(valid, 0.0, NEG_INF)[:, None, None], sinks)
     if v_scale is not None:
         p = _scale_rows(p, v_scale)
     return _dot("bhgts,bshd->bthgd", p, v_cache, bf16_dots)

@@ -48,7 +48,12 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              Phi-2's 1000-token chunk over 8192 / 4096 slots and their q8
              decode after it, timed; the 2-slot step, a chunk ending at the
              cache's last slot, a window with the softcap, 64 rows a kv
-             head), and K1, K2
+             head), K1 (timed) and K2 at GPT-OSS-20B's q8_0 projections (K
+             2880: q N 4096, k / v N 512, the head N 201088; K2 timed at the
+             server's 2 rows) and K4 with sinks at its 64 query heads over 8
+             kv heads of 64 (f32 dots, timed at n_past 1064 and 8000 and the
+             2-slot step; the library time SDPA with the sink as one zero
+             key), and K1, K2
              and K5 also on
              every layout they take (q4_k, q5_k, q6_k, q2_k, q8_0, q4_0, q4_1,
              f32 scales with b, q8_0 with a bias), bf16 and f32 x, 1-64 rows
@@ -109,8 +114,8 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              teacher-forced on the unfused run's 64 tokens, the fused logits
              within 1e-3 of the logit scale at every step, the same argmax
              where the top two are 2e-3 of it apart.
-  4. bench   `chatllm_tpu_torch.bench.run_bench` on the same full-width
-             params (TTFT at 512 and 2048 tokens, single-stream and batched
+  4. bench   `chatllm_tpu_torch.bench.run_bench` on BENCH_DEPTH = 8 of the
+             same full-width params' layers (TTFT at 512 and 2048 tokens, single-stream and batched
              decode replayed from CUDA graphs, the K6 read-bandwidth probe),
              its JSON line printed, launches exact per section (its warm-up
              blocks and two runs of replays); then
@@ -146,7 +151,8 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              B = 8 through BatchedEngine (K4 32 times per batched step, warm-up
              and replayed, or never), CHATLLM_TPU_FLASH=0 on the 1000-token
              prefill (no K3).
-     pipeline  the chat Pipeline on the same weights (Llama-3's NORMAL rope, a
+     pipeline  the chat Pipeline on PIPE_DEPTH = 8 of the same weights' 32
+             layers (Llama-3's NORMAL rope, a
              byte-level Llama-3 chat tokenizer of the model's vocab, 4096
              slots; `pipeline_phase`): a ~200-token system prompt
              pre-evaluated, six ~1000-token turns of 64 greedy tokens over a
@@ -314,6 +320,26 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              two witnesses; control: rope over whole heads; the same cut on
              positive-biased weights recorded beside its witnesses) and the
              uncaptured check; no server.
+     gpt_oss_20b  full-width, full-depth GPT-OSS-20B (`gpt_oss_phase`: 24
+             layers, 64 query heads over 8 kv heads of 64, window 128 on the
+             even layers in rings of 640 slots, 12 full layers, sinks on
+             every layer, YaRN, 32 experts of 2880 top-4 with the biased
+             router and biased swiglu_oai experts, 38.2 GB of bf16 stacks,
+             q/k/v, the router and the 201088-row head in q8_0, max_length
+             8192): the 1000-token prompt (two chunks of 512, which wrap the
+             rings) and 64 greedy tokens over bf16 and q8 caches replayed from
+             graphs, K1 73 a step (+ each chunk's head), K4 with sinks 12 a
+             q8 step, K3 never; one block profiled, one layer's expert
+             products timed; uncaptured tokens equal to replayed ones at a
+             4-layer cut; a 2-layer cut (a ring and a full layer) over 706
+             positions (the ring wraps) against the CPU on the CPU's expert
+             picks (`pick_tape`), the picks by the MoE rules, the logits
+             within 1e-3 / 4e-3 where they agree or within twice the larger
+             of two witnesses (attention scale one f32 step up; the card at
+             f32 activations), its control (swiglu_oai replaced by SiLU) and
+             the cut without its sinks beyond; a 2-slot q8 server (1000 and 1100
+             tokens x 32) whose replies equal one-at-a-time ones, K2 73 and
+             K4 12 a batched step.  Peak memory.
      gemma2_9b  a full-width 2-layer cut of Gemma-2-9B (`gemma2_phase`: a
              ring layer and a global one, attention softcap 50, final softcap
              30) over 642 positions against the CPU, as gemma3's cut (its
@@ -329,7 +355,8 @@ leaves one out ends with `{"phases_passed": [...], "device": ...}` instead:
              three over such rings, ChatGLM2 / 3, CodeGeeX2 / 4, CharacterGLM,
              GLM-4 and GLM-4-0414, the ten Phi types: Phi-2 and
              Dolphin-Phi-2 in both layouts, Phi-3 over a ring of 2560
-             slots, Phi-3-SU / SU2 / SU3, Phi-4-mini and Phi-4) in f32 and
+             slots, Phi-3-SU / SU2 / SU3, Phi-4-mini and Phi-4, GPT-OSS with
+             sinks over a 576-slot ring and a full layer) in f32 and
              q4_k, loaded on the card and
              the CPU (`families_phase`): config and weights bit-equal, logits
              within 1e-4 (f32) or 2e-2 (q4_k) of the CPU's; the narrow
@@ -390,8 +417,10 @@ import os
 import struct
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -424,13 +453,21 @@ A3B_DEPTH = 8
 MISTRAL_DEPTH = 4                  # Mistral-7B's 32 layers cut to 4 (since the Gemma phases)
 IVL_DEPTH = 12                     # InternVL3.5-8B's 36 LLM layers cut to 12 (likewise)
 QWEN_DEPTH = 6                     # Qwen2.5-0.5B's 24 layers cut to 6
+# Depth cuts sized to the time the gpt_oss_20b phase added, after a
+# whole-script run with it took 1265 s on an H100 host that built in 87.3 s
+# (PERF.md section 4): the chat Pipeline and the in-process bench on 8 of
+# Llama-3-8B's 32 layers (the llama3_8b, graph_decode and serve phases and
+# the bench's entry point run them at 32)
+PIPE_DEPTH = 8
+BENCH_DEPTH = 8
 DECODE_BLOCK = 16                  # InferenceEngine's default decode_block
 
 
 PHASE_STARTS: list = []           # (phase, time) at each "== phase" line
 CHILDREN: list = []               # processes started beside the phases, stopped on exit
 HOST_THREADS = torch.get_num_threads()
-CUT_WORKER = ThreadPoolExecutor(1)  # the Gemma cuts' CPU sides, one at a time
+CUT_WORKER = ThreadPoolExecutor(1)  # the cuts' CPU sides, one at a time
+CUT_JOBS: dict = {}               # each CPU side's queued, started and ended times
 
 
 def log(msg: str):
@@ -924,6 +961,8 @@ def write_family_ggmm(path, family: str, *, dtype=None, seed: int = 0, writer_cl
         return write_glm_ggmm(path, family, **kw)
     if family in PHI_FAMILIES:
         return write_phi_ggmm(path, family, **kw)
+    if family == "gpt_oss":
+        return write_gpt_oss_ggmm(path, window=window, **kw)
     writer_cls = writer_cls or GGMMWriter
     dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
     rng = np.random.default_rng(seed)
@@ -1256,6 +1295,99 @@ PHI2_V1_TENSORS = {"embed": "transformer.embd.wte.weight", "layer": "transformer
                    "head": "lm_head.linear"}
 
 
+# GPT-OSS: the harmony special pieces, and merges of byte pairs (as raw
+# bytes) that cross what the o200k pre-split keeps apart or together: a
+# space and a word, digit runs, contractions, an accent's and a CJK
+# character's UTF-8 bytes, a letter and a combining mark, \r\n, spaces
+GPT_OSS_SPECIALS = ("<|startoftext|>", "<|endoftext|>", "<|start|>", "<|message|>", "<|end|>",
+                    "<|channel|>", "<|return|>")
+GPT_OSS_MERGES = ((b" ", b"t"), (b"h", b"e"), (b" t", b"he"), (b"1", b"2"), (b"12", b"3"),
+                  (b"3", b"4"), (b"'", b"s"), (b"'", b"t"), (b"\xc3", b"\xa9"), (b"\xc3", b"\x89"),
+                  (b"\xe4", b"\xb8"), (b"\xcc", b"\x81"), (b"e", b"\xcc\x81"), (b"\r", b"\n"),
+                  (b" ", b" "), (b"  ", b" "), (b"a", b"b"), (b"A", b"B"), (b"B", b"c"),
+                  (b".", b"\r"), (b"!", b"!"), (b" ", b"!"))
+
+
+def write_gpt_oss_ggmm(path, *, dtype=None, seed: int = 0, writer_cls=None,
+                       window: int = FAMILY_WINDOW):
+    """A narrow random-weight GPT_OSS GGMM in the converter's layout (the JAX
+    package's tools/convert.py::convert_gpt_oss names): hidden 256, 4 heads
+    of 64 over 2 kv heads, 2 layers (layer 0 attends over a `window` of 64,
+    in a ring of 64 + SWA_EXTRA = 576 slots within a context of 1024; layer
+    1 over the whole context), sinks N(0, 1), biased q/k/v/o, a biased
+    router over 4 experts of 256 (top 2), biased experts, YaRN with factor 4
+    over an original context of 256, swiglu_limit 7; every matrix in `dtype`
+    (q4_k by default), norms, biases, sinks and the embedding f32.  The
+    vocab is byte-level with the merges of GPT_OSS_MERGES and the harmony
+    specials (GPT_OSS_SPECIALS)."""
+    from chatllm_tpu_torch.ggmm.quants import GGMLType
+    from chatllm_tpu_torch.ggmm.writer import GGMMWriter
+    from chatllm_tpu_torch.models.model_types import ModelType
+    from chatllm_tpu_torch.tokenizer.processor import TokenType, byte_level_encode
+
+    writer_cls = writer_cls or GGMMWriter
+    dtype = GGMLType.Q4_K if dtype is None else GGMLType(int(dtype))
+    rng = np.random.default_rng(seed)
+    vocab, hidden, heads, kv_heads, layers, max_len = 384, 256, 4, 2, 2, FAMILY_RING_CTX
+    experts, top_k, inter = 4, 2, 256
+
+    def tensor(name, *shape, scale=None):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        arr = (rng.standard_normal(shape) * scale).astype(np.float32)
+        wr.write_tensor(name, arr, dtype if len(shape) == 2 else GGMLType.F32)
+
+    enc = [byte_level_encode(a) for a in (m for pair in GPT_OSS_MERGES for m in pair)]
+    merges = [f"{a.decode()} {b.decode()}" for a, b in zip(enc[::2], enc[1::2])]
+    pieces = [(byte_level_encode(bytes([b])), int(TokenType.NORMAL)) for b in range(256)]
+    pieces += [(byte_level_encode(a + b), int(TokenType.NORMAL)) for a, b in GPT_OSS_MERGES]
+    n_normal = len(pieces)
+    pieces += [(t.encode(), int(TokenType.CONTROL)) for t in GPT_OSS_SPECIALS]
+    pieces += [(f"<|reserved_{i}|>".encode(), int(TokenType.CONTROL))
+               for i in range(vocab - len(pieces))]
+    bos, eos = n_normal, n_normal + 1
+    d = hidden // heads
+    layer_type = [int(i % 2 == 0) for i in range(layers)] + [0] * (128 - layers)
+    with open(path, "wb") as f:
+        wr = writer_cls(f, int(ModelType.GPT_OSS), 1, meta={"model_name": "tiny-gpt-oss"})
+        wr.write_config([int(dtype), vocab, hidden, heads, layers, inter, max_len, bos, eos, -1,
+                         -1, kv_heads, d, top_k, top_k, experts, window] + layer_type,
+                        fmt=f"{11 + 6 + 128}i")
+        # router_aux_loss_coef, swiglu_limit, rope_theta, original_max_position_embeddings,
+        # beta_fast, beta_slow, factor
+        f.write(struct.pack("<7f", 0.9, 7.0, 150000.0, 256.0, 32.0, 1.0, 4.0))
+        wr._patch_offset(12)
+        wr.write_vocab_bpe(pieces, merges)
+        tensor("model.embed_tokens.weight", vocab, hidden, scale=1.0)
+        for i in range(layers):
+            p = f"model.layers.{i}"
+            wr.write_tensor(f"{p}.input_layernorm.weight",
+                            (1.0 + 0.1 * rng.standard_normal(hidden)).astype(np.float32),
+                            GGMLType.F32)
+            for j in range(experts):
+                e = f"{p}.mlp.experts.{j}"
+                tensor(f"{e}.down_proj.weight", hidden, inter)
+                tensor(f"{e}.down_proj.bias", hidden, scale=0.1)
+                for name in ("gate_proj", "up_proj"):
+                    tensor(f"{e}.{name}.weight", inter, hidden)
+                    tensor(f"{e}.{name}.bias", inter, scale=0.1)
+            tensor(f"{p}.mlp.router.weight", experts, hidden)
+            tensor(f"{p}.mlp.router.bias", experts, scale=0.5)
+            wr.write_tensor(f"{p}.post_attention_layernorm.weight",
+                            (1.0 + 0.1 * rng.standard_normal(hidden)).astype(np.float32),
+                            GGMLType.F32)
+            for name, n_out in (("k", kv_heads * d), ("q", heads * d), ("v", kv_heads * d),
+                                ("o", hidden)):
+                tensor(f"{p}.self_attn.{name}_proj.weight", n_out,
+                       heads * d if name == "o" else hidden)
+                tensor(f"{p}.self_attn.{name}_proj.bias", n_out, scale=0.5)
+            tensor(f"{p}.self_attn.sinks", heads, scale=1.0)
+        wr.write_tensor("model.norm.weight",
+                        (1.0 + 0.1 * rng.standard_normal(hidden)).astype(np.float32),
+                        GGMLType.F32)
+        tensor("lm_head.weight", vocab, hidden)
+    return path
+
+
 # The families of write_family_ggmm: name -> (model type, writer options)
 FAMILIES = {
     "llama3_2": ("LLAMA3_2", {}),
@@ -1296,6 +1428,7 @@ FAMILIES = {
     "phi3_su3": ("PHI3_SU3", {}),
     "phi4_mini": ("PHI4_MINI", {}),
     "phi4": ("PHI4", {}),
+    "gpt_oss": ("GPT_OSS", {}),
 }
 
 
@@ -1564,6 +1697,16 @@ SHAPES_GLM = {"qkv": (4096, 4608, "q4_k"), "o": (4096, 4096, "q4_k"),
 PER_LAYER_GLM = {"qkv": 1, "o": 1, "gate_up": 1, "down": 1}
 GLM_LAYERS = 40
 GLM_ROWS = 2                       # K2's rows in the GLM-4-9B server's batched steps (2 slots)
+# GPT-OSS-20B's projections on K1 / K2 (K, N, format): q (64 heads of 64), k and
+# v (8 kv heads), the untied 201088-row head, all at K 2880 (not a multiple
+# of 256: the converter stores them q8_0); o (N 2880) and the router (N 32)
+# fail N % 128 and take the dequantize-then-matmul route, as in the JAX package
+SHAPES_GO = {"q": (2880, 4096, "q8_0"), "k_v": (2880, 512, "q8_0"),
+             "lm_head": (2880, 201088, "q8_0")}
+PER_LAYER_GO = {"q": 1, "k_v": 2}
+GO_LAYERS = 24
+GO_FULL_LAYERS = 12                # the full-attention layers (the odd ones): K4's
+GO_ROWS = 2                        # K2's rows in the GPT-OSS-20B server's batched steps
 
 
 def kernels_phase(dev, timer, fused: bool = False) -> dict:
@@ -1701,6 +1844,23 @@ def kernels_phase(dev, timer, fused: bool = False) -> dict:
             yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, fmt)
             if B == GLM_ROWS:
                 res["qmm"]["glm_shapes"][sname] = _time_matmul(
+                    timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
+        del lin, w_bf16
+    # GPT-OSS-20B: K1 timed at its q8_0 projections and head (K 2880: 90
+    # groups), K2 checked at 2-64 rows and timed at the 2-slot server's 2
+    res["qgemv"]["go_shapes"], res["qmm"]["go_shapes"] = {}, {}
+    for sname, (K, N, fmt) in SHAPES_GO.items():
+        lin = quant_weight(fmt, K, N, gen, dev)
+        w_bf16 = dequant_weight(lin, torch.bfloat16)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        y = _check_matmul(res, "qgemv", qgemv, qgemv_plain, x, lin, 1e-4, fmt)
+        res["qgemv"]["go_shapes"][sname] = _time_matmul(
+            timer, qgemv, qgemv_plain, x, lin, y, w_bf16, F32_FLOPS)
+        for B in (GO_ROWS, 8, 37, 64):
+            xb = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+            yb = _check_matmul(res, "qmm", qmm, qmm_plain, xb, lin, 2e-2, fmt)
+            if B == GO_ROWS:
+                res["qmm"]["go_shapes"][sname] = _time_matmul(
                     timer, qmm, qmm_plain, xb, lin, yb, w_bf16, BF16_TC_FLOPS)
         del lin, w_bf16
     coverage_cases(dev, gen, res)
@@ -2334,6 +2494,16 @@ DECODE_CASES = [  # (B, T, Hq, Hkv, D, n_past, cache, dots, extra, timed as)
     (2, 1, 32, 32, 96, [1000, 1100], "int8", "float32", {}, "phi35_serve_2"),
     (1, 1, 32, 32, 96, [3000], "bfloat16", "bfloat16", {}, None),
     (1, 8, 8, 1, 80, [2000], "float32", "float32", {"sinks": True}, None),
+    # GPT-OSS-20B's full-attention layers: 64 query heads over 8 kv heads of 64
+    # (G 8) with sinks, the f32 dots its route takes (the JAX package's
+    # per-head kernel: D 64 is not lane-aligned and there are 8 kv heads);
+    # its q8 decode after the 1000-token prompt and deep in the context, and
+    # the 2-slot server's per-row step (16 rows a kv head)
+    (1, 1, 64, 8, 64, [1064], "int8", "float32", {"sinks": True}, "go_decode_1064"),
+    (1, 1, 64, 8, 64, [8000], "int8", "float32", {"sinks": True}, "go_decode_8000"),
+    (2, 1, 64, 8, 64, [1000, 1100], "int8", "float32", {"sinks": True}, "go_serve_2"),
+    (1, 1, 64, 8, 64, [0], "int8", "float32", {"sinks": True}, None),        # one live key
+    (1, 1, 64, 8, 64, [3000], "bfloat16", "float32", {"sinks": True}, None),
 ]
 
 # The bf16 / f32 dots on the edges of their design: 64-key tiles aligned at
@@ -2482,7 +2652,7 @@ def decode_cases(dev, timer, gen) -> dict:
                 "plain_ms": timer(lambda: flash_decode_plain(q, k, v, npv, T, **kw), iters=5),
                 "library_ms": timer(_sdpa_over_dequantized(q, k, v, npv, T, kw["scale"],
                                                            kw["k_scale"], kw["v_scale"],
-                                                           window=win)),
+                                                           window=win, sinks=kw.get("sinks"))),
                 "bound_ms": b_ms, "bound_by": b_by}
             log(f"    timing {out['shapes'][timed]}")
         del q, k, v, o
@@ -2568,10 +2738,12 @@ def mla_decode_cases(dev, timer, gen) -> dict:
 
 
 def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_scale=None,
-                           head_major: bool = False, window: int = 0):
+                           head_major: bool = False, window: int = 0, sinks=None):
     """The library yardstick of K4: SDPA over the cache dequantized to bf16
     beforehand, causal mask by position, inside the `window` when one is
-    given (returns a zero-argument call)."""
+    given (returns a zero-argument call).  With `sinks` ([Hq]) the same
+    function: one more key and value of zeros, whose additive mask entry is
+    the head's sink (its score is then the sink, its value nothing)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, _, Hq, _ = q.shape
     if k_scale is not None:
@@ -2588,6 +2760,12 @@ def _sdpa_over_dequantized(q, k, v, npv, T: int, scale: float, k_scale=None, v_s
     mask = kp <= qp
     if window:
         mask = mask & (kp > qp - window)
+    if sinks is not None:
+        zero = kt.new_zeros(B, Hq, 1, kt.shape[-1])
+        kt, vt = torch.cat([kt, zero], dim=2), torch.cat([vt, zero], dim=2)
+        fmask = torch.where(mask, 0.0, float("-inf")).expand(B, Hq, T, S)
+        sink = sinks.float()[None, :, None, None].expand(B, Hq, T, 1)
+        mask = torch.cat([fmask, sink], dim=-1).to(qt.dtype)
     return lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale)
 
 
@@ -2985,6 +3163,16 @@ def _to_device(tree, device):
     if isinstance(tree, (tuple, list)):
         return tuple(_to_device(v, device) for v in tree)
     return tree.to(device)
+
+
+def _cfg_cut(cfg, n_layers: int):
+    """The config of cfg's first n_layers."""
+    return replace(cfg, num_hidden_layers=n_layers, layer_specs=cfg.layer_specs[:n_layers])
+
+
+def _depth_cut(cfg, params, n_layers: int) -> tuple:
+    """(cfg, params) of the first n_layers, the params' tensors shared."""
+    return _cfg_cut(cfg, n_layers), dict(params, layers=params["layers"][:n_layers])
 
 
 def _cut(params, n_layers: int, device) -> dict:
@@ -4451,6 +4639,83 @@ DSV2_CUT_TOL = 2e-2
 DSV2_SCORE_DIFF_MAX = 1e-2
 DSV2_PICKS_AGREE_MIN = 0.9
 
+_TAPE = threading.local()          # the tape this thread has open, if any
+_TAPES_OPEN = {"n": 0, "route": None, "lock": threading.Lock()}
+
+
+def _router_scores(c, p, xt) -> tuple:
+    """The router's logits [N, E] (f32, with GPT-OSS's bias) and its scores
+    over every expert: their sigmoid under moe_score_func "sigmoid", else
+    their softmax."""
+    from chatllm_tpu_torch.ops.qmm import matmul
+
+    logits = matmul(xt, p["gate"]).float()
+    if "gate_linear_bias" in p:
+        logits = logits + p["gate_linear_bias"].float()
+    if c.moe_score_func == "sigmoid":
+        return logits, torch.sigmoid(logits)
+    return logits, torch.softmax(logits, dim=-1)
+
+
+def _weigh(c, logits, probs, topi):
+    """The weights `moe_route` gives the experts `topi`: the softmax over
+    their logits (softmax_topk), else their scores, normalized under
+    moe_norm_topk_prob, times moe_routed_scale."""
+    if c.moe_score_func == "softmax_topk":
+        return torch.softmax(torch.gather(logits, -1, topi), dim=-1)
+    topv = torch.gather(probs, -1, topi)
+    if c.moe_norm_topk_prob:
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
+    return topv * c.moe_routed_scale
+
+
+def _taped_route(c, p, xt):
+    topi, topv = _TAPES_OPEN["route"](c, p, xt)
+    tape = getattr(_TAPE, "tape", None)
+    if tape is None:
+        return topi, topv
+    logits, probs = _router_scores(c, p, xt)
+    own = (torch.sort(topi, dim=-1).values.cpu(), probs.cpu())
+    if tape.replay is not None:
+        topi = tape.replay[len(tape)][0].to(xt.device)
+        topv = _weigh(c, logits, probs, topi)
+    tape.append(own)
+    return topi, topv
+
+
+class _Tape(list):
+    def __init__(self, replay):
+        super().__init__()
+        self.replay = replay
+
+
+@contextmanager
+def pick_tape(replay=None):
+    """A tape of this thread's `moe_route` calls while it is open: each call
+    appends (its sorted picks [N, K], its router scores [N, E]) on the CPU.
+    Given `replay` (a tape of the same calls on the CPU), each call goes on
+    with the replayed picks at its index, weighed as the router weighs them
+    (`_weigh`) from its own logits: a flip that rounding decides in one
+    layer would otherwise reach every later position through the next
+    layer's attention.  `moe_route` is patched only while a tape is open,
+    and other threads' calls pass through it."""
+    from chatllm_tpu_torch.nn import transformer as T
+
+    tape = _Tape(replay)
+    with _TAPES_OPEN["lock"]:
+        if not _TAPES_OPEN["n"]:
+            _TAPES_OPEN["route"], T.moe_route = T.moe_route, _taped_route
+        _TAPES_OPEN["n"] += 1
+    _TAPE.tape = tape
+    try:
+        yield tape
+    finally:
+        _TAPE.tape = None
+        with _TAPES_OPEN["lock"]:
+            _TAPES_OPEN["n"] -= 1
+            if not _TAPES_OPEN["n"]:
+                T.moe_route = _TAPES_OPEN["route"]
+
 
 def _moe_picks(name: str, card, cpu) -> tuple[torch.Tensor, dict]:
     """The MoE layer's picks on the card against the CPU's, per token: each
@@ -4512,31 +4777,14 @@ def dsv2_two_layer(dev, cfg, params, slots: int = 4) -> dict:
     (`_moe_picks`, every MoE layer's), then the logits where the picks of
     every layer agree (`_compare_agreeing`).  The CPU runs first; where the
     card's own picks differ from its (near-ties, which `_moe_picks` checks),
-    the card goes on with the CPU's picks, weighed by its own scores: a flip
-    decided by rounding in one layer would otherwise reach every later token
-    through the next layer's attention.  Another MoE model (Qwen3-30B-A3B:
-    both layers MoE) takes the same cuts; the CPU side is a copy of the two
-    layers on the host."""
+    the card goes on with the CPU's picks, weighed by its own scores
+    (`pick_tape`).  Another MoE model (Qwen3-30B-A3B: both layers MoE) takes
+    the same cuts; the CPU side is a copy of the two layers on the host."""
     import chatllm_tpu_torch.nn.transformer as T
-    from chatllm_tpu_torch.ops.qmm import matmul
 
-    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    cfg2 = _cfg_cut(cfg, 2)
     p2, p2_cpu = _cut(params, 2, dev), _cut(params, 2, "cpu")
-    rec, route = {"cpu": [], "card": []}, T.moe_route
-
-    def recorded(c, p, xt):
-        topi, topv = route(c, p, xt)
-        scores = torch.softmax(matmul(xt, p["gate"]).float(), dim=-1)
-        side = "cpu" if xt.device.type == "cpu" else "card"
-        rec[side].append((torch.sort(topi, dim=-1).values.cpu(), scores.cpu()))
-        if side == "card":      # go on with the CPU's picks (softmax scores)
-            topi = rec["cpu"][len(rec["card"]) - 1][0].to(xt.device)
-            topv = torch.gather(scores, -1, topi)
-            if c.moe_norm_topk_prob:
-                topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
-            topv = topv * c.moe_routed_scale
-        return topi, topv
-
+    rec = {}
     res = {}
     ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64)))
     cfg_q8 = replace(cfg2, cache_dtype="int8")
@@ -4552,18 +4800,15 @@ def dsv2_two_layer(dev, cfg, params, slots: int = 4) -> dict:
                 getattr(c, name + "_scale")[i].copy_(sc)
     toks = torch.tensor([[11], [2024], [77777], [100000]])[:slots] % cfg.vocab_size
     n_past = torch.tensor([5, 1000, 4095, 8000])[-slots:]
-    T.moe_route = recorded
     logits = {}
-    try:
-        with torch.inference_mode():
-            for p, d in ((p2_cpu, "cpu"), (p2, dev)):
+    with torch.inference_mode():
+        for p, d, side in ((p2_cpu, "cpu", "cpu"), (p2, dev, "card")):
+            with pick_tape(rec.get("cpu")) as rec[side]:
                 pre = T.transformer_forward(cfg2, p, ids.to(d),
                                             T.init_cache(cfg2, 1, 1024, device=d), 0)[0][0]
                 dec = T.transformer_forward(cfg_q8, p, toks.to(d), caches[d],
                                             n_past.to(d))[0][:, 0]
-                logits[str(d)] = (pre, dec)
-    finally:
-        T.moe_route = route
+            logits[str(d)] = (pre, dec)
     n_moe = sum(s.is_moe for s in cfg2.layer_specs)
     for run, part in enumerate(("prefill", "decode")):
         what = "prefill (64 tokens)" if part == "prefill" else f"q8 decode step ({slots} slots)"
@@ -4634,7 +4879,7 @@ def deepseek_phase(dev) -> dict:
 
     res = {}
     cfg = deepseek_v2_lite_config(max_length=8192)
-    cfg = replace(cfg, num_hidden_layers=DSV2_DEPTH, layer_specs=cfg.layer_specs[:DSV2_DEPTH])
+    cfg = _cfg_cut(cfg, DSV2_DEPTH)
     L = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4822,7 +5067,7 @@ def qwen3_a3b_phase(dev) -> dict:
         raise AssertionError(f"qwen3_30b_a3b: {held:.2f} GiB of earlier phases still held")
     res = {"held_before_gib": held}
     cfg = qwen3_30b_a3b_config(max_length=8192)
-    cfg = replace(cfg, num_hidden_layers=A3B_DEPTH, layer_specs=cfg.layer_specs[:A3B_DEPTH])
+    cfg = _cfg_cut(cfg, A3B_DEPTH)
     L = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4942,7 +5187,11 @@ FAMILY_TOL = {"f32": 1e-4, "q4_k": 2e-2}
 # --test chats too
 FAMILY_CHATS = (("llama2", "codellama", "mistral", "mixtral", "mistral2") + GEMMA_FAMILIES
                 + GLM_FAMILIES + ("phi2", "phi2_v1", "dolphinphi2", "phi3", "phi3_su2",
-                                  "phi3_su3", "phi4"))
+                                  "phi3_su3", "phi4", "gpt_oss"))
+# the families whose card-vs-CPU logits take the FAMILY_RING_PROMPT tokens
+# that wrap their rings: RING_FAMILIES and GPT-OSS (its layer 0; its chat
+# turns stay short: its byte-level vocab takes a token a byte)
+RING_PROMPT_FAMILIES = RING_FAMILIES + ("gpt_oss",)
 
 
 def family_turns(fam: str) -> list:
@@ -5004,26 +5253,16 @@ def _family_logits(model, ids) -> tuple:
     prompt in chunks of its engine's cap (SWA_EXTRA), as its engine does."""
     from chatllm_tpu_torch.nn import transformer as T
 
-    picks, route = [], T.moe_route
-
-    def recorded(c, p, xt):
-        topi, topv = route(c, p, xt)
-        picks.append(torch.sort(topi, dim=-1).values.cpu())
-        return topi, topv
-
     eng = model.engine
     chunk = eng._chunk_cap or len(ids)
-    T.moe_route = recorded
-    try:
-        with torch.inference_mode():
-            kv = eng.new_cache(1)
-            full = torch.cat([model.forward_logits(ids[n:n + chunk], n, cache=kv)[0][0]
-                              .float().cpu() for n in range(0, len(ids), chunk)])
-            n_moe = len(picks)
-            tok = torch.tensor([[int(full[-1].argmax())]], device=model.device)
-            step = T.transformer_forward(model.cfg, model.params, tok, kv, len(ids))[0]
-    finally:
-        T.moe_route = route
+    with torch.inference_mode(), pick_tape() as tape:
+        kv = eng.new_cache(1)
+        full = torch.cat([model.forward_logits(ids[n:n + chunk], n, cache=kv)[0][0]
+                          .float().cpu() for n in range(0, len(ids), chunk)])
+        picks = [t[0] for t in tape]
+        n_moe = len(picks)
+        tok = torch.tensor([[int(full[-1].argmax())]], device=model.device)
+        step = T.transformer_forward(model.cfg, model.params, tok, kv, len(ids))[0]
     per = n_moe // -(-len(ids) // chunk)          # MoE layers: picks come chunk by chunk
     return full, step[0, 0].float().cpu(), [torch.cat(picks[i:n_moe:per]) for i in range(per)]
 
@@ -5036,11 +5275,13 @@ def families_phase(dev) -> dict:
     Moonlight, V3-Light, Llama-2, CodeLlama, Mistral and Mixtral over rings
     of 576 slots, Mistral2's 128-wide heads, the Gemmas' heads of 256, the
     GLM families' fused qkv and gate_up, the Phi families' LayerNorm
-    decoder, parallel residual and LongRoPE), written narrow by
+    decoder, parallel residual and LongRoPE, GPT-OSS's sinks, biased
+    softmax-top-k router and swiglu_oai experts over a ring and a full
+    layer), written narrow by
     `write_family_ggmm` in f32 and in q4_k and loaded on the card and on the
     CPU: the same config and every parameter bit-equal; the logits of a
-    32-token prompt (FAMILY_RING_PROMPT tokens for the ring families, which
-    wraps their rings) at every position and of one decode step within
+    32-token prompt (FAMILY_RING_PROMPT tokens for RING_PROMPT_FAMILIES,
+    which wraps their rings) at every position and of one decode step within
     FAMILY_TOL of the CPU's logit scale (q4_k: at the positions whose expert
     picks agree, at least FAMILY_PICKS_AGREE_MIN of them), the same argmax
     wherever the CPU's top two are further apart than twice the tolerance.
@@ -5073,7 +5314,7 @@ def families_phase(dev) -> dict:
     chats = _start_cli(jobs)
     reset_launch_counts()
     for fam in FAMILIES:
-        ids = long if fam in RING_FAMILIES else short
+        ids = long if fam in RING_PROMPT_FAMILIES else short
         for fmt, tol in FAMILY_TOL.items():
             path = write_family_ggmm(BUILD_DIR / f"smoke_{fam}_{fmt}.bin", fam,
                                      dtype=GGMLType.F32 if fmt == "f32" else None)
@@ -5255,8 +5496,7 @@ def _mistral_config():
     from chatllm_tpu_torch.models.synthetic import mistral_7b_config
 
     cfg = mistral_7b_config(max_length=8192)
-    return replace(cfg, num_hidden_layers=MISTRAL_DEPTH,
-                   layer_specs=cfg.layer_specs[:MISTRAL_DEPTH])
+    return _cfg_cut(cfg, MISTRAL_DEPTH)
 
 
 def mistral_setup(dev) -> dict:
@@ -5270,7 +5510,7 @@ def mistral_setup(dev) -> dict:
 
     cfg = _mistral_config()
     params = build_synthetic_params(cfg, "q4k", zeros=False, seed=0, device=dev)
-    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    cfg2 = _cfg_cut(cfg, 2)
     p2_cpu = _cut(params, 2, "cpu")
     del params
     torch.cuda.empty_cache()
@@ -5586,7 +5826,30 @@ GEMMA3_UNCAPTURED_TIMEOUT = 600    # seconds the uncaptured reference's process 
 GEMMA3_UNCAPTURED_DEPTH = 12
 
 
-def gemma3_phase(dev) -> dict:
+def gemma3_setup(dev) -> dict:
+    """The gemma3_12b phase's 2-layer cut (GEMMA3_CUT_LAYERS), its CPU side
+    queued on CUT_WORKER ahead of Gemma-2's, so that both run while the card
+    works through the gemma3_12b phase: Gemma-3-12B's parameters are built on
+    the card from seed 0, the cut's layers copied to the CPU and the card's
+    copy freed (the phase builds the same parameters again)."""
+    from chatllm_tpu_torch.models.synthetic import build_synthetic_params, gemma3_12b_config
+
+    t0 = time.perf_counter()
+    cfg = gemma3_12b_config(max_length=8192)
+    a, b = GEMMA3_CUT_LAYERS
+    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[a:b + 1])
+    params = build_synthetic_params(cfg, "q4k", zeros=False, centered=True, seed=0, device=dev)
+    sel = _to_device(dict(params, layers=params["layers"][a:b + 1]), "cpu")
+    del params
+    torch.cuda.empty_cache()
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, GEMMA3_CUT_POSITIONS + 2)
+    kw = dict(slots=(GEMMA3_RING, cfg.max_length), end=GEMMA3_CUT_POSITIONS)
+    return {"cfg2": cfg2, "sel": sel, "ids": ids, "kw": kw,
+            "cpu": _cpu_cuts("gemma3_12b", cfg2, sel, ids, kw),
+            "setup_s": time.perf_counter() - t0}
+
+
+def gemma3_phase(dev, setup: dict) -> dict:
     """Gemma-3-12B at full width and depth (`gemma3_12b_config`: 48 layers of
     head_dim 256, 40 local layers over 1024-key windows on the local rope
     table beside 8 global ones, sandwich norms, random zero-centred q4_k
@@ -5617,7 +5880,8 @@ def gemma3_phase(dev) -> dict:
       - A 2-layer cut (GEMMA3_CUT_LAYERS: local, global) against the CPU
         over GEMMA3_CUT_POSITIONS positions and 2 decode steps, bf16 and q8,
         within GEMMA_CUT_TOL of the logit scale, beside its witness and its
-        control (`_gemma_cut_check`); its CPU side on CUT_WORKER.
+        control (`_gemma_cut_check`); its CPU side on CUT_WORKER from
+        `gemma3_setup`.
       - Peak device memory."""
     from chatllm_tpu_torch.models.synthetic import (build_synthetic_params, gemma3_12b_config,
                                                     param_bytes)
@@ -5649,13 +5913,10 @@ def gemma3_phase(dev) -> dict:
              for i in range(L)]
     p32 = dict(params, embed=params["embed"].float())    # f32 activations
 
-    # ---- the 2-layer cut's CPU side, on CUT_WORKER from here on
+    # ---- the 2-layer cut's CPU side, on CUT_WORKER since gemma3_setup
     a, b = GEMMA3_CUT_LAYERS
-    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[a:b + 1])
-    sel = dict(params, layers=params["layers"][a:b + 1])
-    cut_ids = np.random.default_rng(3).integers(0, V, GEMMA3_CUT_POSITIONS + 2)
-    cut_kw = dict(slots=(GEMMA3_RING, cfg.max_length), end=GEMMA3_CUT_POSITIONS)
-    cut_cpu = _cpu_cuts(cfg2, _to_device(sel, "cpu"), cut_ids, cut_kw)
+    cfg2, sel, cut_ids, cut_kw = setup["cfg2"], setup["sel"], setup["ids"], setup["kw"]
+    res["cut_setup_s"] = setup["setup_s"]
     span("setup")
 
     # ---- the ring route, replayed from CUDA graphs
@@ -5768,11 +6029,12 @@ def gemma3_phase(dev) -> dict:
     witness, control = _witness_and_control(cfg2, p2, cut_ids, cut_kw,
                                             replace(cfg2, rope_local=None))
     t0 = time.perf_counter()
-    cpu = cut_cpu.result()
+    cpu = setup["cpu"].result()
+    wait = time.perf_counter() - t0
     res["cut"] = dict(_gemma_cut_check(f"gemma3 2-layer cut (layers {a}, {b})", card, cpu,
                                        witness, control,
                                        "the local layer on the global rope table"),
-                      cpu_wait_s=time.perf_counter() - t0, layers=list(GEMMA3_CUT_LAYERS))
+                      cpu_wait_s=wait, layers=list(GEMMA3_CUT_LAYERS))
     del p2, card, cpu, witness, control, p32, sel
     span("cut")
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -5782,17 +6044,36 @@ def gemma3_phase(dev) -> dict:
     return res
 
 
-def _cpu_cuts(cfg2, p_cpu, ids, kw, caches=("bfloat16", "int8")):
-    """A Gemma cut's CPU side over a bf16 and a q8 cache (or `caches`),
-    queued on CUT_WORKER (one cut at a time, on all host cores but one: the
-    card's dispatch keeps it).  Returns the future of {cache: logits}."""
+def _run_s() -> float:
+    """Seconds since the first phase began."""
+    return time.perf_counter() - PHASE_STARTS[0][1] if PHASE_STARTS else 0.0
+
+
+def _cpu_cuts(name: str, cfg2, p_cpu, ids, kw, caches=("bfloat16", "int8"),
+              picks: bool = False):
+    """A cut's CPU side over a bf16 and a q8 cache (or `caches`), queued on
+    CUT_WORKER (one cut at a time, on all host cores but one: the card's
+    dispatch keeps it; each weight dequantized once).  CUT_JOBS[name] gets
+    when it was queued, began and ended, in seconds into the run.  Returns
+    the future of {cache: logits}, or with `picks` of {cache: (logits, the
+    tape of its expert picks)} (`pick_tape`)."""
+    queued = _run_s()
+
+    def one(c):
+        if not picks:
+            return _ring_cut(cfg2, p_cpu, ids, "cpu", c, **kw)[0]
+        with pick_tape() as tape:
+            return _ring_cut(cfg2, p_cpu, ids, "cpu", c, **kw)[0], tape
+
     def run():
+        began = _run_s()
         torch.set_num_threads(max(1, HOST_THREADS - 1))
         try:
             with _DequantOnce():
-                return {c: _ring_cut(cfg2, p_cpu, ids, "cpu", c, **kw)[0] for c in caches}
+                return {c: one(c) for c in caches}
         finally:
             torch.set_num_threads(HOST_THREADS)
+            CUT_JOBS[name] = {"queued_s": queued, "began_s": began, "ended_s": _run_s()}
 
     return CUT_WORKER.submit(run)
 
@@ -5870,7 +6151,7 @@ def gemma3_uncaptured_main(out: str) -> int:
     n = GEMMA3_UNCAPTURED_DEPTH
     # the draws run embedding, then layer by layer: these are the full
     # model's first n layers
-    cfg = replace(full, num_hidden_layers=n, layer_specs=full.layer_specs[:n])
+    cfg = _cfg_cut(full, n)
     params = build_synthetic_params(cfg, "q4k", zeros=False, centered=True, seed=0, device=dev)
     prompt = gemma3_prompt(cfg.vocab_size)
     res = {"layers": n, "global_layers": [i for i in range(n)
@@ -6128,21 +6409,6 @@ def _staggered_server(dev, cfg8, params, prompts, new: int, name: str) -> dict:
     return sr
 
 
-def _glm_cut_cpu(cfg2, p_cpu, ids):
-    """The GLM-4-9B cut's CPU side over a bf16 and a q8 cache, queued on
-    CUT_WORKER (all host cores but one, each weight dequantized once)."""
-    def run():
-        torch.set_num_threads(max(1, HOST_THREADS - 1))
-        try:
-            with _DequantOnce():
-                return {c: _ring_cut(cfg2, p_cpu, ids, "cpu", c, slots=(cfg2.max_length,) * 2,
-                                     end=GLM_CUT_POSITIONS)[0] for c in ("bfloat16", "int8")}
-        finally:
-            torch.set_num_threads(HOST_THREADS)
-
-    return CUT_WORKER.submit(run)
-
-
 def _glm_server(dev, cfg8, params, prompts, name: str) -> dict:
     """`_staggered_server` over GLM-4-9B's q8 cache at cfg8's depth, its
     launches held: K2 on every projection of every batched step (B.G = 32
@@ -6267,10 +6533,11 @@ def glm4_phase(dev) -> dict:
     prompt = np.random.default_rng(0).integers(0, V, GLM_PROMPT).tolist()
 
     # ---- the 2-layer cut's CPU side, on CUT_WORKER from here on
-    cfg2 = replace(cfg, num_hidden_layers=2)
+    cfg2 = _cfg_cut(cfg, 2)
     sel = _to_device(dict(params, layers=params["layers"][:2]), "cpu")
     cut_ids = np.random.default_rng(3).integers(0, V, GLM_CUT_POSITIONS + 2)
-    cut_cpu = _glm_cut_cpu(cfg2, sel, cut_ids)
+    cut_cpu = _cpu_cuts("glm4_9b", cfg2, sel, cut_ids,
+                        dict(slots=(cfg2.max_length,) * 2, end=GLM_CUT_POSITIONS))
     span("setup")
 
     # ---- the chat path over bf16 and q8, replayed from CUDA graphs
@@ -6493,18 +6760,17 @@ def _phi_server(dev, cfg8, params, prompts, name: str) -> dict:
 
 
 def _eager_vs_replayed(dev, cfg, params, prompt, name: str, k1_step: int, head_k1: bool,
-                       depth: int, new: int) -> dict:
+                       depth: int, new: int, chunks: int = 1) -> dict:
     """At a depth cut of `depth` layers, the uncaptured loop's `new` tokens
     against the replayed ones over a bf16 and a q8 cache: equal, at least 8
     distinct, the uncaptured run's K1 launches exact (`k1_step` a step at
-    full depth, the head among them when `head_k1`, and then the prefill's
-    head too)."""
+    full depth, the head among them when `head_k1`, and then the head of
+    each of the prefill's `chunks` too)."""
     from chatllm_tpu_torch.runtime.generate import InferenceEngine
 
     L = cfg.num_hidden_layers
     k1 = k1_step - (k1_step - int(head_k1)) // L * (L - depth)
-    cfg4 = replace(cfg, num_hidden_layers=depth, layer_specs=cfg.layer_specs[:depth])
-    p4 = dict(params, layers=params["layers"][:depth])
+    cfg4, p4 = _depth_cut(cfg, params, depth)
     res = {"layers": depth}
     for cache in ("bfloat16", "int8"):
         runs = {}
@@ -6521,7 +6787,7 @@ def _eager_vs_replayed(dev, cfg, params, prompt, name: str, k1_step: int, head_k
         log(f"  {name} {depth}-layer cut (centred weights), {cache}: {res[cache]}")
         if (te != tg or len(set(te)) < 8 or re_["replayed_steps"]
                 or rg["replayed_steps"] < new - DECODE_BLOCK
-                or re_["launches"]["qgemv"] != k1 * re_["eager_steps"] + int(head_k1)):
+                or re_["launches"]["qgemv"] != k1 * re_["eager_steps"] + int(head_k1) * chunks):
             raise AssertionError(f"{name} {depth}-layer cut {cache}: replayed tokens {tg} "
                                  f"against uncaptured {te}; eager launches {re_['launches']}, "
                                  f"{re_['eager_steps']} eager steps")
@@ -6592,18 +6858,19 @@ def phi_phase(dev, name: str) -> dict:
     prompt = np.random.default_rng(0).integers(0, V, PHI_PROMPT).tolist()
 
     # ---- the 2-layer cut's CPU side, on CUT_WORKER from here on
-    cfg2 = replace(cfg, num_hidden_layers=2, layer_specs=cfg.layer_specs[:2])
+    cfg2 = _cfg_cut(cfg, 2)
     sel = _to_device(dict(params, layers=params["layers"][:2]), "cpu")
     cut_ids = np.random.default_rng(3).integers(0, V, PHI_CUT_POSITIONS + 2)
     kw = dict(slots=(max_len,) * 2, end=PHI_CUT_POSITIONS)
-    cut_cpu = _cpu_cuts(cfg2, sel, cut_ids, kw)
+    cut_cpu = _cpu_cuts(name, cfg2, sel, cut_ids, kw)
     if opts.get("centered"):
         # the same cut on positive-biased weights, recorded beside its
         # witnesses over a bf16 cache
         biased = _to_device(build_synthetic_params(
             cfg2, "q4k", zeros=False, seed=0, device=dev,
             **{k: v for k, v in opts.items() if k != "centered"}), "cpu")
-        biased_cpu = _cpu_cuts(cfg2, biased, cut_ids, kw, caches=("bfloat16",))
+        biased_cpu = _cpu_cuts(name + " positive-biased", cfg2, biased, cut_ids, kw,
+                               caches=("bfloat16",))
     span("setup")
 
     # ---- the chat path over bf16 and q8, replayed from CUDA graphs
@@ -6702,29 +6969,304 @@ def phi_phase(dev, name: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ gpt_oss_20b phase
+GO_PROMPT = 1000                   # prompt tokens: two chunks of SWA_EXTRA (512 + 488)
+GO_NEW = 64                        # greedy tokens, replayed from CUDA graphs
+GO_RING = 640                      # a sliding layer's ring: window 128 + SWA_EXTRA 512
+GO_CUT_POSITIONS = 704             # the 2-layer cut's prompt (chunks of 512 and 192: the
+#                                    ring layer's 640 slots wrap), then 2 decode steps (K4
+#                                    with sinks over q8 on the full layer)
+# The 2-layer cut's logits against the CPU's, of the logit scale, where the
+# expert picks agree (Mistral's, GLM-4-9B's and Phi's bounds).  Where the cut
+# misses its bound, it is held as the Gemma and Phi-2 cuts are, to a limit of twice
+# the larger of its witnesses (`_go_cut`: an f32-level nudge of the attention
+# scale on the card, and the card at f32 activations against the CPU at
+# bf16), its argmax equal to the CPU's wherever
+# the CPU's top two are further apart than twice that limit; the miss is
+# recorded beside the witness and the control.  The expert picks are held by
+# the MoE rules of the DeepSeek and Qwen3-MoE cuts (`_moe_picks`: router
+# scores, here the softmax over the biased logits, within
+# DSV2_SCORE_DIFF_MAX, at least DSV2_PICKS_AGREE_MIN of the tokens with the
+# CPU's picks, a differing pick only on a near-tie).
+GO_CUT_TOL = {"bfloat16": 1e-3, "int8": 4e-3}
+GO_SERVE = (1000, 1100)            # the 2-slot server's prompts
+GO_SERVE_NEW = 32
+GO_EAGER_DEPTH = 4                 # the uncaptured-against-replayed check's depth cut
+
+
+def _go_cut_card(cfg2, p2, ids, kw, tape, cache: str) -> tuple:
+    """The cut on the card over `cache`, on the CPU's picks (`tape`):
+    (logits [N, V], the tape of the card's own picks)."""
+    with pick_tape(tape) as own:
+        g = _ring_cut(cfg2, p2, ids, p2["embed"].device, cache, **kw)[0]
+    return g, own
+
+
+def _per_layer(tape: list, n_moe: int) -> list:
+    """A tape's (sorted picks, scores) per MoE layer over every position, in
+    order (the calls come chunk by chunk, each chunk's layers in order)."""
+    return [(torch.cat([t[0] for t in tape[i::n_moe]]), torch.cat([t[1] for t in tape[i::n_moe]]))
+            for i in range(n_moe)]
+
+
+def _go_cut(cfg2, p2, ids, kw, cpu: dict) -> dict:
+    """The GPT-OSS 2-layer cut (a ring layer and a full one) on the card
+    against the CPU's `cpu` {cache: (logits, tape of picks)}, per cache: the card's
+    own picks against the CPU's in each MoE layer (`_moe_picks`), then the
+    logits at the positions whose picks agree in both layers within
+    GO_CUT_TOL, or else within the limit of twice the larger of two
+    witnesses with the argmax equal where clear of it: the witness
+    (attention scale one f32 step up, against the card) and the f32 witness
+    (the card's cut at f32 activations and f32 expert stacks, against the
+    CPU's at bf16: what the bf16 rounding of the activations alone moves);
+    over bf16, the control (`swiglu_oai` replaced by the plain
+    SiLU gate) and the card's cut without its sinks beyond it too."""
+    n_moe = cfg2.num_hidden_layers
+    res = {"bounds": GO_CUT_TOL}
+    p32 = dict(p2, embed=p2["embed"].float(), layers=tuple(
+        dict(lay, mlp=dict(lay["mlp"], experts={k: v.float()
+                                                for k, v in lay["mlp"]["experts"].items()}))
+        for lay in p2["layers"]))
+    for cache in ("bfloat16", "int8"):
+        tol, (c, tape) = GO_CUT_TOL[cache], cpu[cache]
+        g, own = _go_cut_card(cfg2, p2, ids, kw, tape, cache)
+        w = _go_cut_card(_scale_step(cfg2), p2, ids, kw, tape, cache)[0]
+        f = _go_cut_card(cfg2, p32, ids, kw, tape, cache)[0]
+        agree = torch.ones(len(ids), dtype=torch.bool)
+        picks = []
+        for i, (a, b) in enumerate(zip(_per_layer(own, n_moe),
+                                       _per_layer(tape, n_moe))):
+            m, r = _moe_picks(f"gpt_oss_20b 2-layer cut {cache}, MoE layer {i}", a, b)
+            agree &= m
+            picks.append(r)
+        what = f"gpt_oss_20b 2-layer cut {cache} at {int(agree.sum())} positions"
+        r = {"picks": picks,
+             "card": _cut_compare(f"{what}, card vs cpu", g[agree], c[agree], tol, strict=False),
+             "witness": _cut_compare(f"{what}, witness vs card", w[agree], g[agree], tol,
+                                     strict=False),
+             "f32_witness": _cut_compare(f"{what}, card at f32 activations vs cpu", f[agree],
+                                         c[agree], tol, strict=False)}
+        r["bound_met"] = r["card"]["within_tolerance"]
+        r["limit"] = lim = max(tol, 2 * r["witness"]["rel_to_logit_scale"],
+                               2 * r["f32_witness"]["rel_to_logit_scale"])
+        r["card_at_limit"] = row_logit_errors(g[agree], c[agree], lim)
+        log(f"  {what}: bound {tol} met {r['bound_met']}; limit {lim:.4g}, argmax equal where "
+            f"the top two part by more than twice it: "
+            f"{r['card_at_limit']['argmax_equal_where_clear']}")
+        res[cache] = r
+        if (r["card"]["rel_to_logit_scale"] > lim
+                or not r["card_at_limit"]["argmax_equal_where_clear"]):
+            raise AssertionError(f"{what}: the card is {r['card']} from the CPU, beyond {tol} "
+                                 f"and twice the witness ({r['witness']})")
+        if cache == "bfloat16":
+            ctl = _go_cut_card(replace(cfg2, moe_act=""), p2, ids, kw, tape, cache)[0]
+            bare = dict(p2, layers=tuple(dict(lay, attn={k: v for k, v in lay["attn"].items()
+                                                         if k != "sinks"})
+                                         for lay in p2["layers"]))
+            ns = _go_cut_card(cfg2, bare, ids, kw, tape, cache)[0]
+            res["control"] = {"fault": "swiglu_oai replaced by the SiLU gate",
+                              "rel_to_logit_scale": row_logit_errors(
+                                  ctl[agree], c[agree], 0.0)["rel_to_logit_scale"]}
+            res["sinks_dropped"] = row_logit_errors(ns[agree], c[agree], 0.0)
+            log(f"  {what}: control {res['control']}, without the sinks "
+                f"{res['sinks_dropped']['rel_to_logit_scale']:.4g} of the logit scale")
+            lim = max(r["limit"], GO_CUT_TOL["int8"])
+            if (res["control"]["rel_to_logit_scale"] <= lim
+                    or res["sinks_dropped"]["rel_to_logit_scale"] <= lim):
+                raise AssertionError(f"{what}: the control or the cut without its sinks is "
+                                     f"within {lim:.4g} of the logit scale ({res})")
+    return res
+
+
+def _go_server(dev, cfg8, params, prompts, name: str) -> dict:
+    """`_staggered_server` over a GPT-OSS q8 cache at cfg8's depth, its
+    launches held: K2 on q, k, v and the head of every batched step (o and
+    the router take the dequantize-then-matmul route), K4 with sinks (per-row
+    n_past, B.G = 16) on every full-attention layer of it."""
+    sr = _staggered_server(dev, cfg8, params, prompts, GO_SERVE_NEW, name)
+    L, n = cfg8.num_hidden_layers, sr["batched_steps"]
+    full = sum(cfg8.layer_spec(i).sliding_window == 0 for i in range(L))
+    want = {"qmm": (3 * L + 1) * n, "flash_decode": full * n}
+    got = {k: sr["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name} 2-slot server: launches {got}, expected {want} "
+                             f"({n} batched steps)")
+    return sr
+
+
+def gpt_oss_phase(dev) -> dict:
+    """GPT-OSS-20B at full width and depth (`gpt_oss_20b_config`: 24 layers,
+    64 query heads over 8 kv heads of 64, the even layers windowed over 128
+    keys in rings of GO_RING slots, the odd ones full over max_length 8192,
+    sinks on every layer, YaRN 32 over 4096, 32 experts of 2880 with the
+    biased softmax-top-4 router and biased swiglu_oai experts, the untied
+    201088-row head), random weights from seed 0 built on the card
+    (`build_synthetic_params` with GPT_OSS_OPTS: zero-centred q4_k with
+    q/k/v, the router and the head in q8_0 (K 2880), the embedding at N(0,
+    0.02^2), bf16 expert stacks at N(0, 1 / fan-in), sinks N(0, 1), biases
+    N(0, 0.1^2)), through the port's entry points:
+
+      - over a bf16 and a q8 cache, the GO_PROMPT-token prompt (two chunks of
+        SWA_EXTRA, which wrap the rings) and GO_NEW greedy tokens, run once
+        to capture, then counted: every decode step replayed, K1 on q, k, v
+        and the head every step (3 x 24 + 1) and on each prefill chunk's head, K4
+        with sinks on the 12 full layers a q8 step, K3 never (the JAX
+        package keeps sinks off its flash kernel), no K2; prefill ms,
+        replayed steps/s, peak memory; one replayed block profiled into its
+        kernels over bf16, timed over q8; one MoE layer's expert products
+        timed alone;
+      - at a depth cut of GO_EAGER_DEPTH layers, the uncaptured loop's
+        tokens equal to the replayed ones over both caches (the graphs
+        capture the sinks);
+      - a 2-layer cut (a ring layer and a full one) against the CPU over
+        GO_CUT_POSITIONS positions and 2 decode steps, bf16 and q8 (`_go_cut`:
+        the picks by the MoE rules, the logits within GO_CUT_TOL where they
+        agree, beside the witness and the control); the CPU side on
+        CUT_WORKER;
+      - the server's engine (BatchedEngine, 2 slots, q8), two requests of
+        GO_SERVE tokens, staggered, GO_SERVE_NEW tokens each, bit-equal to
+        the same server one at a time, K2 on every quantized projection and
+        K4 with sinks (per-row n_past) on every full layer of every batched
+        step."""
+    from chatllm_tpu_torch.models.synthetic import (GPT_OSS_OPTS, build_synthetic_params,
+                                                    gpt_oss_20b_config, param_bytes)
+    from chatllm_tpu_torch.nn.transformer import SWA_EXTRA
+    from chatllm_tpu_torch.ops.qtensor import QuantLinear
+    from chatllm_tpu_torch.runtime.generate import GenerationConfig, InferenceEngine
+
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    if held > 2.0:
+        raise AssertionError(f"gpt_oss_20b: {held:.2f} GiB of earlier phases still held")
+    t_phase = time.perf_counter()
+    spans = {}
+
+    def span(what):
+        spans[what] = time.perf_counter() - t_phase - sum(spans.values())
+
+    cfg = gpt_oss_20b_config(max_length=8192)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    n_full = sum(s.sliding_window == 0 for s in cfg.layer_specs)
+    k1_step = 3 * L + 1
+    chunks = -(-GO_PROMPT // SWA_EXTRA)    # prefill chunks: each computes the head once
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = build_synthetic_params(cfg, "q4k", zeros=False, centered=True, seed=0, device=dev,
+                                    **GPT_OSS_OPTS)
+    torch.cuda.synchronize()
+    lp = params["layers"][0]
+    q8 = [lp["attn"][k] for k in "qkv"] + [lp["mlp"]["gate"], params["lm_head"]]
+    if not (all(isinstance(x, QuantLinear) and not x.packed and not x.sb for x in q8)
+            and lp["attn"]["o"].sb and params["lm_head"].bias is None
+            and lp["attn"]["sinks"].shape == (64,)):
+        raise AssertionError("gpt_oss_20b: params are not GPT-OSS's layout")
+    res = {"held_before_gib": held, "param_gib": param_bytes(params) / 2 ** 30,
+           "expert_gib": param_bytes([lay["mlp"]["experts"] for lay in params["layers"]])
+           / 2 ** 30, "build_s": time.perf_counter() - t_phase, "spans_s": spans,
+           "k1_per_step": k1_step, "k4_per_q8_step": n_full}
+    log(f"  built: params {res['param_gib']:.2f} GiB ({res['expert_gib']:.2f} of expert "
+        f"stacks) in {res['build_s']:.1f} s")
+    prompt = np.random.default_rng(0).integers(0, V, GO_PROMPT).tolist()
+
+    # ---- the 2-layer cut's CPU side, with its expert picks, on CUT_WORKER
+    cfg2 = _cfg_cut(cfg, 2)
+    sel = _cut(params, 2, "cpu")
+    cut_ids = np.random.default_rng(3).integers(0, V, GO_CUT_POSITIONS + 2)
+    kw = dict(slots=(GO_RING, cfg.max_length), end=GO_CUT_POSITIONS)
+    cut_cpu = _cpu_cuts("gpt_oss_20b", cfg2, sel, cut_ids, kw, picks=True)
+    span("setup")
+
+    # ---- the chat path over bf16 and q8, replayed from CUDA graphs
+    steps = decode_launches(GO_NEW)
+    gcfg = GenerationConfig(do_sample=False, max_new_tokens=GO_NEW)
+    chat = {}
+    for cache in ("bfloat16", "int8"):
+        on_q8 = cache == "int8"
+        eng = InferenceEngine(replace(cfg, cache_dtype=cache), params, device=dev)
+        kv = eng.new_cache(1)
+        t0 = time.perf_counter()
+        eng.generate(prompt, gcfg, cache=kv)                # warm: captures
+        warm_s = time.perf_counter() - t0
+        toks, r = _timed_generate(eng, kv, prompt, GO_NEW, f"gpt_oss_20b {cache}")
+        r["warm_run_s"] = warm_s
+        want = {"qgemv": k1_step * steps + chunks, "qmm": 0, "flash_attention": 0,
+                "flash_decode": n_full * steps if on_q8 else 0}
+        got = {k: r["launches"][k] for k in want}
+        r["profiled_block"] = pb = _profile_block(eng, kv, GO_PROMPT + 48, trace=not on_q8)
+        r["profiled_steps_s"] = 1e3 / pb["step_ms"]
+        r["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"  gpt_oss_20b {cache} cache: prefill {r['prefill_ms']:.1f} ms, "
+            f"{r['profiled_steps_s']:.2f} replayed steps/s (block {pb['block_ms']:.2f} ms), "
+            f"warm run {warm_s:.2f} s, peak {r['peak_mem_gib']:.2f} GiB, "
+            f"{len(set(toks))} distinct tokens, launches {got} (K1 {k1_step} a step, K4 "
+            f"{n_full if on_q8 else 0} a step, K3 0); kernels {pb.get('kernel_ms')} ms, "
+            f"busy share {pb.get('busy_share')}; top kernels {pb.get('top_kernels_ms')}")
+        if (got != want or sum(r["flash_modes"].values()) or r["replayed_steps"] != steps
+                or len(set(toks)) < 8):
+            raise AssertionError(f"gpt_oss_20b {cache}: launches {got} (expected {want}), "
+                                 f"K3 by mode {r['flash_modes']}, {r['replayed_steps']} "
+                                 f"replayed steps, tokens {toks}")
+        chat[cache] = {"graph": r, "tokens": toks, "distinct_tokens": len(set(toks))}
+        del eng, kv
+        torch.cuda.empty_cache()
+    res["chat"] = chat
+    res["expert_products"] = expert_products(dev, cfg, params["layers"][1]["mlp"], L)
+    span("chat")
+    res["eager_cut"] = _eager_vs_replayed(dev, cfg, params, prompt, "gpt_oss_20b", k1_step,
+                                          True, GO_EAGER_DEPTH, GO_NEW, chunks)
+    span("eager_cut")
+
+    # ---- the 2-layer cut on the card against the CPU's
+    p2 = _to_device(sel, dev)
+    t0 = time.perf_counter()
+    cpu = cut_cpu.result()
+    res["cut"] = {"cpu_wait_s": time.perf_counter() - t0,
+                  **_go_cut(cfg2, p2, cut_ids, kw, cpu)}
+    del p2, cpu, sel
+    span("cut")
+
+    # ---- the server's engine: 2 slots over q8, staggered requests
+    rng = np.random.default_rng(5)
+    sprompts = [rng.integers(0, V, n).tolist() for n in GO_SERVE]
+    sr = _go_server(dev, replace(cfg, cache_dtype="int8"), params, sprompts, "gpt_oss_20b")
+    log(f"  gpt_oss_20b 2-slot q8 server: {sr['wall_s']:.2f} s, {sr['batched_steps']} batched "
+        f"steps ({sr['replayed_steps']} replayed from {sr['graphs']} graph(s)), K2 "
+        f"{sr['launches']['qmm']}, K4 {sr['launches']['flash_decode']}, replies bit-equal to "
+        f"the same server's one at a time")
+    res["serve"] = sr
+    span("serve")
+    del params, lp, q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  gpt_oss_20b phase: params {res['param_gib']:.2f} GiB, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB, {res['seconds']:.1f} s ({spans})")
+    return res
+
+
 # ------------------------------------------------------------ gemma2_9b phase
 GEMMA2_CUT_POSITIONS = 640         # the cut's prompt: K3 on its global layer per chunk
 GEMMA2_CUT_STEPS = 2               # then q8 / bf16 decode steps (K4 over q8)
 
 
 def gemma2_setup(dev) -> dict:
-    """The Gemma-2-9B cut's parameters on the card and on the CPU, and its CPU
-    side started in a worker thread (`gemma2_phase` takes the result), so
-    that it runs while the card works through the gemma3_12b phase."""
+    """The Gemma-2-9B cut's parameters, built on the card and kept on the
+    CPU, and its CPU side queued on CUT_WORKER (`gemma2_phase` takes the
+    result), so that it runs while the card works through the gemma3_12b
+    phase, after that phase's CPU side (`gemma3_setup`)."""
     from chatllm_tpu_torch.models.synthetic import build_synthetic_params, gemma2_9b_config
 
     t0 = time.perf_counter()
-    full = gemma2_9b_config(max_length=8192)
-    cfg2 = replace(full, num_hidden_layers=2, layer_specs=full.layer_specs[:2])
+    cfg2 = _cfg_cut(gemma2_9b_config(max_length=8192), 2)
     if (cfg2.layer_spec(0).sliding_window, cfg2.layer_spec(1).sliding_window) != (4096, 0):
         raise AssertionError(f"gemma2 cut: layer specs {cfg2.layer_specs}")
-    params = build_synthetic_params(cfg2, "q4k", zeros=False, centered=True, seed=0,
-                                    device=dev)
+    params = _to_device(build_synthetic_params(cfg2, "q4k", zeros=False, centered=True,
+                                               seed=0, device=dev), "cpu")
+    torch.cuda.empty_cache()
     ids = np.random.default_rng(4).integers(0, cfg2.vocab_size,
                                             GEMMA2_CUT_POSITIONS + GEMMA2_CUT_STEPS)
     kw = dict(slots=(4608, 8192), end=GEMMA2_CUT_POSITIONS)
     return {"cfg2": cfg2, "params": params, "ids": ids, "kw": kw,
-            "cpu": _cpu_cuts(cfg2, _to_device(params, "cpu"), ids, kw),
+            "cpu": _cpu_cuts("gemma2_9b", cfg2, params, ids, kw),
             "setup_s": time.perf_counter() - t0}
 
 
@@ -6743,7 +7285,8 @@ def gemma2_phase(dev, setup: dict) -> dict:
     from chatllm_tpu_torch.ops.cuda.flash import MODE_LAUNCHES, reset_mode_launches
 
     t0 = time.perf_counter()
-    cfg2, params, ids, kw = setup["cfg2"], setup["params"], setup["ids"], setup["kw"]
+    cfg2, ids, kw = setup["cfg2"], setup["ids"], setup["kw"]
+    params = _to_device(setup["params"], dev)
     res = {"setup_s": setup["setup_s"]}
     chunks = -(-GEMMA2_CUT_POSITIONS // 512)
     card = {}
@@ -7159,6 +7702,22 @@ def phi_totals(kres: dict) -> dict:
     return out
 
 
+def go_totals(kres: dict) -> dict:
+    """K1, K2 and K4 summed over one unit of GPT-OSS-20B's path at its
+    shapes: a decode token (24 x 3 q8_0 projections + the head; o and the
+    router take the dequantize-then-matmul route), a 2-row batched step (K2,
+    the head included) and a q8 decode step after the 1000-token prompt (12
+    launches of K4 with sinks, f32 dots)."""
+    tok = {**{k: GO_LAYERS * v for k, v in PER_LAYER_GO.items()}, "lm_head": 1}
+    units = {"qgemv": (kres["qgemv"]["go_shapes"], tok),
+             "qmm": (kres["qmm"]["go_shapes"], tok),
+             "flash_decode": (kres["flash_decode"]["shapes"],
+                              {"go_decode_1064": GO_FULL_LAYERS})}
+    return {name: {f: sum(mult[s] * shapes[s][f] for s in mult)
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for name, (shapes, mult) in units.items()}
+
+
 KERNEL_META = {
     "qgemv": ("chatllm_tpu_torch/csrc/qgemv.cu",
               "chatllm_tpu/ops/pallas/gemv_kernel.py:161"),
@@ -7173,6 +7732,8 @@ KERNEL_META = {
                      "chatllm_tpu/ops/pallas/flash_decode.py:114"),
     "flash_decode_mla": ("chatllm_tpu_torch/csrc/flash_decode.cu",
                          "chatllm_tpu/ops/pallas/flash_decode.py:155"),
+    "flash_decode_sinks": ("chatllm_tpu_torch/csrc/flash_decode.cu",
+                           "chatllm_tpu/ops/pallas/flash_decode.py:155"),
     "qmm_decode": ("chatllm_tpu_torch/csrc/qmm_decode.cu",
                    "chatllm_tpu/ops/pallas/qmm_decode.py:150"),
     "bw_probe": ("chatllm_tpu_torch/csrc/bw_probe.cu",
@@ -7218,6 +7779,9 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     four modes at 4096 x 14336, qmm_dma = one pass over 4096 x 14336,
     flash_decode_mla = one DeepSeek-V2-Lite decode step after the
     1000-token prompt over a q8 cache (27 layers at (192, 128)),
+    flash_decode_sinks = one GPT-OSS-20B decode step after the 1000-token
+    prompt over a q8 cache (its 12 full-attention layers: sinks, D 64, 8
+    query heads a kv head; its max_abs_err over every K4 case with sinks),
     flash_decode_int8 = one decode step after the 1000-token prompt (32
     layers), flash_decode_e7 = one E7 decode step over the q8 cache at
     n_past 47 (32 layers), qmm_unpack = one call of each of E6's three
@@ -7227,7 +7791,7 @@ def kernels_line(kres: dict, launches: dict) -> dict:
     there, none, since the projections return f32; _f32q its mode 2
     launches there; _f32 its mode 1 launches on the f32-cache engine run),
     K4 on the q8-cache one (at (192, 128) on DeepSeek-V2-Lite's q8-cache
-    chat path, its int8 dots on the
+    chat path, with sinks on GPT-OSS-20B's, its int8 dots on the
     int8 engine run, and under E7's call site in E7's main), K5 on the
     bench's batched section under CHATLLM_TPU_QMM_V2=1, K6 in the bench,
     E2's two in E2's and E1's mains together, the others in their probe's
@@ -7238,6 +7802,7 @@ def kernels_line(kres: dict, launches: dict) -> dict:
             "flash_attention_f32q": {"prefill_1000_f32q": N_LAYERS},
             "flash_decode": {"decode_1000": N_LAYERS},
             "flash_decode_mla": {"dsv2_1000": DSV2_LAYERS},
+            "flash_decode_sinks": {"go_decode_1064": GO_FULL_LAYERS},
             "qmm_decode": _per_token(N_LAYERS, True),
             "bw_probe": {"pass_256mb": 1},
             "gemv_stream": {"4096x16384": 1}, "gemv_vpu": {"4096x16384": 1},
@@ -7257,9 +7822,12 @@ def kernels_line(kres: dict, launches: dict) -> dict:
           "flash_attention_f32q": ("torch.float32", "torch.bfloat16")}
     entries = []
     for name, (src, rep) in KERNEL_META.items():
-        r = kres["flash_attention"] if name in k3 else kres[name]
+        r = (kres["flash_attention"] if name in k3 else
+             kres["flash_decode"] if name == "flash_decode_sinks" else kres[name])
         cases = [c for c in r["cases"] if name not in k3
                  or (c["q_dtype"], c["dtype"]) == k3[name]]
+        if name == "flash_decode_sinks":
+            cases = [c for c in cases if "'sinks': True" in c["extra"]]
         entries.append(_line_entry(name, src, rep, r["shapes"], mult[name], cases,
                                    launches.get(name)))
     return {"kernels": entries}
@@ -7353,7 +7921,8 @@ def qwen_totals(kres: dict) -> dict:
 # runs them; `--phases a,b,...` runs the named ones in this order
 PHASES = ("llama3_8b", "graph_decode", "fused_decode", "bench", "serve", "two_layer", "int8_engine",
           "f32_engine", "switches", "pipeline", "qwen2", "deepseek_v2_lite", "internvl",
-          "qwen3_30b_a3b", "mistral_7b", "glm4_9b", "phi3_5_mini", "phi2", "gemma3_12b",
+          "qwen3_30b_a3b", "mistral_7b", "glm4_9b", "phi3_5_mini", "phi2", "gpt_oss_20b",
+          "gemma3_12b",
           "gemma2_9b", "families",
           "cli", "e2", "e1", "e3", "e4", "e5", "e6", "e7")
 LLAMA_PHASES = PHASES[:PHASES.index("qwen2")]       # the phases on Llama-3-8B's params
@@ -7445,6 +8014,7 @@ def main(argv=()) -> int:
     report["phi_kernel_totals"] = phi_totals(report["kernels"])
     log(f"  Phi-3.5-mini and Phi-2 totals per unit of their paths: "
         f"{report['phi_kernel_totals']}")
+    report["go_kernel_totals"] = go_totals(report["kernels"])
     report["k5_vs_k2"] = k5_vs_k2(report["kernels"])
     report["k4_int8_vs_float"] = k4_int8_vs_float(report["kernels"])
     del timer
@@ -7492,7 +8062,7 @@ def main(argv=()) -> int:
 
         if on("bench"):
             log("== bench")
-            report["bench"] = bench_phase(dev, cfg, params)
+            report["bench"] = bench_phase(dev, *_depth_cut(cfg, params, BENCH_DEPTH))
             torch.cuda.empty_cache()
         for name, phase in (("serve", serve_phase), ("two_layer", two_layer_phase),
                             ("int8_engine", int8_engine_phase),
@@ -7504,7 +8074,7 @@ def main(argv=()) -> int:
 
         if on("pipeline"):
             log("== pipeline")
-            report["pipeline"] = pipeline_phase(dev, cfg, params, smi)
+            report["pipeline"] = pipeline_phase(dev, *_depth_cut(cfg, params, PIPE_DEPTH), smi)
         del params
         gc.collect()              # the server's objects held the params in cycles
         torch.cuda.empty_cache()
@@ -7571,13 +8141,24 @@ def main(argv=()) -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
-    # Gemma-2's cut's CPU side runs beside the gemma3_12b phase, and the
-    # uncaptured Gemma-3 reference's process beside the phases after it
+    if on("gpt_oss_20b"):
+        log("== gpt_oss_20b")
+        report["gpt_oss_20b"] = gpt_oss_phase(dev)
+        report["gpt_oss_20b"]["kernel_totals"] = report["go_kernel_totals"]
+        log(f"  GPT-OSS-20B totals per unit of its path: {report['go_kernel_totals']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the Gemma cuts' CPU sides, Gemma-3's first, run beside the gemma3_12b
+    # phase, and the uncaptured Gemma-3 reference's process beside the phases
+    # after it
+    gemma3 = gemma3_setup(dev) if on("gemma3_12b") else None
     gemma2 = gemma2_setup(dev) if on("gemma2_9b") else None
     g3_uncaptured = None
     if on("gemma3_12b"):
         log("== gemma3_12b")
-        report["gemma3_12b"] = gemma3_phase(dev)
+        report["gemma3_12b"] = gemma3_phase(dev, gemma3)
+        del gemma3
         g3_uncaptured = gemma3_uncaptured_start()
         report["gemma3_12b"]["kernel_totals"] = g3_totals(report["kernels"])
         log(f"  Gemma-3-12B totals per unit of its path: "
@@ -7620,7 +8201,10 @@ def main(argv=()) -> int:
     report["seconds"] = time.perf_counter() - t_start
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     report["phase_s"] = {name: end - t for (name, t), end in zip(PHASE_STARTS, ends)}
+    report["cut_jobs"] = CUT_JOBS
     log(f"  seconds by phase: {report['phase_s']}")
+    log(f"  the cuts' CPU sides on CUT_WORKER (queued, began, ended; s into the run): "
+        f"{CUT_JOBS}")
     log(f"== all {len(selected) + 2} phases passed in {report['seconds']:.0f} s")
 
     OUT_DIR.mkdir(exist_ok=True)
@@ -7634,6 +8218,8 @@ def main(argv=()) -> int:
                     flash_decode=_at(ll, "q8_prompt_1000", "launches", "flash_decode"),
                     flash_decode_mla=_at(report, "deepseek_v2_lite", "chat", "int8_graph",
                                          "launches", "flash_decode"),
+                    flash_decode_sinks=_at(report, "gpt_oss_20b", "chat", "int8", "graph",
+                                           "launches", "flash_decode"),
                     qmm_decode=_at(report, "bench", "v2", "launches", "qmm_decode"),
                     bw_probe=_at(report, "bench", "launches", "bw_probe"),
                     gemv_stream=_total(_at(report, "e2", "launches", "gemv_stream"),
